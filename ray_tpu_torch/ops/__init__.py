@@ -1,0 +1,7 @@
+"""Attention ops of the port: hand-written Hopper kernels and plain twins."""
+
+from .flash_attention import (flash_attention, flash_attention_fwd,
+                              reference_attention, reference_attention_lse)
+
+__all__ = ["flash_attention", "flash_attention_fwd", "reference_attention",
+           "reference_attention_lse"]
