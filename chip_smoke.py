@@ -14,10 +14,22 @@ Phases, each printing one JSON line on stdout:
    version on the card, o and lse, at the engine's prefill shapes and at
    f32 / non-causal / D=64 / GQA / ragged shapes; kernel, plain and
    scaled_dot_product_attention times (the last only as a yardstick).
-4. serve: Llama-3-8B-GQA at full width and depth with random weights,
+4. kernel_bwd: the dQ and dK/dV kernels against their plain versions, dq,
+   dk and dv, at the training shapes and the same f32 / non-causal / D=64
+   / GQA / ragged shapes; the autograd Function's grads against autograd
+   through plain attention; kernel, delta, plain and SDPA-backward times.
+5. serve: Llama-3-8B-GQA at full width and depth with random weights,
    four greedy requests through LLMEngine; checks tokens, the kernel's
    launch count and each prompt's prefill logits against forward() with
    plain attention.
+6. train: the same model at full width and depth, random weights, four
+   steps of make_train_step on one fixed 2048-token batch with per-layer
+   checkpointing; checks finite metrics, a falling loss, each kernel's
+   launches per step, step 1's loss and grad norm against a pass with
+   plain attention on the same params, and each attention weight's
+   gradient (wq, wk, wv, wo of every layer) from a flash pass against the
+   plain pass's, beside a control: the plain pass again on the same model
+   with its MLP hidden units relabelled, which changes only the rounding.
 
 Then the kernels line, the card line and, last, the ok line. Any failure
 exits non-zero without the ok line, as does a machine without CUDA.
@@ -25,7 +37,9 @@ exits non-zero without the ok line, as does a machine without CUDA.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -34,12 +48,18 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from ray_tpu_torch.llm import LLMEngine, SamplingParams
-from ray_tpu_torch.models import PRESETS, forward, init_params
+from ray_tpu_torch.models import (PRESETS, forward, init_params,
+                                  make_optimizer, make_train_step)
+from ray_tpu_torch.models.train_step import value_and_grad
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.flash_attention import (flash_attention_fwd,
-                                               reference_attention_lse)
+from ray_tpu_torch.ops.flash_attention import (
+    attention_bwd_delta, flash_attention, flash_attention_bwd,
+    flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
+    reference_attention, reference_attention_bwd, reference_attention_dkv,
+    reference_attention_dq, reference_attention_lse)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 on the
 # CUDA cores (the f32 kernel does not use tensor cores), HBM3 bandwidth.
@@ -73,6 +93,41 @@ KERNEL_CASES = (
 PROMPT_LENS = (37, 300, 1000, 1900)
 MAX_TOKENS = 16
 
+# Backward, per gradient. bf16, max |diff| / max |ref|: the kernels round P
+# and dS to bf16 as the operands of their products and emit bf16, where
+# the plain version stays in f32 until its one final cast. f32, max |diff|:
+# only the order of the sums differs.
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+TRAIN_HEADS = dict(B=1, Hq=32, Hkv=8, D=128, dtype=torch.bfloat16,
+                   causal=True)
+BWD_CASES = ([dict(TRAIN_HEADS, S=s) for s in (64, 512, 1024, 2048)]
+             + [c for c in KERNEL_CASES if c["dtype"] == torch.float32
+                or c["S"] == 200])
+
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 4
+# Step 1's loss and grad norm (flash kernels, the optimizer's first step)
+# against a loss+grad pass with plain attention on the same params and
+# batch, relative. Both run bf16 through 32 layers of random weights; the
+# loss is a mean over 2048 tokens, so per-logit drift of ~2% (see
+# LOGITS_REL_TOL) averages down to well under 1%. The grad norm sums the
+# squares of 8e9 bf16 gradients whose per-element drift does not average
+# out the same way, hence the wider limit.
+TRAIN_LOSS_REL_TOL = 1e-2
+TRAIN_GNORM_REL_TOL = 5e-2
+# Each attention weight's gradient, flash pass against plain pass, as
+# ||g_flash - g_plain|| / ||g_plain|| per layer and weight; the worst of
+# the 128 is held here. A fault confined to attention's backward (a wrong
+# or zero dq, dk or dv, or wrong wiring of the autograd Function or the
+# checkpointed recompute) moves these leaves by the whole size of the
+# fault (a zero gradient reads 1, a zeroed kv head of 8 sqrt(1/8)),
+# where the global norm above is dominated by embed and lm_head. On the
+# H100 the flash pass read 0.035 and the control 0.028 (the same measure
+# for two plain passes that differ only in rounding: bf16 noise grown
+# through 32 layers), so the limit sits just above both (PERF.md).
+TRAIN_ATTN_GRAD_REL_TOL = 5e-2
+ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -100,14 +155,20 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(B, S, Hq, Hkv, D, dtype, causal):
-    """(bound_ms, bound_by): the larger of the operations over the peak
-    rate of the type and the bytes (q, k, v, o once each, plus lse) over
-    the memory rate."""
+def attention_bound(B, S, Hq, Hkv, D, dtype, causal, kernel="fwd"):
+    """(bound_ms, bound_by) of one kernel: the larger of its operations
+    over the peak rate of the type and its bytes over the memory rate.
+    Per live (query, key) pair and head dim: fwd 2 products (4 ops), dq 3
+    (6), dkv 4 (8). Bytes: each q-shaped and kv-shaped tensor read or
+    written once (fwd q, o / k, v; dq q, dO, dQ / k, v; dkv q, dO / k, v,
+    dK, dV) plus the f32 rows (fwd lse; dq and dkv lse, delta)."""
     pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * B * Hq * D * pairs
+    ops, n_q, n_kv, n_rows = {"fwd": (4, 2, 2, 1), "dq": (6, 3, 2, 2),
+                              "dkv": (8, 2, 4, 2)}[kernel]
+    flops = ops * B * Hq * D * pairs
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes = elt * B * S * D * (2 * Hq + 2 * Hkv) + 4 * B * Hq * S
+    nbytes = (elt * B * S * D * (n_q * Hq + n_kv * Hkv)
+              + 4 * n_rows * B * Hq * S)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -150,6 +211,92 @@ def kernel_phase(card: str, failures: list) -> list:
         rows.append(row)
         if not ok:
             failures.append(f"kernel mismatch: {row}")
+    return rows
+
+
+def _rel_errs(got, want):
+    """Per gradient: (max |diff|, max |diff| / max |ref|)."""
+    out = []
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        out.append((err, err / max(w.float().abs().max().item(), 1e-30)))
+    return out
+
+
+def _bwd_ok(errs, dtype) -> bool:
+    i = 1 if dtype == torch.bfloat16 else 0   # relative, or absolute
+    return all(e[i] <= BWD_TOL[dtype] for e in errs)
+
+
+def kernel_bwd_phase(card: str, failures: list) -> list:
+    gen = torch.Generator("cuda").manual_seed(1)
+    rows = []
+    for case in BWD_CASES:
+        B, S, Hq, Hkv, D = (case[k] for k in ("B", "S", "Hq", "Hkv", "D"))
+        dtype, causal = case["dtype"], case["causal"]
+
+        def rand(h):
+            return torch.randn((B, S, h, D), generator=gen, device="cuda"
+                               ).to(dtype)
+        q, k, v, do = rand(Hq), rand(Hkv), rand(Hkv), rand(Hq)
+        # Both sides get the same o and lse, so only the backward differs.
+        o, lse = reference_attention_lse(q, k, v, causal=causal)
+        delta = attention_bwd_delta(o, do)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = reference_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        errs = _rel_errs(got, want)
+
+        # The autograd Function (forward kernel, then dQ and dK/dV) against
+        # autograd through plain attention.
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        fa = torch.autograd.grad(flash_attention(*leaves, causal=causal),
+                                 leaves, do)
+        ra = torch.autograd.grad(reference_attention(*leaves, causal=causal),
+                                 leaves, do)
+        fn_errs = _rel_errs(fa, ra)
+        ok = finite and _bwd_ok(errs, dtype) and _bwd_ok(fn_errs, dtype)
+
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+        dot = do.transpose(1, 2)
+        shape = (B, S, Hq, Hkv, D, dtype, causal)
+        dq_bound, dq_by = attention_bound(*shape, kernel="dq")
+        dkv_bound, dkv_by = attention_bound(*shape, kernel="dkv")
+        row = dict(
+            phase="kernel_bwd", B=B, S=S, Hq=Hq, Hkv=Hkv, D=D,
+            dtype=str(dtype).replace("torch.", ""), causal=causal,
+            max_abs_err_dq=errs[0][0], max_abs_err_dk=errs[1][0],
+            max_abs_err_dv=errs[2][0],
+            rel_err=[e[1] for e in errs],
+            autograd_rel_err=[e[1] for e in fn_errs],
+            autograd_max_abs_err=[e[0] for e in fn_errs],
+            tol=BWD_TOL[dtype],
+            tol_kind="relative" if dtype == torch.bfloat16 else "absolute",
+            ok=ok,
+            dq_ms=time_ms(lambda: flash_attention_dq(
+                q, k, v, do, lse, delta, causal=causal)),
+            dkv_ms=time_ms(lambda: flash_attention_dkv(
+                q, k, v, do, lse, delta, causal=causal)),
+            delta_ms=time_ms(lambda: attention_bwd_delta(o, do)),
+            bwd_ms=time_ms(lambda: flash_attention_bwd(
+                q, k, v, o, lse, do, causal=causal)),
+            plain_dq_ms=time_ms(lambda: reference_attention_dq(
+                q, k, v, do, lse, delta, causal=causal)),
+            plain_dkv_ms=time_ms(lambda: reference_attention_dkv(
+                q, k, v, do, lse, delta, causal=causal)),
+            plain_ms=time_ms(lambda: reference_attention_bwd(
+                q, k, v, o, lse, do, causal=causal)),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                sdpa, (qt, kt, vt), dot, retain_graph=True)),
+            dq_bound_ms=dq_bound, dq_bound_by=dq_by,
+            dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by, card=card)
+        emit(row)
+        rows.append(row)
+        if not ok:
+            failures.append(f"backward kernel mismatch: {row}")
     return rows
 
 
@@ -239,6 +386,237 @@ def serve_phase(card: str, failures: list) -> dict:
         peak_memory_gb=peak_gb, prefill=checks,
         logits_rel_tol=LOGITS_REL_TOL, card=card)
     emit(res)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS on Hopper
+
+
+def device_time_split(prof) -> tuple:
+    """Device time (ms) of the kernels one profiled window ran, by class
+    (the three attention kernels by name, dense matmuls, which cuBLAS runs
+    as nvjet/GEMM kernels, and everything else: elementwise, reductions,
+    copies), and the ten kernels that took the most."""
+    split = {"fa_fwd": 0.0, "fa_dq": 0.0, "fa_dkv": 0.0, "matmul": 0.0,
+             "other": 0.0}
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = evt.key
+        ms = evt.self_device_time_total / 1e3
+        kernels.append(dict(name=name[:90], ms=ms, calls=evt.count))
+        if "fa_dkv" in name:
+            split["fa_dkv"] += ms
+        elif "fa_dq" in name:
+            split["fa_dq"] += ms
+        elif "fa_fwd" in name:
+            split["fa_fwd"] += ms
+        elif any(w in name.lower() for w in MATMUL_KERNELS):
+            split["matmul"] += ms
+        else:
+            split["other"] += ms
+    return split, sorted(kernels, key=lambda k: -k["ms"])[:10]
+
+
+def _named_leaves(tree, prefix=""):
+    """(dotted path, tensor) for every tensor of a nested dict / list."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for k, v in items:
+        yield from _named_leaves(v, f"{prefix}.{k}" if prefix else str(k))
+
+
+def _is_attn(name: str) -> bool:
+    parts = name.split(".")
+    return len(parts) == 4 and parts[2] == "attn" and parts[3] in ATTN_WEIGHTS
+
+
+def grad_pass(params, batch, cfg, impl: str):
+    """One loss+grad pass with ``impl`` attention, reduced so that the 16 GB
+    of grads need not outlive it: (loss, global norm, per-leaf norms, the
+    attention weights' grads)."""
+    loss, grads = value_and_grad(
+        params, batch, dataclasses.replace(cfg, attention_impl=impl),
+        device="cuda")
+    named = dict(_named_leaves(grads))
+    del grads
+    norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                         for g in named.values()])
+    gnorm = float(torch.linalg.vector_norm(norms))
+    attn = {n: g for n, g in named.items() if _is_attn(n)}
+    norms = dict(zip(named, norms.tolist()))
+    del named
+    gc.collect()
+    torch.cuda.empty_cache()
+    return float(loss), gnorm, norms, attn
+
+
+def leaf_diffs(attn, ref_attn, norms, ref_norms) -> dict:
+    """The worst attention weight by ||g - g_ref|| / ||g_ref||, and the
+    worst leaf of all by |norm - ref norm| / ref norm."""
+    errs = {n: (torch.linalg.vector_norm(g.float() - ref_attn[n].float())
+                / torch.linalg.vector_norm(ref_attn[n], dtype=torch.float32)
+                ).item() for n, g in attn.items()}
+    nerrs = {n: abs(norms[n] - ref_norms[n]) / max(ref_norms[n], 1e-30)
+             for n in ref_norms}
+    worst, nworst = max(errs, key=errs.get), max(nerrs, key=nerrs.get)
+    return dict(attn_grad_rel_err=errs[worst], attn_grad_worst=worst,
+                attn_grad_rel_err_median=float(np.median(list(errs.values()))),
+                leaf_norm_rel_err=nerrs[nworst], leaf_norm_worst=nworst,
+                leaves=len(nerrs))
+
+
+@torch.no_grad()
+def relabel_mlp_(params, perm) -> None:
+    """Permute every layer's MLP hidden units in place: w_gate and w_up
+    columns, w_down rows. The model computes the same function; only the
+    order of w_down's sums (and their rounding) changes."""
+    mlp = params["layers"]["mlp"]
+    for i in range(mlp["w_down"].shape[0]):
+        for name in ("w_gate", "w_up"):
+            mlp[name][i].copy_(mlp[name][i][:, perm])
+        mlp["w_down"][i].copy_(mlp["w_down"][i][perm])
+
+
+def _launch_counts():
+    return (flash_attention_fwd.launches, flash_attention_dq.launches,
+            flash_attention_dkv.launches)
+
+
+def train_phase(card: str, failures: list) -> dict:
+    cfg = dataclasses.replace(PRESETS["8b-gqa"], remat=True,
+                              attention_impl="flash")
+    bundle = make_train_step(cfg, optimizer=make_optimizer(warmup_steps=1),
+                             device="cuda")
+    t0 = time.perf_counter()
+    state = bundle.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(0).integers(1, cfg.vocab_size,
+                                               (1, TRAIN_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+
+    # Plain attention on the initial params: what step 1 and the flash
+    # pass must agree with.
+    params = state["params"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref_loss, ref_gnorm, ref_norms, ref_attn = grad_pass(params, batch, cfg,
+                                                         "xla")
+    ref_s = time.perf_counter() - t0
+    ref_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # Control: the plain pass on the same model with relabelled MLP units,
+    # then the labels put back (bit-exactly: a permutation moves bits).
+    perm = torch.randperm(cfg.intermediate_size, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(2))
+    torch.cuda.reset_peak_memory_stats()
+    relabel_mlp_(params, perm)
+    ctl_loss, ctl_gnorm, ctl_norms, ctl_attn = grad_pass(params, batch, cfg,
+                                                         "xla")
+    relabel_mlp_(params, torch.argsort(perm))
+    control = dict(loss_rel_err=abs(ctl_loss - ref_loss) / abs(ref_loss),
+                   grad_norm_rel_err=abs(ctl_gnorm - ref_gnorm) / ref_gnorm,
+                   **leaf_diffs(ctl_attn, ref_attn, ctl_norms, ref_norms))
+    del ctl_attn
+    fl_loss, fl_gnorm, fl_norms, fl_attn = grad_pass(params, batch, cfg,
+                                                     "flash")
+    flash = dict(loss_rel_err=abs(fl_loss - ref_loss) / abs(ref_loss),
+                 grad_norm_rel_err=abs(fl_gnorm - ref_gnorm) / ref_gnorm,
+                 **leaf_diffs(fl_attn, ref_attn, fl_norms, ref_norms))
+    leaf_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del fl_attn, ref_attn
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not flash["attn_grad_rel_err"] <= TRAIN_ATTN_GRAD_REL_TOL:
+        failures.append(f"attention weight grads, flash against plain: "
+                        f"{flash}")
+
+    # Under per-layer checkpointing each layer's forward runs twice per
+    # step (the forward, then the recompute in the backward), its
+    # backward once.
+    want = (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
+    flash_attention_fwd.launches = 0
+    flash_attention_dq.launches = 0
+    flash_attention_dkv.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        # The last step runs under the profiler, for where its time goes.
+        last = i == TRAIN_STEPS - 1
+        prof = (profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) if last
+                else contextlib.nullcontext())
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        with prof:
+            t0 = time.perf_counter()
+            state, metrics = bundle.step(state, batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        launches = tuple(a - b for a, b in zip(_launch_counts(), before))
+        steps.append(dict(metrics, step_ms=step_s * 1e3,
+                          launches=dict(zip(("fwd", "dq", "dkv"),
+                                            launches))))
+        if launches != want:
+            failures.append(f"train step {metrics['step']} launched "
+                            f"(fwd, dq, dkv) {launches}, expected {want}")
+        if not (np.isfinite(metrics["loss"])
+                and np.isfinite(metrics["grad_norm"])):
+            failures.append(f"train step not finite: {metrics}")
+    totals = dict(zip(("fwd", "dq", "dkv"), _launch_counts()))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split, top = device_time_split(prof)
+    busy_ms = sum(split.values())
+    profiled = dict(step=steps[-1]["step"], wall_ms=steps[-1]["step_ms"],
+                    device_ms=split if busy_ms else "not measured",
+                    idle_share=(1 - busy_ms / steps[-1]["step_ms"]
+                                if busy_ms else "not measured"),
+                    top_kernels=top)
+
+    first, last = steps[0], steps[-1]
+    loss_rel = abs(first["loss"] - ref_loss) / abs(ref_loss)
+    gnorm_rel = abs(first["grad_norm"] - ref_gnorm) / abs(ref_gnorm)
+    if not last["loss"] < first["loss"]:
+        failures.append(f"train loss did not fall: {first['loss']} -> "
+                        f"{last['loss']}")
+    if not (loss_rel <= TRAIN_LOSS_REL_TOL
+            and gnorm_rel <= TRAIN_GNORM_REL_TOL):
+        failures.append(f"step 1 against plain attention: loss rel "
+                        f"{loss_rel}, grad_norm rel {gnorm_rel}")
+    # Steady state: the steps after the first (which also warms up the
+    # allocator and cuBLAS) and before the profiled one.
+    steady_s = np.mean([s["step_ms"] for s in steps[1:-1]]) / 1e3
+    res = dict(
+        phase="train", preset="8b-gqa", params=cfg.param_count(),
+        layers=cfg.num_layers, seq_len=TRAIN_SEQ, batch=1, remat=cfg.remat,
+        init_s=init_s, steps=steps, launches=totals,
+        expected_launches_per_step=dict(zip(("fwd", "dq", "dkv"), want)),
+        plain_attention=dict(loss=ref_loss, grad_norm=ref_gnorm,
+                             seconds=ref_s, peak_memory_gb=ref_peak_gb),
+        loss_rel_err=loss_rel, grad_norm_rel_err=gnorm_rel,
+        loss_rel_tol=TRAIN_LOSS_REL_TOL,
+        grad_norm_rel_tol=TRAIN_GNORM_REL_TOL,
+        leaf_grads=dict(flash=flash, control=control,
+                        attn_grad_rel_tol=TRAIN_ATTN_GRAD_REL_TOL,
+                        peak_memory_gb=leaf_peak_gb),
+        steady_step_ms=steady_s * 1e3, profiled_step=profiled,
+        tokens_per_s=TRAIN_SEQ / steady_s,
+        model_flops_utilization=(cfg.flops_per_token(TRAIN_SEQ) * TRAIN_SEQ
+                                 / steady_s / PEAK_FLOPS[torch.bfloat16]),
+        peak_memory_gb=peak_gb, card=card)
+    emit(res)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -265,23 +643,54 @@ def main() -> int:
         print(f"--- ptxas report for {name} ---\n{log}", file=sys.stderr)
 
     rows = kernel_phase(card, failures)
+    bwd_rows = kernel_bwd_phase(card, failures)
     serve = serve_phase(card, failures)
+    train = train_phase(card, failures)
 
-    engine_rows = [r for r in rows
-                   if all(r[k] == v for k, v in ENGINE_HEADS.items()
-                          if k != "dtype")
-                   and r["dtype"] == "bfloat16"]
-    at = max(engine_rows, key=lambda r: r["S"])
-    emit({"kernels": [dict(
-        name="flash_attention_fwd", route="cuda",
-        source="ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-        replaces="ray_tpu/ops/flash_attention.py:89",
-        launches=serve["flash_launches"],
-        max_abs_err=max(r["max_abs_err_o"] for r in engine_rows),
-        ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
-        bound_by=at["bound_by"], library_ms=at["library_ms"],
-        shape=dict(B=at["B"], S=at["S"], Hq=at["Hq"], Hkv=at["Hkv"],
-                   D=at["D"], dtype=at["dtype"], causal=at["causal"]))]})
+    def main_shape(rs, heads):
+        mine = [r for r in rs if r["dtype"] == "bfloat16"
+                and all(r[k] == v for k, v in heads.items() if k != "dtype")]
+        return mine, max(mine, key=lambda r: r["S"])
+
+    def shape(r):
+        return {k: r[k] for k in ("B", "S", "Hq", "Hkv", "D", "dtype",
+                                  "causal")}
+
+    engine_rows, at = main_shape(rows, ENGINE_HEADS)
+    train_rows, bat = main_shape(bwd_rows, TRAIN_HEADS)
+    src = "ray_tpu_torch/ops/csrc/"
+    emit({"kernels": [
+        dict(name="flash_attention_fwd", route="cuda",
+             source=src + "flash_attention_fwd.cu",
+             replaces="ray_tpu/ops/flash_attention.py:89",
+             launches=serve["flash_launches"] + train["launches"]["fwd"],
+             launches_by_path=dict(serve=serve["flash_launches"],
+                                   train=train["launches"]["fwd"]),
+             max_abs_err=max(r["max_abs_err_o"] for r in engine_rows),
+             ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+             bound_by=at["bound_by"], library_ms=at["library_ms"],
+             shape=shape(at)),
+        dict(name="flash_attention_dq", route="cuda",
+             source=src + "flash_attention_dq.cu",
+             replaces="ray_tpu/ops/flash_attention.py:107",
+             launches=train["launches"]["dq"],
+             launches_by_path=dict(train=train["launches"]["dq"]),
+             max_abs_err=max(r["max_abs_err_dq"] for r in train_rows),
+             ms=bat["dq_ms"], plain_ms=bat["plain_dq_ms"],
+             bound_ms=bat["dq_bound_ms"], bound_by=bat["dq_bound_by"],
+             library_ms=bat["library_ms"], library_covers="dq, dk, dv",
+             shape=shape(bat)),
+        dict(name="flash_attention_dkv", route="cuda",
+             source=src + "flash_attention_dkv.cu",
+             replaces="ray_tpu/ops/flash_attention.py:154",
+             launches=train["launches"]["dkv"],
+             launches_by_path=dict(train=train["launches"]["dkv"]),
+             max_abs_err=max(max(r["max_abs_err_dk"], r["max_abs_err_dv"])
+                             for r in train_rows),
+             ms=bat["dkv_ms"], plain_ms=bat["plain_dkv_ms"],
+             bound_ms=bat["dkv_bound_ms"], bound_by=bat["dkv_bound_by"],
+             library_ms=bat["library_ms"], library_covers="dq, dk, dv",
+             shape=shape(bat))]})
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)

@@ -5,11 +5,18 @@ dict with the JAX package's keys and layouts (``wq (L,E,H,D)``,
 ``wo (L,H,D,E)``, ...), so ``from_jax_params`` is a plain copy. bf16
 activations and weights, f32 RMSNorm math and f32 logits, GQA, RoPE and
 SwiGLU, as in the reference. The layers run as a Python loop in place of
-``lax.scan``.
+``lax.scan``; with ``remat`` each layer is checkpointed when a gradient is
+needed (``torch.utils.checkpoint`` in place of ``jax.checkpoint``), so
+inference is unchanged by it.
 
-Not ported yet, each raising NotImplementedError: activation
-checkpointing (``remat``), meshes (and with them pipeline stages) and
-ring attention.
+``params["layers"]`` comes in two forms. Every entry point takes the
+stacked JAX form, one (L, ...) tensor per weight. ``layer_params`` also
+takes a list of per-layer dicts, which only ``train_step`` builds (views of
+the stacked storage, so that autograd gives each layer its own gradient
+tensor); no other caller should grow a third form.
+
+Not ported yet, each raising NotImplementedError: meshes (and with them
+pipeline stages) and ring attention.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.flash_attention import flash_attention, reference_attention
@@ -39,8 +47,9 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # Activation checkpointing belongs to training, which is not ported.
-    remat: bool = False
+    # Checkpoint each layer when a gradient is needed: its activations are
+    # recomputed in the backward (the reference's jax.checkpoint).
+    remat: bool = True
     # "xla" = plain PyTorch attention (reference_attention);
     # "flash" = the hand-written CUDA kernel (ops/flash_attention.py).
     attention_impl: str = "xla"
@@ -48,6 +57,12 @@ class TransformerConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
+
+    def flops_per_token(self, seq_len: Optional[int] = None) -> float:
+        """Approximate train FLOPs/token (fwd+bwd = 6*N + attention term)."""
+        s = seq_len or self.max_seq_len
+        attn = 12 * self.num_layers * self.hidden_size * s
+        return 6 * self.param_count() + attn
 
     def param_count(self) -> int:
         h, v, l = self.hidden_size, self.vocab_size, self.num_layers
@@ -165,7 +180,12 @@ def from_jax_params(np_tree, cfg: TransformerConfig,
 
 
 def layer_params(params: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i``'s slice of the stacked (L, ...) layer params."""
+    """Layer ``i``'s slice of the stacked (L, ...) layer params, or its
+    entry where ``params["layers"]`` is already a per-layer list (as the
+    train step builds it, so that autograd sees one leaf per layer)."""
+    if isinstance(params["layers"], (list, tuple)):
+        return params["layers"][i]
+
     def take(node):
         if isinstance(node, dict):
             return {k: take(v) for k, v in node.items()}
@@ -216,6 +236,23 @@ def _attention(cfg: TransformerConfig, q, k, v):
 # Forward
 # ---------------------------------------------------------------------------
 
+def _layer(cfg: TransformerConfig, x, lp, cos, sin):
+    dt = cfg.dtype
+    h = rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
+    q = torch.einsum("bse,ehd->bshd", h, lp["attn"]["wq"].to(dt))
+    k = torch.einsum("bse,ekd->bskd", h, lp["attn"]["wk"].to(dt))
+    v = torch.einsum("bse,ekd->bskd", h, lp["attn"]["wv"].to(dt))
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    o = _attention(cfg, q, k, v)
+    x = x + torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(dt))
+    h = rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
+    g = torch.einsum("bse,em->bsm", h, lp["mlp"]["w_gate"].to(dt))
+    u = torch.einsum("bse,em->bsm", h, lp["mlp"]["w_up"].to(dt))
+    return x + torch.einsum("bsm,me->bse", F.silu(g) * u,
+                            lp["mlp"]["w_down"].to(dt))
+
+
 def forward(params: Dict[str, Any], tokens, cfg: TransformerConfig,
             mesh=None, device: Union[str, torch.device] = "cuda"
             ) -> torch.Tensor:
@@ -224,8 +261,6 @@ def forward(params: Dict[str, Any], tokens, cfg: TransformerConfig,
     if mesh is not None:
         raise NotImplementedError("meshes (and pipeline stages) are not "
                                   "ported yet: forward runs on one device")
-    if cfg.remat:
-        raise NotImplementedError("remat belongs to the training slice")
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params are on {params['embed'].device}, "
@@ -235,23 +270,36 @@ def forward(params: Dict[str, Any], tokens, cfg: TransformerConfig,
     x = params["embed"].to(dt)[tokens]
     S = tokens.shape[1]
     cos, sin = rope_angles(S, cfg.head_dim_, cfg.rope_theta, device=dev)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
-        h = rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
-        q = torch.einsum("bse,ehd->bshd", h, lp["attn"]["wq"].to(dt))
-        k = torch.einsum("bse,ekd->bskd", h, lp["attn"]["wk"].to(dt))
-        v = torch.einsum("bse,ekd->bskd", h, lp["attn"]["wv"].to(dt))
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        o = _attention(cfg, q, k, v)
-        x = x + torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(dt))
-        h = rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-        g = torch.einsum("bse,em->bsm", h, lp["mlp"]["w_gate"].to(dt))
-        u = torch.einsum("bse,em->bsm", h, lp["mlp"]["w_up"].to(dt))
-        x = x + torch.einsum("bsm,me->bse", F.silu(g) * u,
-                             lp["mlp"]["w_down"].to(dt))
+        if remat:
+            x = checkpoint(_layer, cfg, x, lp, cos, sin, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _layer(cfg, x, lp, cos, sin)
     x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)
     # JAX asks XLA for f32 output (preferred_element_type=f32) of the bf16
     # product; here the bf16 matmul accumulates in f32 and rounds its
     # output to bf16 before the cast, a difference within bf16 tolerance.
     return torch.einsum("bse,ev->bsv", x, params["lm_head"].to(dt)).float()
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, Any],
+            cfg: TransformerConfig, mesh=None,
+            device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """Next-token cross-entropy, a 0-d f32 tensor; batch = {"tokens": (B,S)}
+    or {"inputs","targets"}; ignores padding id 0 when targets provided."""
+    dev = resolve_device(device)
+    if "targets" in batch:
+        inputs = torch.as_tensor(batch["inputs"], device=dev).long()
+        targets = torch.as_tensor(batch["targets"], device=dev).long()
+        weights = (targets != 0).float()
+    else:
+        toks = torch.as_tensor(batch["tokens"], device=dev).long()
+        inputs, targets = toks[:, :-1], toks[:, 1:]
+        weights = torch.ones(targets.shape, dtype=torch.float32, device=dev)
+    logits = forward(params, inputs, cfg, mesh, device=dev)
+    logp = F.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, targets[..., None])[..., 0]
+    return -(ll * weights).sum() / weights.sum().clamp(min=1.0)

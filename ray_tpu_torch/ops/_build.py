@@ -3,7 +3,8 @@
 Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into
 ``ray_tpu_torch/_build/`` (listed in ``.gitignore``). A library is cached
-under a hash of its source and the compiler flags, so an edit rebuilds it.
+under a hash of its source, the shared ``csrc/*.cuh`` headers and the
+compiler flags, so an edit rebuilds it.
 Nothing here falls back: a missing ``nvcc`` or a failed build or load
 raises with the compiler's output.
 """
@@ -46,7 +47,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # The key covers the shared headers too, so editing one rebuilds all.
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

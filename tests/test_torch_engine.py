@@ -142,15 +142,16 @@ def test_request_validation():
 
 
 def test_port_imports_neither_jax_nor_ray_tpu():
-    """The port and chip_smoke.py import no jax and no ray_tpu module. A
-    subprocess: this test process already holds jax (conftest)."""
+    """The port and chip_smoke.py import no jax, no optax and no ray_tpu
+    module. A subprocess: this test process already holds jax (conftest)."""
     code = (
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.llm.engine\n"
         "import ray_tpu_torch.models.transformer, ray_tpu_torch.ops._build\n"
+        "import ray_tpu_torch.models.train_step\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'optax')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'optax.'))\n"
         "             or m == 'ray_tpu' or m.startswith('ray_tpu.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

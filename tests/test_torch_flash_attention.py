@@ -108,14 +108,16 @@ def test_reference_lse_matches_reference_output():
 
 def test_non_cpu_tensors_never_take_the_plain_path():
     """Off the CPU the wrapper launches the kernel or raises: meta tensors
-    stand in for a device the kernel does not take."""
+    stand in for a device the kernel does not take. A tensor that needs a
+    gradient goes through the autograd Function, whose forward launches
+    the kernel or raises the same way."""
     q, k, v = (torch.empty((1, 8, h, 64), device="meta") for h in (4, 2, 2))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, k, v)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(q, k, v)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, k, v)
 
 

@@ -150,6 +150,33 @@ def test_param_count_matches_jax():
                              else torch.bfloat16)
 
 
+def test_config_defaults_and_presets_match_jax():
+    """Every field the port's TransformerConfig shares with JAX's has the
+    same default, and every preset the same values (dtype mapped)."""
+    dtypes = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+    jax_fields = {f.name: f for f in dataclasses.fields(JAX_PRESETS["tiny"])}
+    shared = [f for f in dataclasses.fields(PRESETS["tiny"])
+              if f.name in jax_fields]
+    assert {f.name for f in shared} == {
+        f.name for f in dataclasses.fields(PRESETS["tiny"])}
+    for f in shared:
+        want = jax_fields[f.name].default
+        assert f.default == dtypes.get(want, want), f.name
+    assert PRESETS.keys() == JAX_PRESETS.keys()
+    for name, cfg in PRESETS.items():
+        for f in shared:
+            want = getattr(JAX_PRESETS[name], f.name)
+            assert getattr(cfg, f.name) == dtypes.get(want, want), (name,
+                                                                   f.name)
+
+
+def test_flops_per_token_matches_jax():
+    for name, cfg in PRESETS.items():
+        for s in (None, 2048):
+            assert cfg.flops_per_token(s) == JAX_PRESETS[
+                name].flops_per_token(s), name
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(tiny):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -170,8 +197,13 @@ def test_unported_options_raise(tiny):
     with pytest.raises(ValueError, match="attention_impl"):
         _attention(dataclasses.replace(PRESETS["tiny"],
                                        attention_impl="bogus"), q, k, v)
-    with pytest.raises(NotImplementedError, match="remat"):
-        forward(tp, toks, dataclasses.replace(PRESETS["tiny"], remat=True),
-                device="cpu")
+    # remat is ported: per-layer checkpointing only under grad, so the
+    # logits are the same with and without it.
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, PRESETS["tiny"].vocab_size, (2, 12)))
+    no_remat = dataclasses.replace(PRESETS["tiny"], remat=False)
+    want = forward(tp, toks, no_remat, device="cpu")
+    torch.testing.assert_close(forward(tp, toks, dataclasses.replace(
+        PRESETS["tiny"], remat=True), device="cpu"), want, rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="mesh"):
         forward(tp, toks, PRESETS["tiny"], mesh=object(), device="cpu")
