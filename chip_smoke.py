@@ -9,15 +9,23 @@ Phases, each printing one JSON line on stdout:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 switched off.
 2. build: every kernel under ray_tpu_torch/ops/csrc built with nvcc for
-   sm_90a (the ptxas report goes to stderr).
+   sm_90a; each kernel's registers, spills and static shared memory from
+   the ptxas report (the whole report goes to stderr). A spill fails.
 3. kernel: the flash-attention forward kernel against its plain PyTorch
    version on the card, o and lse, at the engine's prefill shapes and at
    f32 / non-causal / D=64 / GQA / ragged shapes; kernel, plain and
-   scaled_dot_product_attention times (the last only as a yardstick).
+   scaled_dot_product_attention times (the last only as a yardstick, its
+   device time under torch.profiler, and which SDPA backend ran).
 4. kernel_bwd: the dQ and dK/dV kernels against their plain versions, dq,
    dk and dv, at the training shapes and the same f32 / non-causal / D=64
    / GQA / ragged shapes; the autograd Function's grads against autograd
-   through plain attention; kernel, delta, plain and SDPA-backward times.
+   through plain attention; kernel, delta, plain and SDPA-backward times
+   (SDPA's as for the forward).
+   Then bf16 cases that cross the kernels' 128-row tiles (S 1, 127, 129,
+   255; D 64, 128; GQA groups 1, 2, 4, 8 and 16; causal or not), one whose
+   q, k and v are strided views of a fused (B, S, Hq + 2 Hkv, D) tensor,
+   and two dK/dV launches on the same inputs, which must agree bit for
+   bit (the GQA group is summed in a fixed order).
 5. serve: Llama-3-8B-GQA at full width and depth with random weights,
    four greedy requests through LLMEngine; checks tokens, the kernel's
    launch count and each prompt's prefill logits against forward() with
@@ -90,6 +98,14 @@ KERNEL_CASES = (
             causal=False),
        dict(B=2, S=200, Hq=8, Hkv=2, D=128, dtype=torch.float32,
             causal=True)])
+# bf16 cases across the 128-row tiles of the forward and dK/dV kernels:
+# every (S, D, G, causal) below with Hkv = 2, and G = 16 on one kv head.
+TILING_CASES = ([dict(B=1, S=s, Hq=2 * g, Hkv=2, D=d, causal=c)
+                 for s in (1, 127, 129, 255) for d in (64, 128)
+                 for g in (1, 2, 4, 8) for c in (True, False)]
+                + [dict(B=1, S=255, Hq=16, Hkv=1, D=d, causal=c)
+                   for d in (64, 128) for c in (True, False)])
+FUSED_CASE = dict(B=2, S=300, Hq=8, Hkv=2, D=128, causal=True)
 PROMPT_LENS = (37, 300, 1000, 1900)
 MAX_TOKENS = 16
 
@@ -155,6 +171,40 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10):
+    """(device time of one fn() call in ms, the names of the kernels it
+    ran, longest first): the summed time of every kernel that ``iters``
+    calls ran on the card under torch.profiler, over ``iters``, after one
+    warm-up call. Host dispatch is not in it. The time is None if the
+    profiler saw no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, names = 0.0, []
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA \
+                and evt.self_device_time_total > 0:
+            total += evt.self_device_time_total
+            names.append((evt.self_device_time_total, evt.key[:60]))
+    names = [n for _, n in sorted(names, reverse=True)]
+    return (total / 1e3 / iters if total else None), names
+
+
+def sdpa_backend(names) -> str:
+    """Which scaled_dot_product_attention backend ran, read from the names
+    of its kernels."""
+    joined = " ".join(names).lower()
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in joined:
+            return backend
+    return "math"
+
+
 def attention_bound(B, S, Hq, Hkv, D, dtype, causal, kernel="fwd"):
     """(bound_ms, bound_by) of one kernel: the larger of its operations
     over the peak rate of the type and its bytes over the memory rate.
@@ -195,6 +245,11 @@ def kernel_phase(card: str, failures: list) -> list:
         ok = finite and err_o <= tol["o"] and err_lse <= tol["lse"]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         bound_ms, bound_by = attention_bound(B, S, Hq, Hkv, D, dtype, causal)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+        library_ms, library_kernels = device_ms(sdpa)
         row = dict(
             phase="kernel", name="flash_attention_fwd", B=B, S=S, Hq=Hq,
             Hkv=Hkv, D=D, dtype=str(dtype).replace("torch.", ""),
@@ -204,8 +259,9 @@ def kernel_phase(card: str, failures: list) -> list:
                                                       causal=causal)),
             plain_ms=time_ms(lambda: reference_attention_lse(
                 q, k, v, causal=causal)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True)),
+            library_ms=library_ms, library_backend=sdpa_backend(
+                library_kernels), library_kernels=library_kernels[:3],
+            library_event_ms=time_ms(sdpa),
             bound_ms=bound_ms, bound_by=bound_by, card=card)
         emit(row)
         rows.append(row)
@@ -262,6 +318,11 @@ def kernel_bwd_phase(card: str, failures: list) -> list:
         sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
         dot = do.transpose(1, 2)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(sdpa, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        library_ms, library_kernels = device_ms(sdpa_bwd)
         shape = (B, S, Hq, Hkv, D, dtype, causal)
         dq_bound, dq_by = attention_bound(*shape, kernel="dq")
         dkv_bound, dkv_by = attention_bound(*shape, kernel="dkv")
@@ -289,8 +350,9 @@ def kernel_bwd_phase(card: str, failures: list) -> list:
                 q, k, v, do, lse, delta, causal=causal)),
             plain_ms=time_ms(lambda: reference_attention_bwd(
                 q, k, v, o, lse, do, causal=causal)),
-            library_ms=time_ms(lambda: torch.autograd.grad(
-                sdpa, (qt, kt, vt), dot, retain_graph=True)),
+            library_ms=library_ms, library_backend=sdpa_backend(
+                library_kernels), library_kernels=library_kernels[:3],
+            library_event_ms=time_ms(sdpa_bwd),
             dq_bound_ms=dq_bound, dq_bound_by=dq_by,
             dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by, card=card)
         emit(row)
@@ -298,6 +360,88 @@ def kernel_bwd_phase(card: str, failures: list) -> list:
         if not ok:
             failures.append(f"backward kernel mismatch: {row}")
     return rows
+
+
+def _bf16_inputs(gen, B, S, Hq, Hkv, D):
+    def rand(h):
+        return torch.randn((B, S, h, D), generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+    return rand(Hq), rand(Hkv), rand(Hkv), rand(Hq)
+
+
+def _tiling_check(q, k, v, do, causal: bool):
+    """(errors, ok) of the forward kernel (o, lse) and the backward kernels
+    (dq, dk, dv) against their plain versions on one bf16 input. The
+    backward is held as BWD_TOL's relative measure with the reference's
+    scale floored at 1: where a gradient is zero in exact arithmetic (dK at
+    S = 1, whose one probability is 1, so dS = dP - delta = 0) only
+    rounding is left, and a ratio to its own maximum means nothing."""
+    tol = TOL[torch.bfloat16]
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    ro, rlse = reference_attention_lse(q, k, v, causal=causal)
+    got = flash_attention_bwd(q, k, v, ro, rlse, do, causal=causal)
+    want = reference_attention_bwd(q, k, v, ro, rlse, do, causal=causal)
+    err_o = (o.float() - ro.float()).abs().max().item()
+    err_lse = (lse - rlse).abs().max().item()
+    bwd = [((g.float() - w.float()).abs().max()
+            / max(w.float().abs().max().item(), 1.0)).item()
+           for g, w in zip(got, want)]
+    finite = all(bool(torch.isfinite(t).all()) for t in (o, lse, *got))
+    ok = (finite and err_o <= tol["o"] and err_lse <= tol["lse"]
+          and all(e <= BWD_TOL[torch.bfloat16] for e in bwd))
+    return dict(max_abs_err_o=err_o, max_abs_err_lse=err_lse,
+                bwd_err=bwd), ok
+
+
+def tiling_phase(card: str, failures: list) -> dict:
+    gen = torch.Generator("cuda").manual_seed(2)
+    keys = ("B", "S", "Hq", "Hkv", "D")
+    cases = []
+    for case in TILING_CASES:
+        errs, ok = _tiling_check(
+            *_bf16_inputs(gen, *(case[x] for x in keys)), case["causal"])
+        cases.append(dict(case, **errs, ok=ok))
+        if not ok:
+            failures.append(f"tiling case mismatch: {cases[-1]}")
+    worst = {name: max(cases, key=lambda c: get(c)) for name, get in (
+        ("o", lambda c: c["max_abs_err_o"]),
+        ("lse", lambda c: c["max_abs_err_lse"]),
+        ("bwd", lambda c: max(c["bwd_err"])))}
+
+    # q, k and v as the strided views a fused QKV projection leaves.
+    B, S, Hq, Hkv, D = (FUSED_CASE[x] for x in keys)
+    x = torch.randn((B, S, Hq + 2 * Hkv, D), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    q, k, v = x[:, :, :Hq], x[:, :, Hq:Hq + Hkv], x[:, :, Hq + Hkv:]
+    do = _bf16_inputs(gen, B, S, Hq, Hkv, D)[3]
+    errs, ok = _tiling_check(q, k, v, do, FUSED_CASE["causal"])
+    fused = dict(FUSED_CASE, strides=[list(t.stride()) for t in (q, k, v)],
+                 contiguous=q.is_contiguous(), **errs, ok=ok)
+    if not ok or q.is_contiguous():
+        failures.append(f"fused-view case: {fused}")
+
+    # Two dK/dV launches on the same inputs give the same bits.
+    det = []
+    for shape in (dict(TRAIN_HEADS, S=TRAIN_SEQ),
+                  dict(B=1, S=255, Hq=16, Hkv=1, D=128, causal=True)):
+        q, k, v, do = _bf16_inputs(gen, *(shape[x] for x in keys))
+        o, lse = flash_attention_fwd(q, k, v, causal=shape["causal"])
+        delta = attention_bwd_delta(o, do)
+        first, second = (flash_attention_dkv(q, k, v, do, lse, delta,
+                                             causal=shape["causal"])
+                         for _ in range(2))
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        det.append(dict({x: shape[x] for x in keys}, bit_identical=same))
+        if not same:
+            failures.append(f"dK/dV differ between two launches: {det[-1]}")
+    res = dict(phase="tiling", cases=len(cases),
+               failed=[c for c in cases if not c["ok"]],
+               worst={n: {x: c[x] for x in (*keys, "causal", "max_abs_err_o",
+                                            "max_abs_err_lse", "bwd_err")}
+                      for n, c in worst.items()},
+               fused_view=fused, determinism=det, card=card)
+    emit(res)
+    return res
 
 
 def serve_phase(card: str, failures: list) -> dict:
@@ -637,13 +781,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     seconds = _build.build()
+    ptxas = {name: _build.ptxas_report(log)
+             for name, log in _build.build_logs.items()}
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              per_kernel=seconds))
+              per_kernel=seconds, ptxas=ptxas))
     for name, log in _build.build_logs.items():
         print(f"--- ptxas report for {name} ---\n{log}", file=sys.stderr)
+    spilled = [k for r in ptxas.values() for k in r
+               if k["spill_stores"] or k["spill_loads"]]
+    if spilled:
+        failures.append(f"ptxas reports spills: {spilled}")
 
     rows = kernel_phase(card, failures)
     bwd_rows = kernel_bwd_phase(card, failures)
+    tiling_phase(card, failures)
     serve = serve_phase(card, failures)
     train = train_phase(card, failures)
 
@@ -669,7 +820,7 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err_o"] for r in engine_rows),
              ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
              bound_by=at["bound_by"], library_ms=at["library_ms"],
-             shape=shape(at)),
+             library_backend=at["library_backend"], shape=shape(at)),
         dict(name="flash_attention_dq", route="cuda",
              source=src + "flash_attention_dq.cu",
              replaces="ray_tpu/ops/flash_attention.py:107",
@@ -679,7 +830,7 @@ def main() -> int:
              ms=bat["dq_ms"], plain_ms=bat["plain_dq_ms"],
              bound_ms=bat["dq_bound_ms"], bound_by=bat["dq_bound_by"],
              library_ms=bat["library_ms"], library_covers="dq, dk, dv",
-             shape=shape(bat)),
+             library_backend=bat["library_backend"], shape=shape(bat)),
         dict(name="flash_attention_dkv", route="cuda",
              source=src + "flash_attention_dkv.cu",
              replaces="ray_tpu/ops/flash_attention.py:154",
@@ -690,7 +841,7 @@ def main() -> int:
              ms=bat["dkv_ms"], plain_ms=bat["plain_dkv_ms"],
              bound_ms=bat["dkv_bound_ms"], bound_by=bat["dkv_bound_by"],
              library_ms=bat["library_ms"], library_covers="dq, dk, dv",
-             shape=shape(bat))]})
+             library_backend=bat["library_backend"], shape=shape(bat))]})
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)

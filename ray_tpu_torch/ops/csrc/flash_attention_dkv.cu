@@ -8,7 +8,7 @@
 // query tiles from the diagonal on. The reference emits dK and dV per
 // query head in f32 and sums each GQA group outside the kernel; here the
 // group sum runs inside, so dK and dV are written once per kv head, in the
-// input type, with no f32 intermediates and no atomics.
+// input type, with no f32 intermediates in device memory and no atomics.
 //
 // Layout: q, dO (B, S, Hq, D) and k, v, dK, dV (B, S, Hkv, D), read and
 // written through their batch/sequence/head strides (the last dim is
@@ -20,254 +20,329 @@
 // bf16; bytes q, k, v, dO, dK and dV once each plus lse and delta, against
 // 3.35 TB/s.
 //
-// Design. One block owns a 64-row tile of one kv head and keeps dK and dV
-// in registers while it loops over the G query heads of its group and, in
-// each, over the query tiles at or after its diagonal (a kv tile sees the
-// queries after it, not before).
-//  - bf16: four warps of 16 kv rows. K and V stay in shared memory and
-//    give their mma A fragments through ldmatrix; query tiles of Q and dO,
-//    with their rows' lse and delta, stream in by cp.async in two stages.
-//    Per query tile: S^T = K.Q^T, P^T in registers, dV += P^T.dO,
-//    dP^T = V.dO^T, dS^T = P^T * (dP^T - delta), dK += dS^T.Q, each an
-//    mma.sync m16n8k16 product with f32 accumulation; P^T and dS^T are
-//    re-packed in registers as A operands. The dK and dV accumulators hold
-//    2 * 16 * D f32 values per warp; at D = 128 that is 128 registers a
-//    thread, so the query tile is 32 rows, which keeps S^T and dP^T at 16
-//    registers each and the kernel clear of spills.
+// Design. A block owns a kv tile and loops over query tiles from the
+// diagonal on (a kv row sees the queries after it, not before), with dK
+// and dV in registers.
+//  - bf16: a 128-row kv tile of one kv head and G / C of its query heads,
+//    warp-specialised. One producer warp loads K and V once and streams
+//    64-row Q and dO tiles through a two-stage ring by TMA (hopper.cuh;
+//    rows past S arrive as zeros), and writes the rows' lse (in log2
+//    units) and delta beside them; full and empty mbarriers guard the
+//    slots. Two consumer warpgroups own 64 kv rows each. Per query tile,
+//    S^T = K.Q^T and dP^T = V.dO^T are wgmma products with both operands
+//    in shared memory; P^T = 2^(S^T scale log2e - lse log2e) and
+//    dS^T = P^T (dP^T - delta) are formed in registers, and packed to bf16
+//    they are the A operands of dV += P^T.dO and dK += dS^T.Q, with dO
+//    and Q read as transposed (MN-major) B; dS^T is formed while dV's
+//    products run. setmaxnreg moves registers from the producer (24) to the
+//    consumers (240).
+//    GQA: the G query heads of a group are split over a thread-block
+//    cluster of C blocks, C the largest divisor of G that is at most 8,
+//    each looping over G / C heads. After the loop each block stages its
+//    f32 dK and dV in its own shared memory, over the tiles it no longer
+//    needs; after a cluster barrier, rank r sums rows [r 128 / C,
+//    (r + 1) 128 / C) over ranks 0 .. C - 1 in that order through
+//    distributed shared memory, scales dK and writes bf16, and a last
+//    cluster barrier keeps every block alive until all have read. The sum
+//    is in a fixed order, so dK and dV are bit-identical from run to run.
+//    The grid is (B Hkv C) x (S / 128), kv tile 0, the longest under the
+//    causal mask, first: at S = 2048, Hq = 32, Hkv = 8 that is 512 blocks,
+//    the longest walking 32 query tiles of one head.
 //  - f32: CUDA-core FMAs in f32, four threads per kv row, each owning a
 //    quarter of the head dims of k, v, dK and dV, query by query over
 //    tiles of 32 query rows.
-// wgmma and TMA are left for a later revision.
+// Left for later: ping-pong scheduling of the two warpgroups, persistent
+// blocks, dK and dV written through TMA, fp8.
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- bf16 --
 
-constexpr int kBK = 64;  // kv rows per block, 16 per warp
-constexpr int kQT = 32;  // query rows per step of the loop
-constexpr int kThreadsBf16 = 128;
+constexpr int kBKV = 128;      // kv rows per block, 64 per consumer
+constexpr int kBQ = 64;        // query rows per step of the loop
+constexpr int kStages = 2;     // Q/dO ring slots
+constexpr int kConsumers = 2;  // consumer warpgroups
+constexpr int kThreadsBf16 = (kConsumers + 1) * 128;
+constexpr int kMaxCluster = 8;  // the portable cluster size
 
-// Dynamic shared memory: the K and V tiles, then two stages of a Q and a
-// dO tile, then two stages of the query rows' lse and delta.
+// Dynamic shared memory of the bf16 kernel, byte offsets from a 1024-byte
+// aligned base. The loop's tiles (each D / 64 panels of [rows][64] bf16):
+// K, V, then kStages Q and kStages dO tiles, then kStages rows of lse and
+// of delta. After the loop the same bytes hold the block's f32 dK and dV,
+// rows padded to D + 8 floats. The mbarriers follow both: kv_full, and
+// full and empty per slot.
 template <int D>
-constexpr int bf16_smem_bytes() {
-  return (2 * kBK + 4 * kQT) * (D + 8) *
-             static_cast<int>(sizeof(__nv_bfloat16)) +
-         4 * kQT * static_cast<int>(sizeof(float));
+struct DkvSmem {
+  static constexpr int kKVBytes = kBKV * D * 2;
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kK = 0;
+  static constexpr int kV = kKVBytes;
+  static constexpr int kQ = 2 * kKVBytes;
+  static constexpr int kDO = kQ + kStages * kQBytes;
+  static constexpr int kLse = kDO + kStages * kQBytes;
+  static constexpr int kDelta = kLse + kStages * kBQ * 4;
+  static constexpr int kLoopEnd = kDelta + kStages * kBQ * 4;
+  static constexpr int kRow = D + 8;  // floats per staged row
+  static constexpr int kStagedEnd = 2 * kBKV * kRow * 4;
+  static constexpr int kBar = kLoopEnd > kStagedEnd ? kLoopEnd : kStagedEnd;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// Barrier over the consumer warpgroups only (barrier 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsBf16)
-fa_dkv_bf16(const __nv_bfloat16* __restrict__ q,
-            const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v,
-            const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+fa_dkv_bf16(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            const __grid_constant__ CUtensorMap tdo,
             const float* __restrict__ lse, const float* __restrict__ delta,
             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-            int S, int Hq, int Hkv, Strides sq, Strides sk, Strides sv,
-            Strides sdo, Strides sdk, Strides sdv, float scale, int causal) {
-  constexpr int ST = D + 8;  // tile row stride: conflict-free ldmatrix
-  constexpr int QTILE = kQT * ST;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBK][ST]
-  __nv_bfloat16* v_s = k_s + kBK * ST;                               // [kBK][ST]
-  __nv_bfloat16* q_s = v_s + kBK * ST;                               // [2][QTILE]
-  __nv_bfloat16* do_s = q_s + 2 * QTILE;                             // [2][QTILE]
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * QTILE);         // [2][kQT]
-  float* dl_s = lse_s + 2 * kQT;                                     // [2][kQT]
+            int S, int Hq, int Hkv, Strides sdk, Strides sdv, float scale,
+            int causal) {
+  using L = DkvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_base_1024(smem_raw);
+  unsigned char* smem = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t kv_full = base + L::kBar;
+  const uint32_t full = kv_full + 8;           // [kStages]
+  const uint32_t empty = full + 8 * kStages;   // [kStages]
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma group id, thread in group
-  const int k0 = blockIdx.x * kBK;
-  const int bkv = blockIdx.y, b = bkv / Hkv, kvh = bkv % Hkv;
-  const int G = Hq / Hkv;
-  const __nv_bfloat16* kb = k + b * sk.b + kvh * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + kvh * sv.h;
-  constexpr int VEC = D / 8;  // 16-byte vectors per row
-
-  for (int i = tid; i < kBK * VEC; i += kThreadsBf16) {
-    const int r = i / VEC, c8 = (i % VEC) * 8, key = k0 + r;
-    const bool ok = key < S;
-    const long long row = ok ? key : 0;
-    cp_async16(k_s + r * ST + c8, kb + row * sk.s + c8, ok);
-    cp_async16(v_s + r * ST + c8, vb + row * sv.s + c8, ok);
-  }
-
-  // Query tiles: G heads, each from the diagonal (causal) or 0 to S.
+  const int tid = threadIdx.x, wg = warpgroup_index();
+  const int C = cluster_size(), rank = cluster_rank();
+  const int G = Hq / Hkv, heads = G / C;  // query heads per block
+  const int bkv = blockIdx.x / C, b = bkv / Hkv, kvh = bkv % Hkv;
+  const int h0 = kvh * G + rank * heads;
+  const int k0 = blockIdx.y * kBKV;
   const int q_start = causal ? k0 : 0;
-  const int n_qt = (S - q_start + kQT - 1) / kQT;
-  const int n_it = G * n_qt;
-  auto load_q = [&](int stage, int it) {
-    const int h = kvh * G + it / n_qt;
-    const int qi0 = q_start + (it % n_qt) * kQT;
-    const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
-    const __nv_bfloat16* dob = dout + b * sdo.b + h * sdo.h;
-    for (int i = tid; i < kQT * VEC; i += kThreadsBf16) {
-      const int r = i / VEC, c8 = (i % VEC) * 8, qr = qi0 + r;
-      const bool ok = qr < S;
-      const long long row = ok ? qr : 0;
-      cp_async16(q_s + stage * QTILE + r * ST + c8, qb + row * sq.s + c8, ok);
-      cp_async16(do_s + stage * QTILE + r * ST + c8, dob + row * sdo.s + c8,
-                 ok);
-    }
-    if (tid < kQT) {
-      const int qr = qi0 + tid;
-      const bool ok = qr < S;
-      const long long row = (static_cast<long long>(b) * Hq + h) * S +
-                            (ok ? qr : 0);
-      cp_async4(lse_s + stage * kQT + tid, lse + row, ok);
-      cp_async4(dl_s + stage * kQT + tid, delta + row, ok);
-    }
-    cp_async_commit();
-  };
-  load_q(0, 0);  // one group with the K and V tiles
+  const int n_qt = (S - q_start + kBQ - 1) / kBQ;
+  const int n_it = heads * n_qt;
 
-  // Rows g and g + 8 of this warp's 16 kv rows: the rows of the C fragments.
-  const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
-  const float sl2 = scale * kLog2e;
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(empty + 8 * s, kConsumers * 128);
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  for (int it = 0; it < n_it; ++it) {
-    if (it + 1 < n_it) {  // the next query tile streams in under this one
-      load_q((it + 1) & 1, it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile `it` is in shared memory for every warp
-    const int qi0 = q_start + (it % n_qt) * kQT;
-    const __nv_bfloat16* qs = q_s + (it & 1) * QTILE;
-    const __nv_bfloat16* dos = do_s + (it & 1) * QTILE;
-    const float* ls = lse_s + (it & 1) * kQT;
-    const float* dls = dl_s + (it & 1) * kQT;
-
-    // S^T = K Q^T for this warp's 16 kv rows and the tile's kQT queries.
-    float st[kQT / 8][4];
-#pragma unroll
-    for (int j = 0; j < kQT / 8; ++j)
-      st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; c += 2) {
-      uint32_t a0[4], a1[4];
-      lds_a<ST>(a0, k_s, warp * 16, c * 16, lane);
-      lds_a<ST>(a1, k_s, warp * 16, c * 16 + 16, lane);
-#pragma unroll
-      for (int j = 0; j < kQT / 8; ++j) {
-        uint32_t bf[4];
-        lds_b_nt<ST>(bf, qs, j * 8, c * 16, lane);
-        mma_bf16(st[j], a0, bf[0], bf[1]);
-        mma_bf16(st[j], a1, bf[2], bf[3]);
-      }
-    }
-
-    // P^T = 2^(S^T scale log2e - lse log2e), 0 where masked. Only tiles
-    // that cross the diagonal or the ragged end mask.
-    const bool edge = qi0 + kQT > S || (causal && qi0 < k0 + kBK);
-#pragma unroll
-    for (int j = 0; j < kQT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + t * 2 + e, qr = qi0 + col;
-        const float l2 = ls[col] * kLog2e;
-        float p0 = exp2f(st[j][e] * sl2 - l2);
-        float p1 = exp2f(st[j][2 + e] * sl2 - l2);
-        if (edge) {
-          if (qr >= S || (causal && qr < r0)) p0 = 0.f;
-          if (qr >= S || (causal && qr < r1)) p1 = 0.f;
+  if (wg == kConsumers) {
+    // Producer warpgroup; its first warp feeds the ring.
+    setmaxnreg_dec<24>();
+    const int lane = tid & 31;
+    if (tid / 32 == kConsumers * 4) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * L::kKVBytes);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load_4d(base + L::kK + p * kBKV * 128, &tk, kv_full, p * 64,
+                      kvh, k0, b);
+          tma_load_4d(base + L::kV + p * kBKV * 128, &tv, kv_full, p * 64,
+                      kvh, k0, b);
         }
-        st[j][e] = p0;
-        st[j][2 + e] = p1;
       }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        const int h = h0 + it / n_qt;
+        const int qi0 = q_start + (it % n_qt) * kBQ;
+        mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full + 8 * s, 2 * L::kQBytes);
+          for (int p = 0; p < D / 64; ++p) {
+            tma_load_4d(base + L::kQ + s * L::kQBytes + p * kBQ * 128, &tq,
+                        full + 8 * s, p * 64, h, qi0, b);
+            tma_load_4d(base + L::kDO + s * L::kQBytes + p * kBQ * 128, &tdo,
+                        full + 8 * s, p * 64, h, qi0, b);
+          }
+        }
+        // The rows' lse (in log2 units) and delta, two per lane; the slot
+        // completes when all 32 lanes have arrived and the tiles landed.
+        const long long row = (static_cast<long long>(b) * Hq + h) * S;
+        float* ls = reinterpret_cast<float*>(smem + L::kLse) + s * kBQ;
+        float* dl = reinterpret_cast<float*>(smem + L::kDelta) + s * kBQ;
+#pragma unroll
+        for (int e = 0; e < kBQ / 32; ++e) {
+          const int i = lane + 32 * e, qr = qi0 + i;
+          ls[i] = qr < S ? lse[row + qr] * kLog2e : 0.f;
+          dl[i] = qr < S ? delta[row + qr] : 0.f;
+        }
+        mbar_arrive(full + 8 * s);
+      }
+    }
+    cluster_sync();  // every block's partial dK and dV are staged
+    cluster_sync();  // and every block has read what it sums
+  } else {
+    // Consumer warpgroup wg: kv rows kv0 .. kv0 + 63.
+    setmaxnreg_inc<240>();
+    const int warp = (tid / 32) % 4, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int kv0 = k0 + wg * 64;
+    // Rows g and g + 8 of this warp's 16: the kv rows of its accumulators.
+    const int r0 = kv0 + warp * 16 + g, r1 = r0 + 8;
+    const uint32_t ka = base + L::kK + wg * 64 * 128;
+    const uint32_t va = base + L::kV + wg * 64 * 128;
+    const float sl2 = scale * kLog2e;
+    const float* lse_s = reinterpret_cast<const float*>(smem + L::kLse);
+    const float* dl_s = reinterpret_cast<const float*>(smem + L::kDelta);
+
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kStages;
+      const uint32_t ph = (it / kStages) & 1;
+      const int qi0 = q_start + (it % n_qt) * kBQ;
+      const uint32_t qs = base + L::kQ + s * L::kQBytes;
+      const uint32_t dos = base + L::kDO + s * L::kQBytes;
+      const float* ls = lse_s + s * kBQ;
+      const float* dls = dl_s + s * kBQ;
+
+      // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 kv rows and
+      // the tile's 64 queries, reduced over D.
+      float st[kBQ / 2], dpt[kBQ / 2];
+      const uint64_t kd = opaque(sw128_desc(ka, 16, 1024));
+      const uint64_t vd = opaque(sw128_desc(va, 16, 1024));
+      const uint64_t qd = opaque(sw128_desc(qs, 16, 1024));
+      const uint64_t dod = opaque(sw128_desc(dos, 16, 1024));
+      mbar_wait(full + 8 * s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss<kBQ, 0>(st, desc_add(kd, (kk / 4) * kBKV * 128 + off),
+                         desc_add(qd, (kk / 4) * kBQ * 128 + off), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss<kBQ, 0>(dpt, desc_add(vd, (kk / 4) * kBKV * 128 + off),
+                         desc_add(dod, (kk / 4) * kBQ * 128 + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(st);
+      reg_fence(dpt);
+
+      // P^T = 2^(S^T scale log2e - lse log2e), 0 where masked. Only tiles
+      // that cross the diagonal or the ragged end mask.
+      const bool edge = qi0 + kBQ > S || (causal && qi0 < kv0 + 63);
+#pragma unroll
+      for (int j = 0; j < kBQ / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = j * 8 + t * 2 + e, qr = qi0 + col;
+          const float l2 = ls[col];
+          float p0 = exp2f(st[4 * j + e] * sl2 - l2);
+          float p1 = exp2f(st[4 * j + 2 + e] * sl2 - l2);
+          if (edge) {
+            if (qr >= S || (causal && qr < r0)) p0 = 0.f;
+            if (qr >= S || (causal && qr < r1)) p1 = 0.f;
+          }
+          st[4 * j + e] = p0;
+          st[4 * j + 2 + e] = p1;
+        }
+      }
+
+      // dV += P^T dO: P^T's accumulators, packed to bf16, are the A
+      // operands; dO's 16-row steps are 2048 bytes apart, its 64-column
+      // panels kBQ * 128 bytes.
+      uint32_t pa[kBQ / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < kBQ / 16; ++kc) acc_to_a(pa[kc], st, kc);
+      const uint64_t dot = opaque(sw128_desc(dos, kBQ * 128, 1024));
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kBQ / 16; ++kc)
+        wgmma_rs<D, 1>(dva, pa[kc], desc_add(dot, kc * 2048), 1);
+      wgmma_commit();
+
+      // dS^T = P^T (dP^T - delta) overwrites dP^T while dV's products run;
+      // then dK += dS^T Q, Q read as dO was.
+#pragma unroll
+      for (int j = 0; j < kBQ / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dl = dls[j * 8 + t * 2 + e];
+          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dl);
+          dpt[4 * j + 2 + e] = st[4 * j + 2 + e] * (dpt[4 * j + 2 + e] - dl);
+        }
+      }
+      uint32_t da[kBQ / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < kBQ / 16; ++kc) acc_to_a(da[kc], dpt, kc);
+      const uint64_t qt = opaque(sw128_desc(qs, kBQ * 128, 1024));
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kBQ / 16; ++kc)
+        wgmma_rs<D, 1>(dka, da[kc], desc_add(qt, kc * 2048), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dva);
+      reg_fence(dka);
+      mbar_arrive(empty + 8 * s);  // this thread is done with slot s
     }
 
-    // dV += P^T dO: P^T's C fragments of query columns [16kc, 16kc + 16)
-    // are the A fragment of that chunk; dO's B fragments come transposed
-    // from the row-major dO tile.
+    // Stage the block's partial sums in f32 over the tiles: first both
+    // consumer warpgroups leave the loop (all its loads have landed).
+    consumers_sync();
+    fence_proxy_async();
+    constexpr int R = L::kRow;
+    float* stk = reinterpret_cast<float*>(smem);
+    float* stv = stk + kBKV * R;
+    const int lr0 = wg * 64 + warp * 16 + g, lr1 = lr0 + 8;
 #pragma unroll
-    for (int kc = 0; kc < kQT / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(st[2 * kc][0], st[2 * kc][1]),
-                              pack_bf16(st[2 * kc][2], st[2 * kc][3]),
-                              pack_bf16(st[2 * kc + 1][0], st[2 * kc + 1][1]),
-                              pack_bf16(st[2 * kc + 1][2], st[2 * kc + 1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bf[4];
-        lds_b_t<ST>(bf, dos, kc * 16, n * 8, lane);
-        mma_bf16(dva[n], pa, bf[0], bf[1]);
-        mma_bf16(dva[n + 1], pa, bf[2], bf[3]);
-      }
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + t * 2;
+      *reinterpret_cast<float2*>(stk + lr0 * R + c) =
+          make_float2(dka[4 * n], dka[4 * n + 1]);
+      *reinterpret_cast<float2*>(stk + lr1 * R + c) =
+          make_float2(dka[4 * n + 2], dka[4 * n + 3]);
+      *reinterpret_cast<float2*>(stv + lr0 * R + c) =
+          make_float2(dva[4 * n], dva[4 * n + 1]);
+      *reinterpret_cast<float2*>(stv + lr1 * R + c) =
+          make_float2(dva[4 * n + 2], dva[4 * n + 3]);
     }
+    cluster_sync();
 
-    // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) overwrites P^T.
-    float dpt[kQT / 8][4];
-#pragma unroll
-    for (int j = 0; j < kQT / 8; ++j)
-      dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; c += 2) {
-      uint32_t a0[4], a1[4];
-      lds_a<ST>(a0, v_s, warp * 16, c * 16, lane);
-      lds_a<ST>(a1, v_s, warp * 16, c * 16 + 16, lane);
-#pragma unroll
-      for (int j = 0; j < kQT / 8; ++j) {
-        uint32_t bf[4];
-        lds_b_nt<ST>(bf, dos, j * 8, c * 16, lane);
-        mma_bf16(dpt[j], a0, bf[0], bf[1]);
-        mma_bf16(dpt[j], a1, bf[2], bf[3]);
+    // Rank `rank` sums its share of the rows over the cluster's blocks in
+    // rank order and writes them.
+    const int lo = rank * kBKV / C, hi = (rank + 1) * kBKV / C;
+    const uint32_t stk_a = base, stv_a = base + kBKV * R * 4;
+    __nv_bfloat16* dkb = dk + b * sdk.b + kvh * sdk.h;
+    __nv_bfloat16* dvb = dv + b * sdv.b + kvh * sdv.h;
+    constexpr int V4 = D / 4;  // float4s per row
+    for (int i = tid; i < (hi - lo) * V4; i += kConsumers * 128) {
+      const int row = lo + i / V4, c = (i % V4) * 4, kr = k0 + row;
+      if (kr >= S) continue;
+      const uint32_t off = (row * R + c) * 4;
+      float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+      for (int src = 0; src < C; ++src) {
+        const float4 a = ld_cluster_f4(map_rank(stk_a + off, src));
+        const float4 w = ld_cluster_f4(map_rank(stv_a + off, src));
+        sk.x += a.x;
+        sk.y += a.y;
+        sk.z += a.z;
+        sk.w += a.w;
+        sv.x += w.x;
+        sv.y += w.y;
+        sv.z += w.z;
+        sv.w += w.w;
       }
+      *reinterpret_cast<uint2*>(dkb + kr * sdk.s + c) =
+          make_uint2(pack_bf16(sk.x * scale, sk.y * scale),
+                     pack_bf16(sk.z * scale, sk.w * scale));
+      *reinterpret_cast<uint2*>(dvb + kr * sdv.s + c) =
+          make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
     }
-#pragma unroll
-    for (int j = 0; j < kQT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float dl = dls[j * 8 + t * 2 + e];
-        st[j][e] *= dpt[j][e] - dl;
-        st[j][2 + e] *= dpt[j][2 + e] - dl;
-      }
-    }
-
-    // dK += dS^T Q, with Q's B fragments transposed from the Q tile.
-#pragma unroll
-    for (int kc = 0; kc < kQT / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(st[2 * kc][0], st[2 * kc][1]),
-                              pack_bf16(st[2 * kc][2], st[2 * kc][3]),
-                              pack_bf16(st[2 * kc + 1][0], st[2 * kc + 1][1]),
-                              pack_bf16(st[2 * kc + 1][2], st[2 * kc + 1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bf[4];
-        lds_b_t<ST>(bf, qs, kc * 16, n * 8, lane);
-        mma_bf16(dka[n], pa, bf[0], bf[1]);
-        mma_bf16(dka[n + 1], pa, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before a refill
-  }
-
-  __nv_bfloat16* dkb = dk + b * sdk.b + kvh * sdk.h;
-  __nv_bfloat16* dvb = dv + b * sdv.b + kvh * sdv.h;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int d = n * 8 + t * 2;
-    if (r0 < S) {
-      *reinterpret_cast<uint32_t*>(dkb + r0 * sdk.s + d) =
-          pack_bf16(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + r0 * sdv.s + d) =
-          pack_bf16(dva[n][0], dva[n][1]);
-    }
-    if (r1 < S) {
-      *reinterpret_cast<uint32_t*>(dkb + r1 * sdk.s + d) =
-          pack_bf16(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + r1 * sdv.s + d) =
-          pack_bf16(dva[n][2], dva[n][3]);
-    }
+    cluster_sync();  // no block leaves while another reads its shared memory
   }
 }
 
@@ -365,44 +440,82 @@ fa_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The cluster size of a GQA group of G query heads: the largest divisor of
+// G that is at most kMaxCluster.
+inline int group_cluster(int G) {
+  for (int c = kMaxCluster; c > 1; --c)
+    if (G % c == 0) return c;
+  return 1;
+}
+
 template <int D>
-cudaError_t launch(int dtype, dim3 grid, cudaStream_t st, const void* q,
-                   const void* k, const void* v, const void* dout,
-                   const float* lse, const float* delta, void* dk, void* dv,
-                   int S, int Hq, int Hkv, Strides sq, Strides sk, Strides sv,
+cudaError_t launch_bf16(cudaStream_t st, const void* q, const void* k,
+                        const void* v, const void* dout, const float* lse,
+                        const float* delta, void* dk, void* dv, int B, int S,
+                        int Hq, int Hkv, Strides sq, Strides sk, Strides sv,
+                        Strides sdo, Strides sdk, Strides sdv, float scale,
+                        int causal) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = bf16_tensor_map(&tq, q, B, S, Hq, D, sq, kBQ);
+  if (err == cudaSuccess)
+    err = bf16_tensor_map(&tk, k, B, S, Hkv, D, sk, kBKV);
+  if (err == cudaSuccess)
+    err = bf16_tensor_map(&tv, v, B, S, Hkv, D, sv, kBKV);
+  if (err == cudaSuccess)
+    err = bf16_tensor_map(&tdo, dout, B, S, Hq, D, sdo, kBQ);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = DkvSmem<D>::kBytes;
+  // Above 48 KB needs the opt-in, which holds for the current device
+  // only, so it is set on every launch.
+  err = cudaFuncSetAttribute(
+      fa_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // The cluster size is known only here, so the launch names it.
+  const int C = group_cluster(Hq / Hkv);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * Hkv * C, (S + kBKV - 1) / kBKV);
+  cfg.blockDim = dim3(kThreadsBf16);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fa_dkv_bf16<D>, tq, tk, tv, tdo, lse, delta,
+                           static_cast<__nv_bfloat16*>(dk),
+                           static_cast<__nv_bfloat16*>(dv), S, Hq, Hkv, sdk,
+                           sdv, scale, causal);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(int dtype, cudaStream_t st, const void* q, const void* k,
+                   const void* v, const void* dout, const float* lse,
+                   const float* delta, void* dk, void* dv, int B, int S,
+                   int Hq, int Hkv, Strides sq, Strides sk, Strides sv,
                    Strides sdo, Strides sdk, Strides sdv, float scale,
                    int causal) {
-  if (dtype == 1) {
-    constexpr int smem = bf16_smem_bytes<D>();
-    // Above 48 KB needs the opt-in, which holds for the current device
-    // only, so it is set on every launch.
-    const cudaError_t err = cudaFuncSetAttribute(
-        fa_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    grid.x = (S + kBK - 1) / kBK;
-    fa_dkv_bf16<D><<<grid, kThreadsBf16, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), lse, delta,
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S,
-        Hq, Hkv, sq, sk, sv, sdo, sdk, sdv, scale, causal);
-  } else {
-    grid.x = (S + kSBK - 1) / kSBK;
-    fa_dkv_f32<D><<<grid, kThreadsF32, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), S, Hq, Hkv,
-        sq, sk, sv, sdo, sdk, sdv, scale, causal);
-  }
+  if (dtype == 1)
+    return launch_bf16<D>(st, q, k, v, dout, lse, delta, dk, dv, B, S, Hq,
+                          Hkv, sq, sk, sv, sdo, sdk, sdv, scale, causal);
+  const dim3 grid((S + kSBK - 1) / kSBK, B * Hkv);
+  fa_dkv_f32<D><<<grid, kThreadsF32, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), S, Hq, Hkv,
+      sq, sk, sv, sdo, sdk, sdv, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; lse and delta
-// are contiguous (B, Hq, S) f32. Returns the cudaError_t of the launch (0 on
-// success); runs on `stream`, no sync.
+// are contiguous (B, Hq, S) f32. Returns the cudaError_t of the tensor-map
+// encode or the launch (0 on success); runs on `stream`, no sync.
 extern "C" int fa_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, int dtype, int B, int S, int Hq,
@@ -419,17 +532,16 @@ extern "C" int fa_dkv(const void* q, const void* k, const void* v,
   const Strides sq{sq_b, sq_s, sq_h}, sk{sk_b, sk_s, sk_h},
       sv{sv_b, sv_s, sv_h}, sdo{sdo_b, sdo_s, sdo_h}, sdk{sdk_b, sdk_s, sdk_h},
       sdv{sdv_b, sdv_s, sdv_h};
-  const dim3 grid(1, B * Hkv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (D == 64)
-    return static_cast<int>(launch<64>(dtype, grid, st, q, k, v, dout, l, dl,
-                                       dk, dv, S, Hq, Hkv, sq, sk, sv, sdo,
+    return static_cast<int>(launch<64>(dtype, st, q, k, v, dout, l, dl, dk,
+                                       dv, B, S, Hq, Hkv, sq, sk, sv, sdo,
                                        sdk, sdv, scale, causal));
   if (D == 128)
-    return static_cast<int>(launch<128>(dtype, grid, st, q, k, v, dout, l,
-                                        dl, dk, dv, S, Hq, Hkv, sq, sk, sv,
-                                        sdo, sdk, sdv, scale, causal));
+    return static_cast<int>(launch<128>(dtype, st, q, k, v, dout, l, dl, dk,
+                                        dv, B, S, Hq, Hkv, sq, sk, sv, sdo,
+                                        sdk, sdv, scale, causal));
   return static_cast<int>(cudaErrorInvalidValue);
 }

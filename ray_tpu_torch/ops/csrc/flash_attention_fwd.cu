@@ -22,216 +22,247 @@
 //
 // Design. The TPU kernel walks the kv tiles as a sequential grid axis and
 // carries m, l and acc in VMEM scratch between grid steps; on Hopper the
-// blocks of a grid run in no order, so one block owns a 64-row query tile
-// of one head and loops over the kv tiles itself, with m, l and acc in
-// registers. Blocks are launched longest-causal-row first so the
-// diagonal's short tiles fill the tail of the grid.
-//  - bf16: four warps, 16 query rows each, mma.sync m16n8k16 with f32
-//    accumulation for both Q.K^T and P.V. K and V tiles of 64 keys stream
-//    into shared memory by cp.async in two stages, so the next tile's load
-//    runs under this tile's math; ldmatrix hands out their B fragments
-//    (transposed for V). The S tile's accumulator fragments are re-packed
-//    in registers as the A operand of P.V, so the probabilities never
-//    touch shared memory. The softmax runs in base 2 (scores scaled by
-//    log2 e), which is the same function.
+// blocks of a grid run in no order, so one block owns a query tile of one
+// head and loops over the kv tiles itself, with m, l and acc in registers.
+// Blocks are launched longest-causal-row first so the diagonal's short
+// tiles fill the tail of the grid.
+//  - bf16: a 128-row query tile per block, warp-specialised. One producer
+//    thread issues TMA (hopper.cuh): the Q tile once, then 128-key K and V
+//    tiles into a two-stage ring whose slots are guarded by full and empty
+//    mbarriers; TMA swizzles the tiles for wgmma and zero-fills rows past
+//    S. Two consumer warpgroups own 64 query rows each. S = Q.K^T is a
+//    wgmma with both operands in shared memory; the online softmax runs in
+//    registers in base 2 (scores scaled by log2 e, the same function); P,
+//    packed to bf16 in registers, is the A operand of the wgmma O += P.V,
+//    with V read from shared memory as a transposed (MN-major) B. The
+//    tensor cores read K and V once per warpgroup and tile, where
+//    mma.sync had every warp load both tiles into registers. setmaxnreg
+//    moves registers from the producer warpgroup (24) to the consumers
+//    (240).
 //  - f32: CUDA-core FMAs in f32 throughout (tensor cores would round the
 //    inputs to tf32 or bf16), four threads per query row, each owning a
 //    quarter of the head dims.
-// wgmma and TMA are left for a later revision.
+// Tried and not kept, as the two warpgroups already interleave on their
+// own (PERF.md): the next tile's Q.K^T issued under this tile's softmax,
+// and ping-pong named barriers between the warpgroups; each gained a few
+// percent at most. Left for later: persistent blocks scheduled longest
+// first, o written through TMA, fp8.
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- bf16 --
 
-constexpr int kBQ = 64;       // query rows per block, 16 per warp
-constexpr int kBK = 64;       // keys per kv tile
-constexpr int kThreadsBf16 = 128;
+constexpr int kBQ = 128;       // query rows per block, 64 per consumer
+constexpr int kBK = 128;       // keys per kv tile
+constexpr int kStages = 2;     // K/V ring slots
+constexpr int kConsumers = 2;  // consumer warpgroups
+constexpr int kThreadsBf16 = (kConsumers + 1) * 128;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Dynamic shared memory of the bf16 kernel: two stages of a K and a V tile.
+// Dynamic shared memory of the bf16 kernel, byte offsets from a 1024-byte
+// aligned base: the Q tile, kStages K tiles and kStages V tiles (each D / 64
+// panels of [rows][64] bf16), then the mbarriers: q_full, and k_full,
+// v_full and empty per slot.
 template <int D>
-constexpr int bf16_smem_bytes() {
-  return 2 * 2 * kBK * (D + 8) * static_cast<int>(sizeof(__nv_bfloat16));
-}
+struct FwdSmem {
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kKVBytes = kBK * D * 2;
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBar = kV + kStages * kKVBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsBf16)
-fa_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-            const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+fa_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
             __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
-            int Hq, int Hkv, Strides sq, Strides sk, Strides sv, Strides so,
-            float scale, int causal) {
-  constexpr int ST = D + 8;  // tile row stride: conflict-free ldmatrix
-  constexpr int TILE = kBK * ST;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][TILE]
-  __nv_bfloat16* v_s = k_s + 2 * TILE;                               // [2][TILE]
+            int Hq, int Hkv, Strides so, float scale, int causal) {
+  using L = FwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_base_1024(smem_raw);
+  const uint32_t q_s = base, k_s = base + L::kK, v_s = base + L::kV;
+  const uint32_t q_full = base + L::kBar;
+  const uint32_t k_full = q_full + 8;             // [kStages]
+  const uint32_t v_full = k_full + 8 * kStages;   // [kStages]
+  const uint32_t empty = v_full + 8 * kStages;    // [kStages]
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma group id, thread in group
+  const int tid = threadIdx.x, wg = warpgroup_index();
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
   const int kvh = h / (Hq / Hkv);
-  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
-  const __nv_bfloat16* kb = k + b * sk.b + kvh * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + kvh * sv.h;
-
-  auto load_tile = [&](int stage, int k0) {
-    constexpr int VEC = D / 8;  // 16-byte vectors per row
-    for (int i = tid; i < kBK * VEC; i += kThreadsBf16) {
-      const int r = i / VEC, c8 = (i % VEC) * 8, key = k0 + r;
-      const bool ok = key < S;
-      const long long row = ok ? key : 0;
-      cp_async16(k_s + stage * TILE + r * ST + c8, kb + row * sk.s + c8, ok);
-      cp_async16(v_s + stage * TILE + r * ST + c8, vb + row * sv.s + c8, ok);
-    }
-    cp_async_commit();
-  };
-
   const int kv_end = causal ? min(S, q0 + kBQ) : S;
   const int n_tiles = (kv_end + kBK - 1) / kBK;
-  load_tile(0, 0);
 
-  // Rows g and g + 8 of this warp's 16: the rows of the C fragments.
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qf[D / 16][4];  // Q as A fragments, one per 16-wide dim chunk
-#pragma unroll
-  for (int c = 0; c < D / 16; ++c) {
-    const int d0 = c * 16 + t * 2;
-    qf[c][0] = r0 < S ? ld32(qb + r0 * sq.s + d0) : 0u;
-    qf[c][1] = r1 < S ? ld32(qb + r1 * sq.s + d0) : 0u;
-    qf[c][2] = r0 < S ? ld32(qb + r0 * sq.s + d0 + 8) : 0u;
-    qf[c][3] = r1 < S ? ld32(qb + r1 * sq.s + d0 + 8) : 0u;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers * 128);
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  // Running max of rows r0, r1 in log2 units (p = 2^(s*scale*log2e - m)),
-  // and this thread's share of their running sums.
-  float m0 = kMaskFill, m1 = kMaskFill, l0 = 0.f, l1 = 0.f;
-  const float sl2 = scale * kLog2e;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kBK;
-    if (it + 1 < n_tiles) {  // the next tile streams in under this one
-      load_tile((it + 1) & 1, k0 + kBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile `it` is in shared memory for every warp
-    const __nv_bfloat16* ks = k_s + (it & 1) * TILE;
-    const __nv_bfloat16* vs = v_s + (it & 1) * TILE;
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int c = 0; c < D / 16; c += 2) {
-        uint32_t kf[4];  // B fragments of dim chunks c and c + 1
-        ldsm_x4(kf, ks + (j * 8 + (lane & 7)) * ST + c * 16 + (lane >> 3) * 8);
-        mma_bf16(s[j], qf[c], kf[0], kf[1]);
-        mma_bf16(s[j], qf[c + 1], kf[2], kf[3]);
+  if (wg == kConsumers) {
+    // Producer: one thread keeps the ring full; a slot is refilled once
+    // every consumer thread has released it.
+    setmaxnreg_dec<24>();
+    if (tid == kConsumers * 128) {
+      mbar_arrive_expect_tx(q_full, L::kQBytes);
+      for (int p = 0; p < D / 64; ++p)
+        tma_load_4d(q_s + p * kBQ * 128, &tq, q_full, p * 64, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        const uint32_t ks = k_s + s * L::kKVBytes;
+        const uint32_t vs = v_s + s * L::kKVBytes;
+        mbar_arrive_expect_tx(k_full + 8 * s, L::kKVBytes);
+        for (int p = 0; p < D / 64; ++p)
+          tma_load_4d(ks + p * kBK * 128, &tk, k_full + 8 * s, p * 64, kvh,
+                      it * kBK, b);
+        mbar_arrive_expect_tx(v_full + 8 * s, L::kKVBytes);
+        for (int p = 0; p < D / 64; ++p)
+          tma_load_4d(vs + p * kBK * 128, &tv, v_full + 8 * s, p * 64, kvh,
+                      it * kBK, b);
       }
     }
+  } else {
+    // Consumer warpgroup wg: query rows row0 .. row0 + 63.
+    setmaxnreg_inc<240>();
+    const int warp = (tid / 32) % 4, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;  // accumulator row, column pair
+    const int row0 = q0 + wg * 64;
+    // Rows g and g + 8 of this warp's 16: the rows of its accumulators.
+    const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+    const uint32_t qa = q_s + wg * 64 * 128;  // this warpgroup's Q rows
 
-    // Only tiles on the diagonal or the ragged end need the mask.
-    const bool edge = k0 + kBK > S || (causal && k0 + kBK > q0);
-    float mx0 = kMaskFill, mx1 = kMaskFill;
+    float acc[D / 2];
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // Running max of rows r0, r1 in log2 units (p = 2^(s*scale*log2e - m)),
+    // and this thread's share of their running sums.
+    float m0 = kMaskFill, m1 = kMaskFill, l0 = 0.f, l1 = 0.f;
+    const float sl2 = scale * kLog2e;
+    mbar_wait(q_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const uint32_t ph = (it / kStages) & 1;
+      const int k0 = it * kBK;
+      const uint32_t ks = k_s + s * L::kKVBytes;
+      const uint32_t vs = v_s + s * L::kKVBytes;
+
+      // S = Q K^T for this warpgroup's 64 rows and the tile's 128 keys: a
+      // k16 step moves 32 bytes along the swizzled rows, four steps a panel.
+      float sc[kBK / 2];
+      const uint64_t qd = opaque(sw128_desc(qa, 16, 1024));
+      const uint64_t kd = opaque(sw128_desc(ks, 16, 1024));
+      mbar_wait(k_full + 8 * s, ph);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float a = s[j][e] * sl2, c = s[j][2 + e] * sl2;
-        if (edge) {
-          const int key = k0 + j * 8 + t * 2 + e;
-          if (key >= S || (causal && key > r0)) a = kMaskFill;
-          if (key >= S || (causal && key > r1)) c = kMaskFill;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss<kBK, 0>(sc, desc_add(qd, (kk / 4) * kBQ * 128 + off),
+                         desc_add(kd, (kk / 4) * kBK * 128 + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(sc);
+
+      // Only tiles on the diagonal or the ragged end need the mask.
+      const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > row0);
+      float mx0 = kMaskFill, mx1 = kMaskFill;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float a = sc[4 * j + e] * sl2, c = sc[4 * j + 2 + e] * sl2;
+          if (edge) {
+            const int key = k0 + j * 8 + t * 2 + e;
+            if (key >= S || (causal && key > r0)) a = kMaskFill;
+            if (key >= S || (causal && key > r1)) c = kMaskFill;
+          }
+          sc[4 * j + e] = a;
+          sc[4 * j + 2 + e] = c;
+          mx0 = fmaxf(mx0, a);
+          mx1 = fmaxf(mx1, c);
         }
-        s[j][e] = a;
-        s[j][2 + e] = c;
-        mx0 = fmaxf(mx0, a);
-        mx1 = fmaxf(mx1, c);
       }
-    }
-    // The four threads of a group hold one row between them.
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
+      // The four threads of a group hold one row between them.
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - mn0);
-      s[j][1] = exp2f(s[j][1] - mn0);
-      s[j][2] = exp2f(s[j][2] - mn1);
-      s[j][3] = exp2f(s[j][3] - mn1);
-      ps0 += s[j][0] + s[j][1];
-      ps1 += s[j][2] + s[j][3];
+      for (int j = 0; j < kBK / 8; ++j) {
+        sc[4 * j] = exp2f(sc[4 * j] - mn0);
+        sc[4 * j + 1] = exp2f(sc[4 * j + 1] - mn0);
+        sc[4 * j + 2] = exp2f(sc[4 * j + 2] - mn1);
+        sc[4 * j + 3] = exp2f(sc[4 * j + 3] - mn1);
+        ps0 += sc[4 * j] + sc[4 * j + 1];
+        ps1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = l0 * al0 + ps0;
+      l1 = l1 * al1 + ps1;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[4 * n] *= al0;
+        acc[4 * n + 1] *= al0;
+        acc[4 * n + 2] *= al1;
+        acc[4 * n + 3] *= al1;
+      }
+
+      // O += P V: P's accumulators, packed to bf16, are the A operands of
+      // the tile's eight k16 steps; V's 16-row steps are 2048 bytes apart
+      // and its 64-column panels kBK * 128 bytes.
+      uint32_t pa[kBK / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < kBK / 16; ++kc) acc_to_a(pa[kc], sc, kc);
+      const uint64_t vd = opaque(sw128_desc(vs, kBK * 128, 1024));
+      mbar_wait(v_full + 8 * s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kBK / 16; ++kc)
+        wgmma_rs<D, 1>(acc, pa[kc], desc_add(vd, kc * 2048), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc);
+      mbar_arrive(empty + 8 * s);  // this thread is done with slot s
     }
-    l0 = l0 * al0 + ps0;
-    l1 = l1 * al1 + ps1;
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+    const float inv0 = 1.f / den0, inv1 = 1.f / den1;
+    __nv_bfloat16* ob = o + b * so.b + h * so.h;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= al0;
-      acc[n][1] *= al0;
-      acc[n][2] *= al1;
-      acc[n][3] *= al1;
+      const int d = n * 8 + t * 2;
+      if (r0 < S)
+        *reinterpret_cast<uint32_t*>(ob + r0 * so.s + d) =
+            pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+      if (r1 < S)
+        *reinterpret_cast<uint32_t*>(ob + r1 * so.s + d) =
+            pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
     }
-
-    // acc += P V: the C fragments of key columns [16kc, 16kc + 16) are
-    // exactly the A fragment of that 16-key chunk; V's B fragments are
-    // transposed 8x8 blocks of the row-major V tile.
-#pragma unroll
-    for (int kc = 0; kc < kBK / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-      const int mi = lane >> 3;
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t vf[4];  // B fragments of dim tiles n and n + 1
-        ldsm_x4_trans(vf, vs + (kc * 16 + (mi & 1) * 8 + (lane & 7)) * ST +
-                              (n + (mi >> 1)) * 8);
-        mma_bf16(acc[n], pa, vf[0], vf[1]);
-        mma_bf16(acc[n + 1], pa, vf[2], vf[3]);
-      }
+    if (t == 0) {
+      float* lb = lse + static_cast<long long>(bh) * S;
+      if (r0 < S) lb[r0] = m0 * kLn2 + logf(den0);
+      if (r1 < S) lb[r1] = m1 * kLn2 + logf(den1);
     }
-    __syncthreads();  // every warp is done with this stage before a refill
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* ob = o + b * so.b + h * so.h;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int d = n * 8 + t * 2;
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(ob + r0 * so.s + d) =
-          pack_bf16(acc[n][0] / den0, acc[n][1] / den0);
-    if (r1 < S)
-      *reinterpret_cast<uint32_t*>(ob + r1 * so.s + d) =
-          pack_bf16(acc[n][2] / den1, acc[n][3] / den1);
-  }
-  if (t == 0) {
-    float* lb = lse + static_cast<long long>(bh) * S;
-    if (r0 < S) lb[r0] = m0 * kLn2 + logf(den0);
-    if (r1 < S) lb[r1] = m1 * kLn2 + logf(den1);
   }
 }
 
@@ -321,38 +352,51 @@ fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-cudaError_t launch(int dtype, dim3 grid, cudaStream_t st, const void* q,
-                   const void* k, const void* v, void* o, float* lse, int S,
-                   int Hq, int Hkv, Strides sq, Strides sk, Strides sv,
-                   Strides so, float scale, int causal) {
-  if (dtype == 1) {
-    constexpr int smem = bf16_smem_bytes<D>();
-    // Above 48 KB needs the opt-in, which holds for the current device
-    // only, so it is set on every launch.
-    const cudaError_t err = cudaFuncSetAttribute(
-        fa_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    grid.x = (S + kBQ - 1) / kBQ;
-    fa_fwd_bf16<D><<<grid, kThreadsBf16, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(o), lse, S, Hq, Hkv, sq, sk, sv, so,
-        scale, causal);
-  } else {
-    grid.x = (S + kSBQ - 1) / kSBQ;
-    fa_fwd_f32<D><<<grid, kThreadsF32, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, S, Hq,
-        Hkv, sq, sk, sv, so, scale, causal);
-  }
+cudaError_t launch_bf16(cudaStream_t st, const void* q, const void* k,
+                        const void* v, void* o, float* lse, int B, int S,
+                        int Hq, int Hkv, Strides sq, Strides sk, Strides sv,
+                        Strides so, float scale, int causal) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = bf16_tensor_map(&tq, q, B, S, Hq, D, sq, kBQ);
+  if (err == cudaSuccess)
+    err = bf16_tensor_map(&tk, k, B, S, Hkv, D, sk, kBK);
+  if (err == cudaSuccess)
+    err = bf16_tensor_map(&tv, v, B, S, Hkv, D, sv, kBK);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = FwdSmem<D>::kBytes;
+  // Above 48 KB needs the opt-in, which holds for the current device
+  // only, so it is set on every launch.
+  err = cudaFuncSetAttribute(
+      fa_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kBQ - 1) / kBQ, B * Hq);
+  fa_fwd_bf16<D><<<grid, kThreadsBf16, smem, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, Hq, Hkv, so, scale,
+      causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(int dtype, cudaStream_t st, const void* q, const void* k,
+                   const void* v, void* o, float* lse, int B, int S, int Hq,
+                   int Hkv, Strides sq, Strides sk, Strides sv, Strides so,
+                   float scale, int causal) {
+  if (dtype == 1)
+    return launch_bf16<D>(st, q, k, v, o, lse, B, S, Hq, Hkv, sq, sk, sv, so,
+                          scale, causal);
+  const dim3 grid((S + kSBQ - 1) / kSBQ, B * Hq);
+  fa_fwd_f32<D><<<grid, kThreadsF32, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Hq, Hkv,
+      sq, sk, sv, so, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
-// cudaError_t of the launch (0 on success); runs on `stream`, no sync.
+// cudaError_t of the tensor-map encode or the launch (0 on success); runs
+// on `stream`, no sync.
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
                       void* lse, int dtype, int B, int S, int Hq, int Hkv,
                       int D, long long sq_b, long long sq_s, long long sq_h,
@@ -365,15 +409,13 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{sq_b, sq_s, sq_h}, sk{sk_b, sk_s, sk_h},
       sv{sv_b, sv_s, sv_h}, so{so_b, so_s, so_h};
-  const dim3 grid(1, B * Hq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (D == 64)
-    return static_cast<int>(launch<64>(dtype, grid, st, q, k, v, o, l, S, Hq,
+    return static_cast<int>(launch<64>(dtype, st, q, k, v, o, l, B, S, Hq,
                                        Hkv, sq, sk, sv, so, scale, causal));
   if (D == 128)
-    return static_cast<int>(launch<128>(dtype, grid, st, q, k, v, o, l, S,
-                                        Hq, Hkv, sq, sk, sv, so, scale,
-                                        causal));
+    return static_cast<int>(launch<128>(dtype, st, q, k, v, o, l, B, S, Hq,
+                                        Hkv, sq, sk, sv, so, scale, causal));
   return static_cast<int>(cudaErrorInvalidValue);
 }

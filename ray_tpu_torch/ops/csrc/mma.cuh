@@ -1,6 +1,8 @@
-// Primitives shared by the flash-attention kernels (sm_90a): cp.async
+// Primitives of the flash-attention kernels (sm_90a): the common
+// constants and strides, bf16 packing, and for the dQ kernel cp.async
 // copies into shared memory, ldmatrix fragment loads and the bf16
-// mma.sync m16n8k16 with f32 accumulation.
+// mma.sync m16n8k16 with f32 accumulation. The forward and dK/dV kernels
+// use hopper.cuh's TMA and wgmma, which builds on this header.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): the A operand
 // (16 x 16, row-major) is four registers holding rows g and g + 8 at
@@ -46,14 +48,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0));
 }
 
-// 4-byte asynchronous copy global -> shared; zero-fills when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -93,15 +87,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // Fragment loads from a row-major bf16 tile in shared memory whose rows
 // are `ST` elements apart.
 //
-// A fragment of rows [m0, m0 + 16) and columns [k0, k0 + 16).
-template <int ST>
-__device__ __forceinline__ void lds_a(uint32_t (&r)[4],
-                                      const __nv_bfloat16* tile, int m0,
-                                      int k0, int lane) {
-  ldsm_x4(r, tile + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST + k0 +
-                 (lane >> 4) * 8);
-}
-
 // B fragments where the tile is B transposed (tile rows are B's columns,
 // as K is for Q.K^T): columns [n0, n0 + 8) of B, rows [k0, k0 + 32);
 // r[0], r[1] cover rows k0..k0+15 and r[2], r[3] rows k0+16..k0+31.
