@@ -17,15 +17,19 @@ Phases, each printing one JSON line on stdout:
    scaled_dot_product_attention times (the last only as a yardstick, its
    device time under torch.profiler, and which SDPA backend ran).
 4. kernel_bwd: the dQ and dK/dV kernels against their plain versions, dq,
-   dk and dv, at the training shapes and the same f32 / non-causal / D=64
-   / GQA / ragged shapes; the autograd Function's grads against autograd
-   through plain attention; kernel, delta, plain and SDPA-backward times
-   (SDPA's as for the forward).
-   Then bf16 cases that cross the kernels' 128-row tiles (S 1, 127, 129,
-   255; D 64, 128; GQA groups 1, 2, 4, 8 and 16; causal or not), one whose
-   q, k and v are strided views of a fused (B, S, Hq + 2 Hkv, D) tensor,
-   and two dK/dV launches on the same inputs, which must agree bit for
-   bit (the GQA group is summed in a fixed order).
+   dk and dv, and the delta = rowsum(dO * O) that the dQ kernel computes
+   against the plain row-sum, at the training shapes and the same f32 /
+   non-causal / D=64 / GQA / ragged shapes; the autograd Function's grads
+   against autograd through plain attention; kernel, plain delta, plain and
+   SDPA-backward times (SDPA's as for the forward). At the main training
+   shape one profiled backward must run exactly the dQ and the dK/dV
+   kernel on the card, nothing else.
+   Then (tiling) bf16 cases that cross the kernels' tiles (S 1, 127, 129,
+   255; D 64, 128; GQA groups 1, 2, 4, 8 and 16; causal or not), delta
+   included, one whose q, k and v are strided views of a fused
+   (B, S, Hq + 2 Hkv, D) tensor, and two dQ and two dK/dV launches on the
+   same inputs, which must agree bit for bit (no atomics; the GQA group is
+   summed in a fixed order).
 5. serve: Llama-3-8B-GQA at full width and depth with random weights,
    four greedy requests through LLMEngine; checks tokens, the kernel's
    launch count and each prompt's prefill logits against forward() with
@@ -98,8 +102,9 @@ KERNEL_CASES = (
             causal=False),
        dict(B=2, S=200, Hq=8, Hkv=2, D=128, dtype=torch.float32,
             causal=True)])
-# bf16 cases across the 128-row tiles of the forward and dK/dV kernels:
-# every (S, D, G, causal) below with Hkv = 2, and G = 16 on one kv head.
+# bf16 cases across the kernels' tiles (128 rows; dQ's 64-key kv tiles and
+# 64-row warpgroups): every (S, D, G, causal) below with Hkv = 2, and
+# G = 16 on one kv head.
 TILING_CASES = ([dict(B=1, S=s, Hq=2 * g, Hkv=2, D=d, causal=c)
                  for s in (1, 127, 129, 255) for d in (64, 128)
                  for g in (1, 2, 4, 8) for c in (True, False)]
@@ -114,6 +119,10 @@ MAX_TOKENS = 16
 # the plain version stays in f32 until its one final cast. f32, max |diff|:
 # only the order of the sums differs.
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# delta = rowsum(dO * O) from the dQ kernel against the plain row-sum,
+# max |diff| / max |ref|: both sum f32 products of the same inputs (exact
+# for bf16 inputs), only in another order.
+DELTA_REL_TOL = 1e-4
 TRAIN_HEADS = dict(B=1, Hq=32, Hkv=8, D=128, dtype=torch.bfloat16,
                    causal=True)
 BWD_CASES = ([dict(TRAIN_HEADS, S=s) for s in (64, 512, 1024, 2048)]
@@ -210,10 +219,11 @@ def attention_bound(B, S, Hq, Hkv, D, dtype, causal, kernel="fwd"):
     over the peak rate of the type and its bytes over the memory rate.
     Per live (query, key) pair and head dim: fwd 2 products (4 ops), dq 3
     (6), dkv 4 (8). Bytes: each q-shaped and kv-shaped tensor read or
-    written once (fwd q, o / k, v; dq q, dO, dQ / k, v; dkv q, dO / k, v,
-    dK, dV) plus the f32 rows (fwd lse; dq and dkv lse, delta)."""
+    written once (fwd q, o / k, v; dq q, o, dO, dQ / k, v; dkv q, dO / k,
+    v, dK, dV) plus the f32 rows (fwd lse written; dq lse read and delta
+    written; dkv lse, delta read)."""
     pairs = S * (S + 1) // 2 if causal else S * S
-    ops, n_q, n_kv, n_rows = {"fwd": (4, 2, 2, 1), "dq": (6, 3, 2, 2),
+    ops, n_q, n_kv, n_rows = {"fwd": (4, 2, 2, 1), "dq": (6, 4, 2, 2),
                               "dkv": (8, 2, 4, 2)}[kernel]
     flops = ops * B * Hq * D * pairs
     elt = torch.tensor([], dtype=dtype).element_size()
@@ -284,6 +294,22 @@ def _bwd_ok(errs, dtype) -> bool:
     return all(e[i] <= BWD_TOL[dtype] for e in errs)
 
 
+def _delta_err(q, k, v, o, do, lse, causal) -> float:
+    """max |diff| / max |ref| of the dQ kernel's delta against the plain
+    row-sum on the same o and dO."""
+    got = flash_attention_dq(q, k, v, o, do, lse, causal=causal)[1]
+    want = attention_bwd_delta(o, do)
+    return ((got - want).abs().max()
+            / max(want.abs().max().item(), 1e-30)).item()
+
+
+def bwd_kernels_only(names) -> bool:
+    """Whether the kernels one backward ran on the card are exactly the dQ
+    and the dK/dV kernel: no elementwise or reduction pass beside them."""
+    return (len(names) == 2 and sum("fa_dkv" in n for n in names) == 1
+            and sum("fa_dq" in n for n in names) == 1)
+
+
 def kernel_bwd_phase(card: str, failures: list) -> list:
     gen = torch.Generator("cuda").manual_seed(1)
     rows = []
@@ -302,6 +328,7 @@ def kernel_bwd_phase(card: str, failures: list) -> list:
         want = reference_attention_bwd(q, k, v, o, lse, do, causal=causal)
         finite = all(bool(torch.isfinite(t).all()) for t in got)
         errs = _rel_errs(got, want)
+        delta_err = _delta_err(q, k, v, o, do, lse, causal)
 
         # The autograd Function (forward kernel, then dQ and dK/dV) against
         # autograd through plain attention.
@@ -311,7 +338,16 @@ def kernel_bwd_phase(card: str, failures: list) -> list:
         ra = torch.autograd.grad(reference_attention(*leaves, causal=causal),
                                  leaves, do)
         fn_errs = _rel_errs(fa, ra)
-        ok = finite and _bwd_ok(errs, dtype) and _bwd_ok(fn_errs, dtype)
+        ok = (finite and _bwd_ok(errs, dtype) and _bwd_ok(fn_errs, dtype)
+              and delta_err <= DELTA_REL_TOL)
+        # The main training shape: one backward is the two kernels alone.
+        main = dict(TRAIN_HEADS, S=TRAIN_SEQ) == case
+        if main:
+            bwd_device, bwd_kernels = device_ms(lambda: flash_attention_bwd(
+                q, k, v, o, lse, do, causal=causal))
+            if not bwd_kernels_only(bwd_kernels):
+                failures.append(f"the backward ran other kernels than dQ "
+                                f"and dK/dV: {bwd_kernels}")
 
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
@@ -336,16 +372,17 @@ def kernel_bwd_phase(card: str, failures: list) -> list:
             autograd_max_abs_err=[e[0] for e in fn_errs],
             tol=BWD_TOL[dtype],
             tol_kind="relative" if dtype == torch.bfloat16 else "absolute",
+            delta_rel_err=delta_err, delta_rel_tol=DELTA_REL_TOL,
             ok=ok,
             dq_ms=time_ms(lambda: flash_attention_dq(
-                q, k, v, do, lse, delta, causal=causal)),
+                q, k, v, o, do, lse, causal=causal)),
             dkv_ms=time_ms(lambda: flash_attention_dkv(
                 q, k, v, do, lse, delta, causal=causal)),
-            delta_ms=time_ms(lambda: attention_bwd_delta(o, do)),
+            plain_delta_ms=time_ms(lambda: attention_bwd_delta(o, do)),
             bwd_ms=time_ms(lambda: flash_attention_bwd(
                 q, k, v, o, lse, do, causal=causal)),
             plain_dq_ms=time_ms(lambda: reference_attention_dq(
-                q, k, v, do, lse, delta, causal=causal)),
+                q, k, v, o, do, lse, causal=causal)),
             plain_dkv_ms=time_ms(lambda: reference_attention_dkv(
                 q, k, v, do, lse, delta, causal=causal)),
             plain_ms=time_ms(lambda: reference_attention_bwd(
@@ -355,6 +392,9 @@ def kernel_bwd_phase(card: str, failures: list) -> list:
             library_event_ms=time_ms(sdpa_bwd),
             dq_bound_ms=dq_bound, dq_bound_by=dq_by,
             dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by, card=card)
+        if main:
+            row.update(bwd_device_ms=bwd_device,
+                       bwd_device_kernels=bwd_kernels)
         emit(row)
         rows.append(row)
         if not ok:
@@ -370,12 +410,13 @@ def _bf16_inputs(gen, B, S, Hq, Hkv, D):
 
 
 def _tiling_check(q, k, v, do, causal: bool):
-    """(errors, ok) of the forward kernel (o, lse) and the backward kernels
-    (dq, dk, dv) against their plain versions on one bf16 input. The
-    backward is held as BWD_TOL's relative measure with the reference's
-    scale floored at 1: where a gradient is zero in exact arithmetic (dK at
-    S = 1, whose one probability is 1, so dS = dP - delta = 0) only
-    rounding is left, and a ratio to its own maximum means nothing."""
+    """(errors, ok) of the forward kernel (o, lse), the backward kernels
+    (dq, dk, dv) and the dQ kernel's delta against their plain versions on
+    one bf16 input. The backward is held as BWD_TOL's relative measure
+    with the reference's scale floored at 1: where a gradient is zero in
+    exact arithmetic (dK at S = 1, whose one probability is 1, so
+    dS = dP - delta = 0) only rounding is left, and a ratio to its own
+    maximum means nothing."""
     tol = TOL[torch.bfloat16]
     o, lse = flash_attention_fwd(q, k, v, causal=causal)
     ro, rlse = reference_attention_lse(q, k, v, causal=causal)
@@ -386,11 +427,13 @@ def _tiling_check(q, k, v, do, causal: bool):
     bwd = [((g.float() - w.float()).abs().max()
             / max(w.float().abs().max().item(), 1.0)).item()
            for g, w in zip(got, want)]
+    delta_err = _delta_err(q, k, v, ro, do, rlse, causal)
     finite = all(bool(torch.isfinite(t).all()) for t in (o, lse, *got))
     ok = (finite and err_o <= tol["o"] and err_lse <= tol["lse"]
-          and all(e <= BWD_TOL[torch.bfloat16] for e in bwd))
+          and all(e <= BWD_TOL[torch.bfloat16] for e in bwd)
+          and delta_err <= DELTA_REL_TOL)
     return dict(max_abs_err_o=err_o, max_abs_err_lse=err_lse,
-                bwd_err=bwd), ok
+                bwd_err=bwd, delta_rel_err=delta_err), ok
 
 
 def tiling_phase(card: str, failures: list) -> dict:
@@ -406,7 +449,8 @@ def tiling_phase(card: str, failures: list) -> dict:
     worst = {name: max(cases, key=lambda c: get(c)) for name, get in (
         ("o", lambda c: c["max_abs_err_o"]),
         ("lse", lambda c: c["max_abs_err_lse"]),
-        ("bwd", lambda c: max(c["bwd_err"])))}
+        ("bwd", lambda c: max(c["bwd_err"])),
+        ("delta", lambda c: c["delta_rel_err"]))}
 
     # q, k and v as the strided views a fused QKV projection leaves.
     B, S, Hq, Hkv, D = (FUSED_CASE[x] for x in keys)
@@ -420,24 +464,32 @@ def tiling_phase(card: str, failures: list) -> dict:
     if not ok or q.is_contiguous():
         failures.append(f"fused-view case: {fused}")
 
-    # Two dK/dV launches on the same inputs give the same bits.
+    # Two dQ launches, and two dK/dV launches, on the same inputs give the
+    # same bits.
     det = []
     for shape in (dict(TRAIN_HEADS, S=TRAIN_SEQ),
                   dict(B=1, S=255, Hq=16, Hkv=1, D=128, causal=True)):
         q, k, v, do = _bf16_inputs(gen, *(shape[x] for x in keys))
         o, lse = flash_attention_fwd(q, k, v, causal=shape["causal"])
         delta = attention_bwd_delta(o, do)
-        first, second = (flash_attention_dkv(q, k, v, do, lse, delta,
-                                             causal=shape["causal"])
-                         for _ in range(2))
-        same = all(torch.equal(a, b) for a, b in zip(first, second))
-        det.append(dict({x: shape[x] for x in keys}, bit_identical=same))
-        if not same:
-            failures.append(f"dK/dV differ between two launches: {det[-1]}")
+        same = {}
+        for name, run in (
+                ("dq", lambda: flash_attention_dq(q, k, v, o, do, lse,
+                                                  causal=shape["causal"])),
+                ("dkv", lambda: flash_attention_dkv(q, k, v, do, lse, delta,
+                                                    causal=shape["causal"]))):
+            first, second = run(), run()
+            same[f"{name}_bit_identical"] = all(
+                torch.equal(a, b) for a, b in zip(first, second))
+        det.append(dict({x: shape[x] for x in keys}, **same))
+        if not all(same.values()):
+            failures.append(f"a kernel's outputs differ between two "
+                            f"launches: {det[-1]}")
     res = dict(phase="tiling", cases=len(cases),
                failed=[c for c in cases if not c["ok"]],
                worst={n: {x: c[x] for x in (*keys, "causal", "max_abs_err_o",
-                                            "max_abs_err_lse", "bwd_err")}
+                                            "max_abs_err_lse", "bwd_err",
+                                            "delta_rel_err")}
                       for n, c in worst.items()},
                fused_view=fused, determinism=det, card=card)
     emit(res)
@@ -824,6 +876,8 @@ def main() -> int:
         dict(name="flash_attention_dq", route="cuda",
              source=src + "flash_attention_dq.cu",
              replaces="ray_tpu/ops/flash_attention.py:107",
+             fuses="delta (ray_tpu/ops/flash_attention.py:270)",
+             delta_max_rel_err=max(r["delta_rel_err"] for r in train_rows),
              launches=train["launches"]["dq"],
              launches_by_path=dict(train=train["launches"]["dq"]),
              max_abs_err=max(r["max_abs_err_dq"] for r in train_rows),

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) primitives shared by the flash-attention kernels, in
-// inline PTX as mma.cuh is written: mbarriers, TMA tile loads from a
-// tensor map, wgmma shared-memory descriptors for 128-byte-swizzled
-// tiles, wgmma.mma_async bf16 -> f32 (A and B from shared memory, or A
-// from registers), its fence / commit / wait, setmaxnreg, the cluster
-// barrier and distributed shared memory loads; and, on the host, the
-// tensor map of a (B, S, H, D) bf16 tensor.
+// inline PTX: the common constants and strides, bf16 packing, mbarriers,
+// TMA tile loads from a tensor map, wgmma shared-memory descriptors for
+// 128-byte-swizzled tiles, wgmma.mma_async bf16 -> f32 (A and B from
+// shared memory, or A from registers), its fence / commit / wait,
+// setmaxnreg, the cluster barrier and distributed shared memory loads;
+// and, on the host, the tensor map of a (B, S, H, D) bf16 tensor.
 //
 // Tile layout. TMA copies a box of 64 head dims (128 bytes) by `rows`
 // rows with the 128-byte swizzle, so a tile of D = 64 or 128 columns is
@@ -27,19 +27,35 @@
 // Accumulator layout of m64nNk16 (f32): warp w of the warpgroup holds rows
 // 16w .. 16w + 15; with g = lane / 4, t = lane % 4, register 4j + 2h + e
 // is row 16w + g + 8h, column 8j + 2t + e. The A operand from registers
-// (m64k16 bf16, four 32-bit registers) is laid out as mma.sync's A
-// fragment within each warp's 16 rows, so the accumulators of two
-// neighbouring 8-column chunks, packed to bf16, are the A operand of the
-// 16-wide reduction step they span (see mma.cuh).
+// (m64k16 bf16, four 32-bit registers) holds, within each warp's 16 rows,
+// rows g and g + 8 at columns 2t, 2t + 1 and 2t + 8, 2t + 9, so the
+// accumulators of two neighbouring 8-column chunks, packed to bf16, are
+// the A operand of the 16-wide reduction step they span (acc_to_a).
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include "mma.cuh"
+#include <stdint.h>
 
 namespace {
+
+constexpr float kMaskFill = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Strides {
+  long long b, s, h;  // element strides of dims 0, 1, 2; dim 3 is contiguous
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 // ------------------------------------------------------------ mbarrier --
 
@@ -403,6 +419,16 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
+// Makes the primary context of the device that holds `ptr` current on this
+// thread. The tensor-map encoder refuses every address on a thread with no
+// current context, as autograd's device thread is when a kernel of this
+// port is the backward's first CUDA call there.
+inline cudaError_t bind_device(const void* ptr) {
+  cudaPointerAttributes attr;
+  const cudaError_t err = cudaPointerGetAttributes(&attr, ptr);
+  return err == cudaSuccess ? cudaSetDevice(attr.device) : err;
+}
+
 // Tensor map of a (B, S, H, D) bf16 tensor with element strides `st` (the
 // last dim contiguous), D = 64 or 128, as dims {D, H, S, B} innermost
 // first; a box is 64 head dims by `rows` positions of one head, 128-byte
@@ -412,6 +438,8 @@ inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* ptr, int B,
                                    int rows) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const cudaError_t bound = bind_device(ptr);
+  if (bound != cudaSuccess) return bound;
   constexpr cuuint64_t kElt = sizeof(__nv_bfloat16);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),

@@ -9,7 +9,9 @@ and recomputes P in its backward.
 Three kernels, each beside its plain PyTorch twin with the same signature:
 
 - ``flash_attention_fwd`` (``csrc/flash_attention_fwd.cu``): o and lse;
-- ``flash_attention_dq`` (``csrc/flash_attention_dq.cu``): dQ;
+- ``flash_attention_dq`` (``csrc/flash_attention_dq.cu``): dQ, and
+  delta = rowsum(dO * O), which the reference computes outside its kernels
+  (ray_tpu/ops/flash_attention.py:270) and this kernel in its prologue;
 - ``flash_attention_dkv`` (``csrc/flash_attention_dkv.cu``): dK and dV,
   with the GQA group summed inside the kernel.
 
@@ -78,7 +80,8 @@ def reference_attention_lse(q, k, v, causal: bool = True,
 
 def attention_bwd_delta(o, do):
     """delta = rowsum(dO * O), (B, Hq, S) f32: the backward's correction
-    term, computed outside the kernels as in the reference (``:270``)."""
+    term (the reference's ``:270``), the plain version of what the dQ
+    kernel computes in its prologue."""
     return (_up(do) * _up(o)).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -95,14 +98,16 @@ def _bwd_terms(q, k, v, do, lse, delta, causal, scale):
     return p, p * (dp - delta.reshape(B, Hkv, G, S, 1)), dog
 
 
-def reference_attention_dq(q, k, v, do, lse, delta, causal: bool = True,
+def reference_attention_dq(q, k, v, o, do, lse, causal: bool = True,
                            scale: Optional[float] = None):
-    """The dQ kernel's plain twin: dQ (B,S,Hq,D) in q.dtype."""
+    """The dQ kernel's plain twin: (dQ (B,S,Hq,D) in q.dtype, delta
+    (B,Hq,S) f32)."""
     B, S, Hq, D = q.shape
     scale = _scale(q, scale)
+    delta = attention_bwd_delta(o, do)
     _, ds, _ = _bwd_terms(q, k, v, do, lse, delta, causal, scale)
     dq = torch.einsum("bkgst,btkd->bskgd", ds, _up(k)) * scale
-    return dq.reshape(B, S, Hq, D).to(q.dtype)
+    return dq.reshape(B, S, Hq, D).to(q.dtype), delta
 
 
 def reference_attention_dkv(q, k, v, do, lse, delta, causal: bool = True,
@@ -123,9 +128,9 @@ def reference_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                             scale: Optional[float] = None):
     """The backward's plain twin: (dq, dk, dv) from the forward's o and
     lse, recomputing P = exp(S - lse) in f32 as the kernels do."""
-    delta = attention_bwd_delta(o, do)
-    return (reference_attention_dq(q, k, v, do, lse, delta, causal, scale),
-            *reference_attention_dkv(q, k, v, do, lse, delta, causal, scale))
+    dq, delta = reference_attention_dq(q, k, v, o, do, lse, causal, scale)
+    return (dq, *reference_attention_dkv(q, k, v, do, lse, delta, causal,
+                                         scale))
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -135,7 +140,7 @@ _HEAD_DIMS = (64, 128)
 # C function then takes dtype, B, S, Hq, Hkv, D, the strides, scale, causal
 # and the stream (csrc/<wrapper>.cu).
 _KERNELS = {"flash_attention_fwd": ("fa_fwd", 5, 4),
-            "flash_attention_dq": ("fa_dq", 7, 5),
+            "flash_attention_dq": ("fa_dq", 8, 6),
             "flash_attention_dkv": ("fa_dkv", 8, 6)}
 
 
@@ -234,22 +239,25 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
 flash_attention_fwd.launches = 0
 
 
-def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = True,
-                       scale: Optional[float] = None) -> torch.Tensor:
-    """dQ (B,S,Hq,D) in q.dtype from dO, the forward's lse and delta, both
-    (B,Hq,S) f32. CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise. Counts its launches in
-    ``flash_attention_dq.launches``."""
+def flash_attention_dq(q, k, v, o, do, lse, causal: bool = True,
+                       scale: Optional[float] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dQ (B,S,Hq,D) in q.dtype, delta = rowsum(dO * O) (B,Hq,S) f32) from
+    the forward's o and lse (B,Hq,S) f32 and dO. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise. Counts its launches
+    in ``flash_attention_dq.launches``."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
-        return reference_attention_dq(q, k, v, do, lse, delta, causal, scale)
-    _check(q, k, v, do=do)
-    _check_rows(q, lse=lse, delta=delta)
+        return reference_attention_dq(q, k, v, o, do, lse, causal, scale)
+    _check(q, k, v, o=o, do=do)
+    _check_rows(q, lse=lse)
+    B, S, Hq, _ = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    _launch("flash_attention_dq", (q, k, v, do, lse, delta, dq),
-            (q, k, v, do, dq), q, k, causal, scale)
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_dq", (q, k, v, o, do, lse, delta, dq),
+            (q, k, v, o, do, dq), q, k, causal, scale)
     flash_attention_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 flash_attention_dq.launches = 0
@@ -282,15 +290,15 @@ flash_attention_dkv.launches = 0
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                         scale: Optional[float] = None):
     """(dq, dk, dv) from the forward's o and lse: the port of
-    ``_flash_backward_pallas``. delta is a plain row-sum; dQ and dK/dV are
-    one kernel each on CUDA tensors, the plain versions on CPU tensors."""
+    ``_flash_backward_pallas``. On CUDA tensors two kernels: dQ, which also
+    computes delta = rowsum(dO * O), then dK/dV, which reads that delta;
+    on CPU tensors their plain versions."""
     scale = _scale(q, scale)
     # dO comes from autograd, strided as the op after attention left it.
     if not do.is_contiguous() or do.data_ptr() % 16:
         do = do.clone(memory_format=torch.contiguous_format)
-    delta = attention_bwd_delta(o, do)
-    return (flash_attention_dq(q, k, v, do, lse, delta, causal, scale),
-            *flash_attention_dkv(q, k, v, do, lse, delta, causal, scale))
+    dq, delta = flash_attention_dq(q, k, v, o, do, lse, causal, scale)
+    return (dq, *flash_attention_dkv(q, k, v, do, lse, delta, causal, scale))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -96,24 +96,48 @@ def test_autograd_function_matches_jax_vjp(shape, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernel_twins_split_the_backward(causal):
-    """dQ and dK/dV each have their own plain twin, which the kernel
-    wrappers run on CPU tensors; together they are the backward."""
+    """dQ (with delta) and dK/dV each have their own plain twin, which the
+    kernel wrappers run on CPU tensors; together they are the backward."""
     tq, tk, tv, tdo = map(torch.from_numpy, _inputs(2, 20, 8, 2, 16, 2))
     o, lse = reference_attention_lse(tq, tk, tv, causal=causal, scale=0.3)
     delta = attention_bwd_delta(o, tdo)
     assert delta.shape == (2, 8, 20) and delta.is_contiguous()
     torch.testing.assert_close(
         delta, (tdo * o).sum(-1).transpose(1, 2), rtol=0, atol=0)
-    dq = flash_attention_dq(tq, tk, tv, tdo, lse, delta, causal, 0.3)
+    dq, kdelta = flash_attention_dq(tq, tk, tv, o, tdo, lse, causal, 0.3)
+    torch.testing.assert_close(kdelta, delta, rtol=0, atol=0)
     dk, dv = flash_attention_dkv(tq, tk, tv, tdo, lse, delta, causal, 0.3)
-    torch.testing.assert_close(dq, reference_attention_dq(
-        tq, tk, tv, tdo, lse, delta, causal, 0.3), rtol=0, atol=0)
+    for g, w in zip((dq, kdelta), reference_attention_dq(
+            tq, tk, tv, o, tdo, lse, causal, 0.3)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
     for g, w in zip((dk, dv), reference_attention_dkv(
             tq, tk, tv, tdo, lse, delta, causal, 0.3)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     for g, w in zip((dq, dk, dv), reference_attention_bwd(
             tq, tk, tv, o, lse, tdo, causal, 0.3)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES, ids=_ids)
+def test_dq_twin_delta_and_dq_match_jax(shape, causal):
+    """The dQ twin's delta against numpy's rowsum of the JAX forward's o
+    times dO (the reference's ``:270``), and its dq against ``jax.vjp``'s,
+    with the JAX forward's o as the twin's input."""
+    q, k, v, do = _inputs(*shape, seed=4)
+    o = np.array(jax_flash_attention(*map(jnp.asarray, (q, k, v)),
+                                     causal=causal))
+    want_delta = (do * o).sum(-1).transpose(0, 2, 1)
+    want_dq = _jax_vjp(q, k, v, do, causal)[0]
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    _, lse = reference_attention_lse(tq, tk, tv, causal=causal)
+    dq, delta = reference_attention_dq(tq, tk, tv, torch.from_numpy(o), tdo,
+                                       lse, causal=causal)
+    assert delta.dtype == torch.float32 and delta.is_contiguous()
+    np.testing.assert_allclose(delta.numpy(), want_delta, rtol=TOL,
+                               atol=TOL, err_msg="delta")
+    np.testing.assert_allclose(dq.numpy(), want_dq, rtol=TOL, atol=TOL,
+                               err_msg="dq")
 
 
 def test_cpu_backward_launches_no_kernel():
@@ -146,7 +170,7 @@ def test_non_cpu_backward_never_takes_the_plain_path():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd(q, k, v, q, lse, do)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention_dq(q, k, v, do, lse, lse)
+        flash_attention_dq(q, k, v, q, do, lse)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_dkv(q, k, v, do, lse, lse)
 
