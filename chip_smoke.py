@@ -34,7 +34,22 @@ Phases, each printing one JSON line on stdout:
    four greedy requests through LLMEngine; checks tokens, the kernel's
    launch count and each prompt's prefill logits against forward() with
    plain attention.
-6. train: the same model at full width and depth, random weights, four
+6. serve_cache: the same params (not a second copy) behind two engines
+   with the prefix cache, A unchunked and B with 512-token chunked
+   prefill. Four requests sharing a 1024-token prefix on A (one miss,
+   three hits over 48 pages); a 1900-token prompt chunked on B, one chunk
+   per step while a decoding request emits a token every step; P/D from A
+   (prefill_only) to B (decode_from), a second prompt hitting on both
+   sides; a prompt run alone on A as a miss, a resident hit, and after
+   every cache entry is demoted to host memory, a promoted hit whose
+   tokens equal the resident hit's; a request cancelled mid-decode and
+   one mid-chunked-prefill, after which every page is back. Checks the
+   forward kernel's launches (32 per full prefill or first chunk, none
+   for suffix prefills and later chunks) and each hit's and the chunked
+   prompt's logits against an uncached prefill; prints TTFT of a miss, a
+   hit and a promotion, suffix against full prefill time and chunk-step
+   times.
+7. train: the same model at full width and depth, random weights, four
    steps of make_train_step on one fixed 2048-token batch with per-layer
    checkpointing; checks finite metrics, a falling loss, each kernel's
    launches per step, step 1's loss and grad norm against a pass with
@@ -53,6 +68,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -113,6 +129,18 @@ TILING_CASES = ([dict(B=1, S=s, Hq=2 * g, Hkv=2, D=d, causal=c)
 FUSED_CASE = dict(B=2, S=300, Hq=8, Hkv=2, D=128, causal=True)
 PROMPT_LENS = (37, 300, 1000, 1900)
 MAX_TOKENS = 16
+SERVE_ENGINE = dict(max_batch=4, max_len=2048, page_size=64)
+# serve_cache: one shared prefix of 16 pages and four suffixes (the first
+# request misses, the other three hit the 16 pages); the chunked prompt
+# takes 4 chunks of at most 512 tokens; the demoted prompt has 5 full
+# pages, so demoting every entry of its (1 + ... + 5) copies 15 pages of
+# 8 MiB, inside the 256 MiB host window.
+SHARED_PREFIX = 1024
+HIT_SUFFIXES = (37, 300, 700, 900)
+PREFILL_CHUNK = 512
+CHUNKED_LEN = 1900
+PD_LEN = 1500
+DEMOTED_LEN = 330
 
 # Backward, per gradient. bf16, max |diff| / max |ref|: the kernels round P
 # and dS to bf16 as the operands of their products and emit bf16, where
@@ -496,14 +524,19 @@ def tiling_phase(card: str, failures: list) -> dict:
     return res
 
 
-def serve_phase(card: str, failures: list) -> dict:
-    cfg = PRESETS["8b-gqa"]
+def serve_params():
+    """(the 8B model's random bf16 params on the card, seconds to make
+    them), shared by the serve and serve_cache phases."""
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    params = init_params(PRESETS["8b-gqa"],
+                         torch.Generator("cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    eng = LLMEngine(cfg, params, max_batch=4, max_len=2048, page_size=64,
-                    device="cuda")
+    return params, time.perf_counter() - t0
+
+
+def serve_phase(card: str, failures: list, params, init_s: float) -> dict:
+    cfg = PRESETS["8b-gqa"]
+    eng = LLMEngine(cfg, params, device="cuda", **SERVE_ENGINE)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in PROMPT_LENS]
@@ -582,7 +615,341 @@ def serve_phase(card: str, failures: list) -> dict:
         peak_memory_gb=peak_gb, prefill=checks,
         logits_rel_tol=LOGITS_REL_TOL, card=card)
     emit(res)
-    del eng, params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Keep the forward kernel's launches inside the block (a reference
+    prefill held against the main path, or a timing) out of the main
+    path's count."""
+    before = flash_attention_fwd.launches
+    try:
+        yield
+    finally:
+        flash_attention_fwd.launches = before
+
+
+def keep_sampled_logits(eng) -> list:
+    """Wrap ``eng._sample_batch`` so that the logits of every wave it
+    samples (an admission wave, a final chunk, a prefill_only) are kept,
+    one list per wave, in admission order."""
+    waves = []
+    sample = eng._sample_batch
+
+    def keep(logits_list, params_list):
+        waves.append([lg.clone() for lg in logits_list])
+        return sample(logits_list, params_list)
+    eng._sample_batch = keep
+    return waves
+
+
+def host_ms(fn, iters: int = 3) -> float:
+    """Mean synchronised host time of fn() over iters calls, after one
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def profiled(fn) -> dict:
+    """One fn() call under torch.profiler, after a warm-up: its
+    synchronised wall time, device time by kernel class, the device's idle
+    share over the call and the five kernels that took the most."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    split, top = device_time_split(prof)
+    busy = sum(split.values())
+    return dict(wall_ms=wall_ms, device_ms=split if busy else "not measured",
+                idle_share=1 - busy / wall_ms if busy else "not measured",
+                top_kernels=top[:5])
+
+
+def run_timed(eng) -> tuple:
+    """Step ``eng`` until idle: ({req_id: tokens}, ms from the first step
+    to each request's first token, ms of each step)."""
+    outs, first_ms, step_ms = {}, {}, []
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    while eng.has_unfinished():
+        t0 = time.perf_counter()
+        finished = eng.step()
+        now = time.perf_counter()
+        step_ms.append((now - t0) * 1e3)
+        for rid, _, _ in eng.take_tick_events():
+            first_ms.setdefault(rid, (now - t_start) * 1e3)
+        for req in finished:
+            outs[req.req_id] = req.out
+    return outs, first_ms, step_ms
+
+
+def check_logits(eng, params, prompt, logits, first: int, what: str,
+                 failures: list) -> dict:
+    """The main path's last-token logits of ``prompt`` (a prefix-cache hit
+    or a chunked prefill) against an uncached prefill of the same prompt
+    through the flash kernel, and its first greedy token against that
+    prefill's argmax. The noise floor is the uncached prefill against
+    forward() with plain attention on the same prompt."""
+    with uncounted(), torch.no_grad():
+        ref = eng._run_prefill(prompt)[0]
+        plain = forward(params, torch.tensor([prompt]),
+                        dataclasses.replace(eng.cfg, attention_impl="xla"),
+                        device="cuda")[0, -1]
+    scale = ref.abs().max()
+    res = dict(what=what, prompt_len=len(prompt),
+               logits_rel_err=((logits - ref).abs().max() / scale).item(),
+               noise_rel_err=((plain - ref).abs().max() / scale).item(),
+               first_token_ok=first == int(ref.argmax()))
+    if not (res["logits_rel_err"] < LOGITS_REL_TOL and res["first_token_ok"]
+            and bool(torch.isfinite(logits).all())):
+        failures.append(f"serve_cache logits mismatch: {res}")
+    return res
+
+
+def check_tokens(outs: dict, ids, what: str, vocab: int,
+                 failures: list) -> None:
+    for rid in ids:
+        out = outs.get(rid, [])
+        if len(out) != MAX_TOKENS or not all(0 <= t < vocab for t in out):
+            failures.append(f"serve_cache {what}: request {rid} returned "
+                            f"{out}")
+
+
+def serve_cache_phase(card: str, failures: list, params) -> dict:
+    """The prefix cache, chunked prefill, P/D, KV demotion and cancellation
+    on the serve phase's params (see the module docstring)."""
+    cfg = PRESETS["8b-gqa"]
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1)
+
+    def toks(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    a = LLMEngine(cfg, params, device="cuda", prefix_cache=True,
+                  **SERVE_ENGINE)
+    b = LLMEngine(cfg, params, device="cuda", prefix_cache=True,
+                  prefill_chunk=PREFILL_CHUNK, **SERVE_ENGINE)
+    a_waves, b_waves = keep_sampled_logits(a), keep_sampled_logits(b)
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+    checks, timings = [], {}
+    prefills = {}              # full prefills and first chunks, by section
+    torch.cuda.synchronize()
+    flash_attention_fwd.launches = 0
+
+    # Prefix hits on A: four requests sharing 16 pages, submitted together.
+    prefix = toks(SHARED_PREFIX)
+    hit_prompts = [prefix + toks(n) for n in HIT_SUFFIXES]
+    ids = [a.add_request(p, sp) for p in hit_prompts]
+    outs, first_ms, _ = run_timed(a)
+    prefills["prefix_hits"] = 1
+    check_tokens(outs, ids, "prefix hits", cfg.vocab_size, failures)
+    hit_stats = a.prefix_cache_stats()
+    if (hit_stats["hits"], hit_stats["hit_pages"], hit_stats["misses"]) \
+            != (3, 48, 1):
+        failures.append(f"serve_cache prefix hits: {hit_stats}")
+    if [len(w) for w in a_waves] != [len(ids)]:
+        failures.append(f"serve_cache: the four requests were not one "
+                        f"admission wave: {[len(w) for w in a_waves]}")
+    else:
+        for rid, prompt, logits in list(zip(ids, hit_prompts,
+                                            a_waves[0]))[1:]:
+            checks.append(check_logits(a, params, prompt, logits,
+                                       outs.get(rid, [-1])[0], "hit",
+                                       failures))
+    timings["hit_wave_first_token_ms"] = [first_ms.get(r) for r in ids]
+    # The longest hit's suffix prefill (against its 16 cached pages) and
+    # its full prefill, each alone.
+    longest = hit_prompts[-1]
+    n_shared = SHARED_PREFIX // a.page
+    row = np.zeros(a.pages_per_slot, np.int64)
+    row[:n_shared] = a._cache._entries[a._cache._keys(longest,
+                                                      n_shared)[-1]]
+    with uncounted(), torch.no_grad():
+        timings["suffix_prefill_ms"] = host_ms(
+            lambda: a._run_suffix(longest, SHARED_PREFIX, row))
+        timings["full_prefill_ms"] = host_ms(lambda: a._run_prefill(longest))
+        timings["profiled"] = dict(
+            suffix_prefill=profiled(
+                lambda: a._run_suffix(longest, SHARED_PREFIX, row)),
+            full_prefill=profiled(lambda: a._run_prefill(longest)))
+    timings["prefill_prompt_len"] = len(longest)
+    timings["suffix_len"] = len(longest) - SHARED_PREFIX
+
+    # Chunked prefill on B: one chunk per step beside a decoding request.
+    rid_s = b.add_request(toks(HIT_SUFFIXES[0]), sp)
+    b.step()
+    b.take_tick_events()
+    long_prompt = toks(CHUNKED_LEN)
+    rid_l = b.add_request(long_prompt, sp)
+    long_req = b._requests[rid_l]
+    chunk_steps = []
+    while not long_req.out and len(chunk_steps) < 2 * CHUNKED_LEN // a.page:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.step()
+        torch.cuda.synchronize()
+        events = b.take_tick_events()
+        chunk_steps.append(dict(
+            ms=(time.perf_counter() - t0) * 1e3,
+            prefilled=long_req.prefilled,
+            decoding_emitted=sum(r == rid_s for r, _, _ in events)))
+    prefills["chunked"] = 2                # the short prompt, chunk 1
+    want_prefilled = [min(PREFILL_CHUNK * i, CHUNKED_LEN)
+                      for i in range(1, len(chunk_steps) + 1)]
+    if len(chunk_steps) != math.ceil(CHUNKED_LEN / PREFILL_CHUNK) \
+            or [c["prefilled"] for c in chunk_steps] != want_prefilled \
+            or any(c["decoding_emitted"] != 1 for c in chunk_steps):
+        failures.append(f"serve_cache chunked prefill: {chunk_steps}")
+    if len(b_waves) != 2:
+        failures.append(f"serve_cache: B sampled {len(b_waves)} waves")
+    else:
+        checks.append(check_logits(b, params, long_prompt, b_waves[-1][0],
+                                   long_req.out[0], "last chunk", failures))
+    outs = run_timed(b)[0]
+    check_tokens(outs, [rid_l], "chunked", cfg.vocab_size, failures)
+    timings["chunk_step_ms"] = [c["ms"] for c in chunk_steps]
+
+    # P/D: prefill_only on A (a miss), decode_from on B (a miss); then a
+    # prompt sharing the first one's 16 leading pages hits on both sides.
+    pd_prompt = toks(PD_LEN)
+    pd = []
+    pd_before = (a.prefix_cache_stats(), b.prefix_cache_stats())
+    for prompt in (pd_prompt, pd_prompt[:SHARED_PREFIX] + toks(300)):
+        t0 = time.perf_counter()
+        blob, first = a.prefill_only(prompt, sp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = b.decode_from(blob, first, sp, prompt_tokens=prompt)
+        pd.append(dict(prompt_len=len(prompt), first=first, out=out,
+                       prefill_only_ms=(t1 - t0) * 1e3,
+                       decode_from_s=time.perf_counter() - t1,
+                       first_is_argmax=first == int(a_waves[-1][0].argmax())))
+        if len(out) != MAX_TOKENS or out[0] != first \
+                or not pd[-1]["first_is_argmax"] \
+                or not all(0 <= t < cfg.vocab_size for t in out):
+            failures.append(f"serve_cache P/D: {pd[-1]}")
+    prefills["pd"] = 1
+    pd_hits = [e.prefix_cache_stats()["hits"] - s["hits"]
+               for e, s in zip((a, b), pd_before)]
+    if pd_hits != [1, 1]:
+        failures.append(f"serve_cache P/D hits on (A, B): {pd_hits}")
+
+    # Demotion on A. Its cache is emptied first without the hook: every
+    # entry of an N-page prompt copies pages 1..k, at 8 MiB a page.
+    while a._cache.evict_lru(a._decref):
+        pass
+    demoted = toks(DEMOTED_LEN)
+    usable = (DEMOTED_LEN - 1) // a.page
+    runs = []
+    for run in ("miss", "resident_hit", "promoted"):
+        if run == "promoted":
+            while a._cache.evict_lru(a._decref, a._demote_entry):
+                pass
+            timings["demoted"] = a.prefix_cache_stats()
+        before = a.prefix_cache_stats()
+        rid = a.add_request(demoted, sp)
+        req = a._requests[rid]
+        outs, first_ms, step_ms = run_timed(a)
+        after = a.prefix_cache_stats()
+        runs.append(dict(run=run, out=outs.get(rid), ttft_ms=first_ms[rid],
+                         decode_step_ms=float(np.median(step_ms[1:])),
+                         prefix_len=req.prefix_len,
+                         hits=after["hits"] - before["hits"],
+                         hit_pages=after["hit_pages"] - before["hit_pages"],
+                         promoted_pages=(after["promoted_pages"]
+                                         - before["promoted_pages"])))
+    prefills["demotion"] = 1
+    check_tokens({r["run"]: r["out"] for r in runs},
+                 [r["run"] for r in runs], "demotion", cfg.vocab_size,
+                 failures)
+    miss, hit, promoted = runs
+    if (miss["hits"], hit["hits"], promoted["hits"]) != (0, 1, 1) \
+            or hit["prefix_len"] != usable * a.page \
+            or promoted["prefix_len"] != usable * a.page \
+            or promoted["promoted_pages"] != usable \
+            or hit["promoted_pages"] != 0:
+        failures.append(f"serve_cache demotion: {runs}")
+    if promoted["out"] != hit["out"]:
+        failures.append(f"serve_cache: promoted tokens {promoted['out']} "
+                        f"!= resident hit's {hit['out']}")
+    # The pieces of those first steps again, warm: the miss's full prefill
+    # and the hit's suffix prefill against the cached pages.
+    row = np.zeros(a.pages_per_slot, np.int64)
+    row[:usable] = a._cache._entries[a._cache._keys(demoted, usable)[-1]]
+    with uncounted(), torch.no_grad():
+        timings["demoted_full_prefill_ms"] = host_ms(
+            lambda: a._run_prefill(demoted))
+        timings["demoted_suffix_prefill_ms"] = host_ms(
+            lambda: a._run_suffix(demoted, usable * a.page, row))
+        timings["profiled"]["demoted_suffix_prefill"] = profiled(
+            lambda: a._run_suffix(demoted, usable * a.page, row))
+
+    # Cancellation: mid-decode on A, mid-chunked-prefill on B.
+    rid_d = a.add_request(toks(200), sp)
+    a.step()
+    a.step()
+    rid_c = b.add_request(toks(CHUNKED_LEN), sp)
+    b.step()
+    mid = dict(decoding=len(a._requests[rid_d].out),
+               prefilled=b._requests[rid_c].prefilled)
+    cancelled = [a.cancel_request(rid_d), b.cancel_request(rid_c)]
+    prefills["cancel"] = 2                 # A's prefill, B's first chunk
+    pages = {}
+    for name, eng in (("A", a), ("B", b)):
+        while eng._cache.evict_lru(eng._decref):
+            pass
+        st = eng.prefix_cache_stats()
+        pages[name] = dict(free=eng.kv_pages_free(),
+                           allocated=st["allocated_pages"],
+                           total=eng.kv_pages_total,
+                           unfinished=eng.has_unfinished())
+        if st["allocated_pages"] or eng.has_unfinished() \
+                or eng.kv_pages_free() + st["allocated_pages"] \
+                != eng.kv_pages_total:
+            failures.append(f"serve_cache: pages after cancellation on "
+                            f"{name}: {pages[name]}")
+    # A's request took its first token and two decode steps' tokens.
+    if cancelled != [True, True] or mid != dict(decoding=3,
+                                                prefilled=PREFILL_CHUNK):
+        failures.append(f"serve_cache cancellation: {cancelled}, {mid}")
+
+    launches = flash_attention_fwd.launches
+    want_launches = cfg.num_layers * sum(prefills.values())
+    if launches != want_launches:
+        failures.append(f"flash kernel launched {launches} times on the "
+                        f"serve_cache path, expected {want_launches} "
+                        f"({cfg.num_layers} x {prefills})")
+    timings.update(ttft_miss_ms=miss["ttft_ms"], ttft_hit_ms=hit["ttft_ms"],
+                   ttft_promoted_ms=promoted["ttft_ms"])
+    res = dict(
+        phase="serve_cache", preset="8b-gqa", engine=SERVE_ENGINE,
+        prefix_cache=True, prefill_chunk=PREFILL_CHUNK,
+        shared_prefix=SHARED_PREFIX, hit_suffixes=list(HIT_SUFFIXES),
+        hit_stats=hit_stats, flash_launches=launches,
+        expected_launches=want_launches, prefills=prefills,
+        logits=checks, logits_rel_tol=LOGITS_REL_TOL,
+        chunk_steps=chunk_steps,
+        pd=[{k: v for k, v in e.items() if k != "out"} for e in pd],
+        pd_hits=pd_hits,
+        demotion=[{k: v for k, v in r.items() if k != "out"} for r in runs],
+        promoted_tokens_equal=promoted["out"] == hit["out"],
+        cancellation=dict(cancelled=cancelled, mid=mid, pages=pages),
+        timings=timings, seconds=time.perf_counter() - t_phase, card=card)
+    emit(res)
+    del a, b
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -847,7 +1214,12 @@ def main() -> int:
     rows = kernel_phase(card, failures)
     bwd_rows = kernel_bwd_phase(card, failures)
     tiling_phase(card, failures)
-    serve = serve_phase(card, failures)
+    params, init_s = serve_params()
+    serve = serve_phase(card, failures, params, init_s)
+    serve_cache = serve_cache_phase(card, failures, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     train = train_phase(card, failures)
 
     def main_shape(rs, heads):
@@ -866,8 +1238,11 @@ def main() -> int:
         dict(name="flash_attention_fwd", route="cuda",
              source=src + "flash_attention_fwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:89",
-             launches=serve["flash_launches"] + train["launches"]["fwd"],
+             launches=(serve["flash_launches"]
+                       + serve_cache["flash_launches"]
+                       + train["launches"]["fwd"]),
              launches_by_path=dict(serve=serve["flash_launches"],
+                                   serve_cache=serve_cache["flash_launches"],
                                    train=train["launches"]["fwd"]),
              max_abs_err=max(r["max_abs_err_o"] for r in engine_rows),
              ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
