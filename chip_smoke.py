@@ -49,7 +49,25 @@ Phases, each printing one JSON line on stdout:
    prompt's logits against an uncached prefill; prints TTFT of a miss, a
    hit and a promotion, suffix against full prefill time and chunk-step
    times.
-7. train: the same model at full width and depth, random weights, four
+7. serve_paged: the same params behind engines whose max_len (512) is far
+   below the context: a 3000-token greedy prompt is prefilled by
+   prefill_paged into six 512-token KV parts (pipelined publish to pinned
+   host memory) on one engine and decoded for 16 tokens by decode_paged
+   on another, which gathers the parts through its window of 8 from the
+   host. Checks the prefill's logits against an uncached forward() with
+   the flash kernel and each decode step's against one teacher-forced
+   forward() over the prompt and the emitted tokens; the window's
+   counters (6 fetches, no refetch, the six parts' bytes once, nothing
+   resident after); no forward-kernel launch on the paged path (its
+   attention is plain, as in the JAX package); the flight-recorder spans
+   of the request (6 prefill-chunk and 15 decode sp:gather, 16
+   sample_sync, no batched decode). Then, on a third engine with a window
+   of 1, a 256-token context in two parts whose fetch fails after two
+   steps: the paged request retires with a typed KVGatherError caused by
+   the ConnectionError while a pool request beside it finishes, and every
+   page and window slot is free. Prints the prefill ms, the paged decode
+   step ms, one profiled paged decode step and the window's counters.
+8. train: the same model at full width and depth, random weights, four
    steps of make_train_step on one fixed 2048-token batch with per-layer
    checkpointing; checks finite metrics, a falling loss, each kernel's
    launches per step, step 1's loss and grad norm against a pass with
@@ -67,6 +85,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -78,6 +97,8 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from ray_tpu_torch._private import flight_recorder
+from ray_tpu_torch.exceptions import KVGatherError
 from ray_tpu_torch.llm import LLMEngine, SamplingParams
 from ray_tpu_torch.models import (PRESETS, forward, init_params,
                                   make_optimizer, make_train_step)
@@ -141,6 +162,16 @@ PREFILL_CHUNK = 512
 CHUNKED_LEN = 1900
 PD_LEN = 1500
 DEMOTED_LEN = 330
+# serve_paged: a context longer than the engines' max_len (and than the
+# serve engines' 2048), in 512-token parts of 64 MiB each (32 layers x 512
+# x 8 x 128 bf16, k and v): five full and one of 440 tokens.
+PAGED_LEN = 3000
+PAGED_SPAN = 512
+PAGED_ENGINE = dict(max_len=512, page_size=64)
+PAGED_WINDOW = 8
+# The gather failure: a 256-token context in two 128-token parts (16 MiB
+# each) beside a 37-token pool request, the fetch failing after two steps.
+FAIL_LEN, FAIL_SPAN, FAIL_POOL_LEN, FAIL_AFTER_STEPS = 256, 128, 37, 2
 
 # Backward, per gradient. bf16, max |diff| / max |ref|: the kernels round P
 # and dS to bf16 as the operands of their products and emit bf16, where
@@ -647,6 +678,34 @@ def keep_sampled_logits(eng) -> list:
     return waves
 
 
+@contextlib.contextmanager
+def captured_spans():
+    """Swap the port's process flight recorder for a fresh one around the
+    block, so that only the block's spans are read; restore it after."""
+    old = flight_recorder._recorder
+    rec = flight_recorder._recorder = flight_recorder.FlightRecorder()
+    try:
+        yield rec
+    finally:
+        flight_recorder._recorder = old
+
+
+def timed_steps(eng) -> list:
+    """Wrap ``eng.step`` so that each call's synchronised host time (ms) is
+    kept, in order."""
+    times = []
+    step = eng.step
+
+    def timed():
+        t0 = time.perf_counter()
+        done = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return done
+    eng.step = timed
+    return times
+
+
 def host_ms(fn, iters: int = 3) -> float:
     """Mean synchronised host time of fn() over iters calls, after one
     warm-up."""
@@ -955,6 +1014,228 @@ def serve_cache_phase(card: str, failures: list, params) -> dict:
     return res
 
 
+def pinned(part: dict) -> dict:
+    """A KV part copied to pinned host memory. The copies are synchronous,
+    so the part is complete when this returns, on whatever thread."""
+    def pin(t):
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+    return {"k": pin(part["k"]), "v": pin(part["v"]), "len": part["len"]}
+
+
+def rel_err(got, ref) -> float:
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def span_summary(rows) -> dict:
+    """Per span name: its count and median dur_us."""
+    by = {}
+    for r in rows:
+        by.setdefault(r["name"], []).append(r["dur_us"])
+    return {n: dict(count=len(d), median_dur_us=float(np.median(d)))
+            for n, d in sorted(by.items())}
+
+
+def paged_gather_failure(cfg, params, pre, publish, host_parts,
+                         failures: list) -> dict:
+    """A paged request on an engine with a window of 1 loses its parts'
+    holder after FAIL_AFTER_STEPS steps: it must retire typed while a pool
+    request beside it finishes, and leave every page and window slot
+    free."""
+    rng = np.random.default_rng(3)
+    handoff = pre.prefill_paged(rng.integers(0, cfg.vocab_size,
+                                             FAIL_LEN).tolist(),
+                                span=FAIL_SPAN, publish=publish)
+    alive = [True]
+
+    def fetch(handle):
+        if not alive[0]:
+            raise ConnectionError("the KV parts' holder is gone")
+        return host_parts[handle]
+
+    eng = LLMEngine(cfg, params, device="cuda", max_batch=2,
+                    kv_gather_window=1, kv_fetch=fetch, **PAGED_ENGINE)
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+    before = flash_attention_fwd.launches
+    rid = eng.add_paged_request(handoff["parts"], handoff["len"],
+                                handoff["first"], sp)
+    other = eng.add_request(rng.integers(0, cfg.vocab_size,
+                                         FAIL_POOL_LEN).tolist(), sp)
+    for _ in range(FAIL_AFTER_STEPS):
+        eng.step()
+    alive[0] = False
+    finished = {}
+    while eng.has_unfinished():
+        for req in eng.step():
+            finished[req.req_id] = req
+    paged, pool = finished.get(rid), finished.get(other)
+    st = eng.kv_gather_stats()
+    res = dict(parts=len(handoff["parts"]),
+               paged_tokens=len(paged.out) if paged else None,
+               finish_reason=paged.finish_reason if paged else None,
+               error=repr(paged.error) if paged else None,
+               cause=repr(paged.error.__cause__)
+               if paged and paged.error else None,
+               pool_tokens=len(pool.out) if pool else None,
+               pool_finish_reason=pool.finish_reason if pool else None,
+               free_pages=eng.kv_pages_free(), total_pages=eng.kv_pages_total,
+               live_requests=len(eng._requests), gather=st,
+               pool_prefill_launches=flash_attention_fwd.launches - before)
+    ok = (paged is not None and paged.finish_reason == "error"
+          and isinstance(paged.error, KVGatherError)
+          and isinstance(paged.error.__cause__, ConnectionError)
+          and pool is not None and len(pool.out) == MAX_TOKENS
+          and all(0 <= t < cfg.vocab_size for t in pool.out)
+          and res["free_pages"] == res["total_pages"]
+          and not res["live_requests"] and st["resident"] == 0
+          and res["pool_prefill_launches"] == cfg.num_layers)
+    if not ok:
+        failures.append(f"serve_paged gather failure: {res}")
+    res["ok"] = ok
+    del eng
+    return res
+
+
+def serve_paged_phase(card: str, failures: list, params) -> dict:
+    """Paged external requests on the serve phase's params (see the module
+    docstring)."""
+    cfg = PRESETS["8b-gqa"]
+    t_phase = time.perf_counter()
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                               PAGED_LEN).tolist()
+    host_parts = {}
+    names = itertools.count()
+
+    def publish(part):
+        handle = f"part{next(names)}"
+        host_parts[handle] = pinned(part)
+        return handle
+
+    # The prefilling engine's window holds every part it makes: a pipelined
+    # prefill reads an evicted part through its unresolved handle and fails,
+    # as in the JAX engine.
+    pre = LLMEngine(cfg, params, device="cuda", max_batch=1, kv_pages=1,
+                    kv_gather_window=PAGED_WINDOW, **PAGED_ENGINE)
+    dec = LLMEngine(cfg, params, device="cuda", max_batch=2,
+                    kv_gather_window=PAGED_WINDOW,
+                    kv_fetch=host_parts.__getitem__, **PAGED_ENGINE)
+    pre_waves, dec_waves = keep_sampled_logits(pre), keep_sampled_logits(dec)
+    step_ms = timed_steps(dec)
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+    torch.cuda.synchronize()
+    flash_attention_fwd.launches = 0
+    with captured_spans() as rec:
+        t0 = time.perf_counter()
+        handoff = pre.prefill_paged(prompt, sp, span=PAGED_SPAN,
+                                    publish=publish, pipeline=True)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        out = dec.decode_paged(handoff, sp)
+        rows = rec.drain()
+    launches = flash_attention_fwd.launches
+    gather = dec.kv_gather_stats()
+    spans = span_summary(rows)
+    part_bytes = sum(p["k"].nbytes + p["v"].nbytes
+                     for p in host_parts.values())
+
+    if launches:
+        failures.append(f"flash kernel launched {launches} times on the "
+                        f"serve_paged path, expected 0")
+    spans_by_kind = dict(
+        prefill_gather=sum(r["name"] == "sp:gather"
+                           and r.get("args", {}).get("prefill_chunk", False)
+                           for r in rows),
+        decode_gather=sum(r["name"] == "sp:gather"
+                          and not r["args"].get("prefill_chunk", False)
+                          and r["args"].get("parts") == len(handoff["parts"])
+                          for r in rows),
+        sample_sync=spans.get("sample_sync", {}).get("count", 0),
+        decode=spans.get("decode", {}).get("count", 0))
+    want_spans = dict(prefill_gather=6, decode_gather=MAX_TOKENS - 1,
+                      sample_sync=MAX_TOKENS, decode=0)
+    if spans_by_kind != want_spans or len(rows) != sum(want_spans.values()):
+        failures.append(f"serve_paged spans: {spans_by_kind} of "
+                        f"{len(rows)} rows, expected {want_spans}")
+    spans_of_parts = [p["span"] for p in handoff["parts"]]
+    want_parts = [(s0, min(s0 + PAGED_SPAN, PAGED_LEN))
+                  for s0 in range(0, PAGED_LEN, PAGED_SPAN)]
+    if spans_of_parts != want_parts or handoff["len"] != PAGED_LEN \
+            or dec.max_len >= PAGED_LEN:
+        failures.append(f"serve_paged handoff: {spans_of_parts}")
+    accounting = dict(gather=gather, part_bytes=part_bytes,
+                      free_pages=dec.kv_pages_free(),
+                      total_pages=dec.kv_pages_total)
+    if (gather["fetches"], gather["refetches"], gather["bytes"],
+            gather["resident"]) != (len(want_parts), 0, part_bytes, 0) \
+            or dec.kv_pages_free() != dec.kv_pages_total:
+        failures.append(f"serve_paged accounting: {accounting}")
+    if len(out) != MAX_TOKENS or not all(0 <= t < cfg.vocab_size
+                                         for t in out):
+        failures.append(f"serve_paged returned {out}")
+
+    # The prefill's last-token logits against an uncached forward() through
+    # the flash kernel; the noise floor is plain attention against it.
+    flash_cfg = dataclasses.replace(cfg, attention_impl="flash")
+    with uncounted(), torch.no_grad():
+        ref = forward(params, torch.tensor([prompt]), flash_cfg,
+                      device="cuda")[0, -1]
+        plain = forward(params, torch.tensor([prompt]), cfg,
+                        device="cuda")[0, -1]
+        # Each decode step's logits against one teacher-forced forward over
+        # the prompt and the emitted tokens, at positions 3000..3014.
+        forced = forward(params, torch.tensor([prompt + out[:-1]]),
+                         flash_cfg, device="cuda")[0, PAGED_LEN - 1:]
+    prefill_logits = pre_waves[-1][0]
+    prefill_check = dict(
+        logits_rel_err=rel_err(prefill_logits, ref),
+        noise_rel_err=rel_err(plain, ref),
+        first_token_ok=handoff["first"] == int(ref.argmax()) == out[0])
+    if not (prefill_check["logits_rel_err"] < LOGITS_REL_TOL
+            and prefill_check["first_token_ok"]
+            and bool(torch.isfinite(prefill_logits).all())):
+        failures.append(f"serve_paged prefill logits: {prefill_check}")
+    step_errs = [rel_err(w[0], forced[i + 1])
+                 for i, w in enumerate(dec_waves)]
+    if len(step_errs) != MAX_TOKENS - 1 \
+            or not all(e < LOGITS_REL_TOL for e in step_errs) \
+            or not all(bool(torch.isfinite(w[0]).all()) for w in dec_waves):
+        failures.append(f"serve_paged decode logits: {step_errs}")
+    argmax_equal = sum(int(forced[i].argmax()) == t
+                       for i, t in enumerate(out))
+
+    # One paged decode step under the profiler: a second request on the same
+    # parts; its first step (admission and the part uploads) and the
+    # profiler's warm-up step go unprofiled, its last step is profiled.
+    with uncounted():
+        dec.add_paged_request(handoff["parts"], handoff["len"],
+                              handoff["first"], SamplingParams(max_tokens=4))
+        dec.step()
+        step_profile = profiled(dec.step)
+        while dec.has_unfinished():
+            dec.step()
+        failure = paged_gather_failure(cfg, params, pre, publish, host_parts,
+                                       failures)
+
+    res = dict(
+        phase="serve_paged", preset="8b-gqa", context=PAGED_LEN,
+        span=PAGED_SPAN, engine=PAGED_ENGINE, window=PAGED_WINDOW,
+        parts=len(handoff["parts"]), part_mib=part_bytes
+        / len(want_parts) / 2 ** 20, flash_launches=launches,
+        prefill_paged_ms=prefill_ms,
+        decode_step_ms=step_ms[:len(out) - 1],
+        decode_step_median_ms=float(np.median(step_ms[:len(out) - 1])),
+        prefill_logits=prefill_check, decode_logits_rel_err=step_errs,
+        argmax_equal=f"{argmax_equal} of {len(out)}",
+        logits_rel_tol=LOGITS_REL_TOL, accounting=accounting, spans=spans,
+        spans_by_kind=spans_by_kind, profiled_decode_step=step_profile,
+        gather_failure=failure, seconds=time.perf_counter() - t_phase,
+        card=card)
+    emit(res)
+    del pre, dec, host_parts, forced, ref, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS on Hopper
 
 
@@ -1217,6 +1498,7 @@ def main() -> int:
     params, init_s = serve_params()
     serve = serve_phase(card, failures, params, init_s)
     serve_cache = serve_cache_phase(card, failures, params)
+    serve_paged = serve_paged_phase(card, failures, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1240,9 +1522,11 @@ def main() -> int:
              replaces="ray_tpu/ops/flash_attention.py:89",
              launches=(serve["flash_launches"]
                        + serve_cache["flash_launches"]
+                       + serve_paged["flash_launches"]
                        + train["launches"]["fwd"]),
              launches_by_path=dict(serve=serve["flash_launches"],
                                    serve_cache=serve_cache["flash_launches"],
+                                   serve_paged=serve_paged["flash_launches"],
                                    train=train["launches"]["fwd"]),
              max_abs_err=max(r["max_abs_err_o"] for r in engine_rows),
              ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],

@@ -18,6 +18,10 @@ _SETTINGS: Dict[str, Tuple[type, Any]] = {
     "kv_demoted_bytes_limit": (int, 256 * 1024 * 1024),
     # Where demoted pages overflow to; empty = the temp directory.
     "object_spill_dir": (str, ""),
+    # The per-process flight recorder (_private/flight_recorder.py): on or
+    # off, and its ring's slots.
+    "flight_recorder_enabled": (bool, True),
+    "flight_recorder_capacity": (int, 4096),
 }
 
 

@@ -17,19 +17,36 @@ JAX donates the pool to its jitted steps; here the pool is updated in
 place. Temperature sampling draws from the engine's ``torch.Generator``
 and cannot reproduce ``jax.random``'s bits; greedy decoding is exact.
 
-Not ported yet: sequence parallelism (``sp_degree``, ``sp_strategy``),
-meshes, paged external requests (``add_paged_request``, ``prefill_paged``,
-``decode_paged`` and their ``kv_fetch`` / ``kv_prefetch`` /
-``kv_gather_window`` gather window) and the flight-recorder spans.
+Paged external requests (``add_paged_request``, ``prefill_paged``,
+``decode_paged``) serve a context longer than ``max_len`` or the pool: its
+KV lives in external (L, span, KV, D) parts, gathered through a bounded
+window (``kv_gather_window``, ``kv_fetch``, ``kv_prefetch``), and only the
+decode tail takes pool pages. Their attention is ``StreamAttn``
+(sequence_parallel.py), plain PyTorch as in the JAX package; it never runs
+the flash kernel.
+
+The engine writes the reference's flight-recorder spans in the
+``request`` category (``prefill``, ``sample_sync``, ``decode``,
+``sp:gather``; see _private/flight_recorder.py). Not copied:
+``_report_pool_pressure``, which feeds the reference runtime's memory
+monitor; the device plane's copy counters that ``_part_layer`` feeds in the
+reference (they come with the port of the device plane); and
+``prefill_paged``'s ``host_staged=`` option, which only the reference's
+staged A/B bench helper passes.
+
+Not ported yet: sequence parallelism (``sp_degree``, ``sp_strategy``) and
+meshes.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import hashlib
 import math
 import os
 import tempfile
+import time
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -39,10 +56,13 @@ import torch.nn.functional as F
 
 from .. import _config
 from .._device import resolve_device
-from ..models.transformer import (TransformerConfig, _to_tensor, apply_rope,
-                                  init_params, layer_params, rms_norm,
-                                  rope_angles)
+from .._private import flight_recorder
+from ..exceptions import KVGatherError
+from ..models.transformer import (TransformerConfig, _layer_qkv, _mlp,
+                                  _to_tensor, apply_rope, init_params,
+                                  layer_params, rms_norm, rope_angles)
 from ..ops.flash_attention import flash_attention
+from .sequence_parallel import StreamAttn, _stream_block_fn
 
 
 @dataclasses.dataclass
@@ -75,28 +95,22 @@ class _Request:
     first_token: int = -1
     # Chunked prefill: prompt tokens already prefilled into the slot's pages.
     prefilled: int = 0
+    # Paged external context (add_paged_request): the prompt's KV lives in
+    # external parts and only the decode tail takes pool pages; ext_written
+    # counts the tail tokens whose KV is appended (the next write position
+    # is ext_len + ext_written).
+    kv_paged: bool = False
+    ext_parts: List[dict] = dataclasses.field(default_factory=list)
+    ext_len: int = 0
+    ext_written: int = 0
+    # A typed failure (KVGatherError of a part): the request retires with
+    # finish_reason "error" and never emits a wrong token.
+    error: Optional[BaseException] = None
 
 
 # --------------------------------------------------------------------------
 # Pure pieces
 # --------------------------------------------------------------------------
-
-def _layer_qkv(lp, h, cfg):
-    dt = cfg.dtype
-    q = torch.einsum("bse,ehd->bshd", h, lp["attn"]["wq"].to(dt))
-    k = torch.einsum("bse,ekd->bskd", h, lp["attn"]["wk"].to(dt))
-    v = torch.einsum("bse,ekd->bskd", h, lp["attn"]["wv"].to(dt))
-    return q, k, v
-
-
-def _mlp(lp, x, cfg):
-    dt = cfg.dtype
-    h = rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-    g = torch.einsum("bse,em->bsm", h, lp["mlp"]["w_gate"].to(dt))
-    u = torch.einsum("bse,em->bsm", h, lp["mlp"]["w_up"].to(dt))
-    return x + torch.einsum("bsm,me->bse", F.silu(g) * u,
-                            lp["mlp"]["w_down"].to(dt))
-
 
 def _sqrt_head_dim(cfg: TransformerConfig) -> float:
     """sqrt(D) rounded to the working dtype: JAX divides the scores of its
@@ -385,7 +399,15 @@ class _KVDemoteStore:
     read back bit-exactly). A later request sharing the prefix promotes the
     entry back into the pool in place of re-running prefill. Entries are
     caches, never truth: one may be dropped (on a failed write) at the cost
-    of a re-prefill."""
+    of a re-prefill.
+
+    Divergence from the reference, whose fault it is: the JAX store writes
+    bf16 pages with ``np.savez`` as ml_dtypes arrays, which load back as
+    ``|V2`` void, and promoting such a file entry raises ``ValueError: No
+    cast function available.`` out of ``step()``. Here the raw bits round
+    trip, so a bf16 entry that overflowed to a file promotes, with the
+    tokens of a resident hit (tests/test_torch_engine_cache.py pins both
+    sides)."""
 
     def __init__(self, byte_limit: int, spill_dir: str):
         self.byte_limit = max(0, int(byte_limit))
@@ -466,6 +488,129 @@ class _KVDemoteStore:
                 "demoted_disk_spills": self.disk_spills}
 
 
+class _KVWindow:
+    """Bounded window over the external KV parts of paged requests.
+
+    The streamed-attention path never holds a paged request's context in
+    the pool; it needs each part it attends to, one at a time. This window
+    holds at most ``capacity`` parts (LRU), fetched through the engine's
+    ``kv_fetch`` callback and optionally warmed ahead of the attention by
+    ``kv_prefetch`` (which returns futures). A window smaller than a
+    request's part count degrades to fetching again, counted in
+    ``refetches``, never silent. The entry of a fetched part is the
+    window's own shallow copy of what ``kv_fetch`` returned, so the device
+    copy the engine caches in it (``_part_layer``) goes when the entry
+    goes: device residency is bounded by ``capacity`` parts."""
+
+    def __init__(self, capacity: int, fetch, prefetch=None):
+        self.capacity = max(1, int(capacity))
+        self._fetch = fetch
+        self._prefetch = prefetch
+        self._data: "OrderedDict[str, dict]" = OrderedDict()
+        self._futures: Dict[str, Any] = {}
+        # Recently seen keys, for refetch counting; LRU-bounded, since a
+        # prefill streams one-shot part keys that no request ever drops.
+        self._seen: "OrderedDict[str, None]" = OrderedDict()
+        self._seen_cap = max(64, 16 * self.capacity)
+        self.fetches = 0
+        self.refetches = 0
+        self.bytes_fetched = 0
+        self.wait_s = 0.0
+
+    def _mark_seen(self, key: str) -> None:
+        self._seen[key] = None
+        self._seen.move_to_end(key)
+        while len(self._seen) > self._seen_cap:
+            self._seen.popitem(last=False)
+
+    def _validate(self, key: str, data) -> dict:
+        if not isinstance(data, dict) or "k" not in data or "v" not in data:
+            raise KVGatherError(
+                f"KV part {key!r} resolved to {type(data).__name__}, "
+                f"expected a {{'k','v','len'}} dict")
+        return data
+
+    def _admit(self, key: str, data: dict) -> dict:
+        self._data[key] = data
+        self._data.move_to_end(key)
+        while len(self._data) > self.capacity:
+            self._data.popitem(last=False)
+        return data
+
+    def put(self, key: str, data: dict) -> None:
+        """Seed a locally produced part (a paged prefill keeps its own
+        fresh parts hot for its next chunk)."""
+        self._mark_seen(key)
+        self._admit(key, data)
+
+    def prefetch(self, items) -> None:
+        """Start ``kv_prefetch`` for [(key, handle)] not already held."""
+        if self._prefetch is None:
+            return
+        for key, handle in items:
+            if key in self._data or key in self._futures:
+                continue
+            try:
+                self._futures[key] = self._prefetch(handle)
+            except Exception:   # best effort: get() fetches and types it
+                self._futures.pop(key, None)
+
+    def get(self, key: str, handle) -> dict:
+        data = self._data.get(key)
+        if data is not None:
+            self._data.move_to_end(key)
+            return data
+        t0 = time.perf_counter()
+        fut = self._futures.pop(key, None)
+        try:
+            data = fut.result() if fut is not None else self._fetch(handle)
+        except KVGatherError:
+            raise
+        except Exception as e:
+            raise KVGatherError(
+                f"gather of KV part {key!r} failed: "
+                f"{type(e).__name__}: {e}") from e
+        self.wait_s += time.perf_counter() - t0
+        data = self._validate(key, data)
+        self.fetches += 1
+        if key in self._seen:
+            self.refetches += 1
+        self._mark_seen(key)
+        self.bytes_fetched += (getattr(data["k"], "nbytes", 0)
+                               + getattr(data["v"], "nbytes", 0))
+        return self._admit(key, dict(data))
+
+    def drop(self, keys) -> None:
+        for k in keys:
+            self._data.pop(k, None)
+            self._futures.pop(k, None)
+            self._seen.pop(k, None)
+
+    def stats(self) -> Dict[str, Any]:
+        return {"fetches": self.fetches, "refetches": self.refetches,
+                "bytes": self.bytes_fetched, "wait_s": self.wait_s,
+                "resident": len(self._data), "capacity": self.capacity}
+
+
+def _default_kv_fetch(handle):
+    """Fetch without a ``kv_fetch`` callback: parts passed by value are
+    their data."""
+    if isinstance(handle, dict):
+        return handle
+    raise KVGatherError(
+        f"remote KV handle {type(handle).__name__} needs a kv_fetch "
+        f"callback")
+
+
+def _publish_when_made(publish, part: dict,
+                       made: Optional[torch.cuda.Event]):
+    """``publish(part)`` on the publish thread, once the stream that
+    computed the part has passed ``made``."""
+    if made is not None:
+        made.synchronize()
+    return publish(part)
+
+
 # --------------------------------------------------------------------------
 # Engine
 # --------------------------------------------------------------------------
@@ -478,6 +623,7 @@ class LLMEngine:
                  page_size: int = 64, kv_pages: Optional[int] = None,
                  prefix_cache: bool = False,
                  prefill_chunk: Optional[int] = None,
+                 kv_gather_window: int = 4, kv_fetch=None, kv_prefetch=None,
                  device: Union[str, torch.device] = "cuda"):
         """kv_pages sizes the shared pool (default: enough for every slot
         at max_len; set it lower to oversubscribe: admission then queues
@@ -492,7 +638,13 @@ class LLMEngine:
         prefill_chunk (tokens, rounded down to a page multiple, at least
         one page) bounds the prefill work per step(): a longer prompt
         advances one chunk per step, so it cannot starve the decoding
-        requests."""
+        requests.
+
+        kv_gather_window, kv_fetch and kv_prefetch configure the paged
+        external requests (add_paged_request): at most ``kv_gather_window``
+        external parts are held at once (host and device), fetched by
+        ``kv_fetch(handle)`` (blocking; default: a part passed by value is
+        its data) and warmed by ``kv_prefetch(handle) -> future``."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_batch = max_batch
@@ -553,12 +705,33 @@ class LLMEngine:
         else:
             self.prefill_chunk = None
         self._prefilling: Dict[int, _Request] = {}
+        # Streamed external KV (paged requests and the pool-free prefill).
+        self._stream_attn = StreamAttn(cfg, self.device)
+        self._kv_window = _KVWindow(kv_gather_window,
+                                    kv_fetch or _default_kv_fetch,
+                                    kv_prefetch)
+        self._part_seq = 0
+
+    def _tail_gather(self, li: int, pages: torch.Tensor):
+        """Layer li's k, v of a paged request's decode-tail pages:
+        (pages * page, KV, D) each."""
+        KV, D = self.cfg.num_kv_heads, self.cfg.head_dim_
+        return (self._pk[li][pages].reshape(-1, KV, D),
+                self._pv[li][pages].reshape(-1, KV, D))
+
+    def _append_tail(self, ks, vs, page_id: int, off: int) -> None:
+        """Write one token's (L, KV, D) k, v at (page_id, off), in place."""
+        self._pk[:, page_id, off] = ks
+        self._pv[:, page_id, off] = vs
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
     # ------------------------------------------------------------ requests --
     def _pages_needed(self, req: _Request) -> int:
+        if req.kv_paged:
+            # External context: only the decode tail lives in the pool.
+            return math.ceil((req.params.max_tokens + 1) / self.page)
         budget = len(req.prompt) + req.params.max_tokens + 1
         return math.ceil(min(budget, self.max_len) / self.page)
 
@@ -610,6 +783,59 @@ class LLMEngine:
         req.first_token = int(first_token)
         return self._queue(req)
 
+    def _norm_parts(self, parts, length: int, tag: str) -> List[dict]:
+        """Validate and key a part list: contiguous spans covering
+        [0, length), each entry {"span": (s, e), "handle": ...}."""
+        pos = 0
+        norm = []
+        for i, part in enumerate(parts):
+            s, e = part["span"]
+            if s != pos or e <= s:
+                raise ValueError(
+                    f"KV parts must tile the context contiguously: part "
+                    f"{i} spans [{s}, {e}) but {pos} tokens are covered")
+            pos = e
+            handle = part["handle"]
+            key = part.get("key")
+            if key is None:
+                hx = getattr(handle, "hex", None)
+                key = hx() if callable(hx) else f"{tag}:{i}"
+            norm.append({"span": (int(s), int(e)), "handle": handle,
+                         "key": key})
+        if pos != length:
+            raise ValueError(
+                f"KV parts cover {pos} tokens, context is {length}")
+        return norm
+
+    def add_paged_request(self, parts, length: int, first_token: int,
+                          params: Optional[SamplingParams] = None, *,
+                          prompt_tokens: Optional[Sequence[int]] = None
+                          ) -> int:
+        """Queue a request whose prompt KV lives in external PARTS,
+        [{"span": (s, e), "handle": h}] tiling [0, length), each handle
+        resolving through ``kv_fetch`` to {"k", "v": (L, span, KV, D),
+        "len": valid tokens}. Only the decode tail takes pool pages, so the
+        context may be longer than max_len or the pool. Decode streams
+        attention over the parts through the gather window; a part that
+        cannot be gathered fails this request typed (KVGatherError, finish
+        reason "error"), never with a wrong token."""
+        params = params or SamplingParams()
+        S = int(length)
+        req = _Request(self._next_id,
+                       list(prompt_tokens) if prompt_tokens else [], params)
+        req.kv_paged = True
+        req.no_cache = True
+        req.ext_len = S
+        req.first_token = int(first_token)
+        req.ext_parts = self._norm_parts(parts, S, f"req{req.req_id}")
+        need = self._pages_needed(req)
+        if need > min(self.pages_per_slot, self.n_pages - 1):
+            raise ValueError(
+                f"decode tail needs {need} KV pages but a slot holds "
+                f"{self.pages_per_slot} and the pool {self.n_pages - 1} "
+                f"— lower max_tokens or raise kv_pages/max_len")
+        return self._queue(req)
+
     def cancel_request(self, req_id: int) -> bool:
         """Retire a request mid-flight (waiting, prefilling or decoding):
         its pages return to the pool at once. True if it was live."""
@@ -655,6 +881,12 @@ class LLMEngine:
     @property
     def active_requests(self) -> int:
         return len(self._slots) + len(self._prefilling)
+
+    def kv_gather_stats(self) -> Dict[str, Any]:
+        """The gather window's counters (fetches, refetches, bytes, the
+        blocking wait_s, resident parts, capacity); ``refetches`` > 0 means
+        the window is smaller than a live request's part count."""
+        return self._kv_window.stats()
 
     def prefix_cache_stats(self) -> Dict[str, Any]:
         """The JAX engine's keys: cache counters, page accounting and, with
@@ -864,9 +1096,19 @@ class LLMEngine:
             self._install(req.slot, ks, vs)
 
     def _admit(self):
+        rec = flight_recorder.recorder()
         admitted = []
         while self._waiting and self._reserve(self._waiting[0]):
             req = self._waiting.pop(0)
+            if req.kv_paged:
+                # External paged context: nothing to prefill; the reserved
+                # pages are the decode tail.
+                self._lengths[req.slot] = 0
+                self._temps[req.slot] = req.params.temperature
+                self._slots[req.slot] = req
+                self._last[req.slot] = req.first_token
+                self._emit(req, req.first_token)
+                continue
             S = len(req.prompt)
             if self.prefill_chunk and req.kv_blob is None \
                     and S - req.prefix_len > self.prefill_chunk:
@@ -874,6 +1116,8 @@ class LLMEngine:
                 req.prefilled = req.prefix_len
                 self._prefilling[req.slot] = req
                 continue
+            active_before = len(self._slots)
+            t0 = rec.begin()
             if req.kv_blob is not None:
                 self._install_external(req)
             elif req.prefix_len:
@@ -883,6 +1127,9 @@ class LLMEngine:
             else:
                 logits, ks, vs = self._run_prefill(req.prompt)
                 self._install(req.slot, ks, vs)
+            rec.end("request", "prefill", t0,
+                    id=req.req_id.to_bytes(8, "little"), tokens=S,
+                    cached_tokens=req.prefix_len, active=active_before)
             if self._cache is not None and not req.no_cache:
                 self._cache.insert(req.prompt, self._tables[req.slot],
                                    self._incref)
@@ -915,6 +1162,8 @@ class LLMEngine:
         S = len(req.prompt)
         nxt = min(req.prefilled + self.prefill_chunk, S)
         row = self._tables[slot]
+        rec = flight_recorder.recorder()
+        t0 = rec.begin()
         if req.prefilled == 0:
             logits, ks, vs = self._run_prefill(req.prompt[:nxt])
             self._install_pages(row[:math.ceil(nxt / self.page)], ks, vs)
@@ -923,6 +1172,10 @@ class LLMEngine:
                                               upto=nxt)
             self._install_pages(row[req.prefilled // self.page:
                                     math.ceil(nxt / self.page)], ks, vs)
+        rec.end("request", "prefill", t0,
+                id=req.req_id.to_bytes(8, "little"), tokens=nxt,
+                cached_tokens=req.prefilled, chunked=True,
+                active=len(self._slots))
         req.prefilled = nxt
         if nxt >= S:
             del self._prefilling[slot]
@@ -937,7 +1190,9 @@ class LLMEngine:
 
     def _sample_batch(self, logits_list, params_list) -> List[int]:
         """Sample first tokens for a whole admission wave with one
-        device-to-host transfer."""
+        device-to-host transfer, inside a ``sample_sync`` span."""
+        rec = flight_recorder.recorder()
+        t0 = rec.begin()
         lg = torch.stack(logits_list)                     # (N, V) f32
         toks = lg.argmax(-1)
         temps = torch.tensor([p.temperature for p in params_list],
@@ -946,7 +1201,9 @@ class LLMEngine:
             probs = torch.softmax(lg / temps.clamp_min(1e-6)[:, None], -1)
             sampled = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
             toks = torch.where(temps > 0, sampled, toks)
-        return toks.tolist()                              # the one sync
+        out = toks.tolist()                               # the one sync
+        rec.end("request", "sample_sync", t0, batch=len(params_list))
+        return out
 
     def _sample_host(self, logits, params: SamplingParams) -> int:
         return self._sample_batch([logits], [params])[0]
@@ -962,6 +1219,13 @@ class LLMEngine:
         if p.eos_id is not None and token == p.eos_id:
             req.finished = True
             req.finish_reason = req.finish_reason or "stop"
+        elif req.kv_paged:
+            # Paged context: bounded by max_tokens and the reserved tail
+            # pages, never by max_len (the context lives in the parts).
+            if len(req.out) >= p.max_tokens \
+                    or req.ext_written + 1 >= len(req.pages) * self.page:
+                req.finished = True
+                req.finish_reason = req.finish_reason or "length"
         elif len(req.out) >= p.max_tokens \
                 or len(req.prompt) + len(req.out) >= self.max_len - 1:
             req.finished = True
@@ -971,8 +1235,9 @@ class LLMEngine:
     @torch.no_grad()
     def step(self) -> List[_Request]:
         """Admit waiting requests, advance chunked prefills by one chunk,
-        run ONE decode step for all active slots, retire finished requests.
-        Returns the requests finished in this step."""
+        run ONE decode step for all active slots (paged-context slots
+        stream their attention over external parts), retire finished
+        requests. Returns the requests finished in this step."""
         self._tick_events = []
         self._admit()
         self._advance_prefilling()
@@ -983,16 +1248,40 @@ class LLMEngine:
                 done.append(self._retire(slot))
         if not self._slots:
             return done
+        # Paged-context slots: one streamed-attention token each (their KV
+        # is in external parts, which the batched decode cannot read).
+        for slot, req in list(self._slots.items()):
+            if not req.kv_paged or req.finished:
+                continue
+            try:
+                tok = self._ext_decode_step(req)
+            except KVGatherError as e:
+                req.error = e
+                req.finished = True
+                req.finish_reason = "error"
+                done.append(self._retire(slot))
+                continue
+            self._last[slot] = tok
+            self._emit(req, tok)
+            if req.finished:
+                done.append(self._retire(slot))
+        batch = [s for s, r in self._slots.items() if not r.kv_paged]
+        if not batch:
+            return done
         active = np.zeros(self.max_batch, bool)
-        active[list(self._slots)] = True
+        active[batch] = True
         temps = self._to_device(self._temps) if (self._temps > 0).any() \
             else None
+        rec = flight_recorder.recorder()
+        t0 = rec.begin()
         nxt = _decode_fn(
             self.params, self._pk, self._pv, self._to_device(self._tables),
             self._to_device(self._last), self._to_device(self._lengths),
             self._to_device(active), temps, self._gen, self.cfg, self.page)
         nxt = nxt.cpu().numpy()
-        for slot, req in list(self._slots.items()):
+        rec.end("request", "decode", t0, batch=len(batch))
+        for slot in batch:
+            req = self._slots[slot]
             self._lengths[slot] += 1          # the token we just attended
             tok = int(nxt[slot])
             self._last[slot] = tok
@@ -1015,10 +1304,220 @@ class LLMEngine:
             self._decref(p)
         req.pages = []
         req.shared_pages = []
+        if req.ext_parts:
+            self._kv_window.drop([p["key"] for p in req.ext_parts])
         self._tables[slot] = 0
         self._lengths[slot] = 0
         self._temps[slot] = 0.0
         self._requests.pop(req.req_id, None)
+
+    # ------------------------------------------------ streamed external KV --
+    def _part_layer(self, part: dict, li: int):
+        """Layer li's (k, v, valid_len) of an external part, through the
+        gather window.
+
+        The whole part goes to the engine's device once per window
+        residency and is sliced by layer there, cached in the window's
+        entry: a part that arrives on the host (a numpy array, f32 as in
+        the JAX tests, or a CPU tensor, bf16 included) is copied once; a
+        part already on the device is used as it is. Nothing is copied per
+        layer or per token, and the device holds at most the window's
+        parts."""
+        data = self._kv_window.get(part["key"], part["handle"])
+        kd = data.get("_kd")
+        if kd is None:
+            kd = data["_kd"] = self._blob_tensor(data["k"])
+            data["_vd"] = self._blob_tensor(data["v"])
+        valid = int(data.get("len", data["k"].shape[1]))
+        return kd[li], data["_vd"][li], valid
+
+    def _window_prefetch(self, parts) -> None:
+        self._kv_window.prefetch([(p["key"], p["handle"]) for p in parts])
+
+    def _ext_decode_step(self, req: _Request) -> int:
+        """One decode token of a paged-context slot: online-softmax
+        attention over the external parts (layers outer, parts inner), the
+        pool-resident decode tail and the incoming token itself; the new
+        token's KV is appended to the tail pages. Raises KVGatherError if a
+        part cannot be gathered."""
+        sa = self._stream_attn
+        S, t = req.ext_len, req.ext_written
+        pos = S + t                       # absolute write/query position
+        rec = flight_recorder.recorder()
+        win = self._kv_window
+        b0, w0, f0 = win.bytes_fetched, win.wait_s, win.fetches
+        t0 = rec.begin()
+        self._window_prefetch(req.ext_parts)
+        x = sa.embed(self.params, [[self._last[req.slot]]])
+        pages_row = self._to_device(np.asarray(req.pages, np.int64))
+        ks_new, vs_new = [], []
+        for li in range(self.cfg.num_layers):
+            q, k, v = sa.qkv(self.params["layers"], li, x, pos)
+            m, l, acc = sa.init(1)
+            for part in req.ext_parts:
+                pk, pv, valid = self._part_layer(part, li)
+                m, l, acc = _stream_block_fn(q, pk, pv, valid, pos,
+                                             part["span"][0], m, l, acc,
+                                             scale=sa.scale)
+            if t > 0:
+                tk, tv = self._tail_gather(li, pages_row)
+                m, l, acc = _stream_block_fn(q, tk, tv, t, pos, S, m, l, acc,
+                                             scale=sa.scale)
+            m, l, acc = _stream_block_fn(q, k, v, 1, pos, pos, m, l, acc,
+                                         scale=sa.scale)
+            x = sa.finish(self.params["layers"], li, x, l, acc)
+            ks_new.append(k)
+            vs_new.append(v)
+        logits = sa.logits(self.params, x, 0)
+        # The span covers the prefetch kick to the last layer's dispatch;
+        # gather_wait_us is its blocking part.
+        rec.end("request", "sp:gather", t0,
+                id=req.req_id.to_bytes(8, "little"),
+                parts=len(req.ext_parts),
+                gather_bytes=win.bytes_fetched - b0,
+                gather_wait_us=int((win.wait_s - w0) * 1e6),
+                fetches=win.fetches - f0)
+        self._append_tail(torch.stack(ks_new)[:, 0],
+                          torch.stack(vs_new)[:, 0],
+                          req.pages[t // self.page], t % self.page)
+        req.ext_written = t + 1
+        return self._sample_batch([logits], [req.params])[0]
+
+    @torch.no_grad()
+    def prefill_paged_chunk(self, chunk_tokens: Sequence[int], pos0: int,
+                            ctx_parts, *, span: int, is_last: bool):
+        """One streamed prefill chunk that never touches the page pool: the
+        chunk's queries attend to the context parts before it (through the
+        gather window) and causally to the chunk itself, and the chunk's KV
+        comes back as a new part on this engine's device, padded to
+        ``span`` with its real length in "len". Returns (part, the last
+        token's f32 logits if ``is_last`` else None)."""
+        sa = self._stream_attn
+        Sc = len(chunk_tokens)
+        if not (0 < Sc <= span):
+            raise ValueError(f"chunk of {Sc} tokens vs span {span}")
+        ctx = self._norm_parts(
+            ctx_parts, pos0, f"pf{self._part_seq}") if ctx_parts else []
+        self._part_seq += 1
+        rec = flight_recorder.recorder()
+        win = self._kv_window
+        b0, w0, f0 = win.bytes_fetched, win.wait_s, win.fetches
+        t0 = rec.begin()
+        self._window_prefetch(ctx)
+        toks = np.zeros((1, span), np.int64)
+        toks[0, :Sc] = chunk_tokens
+        x = sa.embed(self.params, toks)
+        ks_out, vs_out = [], []
+        for li in range(self.cfg.num_layers):
+            q, k, v = sa.qkv(self.params["layers"], li, x, pos0)
+            m, l, acc = sa.init(span)
+            for part in ctx:
+                pk, pv, valid = self._part_layer(part, li)
+                m, l, acc = _stream_block_fn(q, pk, pv, valid, pos0,
+                                             part["span"][0], m, l, acc,
+                                             scale=sa.scale)
+            m, l, acc = _stream_block_fn(q, k, v, Sc, pos0, pos0, m, l, acc,
+                                         scale=sa.scale)
+            x = sa.finish(self.params["layers"], li, x, l, acc)
+            ks_out.append(k)
+            vs_out.append(v)
+        rec.end("request", "sp:gather", t0, parts=len(ctx),
+                gather_bytes=win.bytes_fetched - b0,
+                gather_wait_us=int((win.wait_s - w0) * 1e6),
+                fetches=win.fetches - f0, prefill_chunk=True)
+        part = {"k": torch.stack(ks_out), "v": torch.stack(vs_out), "len": Sc}
+        logits = sa.logits(self.params, x, Sc - 1) if is_last else None
+        return part, logits
+
+    @torch.no_grad()
+    def prefill_paged(self, prompt_tokens: Sequence[int],
+                      params: Optional[SamplingParams] = None, *,
+                      span: int = 64, publish=None, pipeline: bool = True
+                      ) -> dict:
+        """Streamed chunked prefill of a context of any length with a
+        bounded device working set: chunk c attends to the c parts before
+        it, then becomes part c. ``publish(part) -> handle`` puts each part
+        wherever it should live; without it parts travel by value. Returns
+        the handoff {"parts": [{"span", "handle"}], "len", "first"} that
+        add_paged_request and decode_paged take.
+
+        pipeline=True (the default) runs each publish on one background
+        thread, overlapping it with the next chunk's compute; the handles
+        resolve when the handoff is assembled, and a failed publish raises
+        there. The next chunk reads a part through this engine's window,
+        never through its handle, so a window smaller than the part count
+        makes a pipelined prefill fetch an unresolved handle and fail, as
+        in the reference: give it at least as many slots as parts.
+
+        Parts cross to the publish thread as device tensors. On a CUDA
+        device each carries an event recorded on the stream that computed
+        it, and the publish thread waits on that event before it calls
+        ``publish``, so the part is complete whatever stream the engine runs
+        on. A publish that copies a part to the host must use a synchronous
+        copy (``.cpu()``, or ``copy_`` without ``non_blocking``), so that a
+        handle it returns is never read before its bytes exist."""
+        params = params or SamplingParams()
+        prompt = list(prompt_tokens)
+        S = len(prompt)
+        span = max(8, int(span))
+        parts_meta: List[dict] = []
+        n_chunks = math.ceil(S / span)
+        logits = None
+        pub_pool = None
+        try:
+            for c in range(n_chunks):
+                s0 = c * span
+                chunk = prompt[s0:s0 + span]
+                part, logits = self.prefill_paged_chunk(
+                    chunk, s0, parts_meta, span=span,
+                    is_last=(c == n_chunks - 1))
+                key = f"pp{id(self) & 0xffff}:{self._part_seq}"
+                self._part_seq += 1
+                # Keep our own fresh part hot for chunk c + 1.
+                self._kv_window.put(key, part)
+                if publish is None:
+                    handle = part
+                elif pipeline:
+                    if pub_pool is None:
+                        pub_pool = concurrent.futures.ThreadPoolExecutor(
+                            1, thread_name_prefix="kvpublish")
+                    made = None
+                    if self.device.type == "cuda":
+                        made = torch.cuda.Event()
+                        made.record(torch.cuda.current_stream(self.device))
+                    handle = pub_pool.submit(_publish_when_made, publish,
+                                             part, made)
+                else:
+                    handle = publish(part)
+                parts_meta.append({"span": (s0, s0 + len(chunk)),
+                                   "handle": handle, "key": key})
+            first = self._sample_batch([logits], [params])[0]
+            for m in parts_meta:
+                if isinstance(m["handle"], concurrent.futures.Future):
+                    m["handle"] = m["handle"].result()
+        finally:
+            if pub_pool is not None:
+                pub_pool.shutdown(wait=True)
+        return {"parts": [{"span": m["span"], "handle": m["handle"]}
+                          for m in parts_meta],
+                "len": S, "first": int(first)}
+
+    def decode_paged(self, handoff: dict,
+                     params: Optional[SamplingParams] = None) -> List[int]:
+        """Decode a paged handoff to completion (a closed loop over
+        add_paged_request); raises the request's KVGatherError if a part
+        could not be gathered mid-decode."""
+        rid = self.add_paged_request(handoff["parts"], handoff["len"],
+                                     handoff["first"], params,
+                                     prompt_tokens=handoff.get("prompt"))
+        while self.has_unfinished():
+            for done in self.step():
+                if done.req_id == rid:
+                    if done.error is not None:
+                        raise done.error
+                    return done.out
+        raise RuntimeError(
+            f"paged request {rid} was dropped without finishing")
 
     # ------------------------------------------------------------ generate --
     def generate(self, prompts: Sequence[Sequence[int]],
@@ -1049,6 +1548,8 @@ class LLMEngine:
         if S >= self.max_len:
             raise ValueError(f"prompt ({S}) >= max_len ({self.max_len})")
         prompt = list(prompt_tokens)
+        rec = flight_recorder.recorder()
+        t0 = rec.begin()
         c, shared = 0, []
         if self._cache is not None:
             c, shared = self._cache.lookup(prompt)
@@ -1083,6 +1584,8 @@ class LLMEngine:
             self._cache.insert(prompt, row, self._incref)
             for p in fresh:
                 self._decref(p)               # the cache's refs keep them
+        rec.end("request", "prefill", t0, tokens=S, cached_tokens=c,
+                external=True)
         first = self._sample_host(logits, params)
         return {"k": k_full, "v": v_full, "len": S}, first
 

@@ -236,21 +236,32 @@ def _attention(cfg: TransformerConfig, q, k, v):
 # Forward
 # ---------------------------------------------------------------------------
 
-def _layer(cfg: TransformerConfig, x, lp, cos, sin):
+def _layer_qkv(lp, h, cfg: TransformerConfig):
+    """A layer's q (B, S, H, D), k and v (B, S, KV, D) from the normed
+    input h, before RoPE."""
     dt = cfg.dtype
-    h = rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
     q = torch.einsum("bse,ehd->bshd", h, lp["attn"]["wq"].to(dt))
     k = torch.einsum("bse,ekd->bskd", h, lp["attn"]["wk"].to(dt))
     v = torch.einsum("bse,ekd->bskd", h, lp["attn"]["wv"].to(dt))
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    o = _attention(cfg, q, k, v)
-    x = x + torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(dt))
+    return q, k, v
+
+
+def _mlp(lp, x, cfg: TransformerConfig):
+    """The SwiGLU half of a layer, with its norm and residual."""
+    dt = cfg.dtype
     h = rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
     g = torch.einsum("bse,em->bsm", h, lp["mlp"]["w_gate"].to(dt))
     u = torch.einsum("bse,em->bsm", h, lp["mlp"]["w_up"].to(dt))
     return x + torch.einsum("bsm,me->bse", F.silu(g) * u,
                             lp["mlp"]["w_down"].to(dt))
+
+
+def _layer(cfg: TransformerConfig, x, lp, cos, sin):
+    h = rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
+    q, k, v = _layer_qkv(lp, h, cfg)
+    o = _attention(cfg, apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+    x = x + torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(cfg.dtype))
+    return _mlp(lp, x, cfg)
 
 
 def forward(params: Dict[str, Any], tokens, cfg: TransformerConfig,

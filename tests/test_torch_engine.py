@@ -126,8 +126,7 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
 
 
 def test_unported_engine_options_are_absent():
-    for opt in ("sp_degree", "sp_strategy", "mesh", "kv_fetch",
-                "kv_prefetch", "kv_gather_window"):
+    for opt in ("sp_degree", "sp_strategy", "mesh"):
         with pytest.raises(TypeError, match=opt):
             LLMEngine(CFG, device="cpu", **{opt: None})
 
@@ -147,7 +146,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     code = (
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.llm.engine\n"
-        "import ray_tpu_torch._config\n"
+        "import ray_tpu_torch._config, ray_tpu_torch.exceptions\n"
+        "import ray_tpu_torch._private.flight_recorder\n"
+        "import ray_tpu_torch.llm.sequence_parallel\n"
         "import ray_tpu_torch.models.transformer, ray_tpu_torch.ops._build\n"
         "import ray_tpu_torch.models.train_step\n"
         "import chip_smoke\n"

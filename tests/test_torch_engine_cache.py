@@ -9,6 +9,7 @@ tests/test_llm_serving.py:90-140 and tests/test_memory_tiers.py:333-390).
 """
 
 import collections
+import dataclasses
 import os
 
 import jax
@@ -237,6 +238,37 @@ def test_kv_demote_overflows_to_files_and_promotes(tmp_path):
     assert again == first and end["promoted_pages"] > 0
 
 
+def test_bf16_file_entry_promotes_in_the_port_and_raises_in_jax(tmp_path):
+    """A reference fault the port does not copy: on a bf16 ``tiny``, an
+    entry that overflowed to a file cannot be promoted by the JAX engine
+    (np.savez keeps ml_dtypes bf16 as void, and jnp.asarray raises
+    ValueError), while the port promotes it with the tokens of its own
+    resident hit."""
+    jcfg = dataclasses.replace(JCFG, dtype=jnp.bfloat16)
+    cfg = dataclasses.replace(CFG, dtype=torch.bfloat16)
+    jeng = JaxEngine(jcfg, kv_pages=12, prefix_cache=True, **SMALL)
+    params = from_jax_params(jax.tree.map(np.asarray, jeng.params), cfg,
+                             "cpu")
+    teng = LLMEngine(cfg, params, device="cpu", kv_pages=12,
+                     prefix_cache=True, **SMALL)
+    prompt = list(range(1, 33))                      # 4 full pages
+    runs = {}
+    for eng, store, sub in ((jeng, JaxDemoteStore, "jax"),
+                            (teng, _KVDemoteStore, "port")):
+        eng._demote = store(1, str(tmp_path / sub))  # every entry to a file
+        miss = _gen(eng, prompt, 4)
+        hit = _gen(eng, prompt, 4)
+        _evict_all(eng, demote=True)
+        assert eng.prefix_cache_stats()["demoted_disk_entries"] == 4
+        runs[sub] = (miss, hit)
+    with pytest.raises(ValueError, match="No cast function"):
+        _gen(jeng, prompt, 4)
+    promoted = _gen(teng, prompt, 4)
+    stats = teng.prefix_cache_stats()
+    assert stats["promoted_pages"] == 3 and stats["hits"] == 2
+    assert promoted == runs["port"][1]
+
+
 def test_kv_pool_squeeze_parks_and_restores_pages():
     outs = []
     for eng in _pair(kv_pages=16, prefix_cache=True, **SMALL):
@@ -286,7 +318,7 @@ def test_demote_store_drops_an_entry_whose_write_fails(tmp_path):
 
 
 def test_demotion_settings_match_the_reference(monkeypatch, tmp_path):
-    """The port's copy of the three settings: the reference's types and
+    """The port's copy of the settings: the reference's types and
     defaults, and the same RAY_TPU_<name> overrides read the same way."""
     from ray_tpu._private.config import _REGISTRY, Config
     for name, (typ, default) in _config._SETTINGS.items():
