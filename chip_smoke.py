@@ -67,7 +67,30 @@ Phases, each printing one JSON line on stdout:
    the ConnectionError while a pool request beside it finishes, and every
    page and window slot is free. Prints the prefill ms, the paged decode
    step ms, one profiled paged decode step and the window's counters.
-8. train: the same model at full width and depth, random weights, four
+8. serve_replica: the same params behind EngineReplica (max_batch=4,
+   max_len=2048, page_size=64, prefix cache), its decode loop on an
+   asyncio event loop in a thread of its own and engine.step on that
+   loop's executor threads. Four greedy prompts (37, 300, 1000, 1900
+   tokens) one at a time through generate, whose tokens must equal a
+   closed-loop LLMEngine's of the same shape (on a mismatch the step and
+   the top-2 logit margin are printed); eight staggered stream_generate
+   calls, two of them prefix hits and one abandoned after 3 tokens
+   (max_active >= 2, cancelled 1, one request:admit span per request,
+   every page free or only cached; each request's TTFT and inter-token
+   gaps, the lock waits); a replica with max_queue=2 shedding 4 of 6
+   concurrent requests typed, and a request queued behind a full pool with
+   a 0.2 s deadline expiring typed; P/D from replica P to D
+   (prefill_handoff -> decode_handoff) of the 1000-token prompt with
+   generate's tokens; a
+   1536-token context through P.prefill_paged_handoff (three 512-token
+   parts) and D.decode_paged, whose 8 tokens must equal the engine-level
+   prefill_paged/decode_paged's; a fetch failing mid-decode on a window-1
+   replica giving StreamBrokenError with a KVGatherError cause; the
+   open-loop harness over the replica (8 requests of 300 tokens at 2/s).
+   Kernel 1's launches per section: 32 per full prefill, none for hits or
+   paged steps. Prints the engine step, fan-out wait and open-loop TTFT
+   and inter-token percentiles on the host clock.
+9. train: the same model at full width and depth, random weights, four
    steps of make_train_step on one fixed 2048-token batch with per-layer
    checkpointing; checks finite metrics, a falling loss, each kernel's
    launches per step, step 1's loss and grad norm against a pass with
@@ -82,6 +105,8 @@ exits non-zero without the ok line, as does a machine without CUDA.
 
 from __future__ import annotations
 
+import asyncio
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -90,6 +115,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -97,9 +123,11 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from ray_tpu_torch._private import flight_recorder
-from ray_tpu_torch.exceptions import KVGatherError
-from ray_tpu_torch.llm import LLMEngine, SamplingParams
+from ray_tpu_torch._private import deadlines, flight_recorder
+from ray_tpu_torch.exceptions import (DeadlineExceededError, KVGatherError,
+                                      OverloadedError, StreamBrokenError)
+from ray_tpu_torch.llm import (EngineReplica, LLMEngine, SamplingParams,
+                               run_open_loop)
 from ray_tpu_torch.models import (PRESETS, forward, init_params,
                                   make_optimizer, make_train_step)
 from ray_tpu_torch.models.train_step import value_and_grad
@@ -172,6 +200,30 @@ PAGED_WINDOW = 8
 # The gather failure: a 256-token context in two 128-token parts (16 MiB
 # each) beside a 37-token pool request, the fetch failing after two steps.
 FAIL_LEN, FAIL_SPAN, FAIL_POOL_LEN, FAIL_AFTER_STEPS = 256, 128, 37, 2
+# serve_replica: the serve phase's engine shape behind EngineReplica, with
+# the prefix cache. Parity prompts come from np.random.default_rng(3).
+REPLICA = dict(max_batch=4, max_len=2048, page_size=64, prefix_cache=True,
+               max_tokens=MAX_TOKENS)
+# Eight staggered streams: two share 600 tokens (9 pages) with the 1000-
+# token parity prompt and hit; the fourth is abandoned after 3 tokens.
+STREAM_LENS = (64, 128, 200, 250, 333, 420)
+STREAM_HIT_PREFIX, STREAM_HIT_SUFFIX = 600, 50
+STREAM_GAP_S, ABANDON_AT, ABANDON_AFTER = 0.15, 3, 3
+# Shedding: max_queue=2 against 6 concurrent 100-token requests (4 shed).
+# The deadline: a 1000-token request decoding 32 tokens (~70 ms each on
+# the H100, PERF.md, so ~10x the deadline) holds all 17 pages of its
+# replica's pool, ceil((1000 + 32 + 1) / 64), while a request with a
+# deadline 0.2 s out waits behind it.
+SHED_N, SHED_LEN = 6, 100
+DEADLINE_LONG_LEN, DEADLINE_LONG_TOKENS, DEADLINE_S = 1000, 32, 0.2
+# P/D and paged through replicas: P/D on the 1000-token parity prompt,
+# whose generate tokens are known; a 1536-token context in three 512-token
+# parts decoded for 8 tokens; the gather failure on a 256-token context in
+# two parts through a window of 1, the fetch failing from its (2 parts x
+# layers x 2 tokens + 1)-th call, in the third decode step.
+RPAGED_LEN, RPAGED_SPAN, RPAGED_TOKENS = 1536, 512, 8
+# The open loop: 8 requests of 300 tokens offered at 2 requests/s.
+OPEN_LOOP_RATE, OPEN_LOOP_S, OPEN_LOOP_LEN = 2.0, 4.0, 300
 
 # Backward, per gradient. bf16, max |diff| / max |ref|: the kernels round P
 # and dS to bf16 as the operands of their products and emit bf16, where
@@ -1236,6 +1288,445 @@ def serve_paged_phase(card: str, failures: list, params) -> dict:
     return res
 
 
+class LoopThread:
+    """An asyncio event loop on a thread of its own. The replicas live on
+    it (a replica keeps to one loop); the script and run_open_loop's request
+    threads call into it."""
+
+    def __init__(self):
+        self.loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(target=self.loop.run_forever,
+                                        name="replica-loop", daemon=True)
+        self._thread.start()
+
+    def call(self, coro, timeout: float = 600.0):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def stream(self, agen, timeout: float = 600.0):
+        """Iterate an async generator of the loop from this thread; closing
+        early closes it (a replica then cancels the request)."""
+        async def step():
+            return await agen.__anext__()
+        try:
+            while True:
+                try:
+                    yield self.call(step(), timeout)
+                except StopAsyncIteration:
+                    return
+        finally:
+            self.call(agen.aclose(), timeout)
+
+    def close(self) -> None:
+        """Cancel the loop's tasks (the replicas' idle decode loops), shut
+        its executor down and stop the thread."""
+        async def shutdown():
+            tasks = [t for t in asyncio.all_tasks()
+                     if t is not asyncio.current_task()]
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+            await asyncio.get_running_loop().shutdown_default_executor()
+        self.call(shutdown())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self._thread.join(60)
+        self.loop.close()
+
+
+class TickProbe:
+    """Host times around one replica's decode loop, in ms: each engine step
+    (run on an executor thread), the wait from a step's return to its
+    fan-out on the event loop (the loop's turn, behind whatever holds the
+    GIL), and the instants at which requests took the engine lock (its
+    ``_maybe_shed`` runs first under the lock)."""
+
+    def __init__(self, er):
+        self.steps, self.fan_waits, self.locked = [], [], []
+        step, fan_out, shed = er.engine.step, er._fan_out, er._maybe_shed
+        t_end = [0.0]
+
+        def timed_step():
+            t0 = time.perf_counter()
+            done = step()
+            t_end[0] = time.perf_counter()
+            self.steps.append((t_end[0] - t0) * 1e3)
+            return done
+
+        def timed_fan_out(events, done):
+            self.fan_waits.append((time.perf_counter() - t_end[0]) * 1e3)
+            return fan_out(events, done)
+
+        def timed_shed(deadline):
+            self.locked.append(time.perf_counter())
+            return shed(deadline)
+
+        er.engine.step = timed_step
+        er._fan_out = timed_fan_out
+        er._maybe_shed = timed_shed
+
+    def summary(self) -> dict:
+        def stats(xs):
+            return (dict(n=len(xs), median=float(np.median(xs)),
+                         max=float(max(xs))) if xs else None)
+        return dict(step_ms=stats(self.steps),
+                    fan_out_wait_ms=stats(self.fan_waits))
+
+
+async def timed_stream(er, prompt, opts=None, *, take=None,
+                       delay: float = 0.0) -> dict:
+    """One request through ``er.stream_generate``: its tokens, finish
+    reason, submit time and each token's arrival (host clock). ``take``
+    abandons the stream after that many tokens."""
+    if delay:
+        await asyncio.sleep(delay)
+    toks, reason, stamps = [], None, []
+    t_sub = time.perf_counter()
+    gen = er.stream_generate(prompt, opts)
+    try:
+        async for item in gen:
+            if isinstance(item, dict):
+                reason = item["finish_reason"]
+                break
+            stamps.append(time.perf_counter())
+            toks.append(item)
+            if take and len(toks) >= take:
+                break
+    finally:
+        await gen.aclose()
+    return dict(tokens=toks, finish=reason, t_sub=t_sub, stamps=stamps)
+
+
+def latency(r: dict) -> dict:
+    """A timed_stream's TTFT and inter-token gaps, ms."""
+    st = r["stamps"]
+    return dict(ttft_ms=(st[0] - r["t_sub"]) * 1e3 if st else None,
+                itl_ms=[(b - a) * 1e3 for a, b in zip(st, st[1:])])
+
+
+def request_held_pages(eng) -> int:
+    """Pool page references held by requests, beyond the prefix cache's
+    own entries: 0 means every page is free or only cached, -1 that the
+    free list and the allocated pages do not make up the pool."""
+    cached = collections.Counter(
+        p for pages in (eng._cache._entries.values() if eng._cache else ())
+        for p in pages)
+    held = sum(n - cached[p] for p, n in eng._page_refs.items())
+    if eng.kv_pages_free() + len(eng._page_refs) != eng.kv_pages_total:
+        return -1
+    return held
+
+
+def divergence(params, cfg, prompt, got, want) -> dict:
+    """Where two greedy token lists part, and the top-2 logit margin there
+    of a plain-attention forward() over the prompt and the agreed
+    tokens."""
+    i = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    with uncounted(), torch.no_grad():
+        logits = forward(params, torch.tensor([prompt + want[:i]]), cfg,
+                         device="cuda")[0, -1].float()
+    top = logits.topk(2).values
+    return dict(step=i, got=got[i:i + 1], want=want[i:i + 1],
+                top2_margin=(top[0] - top[1]).item())
+
+
+class FailingFetch:
+    """A KV-part fetch that raises ConnectionError from its ``fail_at``-th
+    call on (the gather pool calls it from two threads)."""
+
+    def __init__(self, parts: dict, fail_at: int):
+        self.parts, self.fail_at = parts, fail_at
+        self.calls = 0
+        self._lock = threading.Lock()
+
+    def __call__(self, handle):
+        with self._lock:
+            self.calls += 1
+            if self.calls >= self.fail_at:
+                raise ConnectionError("the KV parts' holder is gone")
+        return self.parts[handle]
+
+
+def serve_replica_phase(card: str, failures: list, params) -> dict:
+    """EngineReplica on the serve phase's params (see the module
+    docstring)."""
+    cfg = PRESETS["8b-gqa"]
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(3)
+
+    def toks(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    def fail(what, detail):
+        failures.append(f"serve_replica {what}: {detail}")
+
+    bridge = LoopThread()
+    R = EngineReplica(cfg, params, device="cuda", **REPLICA)
+    ref = LLMEngine(cfg, params, device="cuda",
+                    **{k: v for k, v in REPLICA.items() if k != "max_tokens"})
+    probe = TickProbe(R)
+    launches = {}
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+    torch.cuda.synchronize()
+    flash_attention_fwd.launches = 0
+
+    def counted(section, want_prefills):
+        launches[section] = dict(got=flash_attention_fwd.launches,
+                                 want=want_prefills * cfg.num_layers)
+        flash_attention_fwd.launches = 0
+
+    # Parity: one request at a time through generate, against the
+    # closed-loop engine of the same shape on the same params.
+    prompts = [toks(n) for n in PROMPT_LENS]
+    parity = []
+    for p in prompts:
+        t0 = time.perf_counter()
+        parity.append(bridge.call(R.generate(p)))
+        parity[-1]["ms"] = (time.perf_counter() - t0) * 1e3
+    counted("parity", len(prompts))
+    want, ref_ms = [], []
+    with uncounted():
+        for p in prompts:
+            t0 = time.perf_counter()
+            want.append(ref.generate([p], sp)[0])
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+    for p, r, w in zip(prompts, parity, want):
+        if r["tokens"] != w or r["finish_reason"] != "length":
+            fail("parity", dict(prompt_len=len(p), finish=r["finish_reason"],
+                                **divergence(params, cfg, p, r["tokens"],
+                                             w)))
+
+    # Concurrency: eight staggered streams, one abandoned.
+    hits_before = R.engine.prefix_cache_stats()["hits"]
+    hit_prefix = prompts[2][:STREAM_HIT_PREFIX]
+    streams = ([hit_prefix + toks(STREAM_HIT_SUFFIX) for _ in range(2)]
+               + [toks(n) for n in STREAM_LENS])
+    probe.locked.clear()
+
+    async def concurrent():
+        return await asyncio.gather(*[
+            timed_stream(R, p, delay=i * STREAM_GAP_S,
+                         take=ABANDON_AFTER if i == ABANDON_AT else None)
+            for i, p in enumerate(streams)])
+    with captured_spans() as rec:
+        conc = bridge.call(concurrent())
+        bridge.call(asyncio.sleep(0.2))
+        rows = rec.drain()
+    counted("concurrency", len(streams) - 2)
+    st = bridge.call(R.debug_stats())
+    admits = [r for r in rows if r["name"] == "request:admit"]
+    cancels = [r for r in rows if r["name"] == "request:cancelled"]
+    lock_waits = [(a - r["t_sub"]) * 1e3 for a, r in
+                  zip(sorted(probe.locked),
+                      sorted(conc, key=lambda r: r["t_sub"]))]
+    conc_ok = (st["max_active"] >= 2 and st["cancelled"] == 1
+               and st["prefix_cache"]["hits"] - hits_before == 2
+               and request_held_pages(R.engine) == 0
+               and st["active"] == st["queue_depth"] == 0
+               and len(admits) == len(streams) and len(cancels) == 1
+               and all(len(r["tokens"]) == (ABANDON_AFTER if i == ABANDON_AT
+                                            else MAX_TOKENS)
+                       and all(0 <= t < cfg.vocab_size for t in r["tokens"])
+                       for i, r in enumerate(conc)))
+    concurrency = dict(
+        streams=[dict(prompt_len=len(p), tokens=len(r["tokens"]),
+                      finish=r["finish"], **latency(r))
+                 for p, r in zip(streams, conc)],
+        lock_wait_ms=lock_waits, max_active=st["max_active"],
+        cancelled=st["cancelled"], admit_spans=len(admits),
+        admit_args=[r["args"] for r in admits],
+        cancel_instants=len(cancels),
+        hits=st["prefix_cache"]["hits"] - hits_before,
+        request_held_pages=request_held_pages(R.engine))
+    if not conc_ok:
+        fail("concurrency", {k: v for k, v in concurrency.items()
+                             if k != "streams"})
+
+    # Shedding and a queued deadline on a second replica.
+    S = EngineReplica(cfg, params, device="cuda", max_batch=2,
+                      max_len=REPLICA["max_len"], page_size=64,
+                      prefix_cache=False, max_queue=2,
+                      max_tokens=MAX_TOKENS,
+                      kv_pages=math.ceil((DEADLINE_LONG_LEN
+                                          + DEADLINE_LONG_TOKENS + 1) / 64))
+
+    async def shed_and_deadline():
+        out = await asyncio.gather(
+            *[timed_stream(S, toks(SHED_LEN)) for _ in range(SHED_N)],
+            return_exceptions=True)
+        long_task = asyncio.ensure_future(timed_stream(
+            S, toks(DEADLINE_LONG_LEN),
+            {"max_tokens": DEADLINE_LONG_TOKENS}))
+        # Once its admitting tick has fanned out (a decode tick, ~70 ms,
+        # is the most the late request then waits for the lock).
+        while not any(m["admitted"] for m in S._meta.values()):
+            await asyncio.sleep(0.005)
+        full = S.engine.kv_pages_free()
+        tok = deadlines.set_current(time.time() + DEADLINE_S)
+        try:
+            late = await timed_stream(S, toks(SHED_LEN))
+        except DeadlineExceededError as e:
+            late = e
+        finally:
+            deadlines.reset(tok)
+        return out, await long_task, full, late
+    shed_out, long_run, free_when_full, late = bridge.call(
+        shed_and_deadline())
+    counted("shed_deadline", 2 + 1)
+    sst = bridge.call(S.debug_stats())
+    raised = [e for e in shed_out if isinstance(e, OverloadedError)]
+    served = [r for r in shed_out if isinstance(r, dict)]
+    shedding = dict(
+        offered=SHED_N, shed_raised=len(raised), shed=sst["shed"],
+        retry_after_s=[e.retry_after_s for e in raised],
+        messages=sorted({str(e) for e in raised}), served=len(served),
+        deadline_error=repr(late), expired=sst["expired"],
+        pages_free_while_full=free_when_full,
+        long_tokens=len(long_run["tokens"]),
+        pages_free_after=sst["kv_pages_free"],
+        pages_total=sst["kv_pages_total"])
+    if not (len(raised) == sst["shed"] == SHED_N - 2 and len(served) == 2
+            and len(raised) + len(served) == SHED_N
+            and all(e.retry_after_s > 0 for e in raised)
+            and isinstance(late, DeadlineExceededError)
+            and str(late) == "deadline exceeded in serving admission queue"
+            and sst["expired"] == 1
+            and free_when_full == 0
+            and long_run["finish"] == "length"
+            and len(long_run["tokens"]) == DEADLINE_LONG_TOKENS
+            and sst["kv_pages_free"] == sst["kv_pages_total"]
+            and sst["active"] == sst["queue_depth"] == 0):
+        fail("shedding", shedding)
+
+    # P/D and paged handoffs between replicas P and D.
+    P = EngineReplica(cfg, params, device="cuda", **REPLICA)
+    D = EngineReplica(cfg, params, device="cuda", **REPLICA)
+    pd_prompt, pd_want = prompts[2], parity[2]["tokens"]
+    handoff = bridge.call(P.prefill_handoff({"prompt": pd_prompt}))
+    pd_tokens = bridge.call(D.decode_handoff(handoff))["tokens"]
+    counted("pd", 1)
+    if pd_tokens != pd_want:
+        fail("P/D", divergence(params, cfg, pd_prompt, pd_tokens, pd_want))
+
+    paged_prompt = toks(RPAGED_LEN)
+    t0 = time.perf_counter()
+    paged = bridge.call(P.prefill_paged_handoff(
+        {"prompt": paged_prompt, "span": RPAGED_SPAN,
+         "opts": {"max_tokens": RPAGED_TOKENS}}))
+    torch.cuda.synchronize()
+    paged_prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    paged_out = bridge.call(D.decode_paged(paged))
+    paged_decode_ms = (time.perf_counter() - t0) * 1e3
+    counted("paged", 0)
+    dst = bridge.call(D.debug_stats())
+    with uncounted():
+        sp_paged = SamplingParams(max_tokens=RPAGED_TOKENS)
+        eng_handoff = ref.prefill_paged(paged_prompt, sp_paged,
+                                        span=RPAGED_SPAN)
+        paged_want = ref.decode_paged(eng_handoff, sp_paged)
+        if launches["paged"]["got"] or flash_attention_fwd.launches:
+            fail("paged", "the engine-level paged path launched kernel 1")
+    paged_res = dict(
+        parts=[p["span"] for p in paged["parts"]], len=paged["len"],
+        first=paged["first"], tokens_equal=paged_out["tokens"] == paged_want,
+        finish=paged_out["finish_reason"], prefill_ms=paged_prefill_ms,
+        decode_ms=paged_decode_ms, gather=dst["kv_gather"],
+        window=D.engine._kv_window.capacity)
+    if not (len(paged["parts"]) == 3 and paged["len"] == RPAGED_LEN
+            and D.engine._kv_window.capacity >= 3
+            and paged_out["tokens"] == paged_want
+            and len(paged_want) == RPAGED_TOKENS
+            and dst["kv_gather"]["refetches"] == 0
+            and dst["kv_gather"]["resident"] == 0
+            and request_held_pages(D.engine) == 0):
+        fail("paged", dict(paged_res, got=paged_out["tokens"],
+                           want=paged_want))
+
+    # A gather failure mid-decode on a replica with a window of 1.
+    small = bridge.call(P.prefill_paged_handoff(
+        {"prompt": toks(FAIL_LEN), "span": FAIL_SPAN}))
+    parts = {f"part{i}": p["handle"] for i, p in enumerate(small["parts"])}
+    fetch = FailingFetch(parts, 2 * cfg.num_layers * 2 + 1)
+    F = EngineReplica(cfg, params, device="cuda", max_batch=1,
+                      kv_gather_window=1, kv_fetch=fetch,
+                      max_tokens=MAX_TOKENS, **PAGED_ENGINE)
+    broken_handoff = dict(small, parts=[
+        {"span": p["span"], "handle": f"part{i}"}
+        for i, p in enumerate(small["parts"])])
+    with captured_spans() as rec:
+        try:
+            broken = bridge.call(F.decode_paged(broken_handoff))
+        except StreamBrokenError as e:
+            broken = e
+        fst = bridge.call(F.debug_stats())
+        kv_broken_rows = [r for r in rec.drain()
+                          if r["name"] == "request:kv_broken"]
+    counted("kv_failure", 0)
+    failure = dict(error=repr(broken), fetch_calls=fetch.calls,
+                   tokens_emitted=getattr(broken, "tokens_emitted", None),
+                   cause=repr(getattr(broken, "__cause__", None)),
+                   kv_broken=fst["kv_broken"],
+                   kv_broken_instants=len(kv_broken_rows),
+                   pages_free=fst["kv_pages_free"],
+                   pages_total=fst["kv_pages_total"],
+                   resident=fst["kv_gather"]["resident"])
+    if not (isinstance(broken, StreamBrokenError)
+            and broken.tokens_emitted > 0
+            and isinstance(broken.__cause__, KVGatherError)
+            and fst["kv_broken"] == 1 and len(kv_broken_rows) == 1
+            and fst["kv_pages_free"] == fst["kv_pages_total"]
+            and fst["kv_gather"]["resident"] == 0 and fst["active"] == 0):
+        fail("KV failure", failure)
+
+    # The open loop over R through the bridge.
+    open_prompts = [toks(OPEN_LOOP_LEN)
+                    for _ in range(int(OPEN_LOOP_RATE * OPEN_LOOP_S))]
+    probe.steps.clear()
+    probe.fan_waits.clear()
+    report = run_open_loop(
+        lambda p: bridge.stream(R.stream_generate(p)),
+        rate_hz=OPEN_LOOP_RATE, duration_s=OPEN_LOOP_S,
+        prompt_fn=open_prompts.__getitem__, request_timeout_s=300.0)
+    counted("open_loop", len(open_prompts))
+    open_loop_ticks = probe.summary()
+    if not (report["completed"] == report["offered"] == len(open_prompts)
+            and report["shed"] == report["broken"] == 0
+            and not report["errors"] and report["unfinished"] == 0
+            and report["tokens_total"] == len(open_prompts) * MAX_TOKENS):
+        fail("open loop", report)
+
+    for section, n in launches.items():
+        if n["got"] != n["want"]:
+            fail("kernel 1 launches", f"{section}: {n}")
+    stats = bridge.call(R.debug_stats())
+    res = dict(
+        phase="serve_replica", preset="8b-gqa", replica=REPLICA,
+        parity=[dict(prompt_len=len(p), tokens_equal=r["tokens"] == w,
+                     generate_ms=r["ms"], closed_loop_ms=t)
+                for p, r, w, t in zip(prompts, parity, want, ref_ms)],
+        concurrency=concurrency, shedding=shedding,
+        pd=dict(prompt_len=len(pd_prompt), tokens_equal=pd_tokens == pd_want),
+        paged=paged_res, kv_failure=failure,
+        open_loop={k: v for k, v in report.items() if k != "errors"},
+        # What the schedule offers: tokens_per_s cannot exceed it, and
+        # the p99s of 8 requests are their maxima.
+        open_loop_offered_tokens_per_s=OPEN_LOOP_RATE * MAX_TOKENS,
+        open_loop_ticks=open_loop_ticks, flash_launches=sum(
+            n["got"] for n in launches.values()),
+        launches_by_section=launches,
+        replica_stats={k: stats[k] for k in ("ticks", "max_active",
+                                              "completed", "cancelled",
+                                              "tokens_out")},
+        seconds=time.perf_counter() - t_phase, card=card)
+    emit(res)
+    bridge.close()
+    del R, S, P, D, F, ref, parts, small, handoff, paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS on Hopper
 
 
@@ -1499,6 +1990,7 @@ def main() -> int:
     serve = serve_phase(card, failures, params, init_s)
     serve_cache = serve_cache_phase(card, failures, params)
     serve_paged = serve_paged_phase(card, failures, params)
+    serve_replica = serve_replica_phase(card, failures, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1523,11 +2015,14 @@ def main() -> int:
              launches=(serve["flash_launches"]
                        + serve_cache["flash_launches"]
                        + serve_paged["flash_launches"]
+                       + serve_replica["flash_launches"]
                        + train["launches"]["fwd"]),
-             launches_by_path=dict(serve=serve["flash_launches"],
-                                   serve_cache=serve_cache["flash_launches"],
-                                   serve_paged=serve_paged["flash_launches"],
-                                   train=train["launches"]["fwd"]),
+             launches_by_path=dict(
+                 serve=serve["flash_launches"],
+                 serve_cache=serve_cache["flash_launches"],
+                 serve_paged=serve_paged["flash_launches"],
+                 serve_replica=serve_replica["flash_launches"],
+                 train=train["launches"]["fwd"]),
              max_abs_err=max(r["max_abs_err_o"] for r in engine_rows),
              ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
              bound_by=at["bound_by"], library_ms=at["library_ms"],

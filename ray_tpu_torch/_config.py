@@ -22,6 +22,8 @@ _SETTINGS: Dict[str, Tuple[type, Any]] = {
     # off, and its ring's slots.
     "flight_recorder_enabled": (bool, True),
     "flight_recorder_capacity": (int, 4096),
+    # 1 of every N instant events kept per category.
+    "flight_recorder_sample_n": (int, 1),
 }
 
 

@@ -1,1 +1,2 @@
-"""In-process services of the port: its copy of the flight recorder."""
+"""In-process services of the port: its copies of the flight recorder and
+of the deadline context."""

@@ -1,12 +1,12 @@
 """Flight recorder: a low-overhead in-process event ring.
 
-A copy of ray_tpu/_private/flight_recorder.py, for the port's engine. Each
-process owns a preallocated ring of (start-ns, end-ns, category, name, id,
-args) records; recording is one slot store and an index bump under a
-lock, from any thread. ``drain()`` turns the records into rows with the
-reference's keys (``task_id``, ``name``, ``event="SPAN"``, ``cat``, ``ts``,
-``start_us``, ``dur_us``, ``worker_id``, ``node_id``, ``job_id`` and
-``args`` when there are any).
+A copy of ray_tpu/_private/flight_recorder.py, for the port's engine and
+serving replica. Each process owns a preallocated ring of (start-ns,
+end-ns, category, name, id, args) records; recording is one slot store and
+an index bump under a lock, from any thread. ``drain()`` turns the records
+into rows with the reference's keys (``task_id``, ``name``,
+``event="SPAN"``, ``cat``, ``ts``, ``start_us``, ``dur_us``, ``worker_id``,
+``node_id``, ``job_id`` and ``args`` when there are any).
 
 The engine writes spans in the ``request`` category: ``prefill`` (with
 ``cached_tokens``, and ``chunked`` or ``external`` where they apply),
@@ -27,12 +27,20 @@ dispatch of the work plus whatever synchronisation the wrapped code does
 (the engine's ``sample_sync`` holds its one device-to-host copy, so it
 absorbs the device time queued before it).
 
-Not copied: ``export_rows``, which feeds the reference runtime's metrics
+The serving replica (llm/serving.py) adds the ``request:admit`` span
+(enqueue to admission, with ``queued`` and ``decoding``) and the
+``request:cancelled`` and ``request:kv_broken`` instants.
+``flight_recorder_sample_n`` keeps 1 of every N ``instant()`` events per
+category and counts the rest in ``sampled_out`` (spans are never sampled
+away: their rate is bounded by the operations they wrap).
+
+Not copied: the reference's category gate (``flight_recorder_categories``
+and ``active()``): every row the port writes is in the ``request``
+category, so the gate would only repeat ``flight_recorder_enabled``;
+``export_rows``, which feeds the reference runtime's metrics
 export (RPC counters and copy audit) and has no counterpart in the port;
 ``note_lost`` and the ``span()`` context manager, which only that
-runtime calls; and ``instant()`` events with their 1-in-N sampling and the
-category gate, which come with the serving layer, the first code of the
-port to write instants or a second category.
+runtime calls.
 """
 
 from __future__ import annotations
@@ -45,15 +53,19 @@ from .. import _config
 
 
 class FlightRecorder:
-    def __init__(self, capacity: int = 4096, enabled: bool = True):
+    def __init__(self, capacity: int = 4096, sample_n: int = 1,
+                 enabled: bool = True):
         self.capacity = max(16, int(capacity))
         self._ring: list = [None] * self.capacity
         self._head = 0          # next write slot
         self._count = 0         # live records (<= capacity)
         self._lock = threading.Lock()
+        self._sample_n = max(1, int(sample_n))
+        self._sample_ctr: Dict[str, int] = {}
         self.enabled = enabled
         self.recorded = 0       # accepted records (monotonic)
         self.dropped = 0        # overwritten-before-drain records
+        self.sampled_out = 0    # instants skipped by sampling
 
     # ------------------------------------------------------------ record --
     def _push(self, rec: tuple) -> None:
@@ -66,13 +78,29 @@ class FlightRecorder:
             self._head = (self._head + 1) % self.capacity
             self.recorded += 1
 
+    def instant(self, cat: str, name: str, id: bytes = b"",
+                **args) -> None:
+        """Point event. Subject to per-category 1-in-N sampling."""
+        if not self.enabled:
+            return
+        if self._sample_n > 1:
+            with self._lock:        # instants may come from any thread
+                c = self._sample_ctr.get(cat, 0)
+                self._sample_ctr[cat] = c + 1
+                if c % self._sample_n:
+                    self.sampled_out += 1
+                    return
+        t = time.monotonic_ns()
+        self._push((t, t, cat, name, id, args or None))
+
     def begin(self) -> int:
         """Start stamp for a span; pass it to end()."""
         return time.monotonic_ns()
 
     def end(self, cat: str, name: str, t0_ns: int, id: bytes = b"",
             **args) -> None:
-        """Complete a span started at begin()."""
+        """Complete a span started at begin(). Spans are never sampled
+        away."""
         if not self.enabled:
             return
         self._push((t0_ns, time.monotonic_ns(), cat, name, id, args or None))
@@ -125,7 +153,7 @@ class FlightRecorder:
         with self._lock:
             pending = self._count
         return {"recorded": self.recorded, "dropped": self.dropped,
-                "pending": pending}
+                "sampled_out": self.sampled_out, "pending": pending}
 
 
 _recorder: Optional[FlightRecorder] = None
@@ -150,6 +178,7 @@ def _from_config() -> FlightRecorder:
     try:
         return FlightRecorder(
             capacity=_config.setting("flight_recorder_capacity"),
+            sample_n=_config.setting("flight_recorder_sample_n"),
             enabled=_config.setting("flight_recorder_enabled"))
     except ValueError:
         return FlightRecorder()

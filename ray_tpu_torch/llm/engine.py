@@ -777,11 +777,38 @@ class LLMEngine:
             raise ValueError(
                 f"prompt_tokens length ({len(prompt)}) != kv blob length "
                 f"({S})")
+        self._check_blob(kv_blob, S)
         req = _Request(self._next_id, prompt, params or SamplingParams())
         req.no_cache = prompt_tokens is None
         req.kv_blob = kv_blob
         req.first_token = int(first_token)
         return self._queue(req)
+
+    def _check_blob(self, kv_blob: dict, S: int) -> None:
+        """Refuse a blob that cannot install, before it is queued: its k
+        and v are first read at admission, inside a step, where the fault
+        would not be the caller's alone. (The reference checks only the
+        length.)"""
+        want = (self.cfg.num_layers, S, self.cfg.num_kv_heads,
+                self.cfg.head_dim_)
+        for name in ("k", "v"):
+            if name not in kv_blob:
+                raise ValueError(f"kv blob has no {name!r}")
+            a = kv_blob[name]
+            shape = tuple(getattr(a, "shape", np.shape(a)))
+            if shape != want:
+                raise ValueError(f"kv blob's {name!r} has shape {shape}, "
+                                 f"want (L, S, KV, D) = {want}")
+            dt = getattr(a, "dtype", None)
+            if isinstance(a, torch.Tensor):
+                floating = a.is_floating_point()
+            else:
+                dt = np.dtype(dt) if dt is not None else np.asarray(a).dtype
+                floating = (np.issubdtype(dt, np.floating)
+                            or dt.name == "bfloat16")
+            if not floating:
+                raise ValueError(f"kv blob's {name!r} has dtype {dt}, "
+                                 f"want a floating type")
 
     def _norm_parts(self, parts, length: int, tag: str) -> List[dict]:
         """Validate and key a part list: contiguous spans covering

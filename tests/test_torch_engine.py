@@ -151,6 +151,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.llm.sequence_parallel\n"
         "import ray_tpu_torch.models.transformer, ray_tpu_torch.ops._build\n"
         "import ray_tpu_torch.models.train_step\n"
+        "import ray_tpu_torch.llm.serving, ray_tpu_torch.llm.openai_api\n"
+        "import ray_tpu_torch.llm.batch, ray_tpu_torch._private.deadlines\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'optax')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'optax.'))\n"

@@ -7,7 +7,14 @@ both singletons for capturing recorders and restores them after (as
 tests/test_llm_serving.py does). A JAX cluster left running in the same
 worker by an earlier test file drains the JAX singleton every second, so a
 capturing recorder's ``drain()`` yields nothing and the test reads
-``rows()``.
+``rows()``. Other JAX code left running in the worker writes rows of other
+categories into the JAX singleton: the diagnosis watchdog threads of the
+in-process GCS servers of tests/test_gcs_failover.py are never stopped,
+and once that file's event loop has closed they record an
+``anomaly:loop_wedged`` instant every few seconds. So the JAX capture
+records only the ``request`` category, through the JAX recorder's own
+category gate; the port's recorder has no gate and records every row, so a
+port row of another category still fails the comparison.
 """
 
 import contextlib
@@ -42,9 +49,10 @@ def _one_torch_thread():
 
 
 @contextlib.contextmanager
-def _captured(module):
-    """Swap ``module``'s process recorder for a fresh capturing one; yield
-    it. Its drain() gives a telemetry flush nothing; rows() drains it."""
+def _captured(module, **kw):
+    """Swap ``module``'s process recorder for a fresh capturing one, made
+    with ``kw`` (JAX's: ``categories`` to record); yield it. Its drain()
+    gives a telemetry flush nothing; rows() drains it."""
 
     class Capture(module.FlightRecorder):
         def drain(self, node_id=b"", worker_id=b""):
@@ -54,7 +62,7 @@ def _captured(module):
             return module.FlightRecorder.drain(self)
 
     old = module._recorder
-    cap = module._recorder = Capture()
+    cap = module._recorder = Capture(**kw)
     try:
         yield cap
     finally:
@@ -64,7 +72,7 @@ def _captured(module):
 @pytest.fixture
 def recorders():
     """(JAX's capturing recorder, the port's), both restored after."""
-    with _captured(jax_flight_recorder) as jrec, \
+    with _captured(jax_flight_recorder, categories={"request"}) as jrec, \
             _captured(flight_recorder) as trec:
         yield jrec, trec
 
@@ -106,18 +114,57 @@ def test_same_calls_give_the_same_rows_and_stats():
         rows.append(_untimed(rec.drain(node_id=b"n", worker_id=b"w")))
         assert rec.drain() == [] and rec.stats()["pending"] == 0
     assert rows[1] == rows[0]
-    # The reference also counts sampled-out instants, which the port does
-    # not record: none here.
-    assert stats[0].pop("sampled_out") == 0
     assert stats[1] == stats[0]
     # A decode span, 12 gathers and 6 chunks into 16 slots: 3 dropped,
     # oldest first.
-    assert stats[1] == {"recorded": 19, "dropped": 3, "pending": 16}
+    assert stats[1] == {"recorded": 19, "dropped": 3, "sampled_out": 0,
+                        "pending": 16}
     assert [r["name"] for r in rows[1][:4]] \
         == ["chunk", "sp:gather", "sp:gather", "chunk"]
     assert rows[1][1]["args"] == {"parts": 2}
     assert rows[1][1]["task_id"] == b"\x02" and rows[1][0]["node_id"] == b"n"
     assert "args" not in rows[1][-1] and rows[1][-2]["args"] == {"parts": 11}
+
+
+def _instant_script(rec):
+    """Instants in two categories, interleaved with spans, with and without
+    ids and args."""
+    for i in range(7):
+        rec.instant("request", "request:cancelled", id=bytes([i]))
+        rec.end("request", "decode", rec.begin(), batch=i)
+        if i % 3 == 0:
+            rec.instant("anomaly", "anomaly:loop_wedged", loop="main")
+    rec.instant("request", "request:kv_broken", id=b"\x07", tokens=3)
+    rec.end("lease", "lease:grant", rec.begin())
+
+
+@pytest.mark.parametrize("sample_n", [1, 2, 3, 4, 9])
+def test_instants_and_sampling_match_jax(sample_n):
+    """instant() and its 1-in-N sampling per category give JAX's rows and
+    stats(); spans are never sampled away."""
+    rows, stats = [], []
+    for module in (jax_flight_recorder, flight_recorder):
+        rec = module.FlightRecorder(capacity=64, sample_n=sample_n)
+        _instant_script(rec)
+        stats.append(rec.stats())
+        rows.append(rec.drain())
+    assert _untimed(rows[1]) == _untimed(rows[0]) and stats[1] == stats[0]
+    names = [r["name"] for r in rows[1]]
+    # Per category, instants 0, N, 2N, ... are kept: 8 request instants
+    # and 3 anomaly ones.
+    kept = -(-8 // sample_n) + -(-3 // sample_n)
+    assert stats[1]["sampled_out"] == 8 + 3 - kept
+    assert names.count("request:cancelled") == -(-7 // sample_n)
+    assert names.count("decode") == 7 and names.count("lease:grant") == 1
+    assert all(r["dur_us"] == 0 for r in rows[1] if r["name"].startswith(
+        ("request:", "anomaly:")))
+
+
+def test_instants_obey_the_enabled_switch():
+    rec = flight_recorder.FlightRecorder(enabled=False, sample_n=2)
+    rec.instant("request", "request:cancelled")
+    assert rec.drain() == [] and rec.stats() == {
+        "recorded": 0, "dropped": 0, "sampled_out": 0, "pending": 0}
 
 
 def test_drain_converts_to_wall_time_with_order_kept():
@@ -141,11 +188,13 @@ def test_disabled_recorder_records_nothing():
 def test_recorder_reads_the_settings_after_reset(monkeypatch):
     """recorder() builds the singleton from RAY_TPU_flight_recorder_* the
     way the reference does, and reset() makes it read them again."""
-    names = ("enabled", "capacity")
+    names = ("enabled", "capacity", "sample_n")
     old = flight_recorder._recorder
     try:
-        for env in ({}, {"enabled": "0", "capacity": "40"},
-                    {"capacity": "not a number"}):
+        for env in ({}, {"enabled": "0", "capacity": "40",
+                         "sample_n": "3"},
+                    {"capacity": "not a number"},
+                    {"sample_n": "not a number"}):
             for name in names:
                 monkeypatch.delenv(f"RAY_TPU_flight_recorder_{name}",
                                    raising=False)
@@ -154,11 +203,11 @@ def test_recorder_reads_the_settings_after_reset(monkeypatch):
             flight_recorder.reset()
             rec = flight_recorder.recorder()
             assert flight_recorder.recorder() is rec
-            got = (rec.enabled, rec.capacity)
+            got = (rec.enabled, rec.capacity, rec._sample_n)
             if env == {} or "not a number" in env.values():
-                assert got == (True, 4096)
+                assert got == (True, 4096, 1)
             else:
-                assert got == (False, 40)
+                assert got == (False, 40, 3)
                 ref = Config()        # the reference's reading of the env
                 for name in names:
                     key = f"flight_recorder_{name}"
