@@ -90,7 +90,26 @@ Phases, each printing one JSON line on stdout:
    Kernel 1's launches per section: 32 per full prefill, none for hits or
    paged steps. Prints the engine step, fan-out wait and open-loop TTFT
    and inter-token percentiles on the host clock.
-9. train: the same model at full width and depth, random weights, four
+9. serve_sp: the same params behind LLMEngine(max_batch=2, max_len=2048,
+   page_size=64, prefix_cache=True) on sp meshes that name the card n
+   times, for (n, strategy) in (2, ring), (4, ring) and (4, ulysses): the
+   shards take turns on the one card, so the phase reads the mechanism,
+   not a speedup (where torch.cuda.device_count() >= n the same runs go
+   on distinct devices too, and the phase prints which ran). A 1900-token
+   and a 37-token greedy prompt in one admission wave, then a prompt
+   sharing the first one's 16 leading pages, whose suffix prefill runs
+   sequence-parallel. Checks each SP prefill's last-token logits against
+   forward() with plain attention (the serve phase's gate, noise printed),
+   the first token equal to their argmax (or, where the reference's top-2
+   margin is below its own noise floor, scored by it within that floor of
+   its top; the margins printed), 16 tokens in [0, vocab), the
+   sp_stripes covering exactly each request's new pages, the hit's
+   counters, 0 kernel 1 launches (the SP prefill's attention is plain, as
+   in the JAX package), and every weight tensor of the engine's replica on
+   the card at the params' own data_ptr (no copy on a repeated device).
+   Prints SP prefill ms (host clock, synchronised) beside the sp=1
+   prefill of the same prompt, one profiled SP prefill and peak memory.
+10. train: the same model at full width and depth, random weights, four
    steps of make_train_step on one fixed 2048-token batch with per-layer
    checkpointing; checks finite metrics, a falling loss, each kernel's
    launches per step, step 1's loss and grad norm against a pass with
@@ -132,6 +151,7 @@ from ray_tpu_torch.models import (PRESETS, forward, init_params,
                                   make_optimizer, make_train_step)
 from ray_tpu_torch.models.train_step import value_and_grad
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.parallel import MeshSpec, build_mesh
 from ray_tpu_torch.ops.flash_attention import (
     attention_bwd_delta, flash_attention, flash_attention_bwd,
     flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
@@ -224,6 +244,15 @@ DEADLINE_LONG_LEN, DEADLINE_LONG_TOKENS, DEADLINE_S = 1000, 32, 0.2
 RPAGED_LEN, RPAGED_SPAN, RPAGED_TOKENS = 1536, 512, 8
 # The open loop: 8 requests of 300 tokens offered at 2 requests/s.
 OPEN_LOOP_RATE, OPEN_LOOP_S, OPEN_LOOP_LEN = 2.0, 4.0, 300
+# serve_sp: the sp layouts, one engine each; a 1900-token prompt (bucket
+# 2048: 1024, 512 tokens a shard) and a 37-token one (bucket 64: its
+# padding crosses shard boundaries), then a hit on the first one's 16
+# leading pages with a 300-token suffix (bucket 512). Prompts come from
+# np.random.default_rng(4).
+SP_ENGINE = dict(max_batch=2, max_len=2048, page_size=64, prefix_cache=True)
+SP_RUNS = ((2, "ring"), (4, "ring"), (4, "ulysses"))
+SP_PROMPT_LENS = (1900, 37)
+SP_HIT_PREFIX, SP_HIT_SUFFIX = 1024, 300
 
 # Backward, per gradient. bf16, max |diff| / max |ref|: the kernels round P
 # and dS to bf16 as the operands of their products and emit bf16, where
@@ -617,6 +646,22 @@ def serve_params():
     return params, time.perf_counter() - t0
 
 
+def plain_logits(params, cfg, prompt, bucket: int) -> tuple:
+    """(forward() with plain attention's last-token logits of ``prompt``,
+    the same on the prompt padded to ``bucket``): the reference, and the
+    noise floor of two orderings of the same bf16 sums. Copies of the rows,
+    so that the (1, S, V) f32 logits they come from are freed."""
+    ref_cfg = dataclasses.replace(cfg, attention_impl="xla")
+    n = len(prompt)
+    with torch.no_grad():
+        ref = forward(params, torch.tensor([prompt]), ref_cfg,
+                      device="cuda")[0, -1].clone()
+        padded = prompt + [0] * (bucket - n)
+        noise = forward(params, torch.tensor([padded]), ref_cfg,
+                        device="cuda")[0, n - 1].clone()
+    return ref, noise
+
+
 def serve_phase(card: str, failures: list, params, init_s: float) -> dict:
     cfg = PRESETS["8b-gqa"]
     eng = LLMEngine(cfg, params, device="cuda", **SERVE_ENGINE)
@@ -659,7 +704,6 @@ def serve_phase(card: str, failures: list, params, init_s: float) -> dict:
     # Each prompt's prefill logits (flash kernel, padded bucket) against
     # forward() with plain attention on the unpadded prompt. The noise
     # floor is plain attention on the padded bucket against the same.
-    ref_cfg = dataclasses.replace(cfg, attention_impl="xla")
     checks = []
     with torch.no_grad():
         for rid, prompt in zip(ids, prompts):
@@ -669,11 +713,7 @@ def serve_phase(card: str, failures: list, params, init_s: float) -> dict:
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
             n = len(prompt)
-            ref = forward(params, torch.tensor([prompt]), ref_cfg,
-                          device="cuda")[0, -1]
-            padded = prompt + [0] * (eng._bucket(n) - n)
-            noise = forward(params, torch.tensor([padded]), ref_cfg,
-                            device="cuda")[0, n - 1]
+            ref, noise = plain_logits(params, cfg, prompt, eng._bucket(n))
             scale = ref.abs().max()
             rel = ((logits - ref).abs().max() / scale).item()
             first_ok = int(logits.argmax()) == outs.get(rid, [None])[0]
@@ -1727,6 +1767,198 @@ def serve_replica_phase(card: str, failures: list, params) -> dict:
     return res
 
 
+def sp_check(logits, first: int, ref, noise, flash, what: str,
+             failures: list) -> dict:
+    """An SP prefill's last-token logits against forward() with plain
+    attention (the serve phase's gate) and its first greedy token against
+    their argmax. Where the reference's own top-2 margin is below its noise
+    floor (max |noise - ref|: the plain path against itself on the padded
+    prompt), two bf16 orderings of one model may pick either token, so the
+    token must be one the reference scores within that floor of its top;
+    otherwise it must be the argmax. Both margins are printed, and beside
+    them how the sp=1 prefill (kernel 1) of the same prompt fares against
+    the same reference."""
+    scale = ref.abs().max()
+    top2 = ref.topk(2).values
+    noise_abs = (noise - ref).abs().max().item()
+    gap = (ref.max() - ref[first]).item()
+    res = dict(what=what,
+               logits_rel_err=((logits - ref).abs().max() / scale).item(),
+               noise_rel_err=noise_abs / scale.item(),
+               ref_top2_margin=(top2[0] - top2[1]).item(),
+               noise_abs=noise_abs, first_token_gap=gap,
+               first_is_argmax=first == int(ref.argmax()),
+               first_token_ok=(first == int(ref.argmax())
+                               or gap <= noise_abs),
+               finite=bool(torch.isfinite(logits).all()),
+               sp1_rel_err=((flash - ref).abs().max() / scale).item(),
+               sp1_first_is_argmax=int(flash.argmax()) == int(ref.argmax()))
+    if not (res["logits_rel_err"] < LOGITS_REL_TOL and res["first_token_ok"]
+            and res["finite"]):
+        failures.append(f"serve_sp logits mismatch: {res}")
+    return res
+
+
+def serve_sp_run(cfg, params, devices, strategy, prompts, hit_prompt,
+                 refs, sp1_ms, failures) -> dict:
+    """One SP engine over ``devices``: the two prompts as one admission
+    wave, then the hit; the checks of the module docstring."""
+    t_run = time.perf_counter()
+    n = len(devices)
+    what = f"sp={n} {strategy} on {sorted(set(map(str, devices)))}"
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = LLMEngine(cfg, params, device="cuda", sp_strategy=strategy,
+                    mesh=build_mesh(MeshSpec(sp=n), devices=devices),
+                    **SP_ENGINE)
+    waves = keep_sampled_logits(eng)
+    home = params["embed"].device
+    mine, theirs = (dict(_named_leaves(t))
+                    for t in (eng._sp_params[home], params))
+    same_ptr = mine.keys() == theirs.keys() and all(
+        t.data_ptr() == theirs[k].data_ptr() for k, t in mine.items())
+    if eng.sp_degree != n or not same_ptr \
+            or list(eng._sp_params) != list(dict.fromkeys(devices)):
+        failures.append(f"serve_sp {what}: degree {eng.sp_degree}, "
+                        f"weights at their data_ptr {same_ptr}, replicas "
+                        f"on {list(eng._sp_params)}")
+    torch.cuda.synchronize()
+    flash_attention_fwd.launches = 0
+    stripes = []
+
+    def serve(batch):
+        """Admit ``batch`` in one step, read each request's stripes against
+        the new pages its prompt took, then step until idle."""
+        ids = [eng.add_request(p, sp) for p in batch]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        admit_ms = (time.perf_counter() - t0) * 1e3
+        for rid, p in zip(ids, batch):
+            req = eng._requests[rid]
+            new = math.ceil((len(p) - req.prefix_len) / eng.page)
+            got = [q for s in (req.sp_stripes or []) for q in s]
+            stripes.append(dict(prompt_len=len(p), prefix_len=req.prefix_len,
+                                pages_per_shard=[len(s) for s in
+                                                 req.sp_stripes or []],
+                                ok=(got == req.pages[:new]
+                                    and len(req.sp_stripes) == n)))
+        outs = run_timed(eng)[0]
+        for rid in ids:
+            out = outs.get(rid, [])
+            if len(out) != MAX_TOKENS or not all(0 <= t < cfg.vocab_size
+                                                 for t in out):
+                failures.append(f"serve_sp {what}: request {rid} "
+                                f"returned {out}")
+        return [outs.get(rid, [-1]) for rid in ids], admit_ms
+
+    outs, wave_ms = serve(prompts)
+    before = eng.prefix_cache_stats()
+    hit_out, hit_ms = serve([hit_prompt])
+    after = eng.prefix_cache_stats()
+    launches = flash_attention_fwd.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hit = dict(hits=after["hits"] - before["hits"],
+               hit_pages=after["hit_pages"] - before["hit_pages"])
+    if hit != dict(hits=1, hit_pages=SP_HIT_PREFIX // eng.page) \
+            or stripes[-1]["prefix_len"] != SP_HIT_PREFIX:
+        failures.append(f"serve_sp {what} hit: {hit}, {stripes[-1]}")
+    if not all(s["ok"] for s in stripes):
+        failures.append(f"serve_sp {what} stripes: {stripes}")
+    if launches:
+        failures.append(f"serve_sp {what}: kernel 1 launched {launches} "
+                        f"times in SP prefills, expected 0")
+    checks = []
+    if [len(w) for w in waves] != [len(prompts), 1]:
+        failures.append(f"serve_sp {what}: admission waves "
+                        f"{[len(w) for w in waves]}")
+    else:
+        for p, logits, out, ref in zip(prompts + [hit_prompt],
+                                       waves[0] + waves[1], outs + hit_out,
+                                       refs):
+            checks.append(dict(sp_check(logits, out[0], *ref, what,
+                                        failures), prompt_len=len(p)))
+    timings = dict(serve_s=time.perf_counter() - t_run)
+    with torch.no_grad():
+        for p in prompts:
+            timings[len(p)] = dict(sp_prefill_ms=host_ms(
+                lambda: eng._run_prefill(p), iters=1),
+                sp1_prefill_ms=sp1_ms[len(p)])
+        row = np.zeros(eng.pages_per_slot, np.int64)
+        n_shared = SP_HIT_PREFIX // eng.page
+        row[:n_shared] = eng._cache._entries[
+            eng._cache._keys(hit_prompt, n_shared)[-1]]
+        timings["hit_suffix_sp_prefill_ms"] = host_ms(
+            lambda: eng._run_suffix(hit_prompt, SP_HIT_PREFIX, row),
+            iters=1)
+        timings["timed_s"] = time.perf_counter() - t_run
+        timings["profiled_sp_prefill"] = prof = profiled(
+            lambda: eng._run_prefill(prompts[0]))
+        if len(set(devices)) > 1:
+            # The profile sums device time over the cards, which can
+            # exceed the wall time: no one card's idle share.
+            prof["idle_share"] = "not measured (several cards)"
+    timings["run_s"] = time.perf_counter() - t_run
+    res = dict(sp=n, strategy=strategy, devices=[str(d) for d in devices],
+               flash_launches=launches, weights_not_copied=same_ptr,
+               wave_admit_ms=wave_ms, hit_admit_ms=hit_ms, hit=hit,
+               stripes=stripes, logits=checks, timings=timings,
+               peak_memory_gb=peak_gb)
+    del eng, waves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_sp_phase(card: str, failures: list, params) -> dict:
+    """Sequence-parallel prefill on the serve phase's params (see the module
+    docstring)."""
+    cfg = PRESETS["8b-gqa"]
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SP_PROMPT_LENS]
+    hit_prompt = prompts[0][:SP_HIT_PREFIX] + rng.integers(
+        0, cfg.vocab_size, SP_HIT_SUFFIX).tolist()
+    # The sp=1 engine: the prefill beside which the SP prefill's time is
+    # printed (its kernel 1 launches are not the SP path's), and the
+    # buckets the noise floor pads to.
+    base = LLMEngine(cfg, params, device="cuda",
+                     **dict(SP_ENGINE, prefix_cache=False))
+    with uncounted(), torch.no_grad():
+        sp1_ms = {len(p): host_ms(lambda: base._run_prefill(p), iters=1)
+                  for p in prompts}
+        # Per prompt: the plain reference, its noise floor, and the sp=1
+        # prefill's logits.
+        pads = [base._bucket(len(p)) for p in prompts] + [
+            SP_HIT_PREFIX + base._bucket(SP_HIT_SUFFIX)]
+        refs = [(*plain_logits(params, cfg, p, pad), base._run_prefill(p)[0])
+                for p, pad in zip(prompts + [hit_prompt], pads)]
+    del base
+    cuda0 = torch.device("cuda", 0)
+    runs, layouts = [], []
+    for n, strategy in SP_RUNS:
+        grids = [[cuda0] * n]
+        if torch.cuda.device_count() >= n:
+            grids.append([torch.device("cuda", i) for i in range(n)])
+        for devices in grids:
+            layouts.append(dict(sp=n, strategy=strategy,
+                                distinct=len(set(devices)) > 1))
+            runs.append(serve_sp_run(cfg, params, devices, strategy, prompts,
+                                     hit_prompt, refs, sp1_ms, failures))
+    res = dict(phase="serve_sp", preset="8b-gqa", engine=SP_ENGINE,
+               prompt_lens=list(SP_PROMPT_LENS),
+               hit=dict(prefix=SP_HIT_PREFIX, suffix=SP_HIT_SUFFIX),
+               device_count=torch.cuda.device_count(), ran=layouts,
+               flash_launches=sum(r["flash_launches"] for r in runs),
+               runs=runs, logits_rel_tol=LOGITS_REL_TOL,
+               seconds=time.perf_counter() - t_phase, card=card)
+    emit(res)
+    return res
+
+
 MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS on Hopper
 
 
@@ -1991,6 +2223,7 @@ def main() -> int:
     serve_cache = serve_cache_phase(card, failures, params)
     serve_paged = serve_paged_phase(card, failures, params)
     serve_replica = serve_replica_phase(card, failures, params)
+    serve_sp = serve_sp_phase(card, failures, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2016,12 +2249,14 @@ def main() -> int:
                        + serve_cache["flash_launches"]
                        + serve_paged["flash_launches"]
                        + serve_replica["flash_launches"]
+                       + serve_sp["flash_launches"]
                        + train["launches"]["fwd"]),
              launches_by_path=dict(
                  serve=serve["flash_launches"],
                  serve_cache=serve_cache["flash_launches"],
                  serve_paged=serve_paged["flash_launches"],
                  serve_replica=serve_replica["flash_launches"],
+                 serve_sp=serve_sp["flash_launches"],
                  train=train["launches"]["fwd"]),
              max_abs_err=max(r["max_abs_err_o"] for r in engine_rows),
              ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],

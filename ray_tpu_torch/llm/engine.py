@@ -34,8 +34,19 @@ reference (they come with the port of the device plane); and
 ``prefill_paged``'s ``host_staged=`` option, which only the reference's
 staged A/B bench helper passes.
 
-Not ported yet: sequence parallelism (``sp_degree``, ``sp_strategy``) and
-meshes.
+Sequence parallelism (``sp_degree``, ``sp_strategy``, ``mesh``): full
+prefills, chunks and prefix-hit suffixes split their sequence over the
+``sp`` positions of a ``parallel.mesh.Mesh`` and run ring attention or
+Ulysses (sequence_parallel.py), plain PyTorch as in the JAX package: an SP
+prefill launches no flash kernel. One process drives every shard on its
+device, as the JAX engine does. The weights go once to each distinct device
+of the mesh; the pool and decode stay on the engine's device, where JAX
+replicates the pool over the mesh and decodes on every shard: the placement
+differs, the values do not.
+
+Not ported yet: meshes with dp, fsdp, tp or pp larger than 1 (the JAX
+engine's tensor-parallel weights and pool, with its ``rules=``; ROADMAP
+Queue 1 item 4), which raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -62,7 +73,11 @@ from ..models.transformer import (TransformerConfig, _layer_qkv, _mlp,
                                   _to_tensor, apply_rope, init_params,
                                   layer_params, rms_norm, rope_angles)
 from ..ops.flash_attention import flash_attention
-from .sequence_parallel import StreamAttn, _stream_block_fn
+from ..parallel.mesh import MeshSpec, build_mesh
+from .sequence_parallel import (StreamAttn, _stream_block_fn,
+                                replicate_params, sp_mesh, sp_prefill_fn,
+                                sp_stripe_pages, sp_suffix_prefill_fn,
+                                validate_sp)
 
 
 @dataclasses.dataclass
@@ -106,6 +121,9 @@ class _Request:
     # A typed failure (KVGatherError of a part): the request retires with
     # finish_reason "error" and never emits a wrong token.
     error: Optional[BaseException] = None
+    # SP accounting: shard i's stripe of the slot's pages (which pages a
+    # sequence-parallel prefill shard installed and would hand off).
+    sp_stripes: Optional[List[List[int]]] = None
 
 
 # --------------------------------------------------------------------------
@@ -616,7 +634,8 @@ def _publish_when_made(publish, part: dict,
 # --------------------------------------------------------------------------
 
 class LLMEngine:
-    """Continuous-batching engine with a paged KV pool on one device."""
+    """Continuous-batching engine with a paged KV pool on one device, and
+    sequence-parallel prefill over an ``sp`` mesh."""
 
     def __init__(self, cfg: TransformerConfig, params=None, *,
                  max_batch: int = 4, max_len: int = 256, seed: int = 0,
@@ -624,7 +643,8 @@ class LLMEngine:
                  prefix_cache: bool = False,
                  prefill_chunk: Optional[int] = None,
                  kv_gather_window: int = 4, kv_fetch=None, kv_prefetch=None,
-                 device: Union[str, torch.device] = "cuda"):
+                 sp_degree: Optional[int] = None, sp_strategy: str = "ring",
+                 mesh=None, device: Union[str, torch.device] = "cuda"):
         """kv_pages sizes the shared pool (default: enough for every slot
         at max_len; set it lower to oversubscribe: admission then queues
         until pages free up). params default to ``init_params`` drawn from
@@ -644,7 +664,16 @@ class LLMEngine:
         external requests (add_paged_request): at most ``kv_gather_window``
         external parts are held at once (host and device), fetched by
         ``kv_fetch(handle)`` (blocking; default: a part passed by value is
-        its data) and warmed by ``kv_prefetch(handle) -> future``."""
+        its data) and warmed by ``kv_prefetch(handle) -> future``.
+
+        sp_degree (default: cfg.sp_degree, or a given mesh's sp axis) > 1
+        splits prefill over an ``sp`` mesh (ring attention, or Ulysses
+        with sp_strategy="ulysses"). Without a mesh the engine builds one:
+        ``sp_mesh(sp_degree)`` over the visible CUDA devices, which raises
+        where there are fewer, or on ``device="cpu"`` a mesh that names
+        the CPU sp_degree times. ``mesh=build_mesh(MeshSpec(sp=n),
+        devices=[cuda:0] * n)`` runs n shards in turn on one card. A mesh
+        with any other axis larger than 1 raises NotImplementedError."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_batch = max_batch
@@ -654,6 +683,42 @@ class LLMEngine:
         # page 0 is scratch (inactive-slot writes land there); never handed out
         self.n_pages = 1 + (kv_pages if kv_pages is not None
                             else max_batch * self.pages_per_slot)
+        deg = sp_degree if sp_degree is not None else cfg.sp_degree
+        if sp_degree is None and deg == 1 and mesh is not None \
+                and mesh.shape.get("sp", 1) > 1:
+            # No caller-requested degree: adopt the mesh's sp axis. An
+            # explicit sp_degree (or a cfg default > 1) is never silently
+            # overridden: a mismatch hits the ValueError below.
+            deg = mesh.shape["sp"]
+        self.sp_degree = max(1, int(deg))
+        self.sp_strategy = sp_strategy
+        if self.sp_degree > 1:
+            if self.sp_degree & (self.sp_degree - 1):
+                raise ValueError(
+                    f"sp_degree={self.sp_degree} must be a power of two "
+                    f"(pow-2 prefill buckets shard evenly)")
+            if max_len % self.sp_degree:
+                # _bucket clamps to max_len, so a non-divisible max_len
+                # could not split over the shards on the first long
+                # prompt: fail at construction instead.
+                raise ValueError(
+                    f"max_len={max_len} must be divisible by "
+                    f"sp_degree={self.sp_degree} (prefill buckets clamp "
+                    f"to max_len)")
+            validate_sp(cfg, self.sp_degree, sp_strategy)
+            if mesh is None:
+                mesh = (build_mesh(MeshSpec(sp=self.sp_degree),
+                                   devices=[self.device] * self.sp_degree)
+                        if self.device.type == "cpu"
+                        else sp_mesh(self.sp_degree))
+            elif mesh.shape.get("sp", 1) != self.sp_degree:
+                raise ValueError(
+                    f"sp_degree={self.sp_degree} but the given mesh's sp "
+                    f"axis is {mesh.shape.get('sp', 1)} — build the mesh "
+                    f"with MeshSpec(sp={self.sp_degree})")
+        if mesh is not None:
+            mesh.axis_devices("sp")     # dp/fsdp/tp/pp meshes: not ported
+        self.mesh = mesh
         if params is None:
             params = init_params(
                 cfg, torch.Generator(self.device).manual_seed(seed),
@@ -662,6 +727,10 @@ class LLMEngine:
             raise ValueError(f"params are on {params['embed'].device}, the "
                              f"engine on {self.device}")
         self.params = params
+        # The weights on each distinct device of the SP mesh (the engine's
+        # own device keeps the same tensors).
+        self._sp_params = (replicate_params(params, mesh)
+                           if self.sp_degree > 1 else None)
         pool_shape = (cfg.num_layers, self.n_pages, self.page,
                       cfg.num_kv_heads, cfg.head_dim_)
         self._pk = torch.zeros(pool_shape, dtype=cfg.dtype, device=self.device)
@@ -672,7 +741,9 @@ class LLMEngine:
         # page -> holder count (requests + cache entries); a page leaves
         # _free_pages with count 1 and returns when the count hits 0.
         self._page_refs: Dict[int, int] = {}
-        self._cache = _PrefixCache(self.page) if prefix_cache else None
+        cache_tag = (b"sp%d" % self.sp_degree) if self.sp_degree > 1 else b""
+        self._cache = _PrefixCache(self.page, cache_tag) \
+            if prefix_cache else None
         # KV demotion tier: LRU-evicted prefix-cache pages demote to host
         # memory (overflowing to files) instead of being freed; hits
         # promote them back. Pool squeezes (apply_pool_pressure) park free
@@ -933,31 +1004,40 @@ class LLMEngine:
 
     # ---------------------------------------------------------------- step --
     def _bucket(self, n: int) -> int:
-        b = 8
+        # Floor at sp_degree (both pow-2): a short prompt's bucket must
+        # still split over every sequence-parallel shard.
+        b = max(8, self.sp_degree)
         while b < n:
             b *= 2
         return min(b, self.max_len)
 
     def _run_prefill(self, prompt: Sequence[int]):
-        """Bucketed prefill; returns (last_logits, ks, vs)."""
+        """Bucketed prefill; returns (last_logits, ks, vs). With
+        sp_degree > 1 it runs sequence-parallel over the mesh."""
         S = len(prompt)
         toks = np.zeros((1, self._bucket(S)), np.int64)
         toks[0, :S] = prompt
+        if self.sp_degree > 1:
+            return sp_prefill_fn(self._sp_params, self._to_device(toks), S,
+                                 self.cfg, self.mesh, self.sp_strategy)
         return _prefill_fn(self.params, self._to_device(toks), S, self.cfg)
 
     def _run_suffix(self, prompt: Sequence[int], prefix_len: int, pages_row,
                     upto: Optional[int] = None):
         """Bucketed suffix prefill of prompt[prefix_len:upto] against the
         resident prefix pages of ``pages_row``; ``upto`` bounds the suffix
-        to one chunk of a chunked prefill."""
+        to one chunk of a chunked prefill. With sp_degree > 1 the suffix
+        runs sequence-parallel (a ring seeded by the resident prefix)."""
         suf = prompt[prefix_len:upto]
         S = len(suf)
         toks = np.zeros((1, self._bucket(S)), np.int64)
         toks[0, :S] = suf
-        return _suffix_prefill_fn(
-            self.params, self._pk, self._pv,
-            self._to_device(np.asarray(pages_row, np.int64)),
-            self._to_device(toks), prefix_len, S, self.cfg, self.page)
+        args = (self._pk, self._pv,
+                self._to_device(np.asarray(pages_row, np.int64)),
+                self._to_device(toks), prefix_len, S, self.cfg, self.page)
+        if self.sp_degree > 1:
+            return sp_suffix_prefill_fn(self._sp_params, *args, self.mesh)
+        return _suffix_prefill_fn(self.params, *args)
 
     # ------------------------------------------------------ page refcounts --
     def _alloc_page(self) -> int:
@@ -1160,6 +1240,21 @@ class LLMEngine:
             if self._cache is not None and not req.no_cache:
                 self._cache.insert(req.prompt, self._tables[req.slot],
                                    self._incref)
+            if self.sp_degree > 1:
+                # Which pages each SP shard installed: the stripe
+                # accounting a cross-host handoff consumes. Boundaries
+                # follow the padded bucket; a prefix-cache hit stripes only
+                # the suffix's new pages (no shard computed the prefix).
+                # As in JAX, an installed P/D blob is striped too.
+                if req.prefix_len:
+                    suf = S - req.prefix_len
+                    req.sp_stripes = sp_stripe_pages(
+                        req.pages, suf, self.sp_degree, self.page,
+                        padded=self._bucket(suf))
+                else:
+                    req.sp_stripes = sp_stripe_pages(
+                        self._tables[req.slot], S, self.sp_degree,
+                        self.page, padded=self._bucket(S))
             self._lengths[req.slot] = S
             self._temps[req.slot] = req.params.temperature
             self._slots[req.slot] = req
@@ -1208,6 +1303,8 @@ class LLMEngine:
             del self._prefilling[slot]
             if self._cache is not None and not req.no_cache:
                 self._cache.insert(req.prompt, row, self._incref)
+            # No sp_stripes for chunked prefills (as in JAX): each chunk
+            # was its own SP pass with its own bucket.
             self._lengths[slot] = S
             self._temps[slot] = req.params.temperature
             self._slots[slot] = req

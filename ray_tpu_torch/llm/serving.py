@@ -96,9 +96,11 @@ class EngineReplica:
     ``seed``. ``device`` defaults to ``"cuda"`` and raises without a GPU.
     The boundary callbacks are described in the module docstring.
 
-    Not ported: ``mesh``, ``sp_degree`` and ``sp_strategy`` (sequence
-    parallelism and meshes are not in the port's engine yet). Left on the
-    runtime side: ``_flush_gauges`` (the runtime's metrics export) and
+    ``mesh``, ``sp_degree`` and ``sp_strategy`` go to the engine: an
+    sp-only mesh splits prefill over its ``sp`` positions (see
+    ``LLMEngine``); a mesh with dp, fsdp, tp or pp larger than 1 raises
+    NotImplementedError, as the engine does. Left on the runtime side:
+    ``_flush_gauges`` (the runtime's metrics export) and
     ``_silence_watch`` (the diagnosis plane's anomaly detector).
 
     Diverges from the reference on a failed decode tick: the reference
@@ -118,7 +120,8 @@ class EngineReplica:
                  page_size: int = 16, kv_pages: Optional[int] = None,
                  prefix_cache: bool = True, max_queue: int = 64,
                  max_tokens: int = 16, temperature: float = 0.0,
-                 eos_id: Optional[int] = None, seed: int = 0,
+                 eos_id: Optional[int] = None, seed: int = 0, mesh=None,
+                 sp_degree: Optional[int] = None, sp_strategy: str = "ring",
                  prefill_chunk: Optional[int] = None,
                  kv_gather_window: int = 4, paged_span: int = 64,
                  kv_fetch=None, publish=None, resolve=None,
@@ -135,6 +138,8 @@ class EngineReplica:
                                 max_len=max_len, seed=seed,
                                 page_size=page_size, kv_pages=kv_pages,
                                 prefix_cache=prefix_cache,
+                                sp_degree=sp_degree,
+                                sp_strategy=sp_strategy, mesh=mesh,
                                 prefill_chunk=prefill_chunk,
                                 kv_gather_window=kv_gather_window,
                                 kv_fetch=self._kv_fetch,

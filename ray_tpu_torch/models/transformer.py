@@ -15,8 +15,13 @@ takes a list of per-layer dicts, which only ``train_step`` builds (views of
 the stacked storage, so that autograd gives each layer its own gradient
 tensor); no other caller should grow a third form.
 
-Not ported yet, each raising NotImplementedError: meshes (and with them
-pipeline stages) and ring attention.
+``forward`` and ``loss_fn`` take a ``mesh`` (``parallel.mesh.Mesh``) whose
+only axis larger than 1 is ``sp``: with ``attention_impl="ring"`` each
+layer's attention runs ``ops.ring_attention.ring_attention`` over it, and
+every other op runs on ``device``, whose values the reference's sharding
+constraints do not change. Not ported yet, each raising
+NotImplementedError: meshes with dp, fsdp or tp larger than 1 (the
+reference's logical-axis shardings) and pp larger than 1 (pipeline stages).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.flash_attention import flash_attention, reference_attention
+from ..ops.ring_attention import ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +57,14 @@ class TransformerConfig:
     # recomputed in the backward (the reference's jax.checkpoint).
     remat: bool = True
     # "xla" = plain PyTorch attention (reference_attention);
-    # "flash" = the hand-written CUDA kernel (ops/flash_attention.py).
+    # "flash" = the hand-written CUDA kernel (ops/flash_attention.py);
+    # "ring" = ring attention over the mesh's sp axis (ops/ring_attention.py;
+    # plain attention where forward is given no mesh).
     attention_impl: str = "xla"
+    # Sequence-parallel degree of the LLM engine's prefill attention
+    # (llm/sequence_parallel.py): >1 splits prefill over an ``sp`` mesh
+    # axis (ring attention or Ulysses). A power of two; 1 = off.
+    sp_degree: int = 1
 
     @property
     def head_dim_(self) -> int:
@@ -222,14 +234,14 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def _attention(cfg: TransformerConfig, q, k, v):
+def _attention(cfg: TransformerConfig, q, k, v, mesh=None):
     if cfg.attention_impl == "flash":
         return flash_attention(q, k, v, causal=True)
-    if cfg.attention_impl == "xla":
-        return reference_attention(q, k, v, causal=True)
-    if cfg.attention_impl == "ring":
-        raise NotImplementedError("ring attention is not ported yet")
-    raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+    if cfg.attention_impl == "ring" and mesh is not None:
+        return ring_attention(q, k, v, mesh, axis_name="sp", causal=True)
+    if cfg.attention_impl not in ("xla", "ring"):
+        raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+    return reference_attention(q, k, v, causal=True)
 
 
 # ---------------------------------------------------------------------------
@@ -256,10 +268,11 @@ def _mlp(lp, x, cfg: TransformerConfig):
                             lp["mlp"]["w_down"].to(dt))
 
 
-def _layer(cfg: TransformerConfig, x, lp, cos, sin):
+def _layer(cfg: TransformerConfig, x, lp, cos, sin, mesh=None):
     h = rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
     q, k, v = _layer_qkv(lp, h, cfg)
-    o = _attention(cfg, apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+    o = _attention(cfg, apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
+                   mesh)
     x = x + torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(cfg.dtype))
     return _mlp(lp, x, cfg)
 
@@ -268,10 +281,10 @@ def forward(params: Dict[str, Any], tokens, cfg: TransformerConfig,
             mesh=None, device: Union[str, torch.device] = "cuda"
             ) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, V) float32 on ``device``, where
-    the params must already live."""
+    the params must already live. ``mesh``: an sp-only mesh for
+    ``attention_impl="ring"`` (see the module docstring)."""
     if mesh is not None:
-        raise NotImplementedError("meshes (and pipeline stages) are not "
-                                  "ported yet: forward runs on one device")
+        mesh.axis_devices("sp")         # raises for the unported axes
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params are on {params['embed'].device}, "
@@ -285,10 +298,10 @@ def forward(params: Dict[str, Any], tokens, cfg: TransformerConfig,
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         if remat:
-            x = checkpoint(_layer, cfg, x, lp, cos, sin, use_reentrant=False,
-                           preserve_rng_state=False)
+            x = checkpoint(_layer, cfg, x, lp, cos, sin, mesh,
+                           use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _layer(cfg, x, lp, cos, sin)
+            x = _layer(cfg, x, lp, cos, sin, mesh)
     x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)
     # JAX asks XLA for f32 output (preferred_element_type=f32) of the bf16
     # product; here the bf16 matmul accumulates in f32 and rounds its

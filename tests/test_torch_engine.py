@@ -21,6 +21,7 @@ from ray_tpu.models import PRESETS as JAX_PRESETS
 from ray_tpu_torch.llm import LLMEngine, SamplingParams
 from ray_tpu_torch.llm.engine import _prefill_fn
 from ray_tpu_torch.models import PRESETS, from_jax_params
+from ray_tpu_torch.parallel import MeshSpec, build_mesh
 
 CFG, JCFG = PRESETS["tiny"], JAX_PRESETS["tiny"]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -126,9 +127,22 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
 
 
 def test_unported_engine_options_are_absent():
-    for opt in ("sp_degree", "sp_strategy", "mesh"):
-        with pytest.raises(TypeError, match=opt):
-            LLMEngine(CFG, device="cpu", **{opt: None})
+    """sp_degree, sp_strategy and an sp-only mesh are ported (see
+    tests/test_torch_sp_prefill.py); what stays unported is the JAX
+    engine's tensor-parallel serving: its ``rules=`` option is absent, and
+    a mesh with dp, fsdp, tp or pp larger than 1 raises
+    NotImplementedError."""
+    with pytest.raises(TypeError, match="rules"):
+        LLMEngine(CFG, device="cpu", rules=None)
+    for spec in (dict(tp=2), dict(dp=2), dict(fsdp=2, sp=2), dict(pp=2)):
+        mesh = build_mesh(MeshSpec(**spec),
+                          devices=["cpu"] * MeshSpec(**spec).n_devices)
+        with pytest.raises(NotImplementedError, match="item 4"):
+            LLMEngine(CFG, device="cpu", mesh=mesh)
+    eng = LLMEngine(CFG, device="cpu", max_len=64, sp_degree=2,
+                    sp_strategy="ulysses",
+                    mesh=build_mesh(MeshSpec(sp=2), devices=["cpu"] * 2))
+    assert (eng.sp_degree, eng.sp_strategy) == (2, "ulysses")
 
 
 def test_request_validation():
@@ -149,6 +163,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch._config, ray_tpu_torch.exceptions\n"
         "import ray_tpu_torch._private.flight_recorder\n"
         "import ray_tpu_torch.llm.sequence_parallel\n"
+        "import ray_tpu_torch.parallel.mesh\n"
+        "import ray_tpu_torch.ops.ring_attention\n"
         "import ray_tpu_torch.models.transformer, ray_tpu_torch.ops._build\n"
         "import ray_tpu_torch.models.train_step\n"
         "import ray_tpu_torch.llm.serving, ray_tpu_torch.llm.openai_api\n"

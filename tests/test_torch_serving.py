@@ -31,6 +31,7 @@ import ray_tpu_torch.exceptions as exc
 from ray_tpu_torch._private import deadlines, flight_recorder
 from ray_tpu_torch.llm import EngineReplica, LLMEngine, SamplingParams
 from ray_tpu_torch.models import PRESETS, from_jax_params
+from ray_tpu_torch.parallel import MeshSpec, build_mesh
 from test_torch_flight_recorder import _captured, _spans
 
 CFG, JCFG = PRESETS["tiny"], JAX_PRESETS["tiny"]
@@ -636,10 +637,18 @@ def test_replica_defaults_to_cuda_and_raises_without_it():
         EngineReplica("tiny")
 
 
-def test_unported_replica_options_are_absent():
-    for opt in ("sp_degree", "sp_strategy", "mesh"):
-        with pytest.raises(TypeError, match=opt):
-            EngineReplica(CFG, device="cpu", **{opt: None})
+def test_unported_replica_options_are_absent(params):
+    """mesh, sp_degree and sp_strategy reach the engine (their parity is in
+    tests/test_torch_sp_prefill.py); a mesh with an axis other than sp
+    larger than 1 still raises NotImplementedError, as in the engine."""
+    er = EngineReplica(CFG, params, device="cpu", sp_degree=2,
+                       sp_strategy="ulysses")
+    assert (er.engine.sp_degree, er.engine.sp_strategy) == (2, "ulysses")
+    for spec in (dict(tp=2), dict(dp=2, sp=2)):
+        mesh = build_mesh(MeshSpec(**spec),
+                          devices=["cpu"] * MeshSpec(**spec).n_devices)
+        with pytest.raises(NotImplementedError, match="item 4"):
+            EngineReplica(CFG, params, device="cpu", mesh=mesh)
 
 
 def test_replica_uses_given_params_and_serves_load(params):

@@ -22,6 +22,7 @@ from ray_tpu_torch.models import (PRESETS, forward, from_jax_params,
                                   init_params)
 from ray_tpu_torch.models.transformer import (_attention, apply_rope,
                                               rms_norm, rope_angles)
+from ray_tpu_torch.parallel import MeshSpec, build_mesh
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -157,8 +158,10 @@ def test_config_defaults_and_presets_match_jax():
     jax_fields = {f.name: f for f in dataclasses.fields(JAX_PRESETS["tiny"])}
     shared = [f for f in dataclasses.fields(PRESETS["tiny"])
               if f.name in jax_fields]
+    # Every field of either is in both (sp_degree included).
     assert {f.name for f in shared} == {
-        f.name for f in dataclasses.fields(PRESETS["tiny"])}
+        f.name for f in dataclasses.fields(PRESETS["tiny"])} == set(
+            jax_fields)
     for f in shared:
         want = jax_fields[f.name].default
         assert f.default == dtypes.get(want, want), f.name
@@ -191,9 +194,12 @@ def test_unported_options_raise(tiny):
     tp = tiny[1]
     toks = torch.zeros((1, 4), dtype=torch.long)
     q = k = v = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError):
+    # ring is ported: with no mesh it is plain attention, as in JAX (its
+    # parity over a mesh is in tests/test_torch_ring_attention.py).
+    torch.testing.assert_close(
         _attention(dataclasses.replace(PRESETS["tiny"],
-                                       attention_impl="ring"), q, k, v)
+                                       attention_impl="ring"), q, k, v),
+        _attention(PRESETS["tiny"], q, k, v), rtol=0, atol=0)
     with pytest.raises(ValueError, match="attention_impl"):
         _attention(dataclasses.replace(PRESETS["tiny"],
                                        attention_impl="bogus"), q, k, v)
@@ -205,5 +211,14 @@ def test_unported_options_raise(tiny):
     want = forward(tp, toks, no_remat, device="cpu")
     torch.testing.assert_close(forward(tp, toks, dataclasses.replace(
         PRESETS["tiny"], remat=True), device="cpu"), want, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        forward(tp, toks, PRESETS["tiny"], mesh=object(), device="cpu")
+    # Meshes: sp-only is ported; dp/fsdp/tp and pp (pipeline stages) are
+    # not, and raise.
+    for spec in (dict(dp=2), dict(tp=2, sp=2), dict(fsdp=2), dict(pp=2)):
+        mesh = build_mesh(MeshSpec(**spec),
+                          devices=["cpu"] * MeshSpec(**spec).n_devices)
+        with pytest.raises(NotImplementedError, match="mesh"):
+            forward(tp, toks, PRESETS["tiny"], mesh=mesh, device="cpu")
+    sp2 = build_mesh(MeshSpec(sp=2), devices=["cpu"] * 2)
+    torch.testing.assert_close(
+        forward(tp, toks, PRESETS["tiny"], mesh=sp2, device="cpu"),
+        forward(tp, toks, PRESETS["tiny"], device="cpu"), rtol=0, atol=0)
