@@ -12,8 +12,10 @@ Phases, each printing one JSON line on stdout:
    sm_90a; each kernel's registers, spills and static shared memory from
    the ptxas report (the whole report goes to stderr). A spill fails.
 3. kernel: the flash-attention forward kernel against its plain PyTorch
-   version on the card, o and lse, at the engine's prefill shapes and at
-   f32 / non-causal / D=64 / GQA / ragged shapes; kernel, plain and
+   version on the card, o and lse, at the engine's prefill shapes, at
+   f32 / non-causal / D=64 / GQA / ragged shapes and at the heads of one
+   tensor-parallel position (Hq 16 / Hkv 4 and 8 / 2 at S=2048); kernel,
+   plain and
    scaled_dot_product_attention times (the last only as a yardstick, its
    device time under torch.profiler, and which SDPA backend ran).
 4. kernel_bwd: the dQ and dK/dV kernels against their plain versions, dq,
@@ -109,7 +111,36 @@ Phases, each printing one JSON line on stdout:
    the card at the params' own data_ptr (no copy on a repeated device).
    Prints SP prefill ms (host clock, synchronised) beside the sp=1
    prefill of the same prompt, one profiled SP prefill and peak memory.
-10. train: the same model at full width and depth, random weights, four
+10. serve_tp: kernel 1 against its plain version at one tp position's
+   heads (the kernel phase's comparison at Hq 16 / Hkv 4 and 8 / 2); then
+   the same params behind LLMEngine(max_batch=4, max_len=2048,
+   page_size=64, prefix_cache=True) on tp meshes that name the card n
+   times, n in (2, 4) (on distinct devices too where
+   torch.cuda.device_count() >= n; the phase prints which ran): each
+   position holds its slice of the heads, kv heads and MLP hidden units
+   and its kv heads' pool, and all-reduces twice a layer; the positions
+   take turns on the one card, so the phase reads the mechanism's cost.
+   The serve phase's four prompts in one wave (each last-token prefill
+   logits against forward() with plain attention on the unsharded params,
+   the serve gate, and the first token tie-aware as in serve_sp; 16
+   tokens in [0, vocab)); a hit on the 1900-token prompt's 16 leading
+   pages with a 300-token suffix (counters; logits against an uncached
+   prefill), the same prompt again as a resident hit, every cache entry
+   demoted and the prompt promoted with the resident hit's tokens
+   exactly (8 tokens each); P/D from the tp engine into an unsharded
+   engine of the serve shape and back, on the wave's 1000-token prompt
+   (the tp export joins resident pages after a suffix prefill) and on a
+   fresh 1000-token prompt (it joins a full prefill's kv), 16 tokens each
+   way, the tp blob within 5e-2 of the unsharded one's; kernel 1
+   launches, 32 x n per full prefill and none for suffixes, installs or
+   decode steps; each position's weights on the card, their bytes plus
+   the replicated tensors' equal to the params' (no second copy) and the
+   pools' to the unsharded pool's. Then one EngineReplica on a tp=2 mesh, whose
+   generate tokens must equal the tp=2 engine's closed loop. Prints the
+   1900-token prefill and the 4-slot decode step ms beside the unsharded
+   ones, one profiled prefill and decode step per n (device time by
+   class, the all-reduce's apart, and the idle share) and peak memory.
+11. train: the same model at full width and depth, random weights, four
    steps of make_train_step on one fixed 2048-token batch with per-layer
    checkpointing; checks finite metrics, a falling loss, each kernel's
    launches per step, step 1's loss and grad norm against a pass with
@@ -132,6 +163,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -149,6 +181,7 @@ from ray_tpu_torch.llm import (EngineReplica, LLMEngine, SamplingParams,
                                run_open_loop)
 from ray_tpu_torch.models import (PRESETS, forward, init_params,
                                   make_optimizer, make_train_step)
+from ray_tpu_torch.models import transformer
 from ray_tpu_torch.models.train_step import value_and_grad
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.parallel import MeshSpec, build_mesh
@@ -177,6 +210,11 @@ LOGITS_REL_TOL = 5e-2
 
 ENGINE_HEADS = dict(B=1, Hq=32, Hkv=8, D=128, dtype=torch.bfloat16,
                     causal=True)
+# serve_tp: each of n tp positions runs kernel 1 over its own 32/n query
+# and 8/n kv heads.
+TP_DEGREES = (2, 4)
+TP_KERNEL_CASES = [dict(ENGINE_HEADS, S=2048, Hq=32 // n, Hkv=8 // n)
+                   for n in TP_DEGREES]
 KERNEL_CASES = (
     [dict(ENGINE_HEADS, S=s) for s in (8, 64, 512, 1024, 2048)]
     + [dict(B=1, S=256, Hq=8, Hkv=8 // g, D=64, dtype=torch.float32,
@@ -186,7 +224,8 @@ KERNEL_CASES = (
        dict(B=2, S=200, Hq=8, Hkv=4, D=64, dtype=torch.bfloat16,
             causal=False),
        dict(B=2, S=200, Hq=8, Hkv=2, D=128, dtype=torch.float32,
-            causal=True)])
+            causal=True)]
+    + TP_KERNEL_CASES)
 # bf16 cases across the kernels' tiles (128 rows; dQ's 64-key kv tiles and
 # 64-row warpgroups): every (S, D, G, causal) below with Hkv = 2, and
 # G = 16 on one kv head.
@@ -253,6 +292,25 @@ SP_ENGINE = dict(max_batch=2, max_len=2048, page_size=64, prefix_cache=True)
 SP_RUNS = ((2, "ring"), (4, "ring"), (4, "ulysses"))
 SP_PROMPT_LENS = (1900, 37)
 SP_HIT_PREFIX, SP_HIT_SUFFIX = 1024, 300
+# serve_tp: the serve phase's engine shape with the prefix cache, on tp
+# meshes (TP_DEGREES); the serve phase's four prompts in one wave, a hit on
+# the 1900-token prompt's 16 leading pages with a 300-token suffix (from
+# np.random.default_rng(5), as are the two fresh prompts of the replica's
+# parity and P/D's fresh prompt), P/D on the wave's 1000-token prompt (a
+# cache hit on the tp engine) and on a fresh one of 1000 tokens (a full
+# prefill). Demoting every cache entry copies
+# ~640 pages of 8 MiB (each entry holds its whole prefix): a 8 GiB host
+# window keeps them in memory, where the default 256 MiB would spill GBs
+# to files.
+TP_ENGINE = dict(SERVE_ENGINE, prefix_cache=True)
+TP_HIT_PREFIX, TP_HIT_SUFFIX = 1024, 300
+# Tokens of the hit, the resident hit and the promoted hit: a decode step
+# of one slot takes 100-300 ms at tp=4 (host-bound), and these runs check
+# the first token's logits and promoted == resident, not decode length.
+TP_HIT_TOKENS = 8
+TP_PD_LEN = 1000
+TP_REPLICA_LENS = (37, 300)
+TP_DEMOTE_BYTES = 8 << 30
 
 # Backward, per gradient. bf16, max |diff| / max |ref|: the kernels round P
 # and dS to bf16 as the operands of their products and emit bf16, where
@@ -374,25 +432,35 @@ def attention_bound(B, S, Hq, Hkv, D, dtype, causal, kernel="fwd"):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def fwd_against_plain(gen, case) -> tuple:
+    """Kernel 1 against its plain version on random inputs of ``case``'s
+    shape: (q, k, v, max |diff| of o, of lse, all finite, within TOL)."""
+    B, S, Hq, Hkv, D = (case[k] for k in ("B", "S", "Hq", "Hkv", "D"))
+    dtype, causal = case["dtype"], case["causal"]
+
+    def rand(h):
+        return torch.randn((B, S, h, D), generator=gen, device="cuda"
+                           ).to(dtype)
+    q, k, v = rand(Hq), rand(Hkv), rand(Hkv)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    ro, rlse = reference_attention_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err_o = (o.float() - ro.float()).abs().max().item()
+    err_lse = (lse - rlse).abs().max().item()
+    finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
+    tol = TOL[dtype]
+    return (q, k, v, err_o, err_lse, finite,
+            finite and err_o <= tol["o"] and err_lse <= tol["lse"])
+
+
 def kernel_phase(card: str, failures: list) -> list:
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
     for case in KERNEL_CASES:
         B, S, Hq, Hkv, D = (case[k] for k in ("B", "S", "Hq", "Hkv", "D"))
         dtype, causal = case["dtype"], case["causal"]
-
-        def rand(h):
-            return torch.randn((B, S, h, D), generator=gen, device="cuda"
-                               ).to(dtype)
-        q, k, v = rand(Hq), rand(Hkv), rand(Hkv)
-        o, lse = flash_attention_fwd(q, k, v, causal=causal)
-        ro, rlse = reference_attention_lse(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        err_o = (o.float() - ro.float()).abs().max().item()
-        err_lse = (lse - rlse).abs().max().item()
-        finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
+        q, k, v, err_o, err_lse, _, ok = fwd_against_plain(gen, case)
         tol = TOL[dtype]
-        ok = finite and err_o <= tol["o"] and err_lse <= tol["lse"]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         bound_ms, bound_by = attention_bound(B, S, Hq, Hkv, D, dtype, causal)
 
@@ -810,10 +878,13 @@ def host_ms(fn, iters: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profiled(fn) -> dict:
+def profiled(fn, ranges=()) -> dict:
     """One fn() call under torch.profiler, after a warm-up: its
     synchronised wall time, device time by kernel class, the device's idle
-    share over the call and the five kernels that took the most."""
+    share over the call and the five kernels that took the most. Each of
+    ``ranges``, a ``record_function`` range that fn opens, has the device
+    time of the kernels launched inside it taken out of its class into a
+    class of its own name."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -824,6 +895,14 @@ def profiled(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     split, top = device_time_split(prof)
     busy = sum(split.values())
+    for name in ranges:
+        # The CPU side of a range: its device time is that of the kernels
+        # its ops launched, all elementwise work ("other").
+        ms = sum(e.device_time_total for e in prof.events()
+                 if e.name == name
+                 and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+        split[name] = ms if ms else "not measured"
+        split["other"] -= ms
     return dict(wall_ms=wall_ms, device_ms=split if busy else "not measured",
                 idle_share=1 - busy / wall_ms if busy else "not measured",
                 top_kernels=top[:5])
@@ -1768,7 +1847,8 @@ def serve_replica_phase(card: str, failures: list, params) -> dict:
 
 
 def sp_check(logits, first: int, ref, noise, flash, what: str,
-             failures: list) -> dict:
+             failures: list, phase: str = "serve_sp",
+             base: str = "sp1") -> dict:
     """An SP prefill's last-token logits against forward() with plain
     attention (the serve phase's gate) and its first greedy token against
     their argmax. Where the reference's own top-2 margin is below its noise
@@ -1777,7 +1857,7 @@ def sp_check(logits, first: int, ref, noise, flash, what: str,
     token must be one the reference scores within that floor of its top;
     otherwise it must be the argmax. Both margins are printed, and beside
     them how the sp=1 prefill (kernel 1) of the same prompt fares against
-    the same reference."""
+    the same reference (``base`` names it, ``phase`` the phase)."""
     scale = ref.abs().max()
     top2 = ref.topk(2).values
     noise_abs = (noise - ref).abs().max().item()
@@ -1791,11 +1871,13 @@ def sp_check(logits, first: int, ref, noise, flash, what: str,
                first_token_ok=(first == int(ref.argmax())
                                or gap <= noise_abs),
                finite=bool(torch.isfinite(logits).all()),
-               sp1_rel_err=((flash - ref).abs().max() / scale).item(),
-               sp1_first_is_argmax=int(flash.argmax()) == int(ref.argmax()))
+               **{f"{base}_rel_err": ((flash - ref).abs().max()
+                                      / scale).item(),
+                  f"{base}_first_is_argmax": (int(flash.argmax())
+                                              == int(ref.argmax()))})
     if not (res["logits_rel_err"] < LOGITS_REL_TOL and res["first_token_ok"]
             and res["finite"]):
-        failures.append(f"serve_sp logits mismatch: {res}")
+        failures.append(f"{phase} logits mismatch: {res}")
     return res
 
 
@@ -1959,6 +2041,376 @@ def serve_sp_phase(card: str, failures: list, params) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def named_all_reduce():
+    """Run every tensor-parallel all-reduce (``tp_layer`` calls
+    ``transformer.all_reduce``) inside a ``tp:all_reduce`` profiler range,
+    so that a profile names its copies and sums apart."""
+    real = transformer.all_reduce
+
+    def named(parts, devices):
+        with torch.profiler.record_function("tp:all_reduce"):
+            return real(parts, devices)
+    transformer.all_reduce = named
+    try:
+        yield
+    finally:
+        transformer.all_reduce = real
+
+
+@contextlib.contextmanager
+def demoted_bytes_limit(limit: int):
+    """The demotion tier's host window for engines built in the block
+    (``RAY_TPU_kv_demoted_bytes_limit``); the setting is restored after."""
+    name = "RAY_TPU_kv_demoted_bytes_limit"
+    old = os.environ.get(name)
+    os.environ[name] = str(int(limit))
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def tp_memory(eng, params, flat) -> dict:
+    """Where a tp engine's weights are and what they take: every position's
+    tensors on the card; the positions' slices plus the replicated tensors
+    (once per distinct device) against the params' bytes, on one card no
+    more; each replicated tensor on the params' device the params' own
+    (same data_ptr); the positions' pools against the unsharded pool."""
+    whole = dict(_named_leaves(params))
+    sliced, replicated, on_card, own = 0, {}, True, True
+    for shard in eng._shards:
+        for name, t in _named_leaves(shard):
+            on_card &= t.is_cuda
+            if t.shape == whole[name].shape:
+                replicated[(name, t.device)] = t
+                if t.device == whole[name].device:
+                    own &= t.data_ptr() == whole[name].data_ptr()
+            else:
+                sliced += t.nbytes
+    total = sum(t.nbytes for t in whole.values())
+    rep_once = sum(whole[name].nbytes for name in {n for n, _ in replicated})
+    devices = {d for _, d in replicated}
+    held = sliced + sum(t.nbytes for t in replicated.values())
+    pools = sum(t.nbytes for t in eng._pk + eng._pv)
+    flat_pool = sum(t.nbytes for t in flat._pk + flat._pv)
+    ok = (on_card and own and held == total + (len(devices) - 1) * rep_once
+          and pools == flat_pool)
+    return dict(ok=ok, on_card=on_card, replicated_not_copied=own,
+                params_gb=total / 1e9, slices_gb=sliced / 1e9,
+                replicated_gb=(held - sliced) / 1e9, held_gb=held / 1e9,
+                pools_gb=pools / 1e9, unsharded_pool_gb=flat_pool / 1e9)
+
+
+def serve_tp_run(cfg, params, devices, prompts, hit_prompt, pd_fresh, refs,
+                 flat, closed_prompts, failures) -> dict:
+    """One tp engine over ``devices``: the wave, the prefix hit, P/D both
+    ways, demotion and promotion, the closed loop the replica is held to;
+    the checks and times of the module docstring."""
+    t_run = time.perf_counter()
+    n = len(devices)
+    what = f"tp={n} on {sorted(set(map(str, devices)))}"
+    L = cfg.num_layers
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+
+    def fail(section, detail):
+        failures.append(f"serve_tp {what} {section}: {detail}")
+
+    def tokens_ok(out, count=MAX_TOKENS):
+        return len(out) == count and all(0 <= t < cfg.vocab_size
+                                         for t in out)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with demoted_bytes_limit(TP_DEMOTE_BYTES):
+        eng = LLMEngine(cfg, params, device="cuda", mesh=build_mesh(
+            MeshSpec(tp=n), devices=devices), **TP_ENGINE)
+    sections_s = {}
+    t_lap = [t_run]
+
+    def lap(section):
+        """Seconds since the last lap, under ``section``."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        sections_s[section] = now - t_lap[0]
+        t_lap[0] = now
+    lap("build")
+    memory = tp_memory(eng, params, flat)
+    if eng.tp_degree != n or not memory["ok"]:
+        fail("memory", memory)
+    waves = keep_sampled_logits(eng)
+    launches = {}
+
+    def counted(section, full_prefills):
+        launches[section] = dict(got=flash_attention_fwd.launches,
+                                 want=full_prefills * L * n)
+        flash_attention_fwd.launches = 0
+        if launches[section]["got"] != launches[section]["want"]:
+            fail("kernel 1 launches", launches)
+    torch.cuda.synchronize()
+    flash_attention_fwd.launches = 0
+
+    # The wave: the four prompts admitted in one step (4 full prefills,
+    # and the step's decode); two decode steps of the four slots, the
+    # second profiled; the rest timed.
+    ids = [eng.add_request(p, sp) for p in prompts]
+    eng.step()                  # admission, then one decode step
+    firsts = {}
+    for rid, tok, _ in eng.take_tick_events():
+        firsts.setdefault(rid, tok)
+    with named_all_reduce():
+        prof_decode = profiled(eng.step, ranges=("tp:all_reduce",))
+    outs, _, step_ms = run_timed(eng)
+    counted("wave", len(prompts))
+    lap("wave")
+    checks = []
+    if [len(w) for w in waves] != [len(prompts)]:
+        fail("admission waves", [len(w) for w in waves])
+    else:
+        for rid, p, logits, ref in zip(ids, prompts, waves[0], refs):
+            checks.append(dict(sp_check(logits, firsts.get(rid, -1), *ref,
+                                        what, failures, phase="serve_tp",
+                                        base="unsharded"),
+                               prompt_len=len(p)))
+    for rid in ids:
+        if not tokens_ok(outs.get(rid, [])) \
+                or outs[rid][0] != firsts.get(rid):
+            fail("tokens", (rid, outs.get(rid), firsts.get(rid)))
+
+    # The prefix hit on the 1900-token prompt's 16 pages (suffix prefill),
+    # then the same prompt again, a resident hit on all its 20 full pages.
+    hits = []
+    sp_hit = SamplingParams(max_tokens=TP_HIT_TOKENS)
+    for run in ("hit", "resident"):
+        before = eng.prefix_cache_stats()
+        rid = eng.add_request(hit_prompt, sp_hit)
+        req = eng._requests[rid]
+        out = run_timed(eng)[0].get(rid, [])
+        after = eng.prefix_cache_stats()
+        hits.append(dict(run=run, out=out, prefix_len=req.prefix_len,
+                         hits=after["hits"] - before["hits"],
+                         hit_pages=after["hit_pages"] - before["hit_pages"]))
+        if not tokens_ok(out, TP_HIT_TOKENS):
+            fail(run, out)
+    counted("hits", 0)
+    lap("hits")
+    usable = (len(hit_prompt) - 1) // eng.page
+    if [(h["hits"], h["prefix_len"]) for h in hits] \
+            != [(1, TP_HIT_PREFIX), (1, usable * eng.page)]:
+        fail("hit counters", [{k: v for k, v in h.items() if k != "out"}
+                              for h in hits])
+    if len(waves) < 2:
+        fail("hit logits", f"{len(waves)} waves sampled")
+    else:
+        with uncounted(), torch.no_grad():
+            uncached = eng._run_prefill(hit_prompt)[0]
+        checks.append(dict(sp_check(waves[1][0], hits[0]["out"][0],
+                                    uncached, refs[-1][0], refs[-1][2],
+                                    f"{what} hit against an uncached "
+                                    f"prefill", failures, phase="serve_tp",
+                                    base="unsharded"),
+                           prompt_len=len(hit_prompt)))
+
+    # P/D both ways with two 1000-token prompts: the wave's (a cache hit
+    # on the tp engine: a suffix prefill and the resident pages joined
+    # over the positions) and a fresh one (a full prefill: each position's
+    # own kv heads joined). The tp engine's prefill_only into the
+    # unsharded engine, and the unsharded engine's into the tp engine
+    # (split over the positions).
+    pd = {}
+    for kind, pd_prompt, full in (
+            ("cached", prompts[PROMPT_LENS.index(TP_PD_LEN)], 0),
+            ("fresh", pd_fresh, 1)):
+        with uncounted():
+            flat_blob, flat_first = flat.prefill_only(pd_prompt, sp)
+        tp_blob, tp_first = eng.prefill_only(pd_prompt, sp)
+        with uncounted():
+            to_flat = flat.decode_from(tp_blob, tp_first, sp)
+        to_tp = eng.decode_from(flat_blob, flat_first, sp)
+        counted(f"pd_{kind}", full)
+        lap(f"pd_{kind}")
+        pd[kind] = dict(blob_rel_err=max(rel_err(tp_blob[x].float(),
+                                                 flat_blob[x].float())
+                                         for x in ("k", "v")),
+                        tp_first=tp_first, unsharded_first=flat_first,
+                        blob_shape=list(tp_blob["k"].shape))
+        if not (tokens_ok(to_flat) and tokens_ok(to_tp)
+                and to_flat[0] == tp_first and to_tp[0] == flat_first
+                and pd[kind]["blob_rel_err"] < LOGITS_REL_TOL
+                and tp_blob["k"].shape == flat_blob["k"].shape):
+            fail(f"P/D {kind}", dict(pd[kind], to_unsharded=to_flat,
+                                     to_tp=to_tp))
+        del flat_blob, tp_blob
+
+    # Every cache entry demoted (each position's kv heads joined into one
+    # host entry), then the prompt again: promoted (split back), with the
+    # resident hit's tokens.
+    while eng._cache.evict_lru(eng._decref, eng._demote_entry):
+        pass
+    demoted = eng.prefix_cache_stats()
+    before = demoted
+    lap("demote")
+    rid = eng.add_request(hit_prompt, sp_hit)
+    req = eng._requests[rid]
+    promoted_out = run_timed(eng)[0].get(rid, [])
+    after = eng.prefix_cache_stats()
+    counted("promoted", 0)
+    lap("promoted")
+    promoted = dict(prefix_len=req.prefix_len,
+                    promoted_pages=(after["promoted_pages"]
+                                    - before["promoted_pages"]),
+                    demoted_pages=demoted["demoted_pages"],
+                    demoted_disk_entries=demoted["demoted_disk_entries"],
+                    tokens_equal=promoted_out == hits[1]["out"])
+    if not promoted["tokens_equal"] or promoted["promoted_pages"] != usable \
+            or promoted["prefix_len"] != usable * eng.page:
+        fail("promotion", dict(promoted, out=promoted_out,
+                               resident=hits[1]["out"]))
+
+    # The closed loop the replica is held to: one fresh prompt at a time.
+    closed = None
+    if closed_prompts:
+        closed = [eng.generate([p], sp)[0] for p in closed_prompts]
+        counted("closed_loop", len(closed_prompts))
+        lap("closed_loop")
+
+    timings = dict(decode_step_ms=step_ms, sections_s=sections_s,
+                   decode_step_ms_median=float(np.median(step_ms)))
+    with uncounted(), torch.no_grad():
+        timings["prefill_1900_ms"] = host_ms(
+            lambda: eng._run_prefill(prompts[-1]), iters=1)
+        with named_all_reduce():
+            timings["profiled_prefill_1900"] = profiled(
+                lambda: eng._run_prefill(prompts[-1]),
+                ranges=("tp:all_reduce",))
+    timings["profiled_decode_step"] = prof_decode
+    lap("prefill_timing_and_profile")
+    if len(set(devices)) > 1:
+        for prof in (prof_decode, timings["profiled_prefill_1900"]):
+            prof["idle_share"] = "not measured (several cards)"
+    if torch.cuda.current_device() != 0:
+        fail("current device", f"cuda:{torch.cuda.current_device()} after "
+             f"the run, was cuda:0")
+    res = dict(tp=n, devices=[str(d) for d in devices], memory=memory,
+               launches=launches,
+               flash_launches=sum(s["got"] for s in launches.values()),
+               logits=checks, pd=pd,
+               hits=[{k: v for k, v in h.items() if k != "out"}
+                     for h in hits],
+               promoted=promoted, timings=timings,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - t_run)
+    del eng, waves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, closed
+
+
+def serve_tp_replica(cfg, params, prompts, closed, failures) -> dict:
+    """EngineReplica on a tp=2 mesh that names the card twice, on its
+    own event loop thread: generate's tokens against the tp=2 closed-loop
+    engine's."""
+    t0 = time.perf_counter()
+    bridge = LoopThread()
+    cuda0 = torch.device("cuda", 0)
+    R = EngineReplica(cfg, params, device="cuda", mesh=build_mesh(
+        MeshSpec(tp=2), devices=[cuda0] * 2), **REPLICA)
+    torch.cuda.synchronize()
+    flash_attention_fwd.launches = 0
+    got = [bridge.call(R.generate(p))["tokens"] for p in prompts]
+    launches = flash_attention_fwd.launches
+    want_launches = len(prompts) * cfg.num_layers * 2
+    res = dict(tp=2, tokens_equal=got == closed, flash_launches=launches,
+               expected_launches=want_launches,
+               seconds=time.perf_counter() - t0)
+    if got != closed or launches != want_launches:
+        failures.append(f"serve_tp replica: {res}, got {got}, closed loop "
+                        f"{closed}")
+    bridge.close()
+    del R
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_tp_phase(card: str, failures: list, params) -> dict:
+    """Tensor-parallel serving on the serve phase's params (see the module
+    docstring)."""
+    cfg = PRESETS["8b-gqa"]
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)              # the serve phase's prompts
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    rng = np.random.default_rng(5)
+    hit_prompt = prompts[-1][:TP_HIT_PREFIX] + rng.integers(
+        0, cfg.vocab_size, TP_HIT_SUFFIX).tolist()
+    closed_prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                      for n in TP_REPLICA_LENS]
+    pd_fresh = rng.integers(0, cfg.vocab_size, TP_PD_LEN).tolist()
+    # Kernel 1 at the positions' head counts, before any engine runs.
+    gen = torch.Generator("cuda").manual_seed(2)
+    kernel = []
+    for case in TP_KERNEL_CASES:
+        *_, err_o, err_lse, _, ok = fwd_against_plain(gen, case)
+        kernel.append(dict(Hq=case["Hq"], Hkv=case["Hkv"], S=case["S"],
+                           max_abs_err_o=err_o, max_abs_err_lse=err_lse,
+                           ok=ok))
+        if not ok:
+            failures.append(f"serve_tp kernel 1 mismatch: {kernel[-1]}")
+    # The unsharded engine of the serve shape: the P/D partner, the
+    # prefill and decode step beside which the tp ones are printed, and the
+    # kernel 1 prefill of each prompt beside the plain reference.
+    flat = LLMEngine(cfg, params, device="cuda", **SERVE_ENGINE)
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+    with uncounted(), torch.no_grad():
+        pads = [flat._bucket(len(p)) for p in prompts] + [
+            TP_HIT_PREFIX + flat._bucket(TP_HIT_SUFFIX)]
+        refs = [(*plain_logits(params, cfg, p, pad), flat._run_prefill(p)[0])
+                for p, pad in zip(prompts + [hit_prompt], pads)]
+        flat_prefill_ms = host_ms(lambda: flat._run_prefill(prompts[-1]),
+                                  iters=1)
+        for p in prompts:
+            flat.add_request(p, sp)
+        flat.step()
+        flat_steps = run_timed(flat)[2]
+    cuda0 = torch.device("cuda", 0)
+    runs, layouts, closed = [], [], None
+    for n in TP_DEGREES:
+        grids = [[cuda0] * n]
+        if torch.cuda.device_count() >= n:
+            grids.append([torch.device("cuda", i) for i in range(n)])
+        for devices in grids:
+            one_card = len(set(devices)) == 1
+            layouts.append(dict(tp=n, distinct=not one_card))
+            run, loop = serve_tp_run(
+                cfg, params, devices, prompts, hit_prompt, pd_fresh, refs,
+                flat, closed_prompts if n == 2 and one_card else None,
+                failures)
+            runs.append(run)
+            closed = closed or loop
+    del flat, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    replica = serve_tp_replica(cfg, params, closed_prompts, closed, failures)
+    res = dict(phase="serve_tp", preset="8b-gqa", engine=TP_ENGINE,
+               prompt_lens=list(PROMPT_LENS),
+               hit=dict(prefix=TP_HIT_PREFIX, suffix=TP_HIT_SUFFIX),
+               device_count=torch.cuda.device_count(), ran=layouts,
+               kernel=kernel,
+               flash_launches=(sum(r["flash_launches"] for r in runs)
+                               + replica["flash_launches"]),
+               unsharded=dict(prefill_1900_ms=flat_prefill_ms,
+                              decode_step_ms=flat_steps,
+                              decode_step_ms_median=float(
+                                  np.median(flat_steps))),
+               runs=runs, replica=replica, logits_rel_tol=LOGITS_REL_TOL,
+               seconds=time.perf_counter() - t_phase, card=card)
+    emit(res)
+    return res
+
+
 MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS on Hopper
 
 
@@ -1971,7 +2423,10 @@ def device_time_split(prof) -> tuple:
              "other": 0.0}
     kernels = []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # A record_function range also shows as a device event spanning its
+        # kernels: skip it, its kernels are counted.
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(evt, "is_user_annotation", False):
             continue
         name = evt.key
         ms = evt.self_device_time_total / 1e3
@@ -2224,6 +2679,7 @@ def main() -> int:
     serve_paged = serve_paged_phase(card, failures, params)
     serve_replica = serve_replica_phase(card, failures, params)
     serve_sp = serve_sp_phase(card, failures, params)
+    serve_tp = serve_tp_phase(card, failures, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2239,6 +2695,7 @@ def main() -> int:
                                   "causal")}
 
     engine_rows, at = main_shape(rows, ENGINE_HEADS)
+    tp_rows = [r for c in TP_KERNEL_CASES for r in main_shape(rows, c)[0]]
     train_rows, bat = main_shape(bwd_rows, TRAIN_HEADS)
     src = "ray_tpu_torch/ops/csrc/"
     emit({"kernels": [
@@ -2250,6 +2707,7 @@ def main() -> int:
                        + serve_paged["flash_launches"]
                        + serve_replica["flash_launches"]
                        + serve_sp["flash_launches"]
+                       + serve_tp["flash_launches"]
                        + train["launches"]["fwd"]),
              launches_by_path=dict(
                  serve=serve["flash_launches"],
@@ -2257,8 +2715,10 @@ def main() -> int:
                  serve_paged=serve_paged["flash_launches"],
                  serve_replica=serve_replica["flash_launches"],
                  serve_sp=serve_sp["flash_launches"],
+                 serve_tp=serve_tp["flash_launches"],
                  train=train["launches"]["fwd"]),
-             max_abs_err=max(r["max_abs_err_o"] for r in engine_rows),
+             max_abs_err=max(r["max_abs_err_o"]
+                             for r in engine_rows + tp_rows),
              ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
              bound_by=at["bound_by"], library_ms=at["library_ms"],
              library_backend=at["library_backend"], shape=shape(at)),

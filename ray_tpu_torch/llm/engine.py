@@ -44,8 +44,25 @@ of the mesh; the pool and decode stay on the engine's device, where JAX
 replicates the pool over the mesh and decodes on every shard: the placement
 differs, the values do not.
 
-Not ported yet: meshes with dp, fsdp, tp or pp larger than 1 (the JAX
-engine's tensor-parallel weights and pool, with its ``rules=``; ROADMAP
+Tensor parallelism (``mesh`` with a ``tp`` axis, ``rules``): the weights
+split over the mesh's ``tp`` positions in the Megatron layout (heads, kv
+heads and the MLP's hidden units; embedding, norms and lm_head replicated,
+the JAX engine's rules) and the pool over kv heads, one (L, N, page,
+KV/tp, D) pool per position, while page ids, tables, the free list, the
+refcounts and the prefix cache stay single, one logical pool as in JAX.
+Every layer of every prefill, suffix, decode step and streamed step runs
+each position's share and all-reduces after the attention and after the
+MLP (``models.transformer.tp_layer``); a full prefill launches the flash
+kernel once per position and layer, over the position's heads. Embedding,
+final norm, lm_head and sampling run once, on the first position's device,
+and KV blobs (P/D, demotion, external parts) keep the full (L, S, KV, D)
+layout, split over the positions at install and joined at export, so KV
+moves between sharded and unsharded engines. One process drives every
+position, as the JAX engine's single controller does; the engine keeps only
+the positions' params (``params`` is None).
+
+Not ported yet: meshes with dp, fsdp or pp larger than 1, or with both sp
+and tp larger than 1, and rules that split another dim over tp (ROADMAP
 Queue 1 item 4), which raise NotImplementedError.
 """
 
@@ -69,11 +86,13 @@ from .. import _config
 from .._device import resolve_device
 from .._private import flight_recorder
 from ..exceptions import KVGatherError
-from ..models.transformer import (TransformerConfig, _layer_qkv, _mlp,
+from ..models.transformer import (TransformerConfig, _layer_qkv,
                                   _to_tensor, apply_rope, init_params,
-                                  layer_params, rms_norm, rope_angles)
+                                  layer_params, on_each, rms_norm,
+                                  rope_angles, tp_layer, tp_shards)
 from ..ops.flash_attention import flash_attention
 from ..parallel.mesh import MeshSpec, build_mesh
+from ..parallel.sharding import LogicalAxisRules
 from .sequence_parallel import (StreamAttn, _stream_block_fn,
                                 replicate_params, sp_mesh, sp_prefill_fn,
                                 sp_stripe_pages, sp_suffix_prefill_fn,
@@ -136,36 +155,63 @@ def _sqrt_head_dim(cfg: TransformerConfig) -> float:
     return float(torch.tensor(math.sqrt(cfg.head_dim_), dtype=cfg.dtype))
 
 
+def _devices(shards) -> List[torch.device]:
+    """Each tp position's device: where its layer weights live."""
+    return [s["layers"]["attn"]["wq"].device for s in shards]
+
+
+def _kv_buffers(shards, L: int, S: int, cfg: TransformerConfig):
+    """Empty (L, S, KV_i, D) k and v per position, for its kv heads."""
+    ks = [torch.empty((L, S, p["layers"]["attn"]["wk"].shape[2],
+                       cfg.head_dim_), dtype=cfg.dtype, device=d)
+          for p, d in zip(shards, _devices(shards))]
+    return ks, [torch.empty_like(k) for k in ks]
+
+
+def _logits(shards, xs, devices, idx, cfg: TransformerConfig):
+    """The final norm and lm_head at index ``idx`` of the first position's
+    activation, once, on its device: f32 logits."""
+    x = rms_norm(xs[devices[0]], shards[0]["ln_f"], cfg.rms_norm_eps)
+    return (x[idx] @ shards[0]["lm_head"].to(cfg.dtype)).float()
+
+
 def _prefill_fn(params, tokens, length: int, cfg: TransformerConfig):
     """tokens (1, Sb) padded prompt -> (last_logits (V,) f32,
     ks, vs (L, Sb, KV, D)).
 
     Positions >= length produce garbage cache rows; decode masks them out
     via per-slot lengths, and the last real token's logits only attend
-    backwards (causal), so padding never leaks into results."""
+    backwards (causal), so padding never leaks into results.
+
+    ``params`` is the list of the tp positions' params
+    (``models.transformer.tp_shards``; one entry without tp): each position
+    runs the flash kernel over its own heads, and ks, vs are lists of
+    (L, Sb, KV_i, D), one per position on its device."""
+    devices = _devices(params)
     B, S = tokens.shape
-    L, KV, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
-    x = params["embed"].to(cfg.dtype)[tokens]
-    cos, sin = rope_angles(S, D, cfg.rope_theta, device=tokens.device)
-    ks = torch.empty((L, S, KV, D), dtype=cfg.dtype, device=tokens.device)
-    vs = torch.empty_like(ks)
-    for i in range(L):
-        lp = layer_params(params, i)
-        h = rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
-        q, k, v = _layer_qkv(lp, h, cfg)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        # The JAX engine writes this causal GQA attention inline; it is
-        # reference_attention, so here it runs through the flash kernel.
-        o = flash_attention(q, k, v, causal=True)
-        o = torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(cfg.dtype))
-        x = _mlp(lp, x + o, cfg)
-        ks[i] = k[0]                      # drop the B=1 dim for the cache
-        vs[i] = v[0]
-    x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)
-    last = x[0, length - 1]
-    logits = (last @ params["lm_head"].to(cfg.dtype)).float()
-    return logits, ks, vs
+    xs = on_each(params[0]["embed"].to(cfg.dtype)[tokens], devices)
+    ropes = {d: rope_angles(S, cfg.head_dim_, cfg.rope_theta, device=d)
+             for d in xs}
+    ks, vs = _kv_buffers(params, cfg.num_layers, S, cfg)
+    for li in range(cfg.num_layers):
+        lps = [layer_params(p, li) for p in params]
+
+        def attend(h):
+            out = []
+            for i, (lp, d) in enumerate(zip(lps, devices)):
+                cos, sin = ropes[d]
+                q, k, v = _layer_qkv(lp, h[d], cfg)
+                k = apply_rope(k, cos, sin)
+                ks[i][li] = k[0]          # drop the B=1 dim for the cache
+                vs[i][li] = v[0]
+                # The JAX engine writes this causal GQA attention inline;
+                # it is reference_attention, so here it runs through the
+                # flash kernel.
+                out.append(flash_attention(apply_rope(q, cos, sin), k, v,
+                                           causal=True))
+            return out
+        xs = tp_layer(cfg, xs, lps, devices, attend)
+    return _logits(params, xs, devices, (0, length - 1), cfg), ks, vs
 
 
 def _suffix_prefill_fn(params, pool_k, pool_v, pages, tokens, prefix_len: int,
@@ -180,15 +226,19 @@ def _suffix_prefill_fn(params, pool_k, pool_v, pages, tokens, prefix_len: int,
     (prefix_len is page-aligned). tokens: (1, Sb) the padded suffix; length
     = its real length. Returns (last_logits (V,) f32, the suffix's ks, vs
     (L, Sb, KV, D)), the contract of _prefill_fn, so installing is shared.
+    ``params`` is the positions' list (as _prefill_fn), pool_k and pool_v
+    are the positions' pools, and each position attends over its own kv
+    heads.
 
     The attention is plain PyTorch, as in the JAX engine: the flash kernel
     takes as many queries as keys."""
+    devices = _devices(params)
     B, Sb = tokens.shape
     T = pages.shape[0] * page
-    L, KV, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
+    D = cfg.head_dim_
     groups = cfg.num_heads // cfg.num_kv_heads
     dev = tokens.device
-    x = params["embed"].to(cfg.dtype)[tokens]
+    xs = on_each(params[0]["embed"].to(cfg.dtype)[tokens], devices)
     # RoPE at absolute positions prefix_len + i.
     cos, sin = rope_angles(Sb, D, cfg.rope_theta, offset=prefix_len,
                            device=dev)
@@ -197,32 +247,36 @@ def _suffix_prefill_fn(params, pool_k, pool_v, pages, tokens, prefix_len: int,
     tpos = torch.arange(T + Sb, device=dev)[None]
     qpos = torch.arange(Sb, device=dev)[:, None]
     valid = (tpos < prefix_len) | ((tpos >= T) & (tpos - T <= qpos))
-    masked = ~valid[None, None]
+    on = {d: [t.to(d) for t in (cos, sin, ~valid[None, None], pages)]
+          for d in xs}
     sqrt_d = _sqrt_head_dim(cfg)
-    ks = torch.empty((L, Sb, KV, D), dtype=cfg.dtype, device=dev)
-    vs = torch.empty_like(ks)
-    for i in range(L):
-        lp = layer_params(params, i)
-        h = rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
-        q, k, v = _layer_qkv(lp, h, cfg)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        kk = torch.cat([pool_k[i][pages].reshape(1, T, KV, D), k], dim=1)
-        vv = torch.cat([pool_v[i][pages].reshape(1, T, KV, D), v], dim=1)
-        kr = kk.repeat_interleave(groups, dim=2)            # (1, T+Sb, H, D)
-        vr = vv.repeat_interleave(groups, dim=2)
-        scores = torch.einsum("bshd,bthd->bhst", q, kr) / sqrt_d
-        scores = scores.masked_fill(masked, -1e30)
-        p = torch.softmax(scores.float(), -1).to(q.dtype)
-        o = torch.einsum("bhst,bthd->bshd", p, vr)
-        o = torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(cfg.dtype))
-        x = _mlp(lp, x + o, cfg)
-        ks[i] = k[0]
-        vs[i] = v[0]
-    x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)
-    last = x[0, length - 1]
-    logits = (last @ params["lm_head"].to(cfg.dtype)).float()
-    return logits, ks, vs
+    ks, vs = _kv_buffers(params, cfg.num_layers, Sb, cfg)
+    for li in range(cfg.num_layers):
+        lps = [layer_params(p, li) for p in params]
+
+        def attend(h):
+            out = []
+            for i, (lp, d) in enumerate(zip(lps, devices)):
+                cos, sin, masked, pg = on[d]
+                q, k, v = _layer_qkv(lp, h[d], cfg)
+                q = apply_rope(q, cos, sin)
+                k = apply_rope(k, cos, sin)
+                KV = k.shape[2]
+                kk = torch.cat([pool_k[i][li][pg].reshape(1, T, KV, D), k],
+                               dim=1)
+                vv = torch.cat([pool_v[i][li][pg].reshape(1, T, KV, D), v],
+                               dim=1)
+                kr = kk.repeat_interleave(groups, dim=2)    # (1, T+Sb, H, D)
+                vr = vv.repeat_interleave(groups, dim=2)
+                scores = torch.einsum("bshd,bthd->bhst", q, kr) / sqrt_d
+                scores = scores.masked_fill(masked, -1e30)
+                p = torch.softmax(scores.float(), -1).to(q.dtype)
+                out.append(torch.einsum("bhst,bthd->bshd", p, vr))
+                ks[i][li] = k[0]
+                vs[i][li] = v[0]
+            return out
+        xs = tp_layer(cfg, xs, lps, devices, attend)
+    return _logits(params, xs, devices, (0, length - 1), cfg), ks, vs
 
 
 def _install_fn(pool_k, pool_v, ks, vs, pages, page: int) -> None:
@@ -247,18 +301,22 @@ def _decode_fn(params, pool_k, pool_v, tables, last_tokens, lengths, active,
     """One decode step for ALL slots against the paged pool, which it
     updates in place.
 
-    pool_k/pool_v (L, N, page, KV, D); tables (B, P) physical page ids
-    (page 0 = scratch for inactive slots); lengths (B,) = tokens already
-    in cache (the new token is written at index lengths); active (B,)
-    bool; temps (B,) f32 sampling temperatures, or None when every slot
-    decodes greedily. Returns next tokens (B,)."""
+    ``params`` is the tp positions' list (as _prefill_fn); pool_k/pool_v
+    the positions' pools, (L, N, page, KV_i, D) each, written and read by
+    its own position; tables (B, P) physical page ids (page 0 = scratch
+    for inactive slots); lengths (B,) = tokens already in cache (the new
+    token is written at index lengths); active (B,) bool; temps (B,) f32
+    sampling temperatures, or None when every slot decodes greedily.
+    Returns next tokens (B,)."""
+    devices = _devices(params)
     B = last_tokens.shape[0]
     P = tables.shape[1]
     T = P * page
     D = cfg.head_dim_
     groups = cfg.num_heads // cfg.num_kv_heads
     dev = last_tokens.device
-    x = params["embed"].to(cfg.dtype)[last_tokens][:, None]      # (B,1,E)
+    xs = on_each(params[0]["embed"].to(cfg.dtype)[last_tokens][:, None],
+                  devices)                                       # (B,1,E)
     # Per-slot RoPE at each slot's own position.
     freqs = 1.0 / (cfg.rope_theta
                    ** (torch.arange(0, D, 2, dtype=torch.float32, device=dev)
@@ -270,34 +328,39 @@ def _decode_fn(params, pool_k, pool_v, tables, last_tokens, lengths, active,
     write_page = torch.where(active, write_page, 0)              # scratch
     write_off = lengths % page
     valid = torch.arange(T, device=dev)[None] <= lengths[:, None]  # (B, T)
+    on = {d: [t.to(d) for t in (cos, sin, write_page, write_off, tables,
+                                ~valid[:, None])]
+          for d in xs}
     sqrt_d = _sqrt_head_dim(cfg)
 
-    def rope1(t):                       # t: (B, 1, H, D)
+    def rope1(t, cos, sin):             # t: (B, 1, H, D)
         t1, t2 = t.float().chunk(2, dim=-1)
         c, s = cos[..., None, :], sin[..., None, :]
         return torch.cat([t1 * c - t2 * s, t2 * c + t1 * s],
                          dim=-1).to(t.dtype)
 
-    for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
-        h = rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
-        q, k, v = _layer_qkv(lp, h, cfg)
-        q, k = rope1(q), rope1(k)
-        pool_k[i, write_page, write_off] = k[:, 0]
-        pool_v[i, write_page, write_off] = v[:, 0]
-        # Gather each slot's pages: (B, P, page, KV, D) -> (B, T, KV, D)
-        ck = pool_k[i][tables].reshape(B, T, -1, D)
-        cv = pool_v[i][tables].reshape(B, T, -1, D)
-        kr = ck.repeat_interleave(groups, dim=2)                 # (B,T,H,D)
-        vr = cv.repeat_interleave(groups, dim=2)
-        scores = torch.einsum("bhd,bthd->bht", q[:, 0], kr) / sqrt_d
-        scores = scores.masked_fill(~valid[:, None], -1e30)
-        p = torch.softmax(scores.float(), -1).to(q.dtype)
-        o = torch.einsum("bht,bthd->bhd", p, vr)
-        o = torch.einsum("bhd,hde->be", o, lp["attn"]["wo"].to(cfg.dtype))
-        x = _mlp(lp, x + o[:, None], cfg)
-    x = rms_norm(x[:, 0], params["ln_f"], cfg.rms_norm_eps)
-    logits = (x @ params["lm_head"].to(cfg.dtype)).float()
+    for li in range(cfg.num_layers):
+        lps = [layer_params(p, li) for p in params]
+
+        def attend(h):
+            out = []
+            for i, (lp, d) in enumerate(zip(lps, devices)):
+                cos, sin, wpage, woff, tb, masked = on[d]
+                q, k, v = _layer_qkv(lp, h[d], cfg)
+                q, k = rope1(q, cos, sin), rope1(k, cos, sin)
+                pk, pv = pool_k[i][li], pool_v[i][li]
+                pk[wpage, woff] = k[:, 0]
+                pv[wpage, woff] = v[:, 0]
+                # Gather each slot's pages: (B, P, page, KV, D) -> (B, T, ...)
+                kr = pk[tb].reshape(B, T, -1, D).repeat_interleave(groups, 2)
+                vr = pv[tb].reshape(B, T, -1, D).repeat_interleave(groups, 2)
+                scores = torch.einsum("bhd,bthd->bht", q[:, 0], kr) / sqrt_d
+                scores = scores.masked_fill(masked, -1e30)
+                p = torch.softmax(scores.float(), -1).to(q.dtype)
+                out.append(torch.einsum("bht,bthd->bhd", p, vr)[:, None])
+            return out
+        xs = tp_layer(cfg, xs, lps, devices, attend)
+    logits = _logits(params, xs, devices, (slice(None), 0), cfg)
     nxt = logits.argmax(-1)
     if temps is not None:
         probs = torch.softmax(logits / temps.clamp_min(1e-6)[:, None], -1)
@@ -634,8 +697,9 @@ def _publish_when_made(publish, part: dict,
 # --------------------------------------------------------------------------
 
 class LLMEngine:
-    """Continuous-batching engine with a paged KV pool on one device, and
-    sequence-parallel prefill over an ``sp`` mesh."""
+    """Continuous-batching engine with a paged KV pool on one device,
+    sequence-parallel prefill over an ``sp`` mesh, and tensor-parallel
+    weights and pool over a ``tp`` mesh."""
 
     def __init__(self, cfg: TransformerConfig, params=None, *,
                  max_batch: int = 4, max_len: int = 256, seed: int = 0,
@@ -644,7 +708,8 @@ class LLMEngine:
                  prefill_chunk: Optional[int] = None,
                  kv_gather_window: int = 4, kv_fetch=None, kv_prefetch=None,
                  sp_degree: Optional[int] = None, sp_strategy: str = "ring",
-                 mesh=None, device: Union[str, torch.device] = "cuda"):
+                 mesh=None, rules: Optional[LogicalAxisRules] = None,
+                 device: Union[str, torch.device] = "cuda"):
         """kv_pages sizes the shared pool (default: enough for every slot
         at max_len; set it lower to oversubscribe: admission then queues
         until pages free up). params default to ``init_params`` drawn from
@@ -672,8 +737,17 @@ class LLMEngine:
         ``sp_mesh(sp_degree)`` over the visible CUDA devices, which raises
         where there are fewer, or on ``device="cpu"`` a mesh that names
         the CPU sp_degree times. ``mesh=build_mesh(MeshSpec(sp=n),
-        devices=[cuda:0] * n)`` runs n shards in turn on one card. A mesh
-        with any other axis larger than 1 raises NotImplementedError."""
+        devices=[cuda:0] * n)`` runs n shards in turn on one card.
+
+        A mesh whose only axis larger than 1 is ``tp`` splits the weights
+        (under ``rules``, default ``megatron_rules()``, the JAX engine's)
+        and the pool over its positions. Only tables that split the same
+        dims over tp as ``megatron_rules()`` (heads, kv heads, the MLP's
+        hidden units) are accepted; any other raises NotImplementedError
+        (``tp_shards``). ``mesh=build_mesh(MeshSpec(tp=n),
+        devices=[cuda:0] * n)`` runs n positions in turn on one card. The
+        engine's device must be of the first position's type, and becomes
+        that device. Any other mesh raises NotImplementedError."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_batch = max_batch
@@ -716,9 +790,22 @@ class LLMEngine:
                     f"sp_degree={self.sp_degree} but the given mesh's sp "
                     f"axis is {mesh.shape.get('sp', 1)} — build the mesh "
                     f"with MeshSpec(sp={self.sp_degree})")
-        if mesh is not None:
-            mesh.axis_devices("sp")     # dp/fsdp/tp/pp meshes: not ported
         self.mesh = mesh
+        # Tensor parallelism: the weights and the pool split over the mesh's
+        # tp positions (Megatron: heads, kv heads and MLP hidden units);
+        # embedding, final norm, lm_head and sampling on the first one.
+        self.tp_degree = 1
+        if mesh is not None and mesh.split_axis() == "tp":
+            self.tp_degree = mesh.shape["tp"]
+            # The JAX engine's check, word for word.
+            if cfg.num_kv_heads % self.tp_degree:
+                raise ValueError(f"num_kv_heads={cfg.num_kv_heads} not "
+                                 f"divisible by tp={self.tp_degree}")
+            home = mesh.axis_devices("tp")[0]
+            if home.type != self.device.type:
+                raise ValueError(f"the mesh's first tp position is on "
+                                 f"{home}, the engine on {self.device}")
+            self.device = home
         if params is None:
             params = init_params(
                 cfg, torch.Generator(self.device).manual_seed(seed),
@@ -726,15 +813,29 @@ class LLMEngine:
         elif params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
                              f"engine on {self.device}")
-        self.params = params
+        # Each tp position's params (one position: the params as given).
+        # Under tp the engine keeps only the positions' (``params`` is
+        # None): their slices and, once per distinct device, the
+        # replicated tensors.
+        if self.tp_degree > 1:
+            self._shards = tp_shards(params, mesh, rules)
+            self.params = None
+        else:
+            self._shards = [params]
+            self.params = params
+        self._tp_devices = _devices(self._shards)
         # The weights on each distinct device of the SP mesh (the engine's
         # own device keeps the same tensors).
         self._sp_params = (replicate_params(params, mesh)
                            if self.sp_degree > 1 else None)
+        # One pool per tp position, holding its kv heads; page ids, tables,
+        # the free list and refcounts are the engine's, one logical pool.
         pool_shape = (cfg.num_layers, self.n_pages, self.page,
-                      cfg.num_kv_heads, cfg.head_dim_)
-        self._pk = torch.zeros(pool_shape, dtype=cfg.dtype, device=self.device)
-        self._pv = torch.zeros(pool_shape, dtype=cfg.dtype, device=self.device)
+                      cfg.num_kv_heads // self.tp_degree, cfg.head_dim_)
+        self._pk = [torch.zeros(pool_shape, dtype=cfg.dtype, device=d)
+                    for d in self._tp_devices]
+        self._pv = [torch.zeros(pool_shape, dtype=cfg.dtype, device=d)
+                    for d in self._tp_devices]
         self._gen = torch.Generator(self.device).manual_seed(seed + 1)
         self._free_slots = list(range(max_batch))
         self._free_pages = list(range(1, self.n_pages))
@@ -783,17 +884,27 @@ class LLMEngine:
                                     kv_prefetch)
         self._part_seq = 0
 
-    def _tail_gather(self, li: int, pages: torch.Tensor):
-        """Layer li's k, v of a paged request's decode-tail pages:
-        (pages * page, KV, D) each."""
-        KV, D = self.cfg.num_kv_heads, self.cfg.head_dim_
-        return (self._pk[li][pages].reshape(-1, KV, D),
-                self._pv[li][pages].reshape(-1, KV, D))
+    def _head_slices(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """A full-heads (..., KV, D) tensor as each tp position's slice of
+        its kv heads, on the position's device."""
+        n = self.tp_degree
+        kv = t.shape[-2] // n
+        return [t[..., i * kv:(i + 1) * kv, :].to(d)
+                for i, d in enumerate(self._tp_devices)]
+
+    def _join_heads(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The positions' (..., KV_i, D) slices joined into (..., KV, D) on
+        the engine's device (one position: its tensor as it is)."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.device) for p in parts], dim=-2)
 
     def _append_tail(self, ks, vs, page_id: int, off: int) -> None:
-        """Write one token's (L, KV, D) k, v at (page_id, off), in place."""
-        self._pk[:, page_id, off] = ks
-        self._pv[:, page_id, off] = vs
+        """Write one token's k, v at (page_id, off), in place: per position
+        its (L, KV_i, D)."""
+        for pk, pv, k, v in zip(self._pk, self._pv, ks, vs):
+            pk[:, page_id, off] = k
+            pv[:, page_id, off] = v
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -1012,15 +1123,19 @@ class LLMEngine:
         return min(b, self.max_len)
 
     def _run_prefill(self, prompt: Sequence[int]):
-        """Bucketed prefill; returns (last_logits, ks, vs). With
-        sp_degree > 1 it runs sequence-parallel over the mesh."""
+        """Bucketed prefill; returns (last_logits, ks, vs), ks and vs one
+        (L, Sb, KV_i, D) per tp position. With sp_degree > 1 it runs
+        sequence-parallel over the mesh."""
         S = len(prompt)
         toks = np.zeros((1, self._bucket(S)), np.int64)
         toks[0, :S] = prompt
         if self.sp_degree > 1:
-            return sp_prefill_fn(self._sp_params, self._to_device(toks), S,
-                                 self.cfg, self.mesh, self.sp_strategy)
-        return _prefill_fn(self.params, self._to_device(toks), S, self.cfg)
+            logits, ks, vs = sp_prefill_fn(self._sp_params,
+                                           self._to_device(toks), S,
+                                           self.cfg, self.mesh,
+                                           self.sp_strategy)
+            return logits, [ks], [vs]
+        return _prefill_fn(self._shards, self._to_device(toks), S, self.cfg)
 
     def _run_suffix(self, prompt: Sequence[int], prefix_len: int, pages_row,
                     upto: Optional[int] = None):
@@ -1032,12 +1147,13 @@ class LLMEngine:
         S = len(suf)
         toks = np.zeros((1, self._bucket(S)), np.int64)
         toks[0, :S] = suf
-        args = (self._pk, self._pv,
-                self._to_device(np.asarray(pages_row, np.int64)),
+        args = (self._to_device(np.asarray(pages_row, np.int64)),
                 self._to_device(toks), prefix_len, S, self.cfg, self.page)
         if self.sp_degree > 1:
-            return sp_suffix_prefill_fn(self._sp_params, *args, self.mesh)
-        return _suffix_prefill_fn(self.params, *args)
+            logits, ks, vs = sp_suffix_prefill_fn(
+                self._sp_params, self._pk[0], self._pv[0], *args, self.mesh)
+            return logits, [ks], [vs]
+        return _suffix_prefill_fn(self._shards, self._pk, self._pv, *args)
 
     # ------------------------------------------------------ page refcounts --
     def _alloc_page(self) -> int:
@@ -1061,9 +1177,12 @@ class LLMEngine:
         """Prefix-cache eviction hook: copy the evicted pages device -> host
         into the demote store BEFORE the refs drop (after decref the pages
         rejoin the free list and any admission may overwrite them)."""
-        idx = torch.tensor(list(pages), dtype=torch.long, device=self.device)
-        self._demote.put(key, self._pk[:, idx].cpu(), self._pv[:, idx].cpu(),
-                         len(pages))
+        pages = list(pages)
+        self._demote.put(key,
+                         self._join_heads([pk[:, pages] for pk in self._pk])
+                         .cpu(),
+                         self._join_heads([pv[:, pages] for pv in self._pv])
+                         .cpu(), len(pages))
 
     def _try_promote(self, req: _Request, c: int, shared: List[int],
                      total: int) -> Tuple[int, List[int]]:
@@ -1094,7 +1213,8 @@ class LLMEngine:
             vv = part["v"].reshape(L, k * self.page, KV, D).to(
                 self.device, self.cfg.dtype)
             new_pages = [self._alloc_page() for _ in range(k)]
-            self._install_pages(new_pages, kk, vv)
+            self._install_pages(new_pages, self._head_slices(kk),
+                                self._head_slices(vv))
             # Re-register under the same rolling-hash key: the alloc ref is
             # the cache's membership hold; the request holds one more (the
             # refcount shape of a lookup hit in _reserve).
@@ -1166,17 +1286,17 @@ class LLMEngine:
         return True
 
     def _install(self, slot: int, ks, vs):
-        _install_fn(self._pk, self._pv, ks, vs,
-                    self._to_device(self._tables[slot]), self.page)
+        self._install_pages(self._tables[slot], ks, vs)
 
     def _install_pages(self, page_ids: Sequence[int], ks, vs):
-        """Install KV into specific pool pages (ks/vs start page-aligned on
-        page_ids[0]; rows past them go to the scratch page, as in
-        _install)."""
+        """Install KV into specific pool pages: ks, vs per tp position,
+        (L, S, KV_i, D) starting page-aligned on page_ids[0]; rows past
+        them go to the scratch page, as in _install."""
         pages = np.zeros(self.pages_per_slot, np.int64)
         pages[:len(page_ids)] = page_ids
-        _install_fn(self._pk, self._pv, ks, vs, self._to_device(pages),
-                    self.page)
+        pages = self._to_device(pages)
+        for pk, pv, k, v in zip(self._pk, self._pv, ks, vs):
+            _install_fn(pk, pv, k, v, pages.to(pk.device), self.page)
 
     def _install_new_pages(self, req: _Request, ks, vs):
         """Install suffix KV into the request's newly reserved pages (the
@@ -1192,13 +1312,14 @@ class LLMEngine:
         return a.to(self.device, self.cfg.dtype)
 
     def _install_external(self, req: _Request):
-        """Install a shipped KV blob; on a prefix-cache hit only the suffix
-        pages are written (the shared span is already resident)."""
-        ks = self._blob_tensor(req.kv_blob["k"])
-        vs = self._blob_tensor(req.kv_blob["v"])
+        """Install a shipped KV blob, each tp position its kv heads; on a
+        prefix-cache hit only the suffix pages are written (the shared span
+        is already resident)."""
+        ks = self._head_slices(self._blob_tensor(req.kv_blob["k"]))
+        vs = self._head_slices(self._blob_tensor(req.kv_blob["v"]))
         if req.prefix_len:
-            self._install_new_pages(req, ks[:, req.prefix_len:],
-                                    vs[:, req.prefix_len:])
+            self._install_new_pages(req, [k[:, req.prefix_len:] for k in ks],
+                                    [v[:, req.prefix_len:] for v in vs])
         else:
             self._install(req.slot, ks, vs)
 
@@ -1399,7 +1520,7 @@ class LLMEngine:
         rec = flight_recorder.recorder()
         t0 = rec.begin()
         nxt = _decode_fn(
-            self.params, self._pk, self._pv, self._to_device(self._tables),
+            self._shards, self._pk, self._pv, self._to_device(self._tables),
             self._to_device(self._last), self._to_device(self._lengths),
             self._to_device(active), temps, self._gen, self.cfg, self.page)
         nxt = nxt.cpu().numpy()
@@ -1437,23 +1558,65 @@ class LLMEngine:
 
     # ------------------------------------------------ streamed external KV --
     def _part_layer(self, part: dict, li: int):
-        """Layer li's (k, v, valid_len) of an external part, through the
-        gather window.
+        """Layer li's (ks, vs, valid_len) of an external part, through the
+        gather window: ks and vs hold each tp position's kv heads.
 
-        The whole part goes to the engine's device once per window
-        residency and is sliced by layer there, cached in the window's
-        entry: a part that arrives on the host (a numpy array, f32 as in
-        the JAX tests, or a CPU tensor, bf16 included) is copied once; a
-        part already on the device is used as it is. Nothing is copied per
-        layer or per token, and the device holds at most the window's
-        parts."""
+        The whole part goes to each distinct device of the engine once per
+        window residency and is sliced by layer and heads there, cached in
+        the window's entry: a part that arrives on the host (a numpy array,
+        f32 as in the JAX tests, or a CPU tensor, bf16 included) is copied
+        once per device; a part already on a device is used as it is.
+        Nothing is copied per layer or per token, and each device holds at
+        most the window's parts."""
         data = self._kv_window.get(part["key"], part["handle"])
-        kd = data.get("_kd")
-        if kd is None:
-            kd = data["_kd"] = self._blob_tensor(data["k"])
-            data["_vd"] = self._blob_tensor(data["v"])
-        valid = int(data.get("len", data["k"].shape[1]))
-        return kd[li], data["_vd"][li], valid
+        on = data.get("_on")
+        if on is None:
+            kd, vd = self._blob_tensor(data["k"]), self._blob_tensor(data["v"])
+            on = data["_on"] = {d: (kd.to(d), vd.to(d))
+                                for d in dict.fromkeys(self._tp_devices)}
+        kv = self.cfg.num_kv_heads // self.tp_degree
+        ks = [on[d][0][li, :, i * kv:(i + 1) * kv]
+              for i, d in enumerate(self._tp_devices)]
+        vs = [on[d][1][li, :, i * kv:(i + 1) * kv]
+              for i, d in enumerate(self._tp_devices)]
+        return ks, vs, int(data.get("len", data["k"].shape[1]))
+
+    def _stream_layers(self, tokens, pos0: int, blocks):
+        """The transformer over ``tokens`` (1, Sq) at absolute positions
+        pos0 + i with streamed attention: in layer li each tp position's
+        queries merge, by online softmax, the blocks that
+        ``blocks(li, ks, vs)`` yields as (ks, vs, valid, k_pos0), ks and vs
+        one (Sk, KV_i, D) per position (``ks``, ``vs`` are the layer's own
+        keys and values, for the self block). A block is read once for
+        every position, so a part goes through the gather window once per
+        layer. Returns (the last layer's output (1, Sq, E) on the engine's
+        device, ks, vs: per position (L, Sq, KV_i, D))."""
+        sa = self._stream_attn
+        devices = self._tp_devices
+        xs = on_each(sa.embed(self._shards[0], tokens), devices)
+        ks_out = [[] for _ in devices]
+        vs_out = [[] for _ in devices]
+        for li in range(self.cfg.num_layers):
+            lps = [layer_params(p, li) for p in self._shards]
+
+            def attend(h):
+                qkv = [sa.rope_qkv(lp, h[d], pos0)
+                       for lp, d in zip(lps, devices)]
+                states = [sa.init(q.shape[0], k.shape[1], k.device)
+                          for q, k, _ in qkv]
+                for kb, vb, valid, k0 in blocks(li, [k for _, k, _ in qkv],
+                                                [v for _, _, v in qkv]):
+                    states = [_stream_block_fn(q, k, v, valid, pos0, k0, *st,
+                                               scale=sa.scale)
+                              for (q, _, _), k, v, st in zip(qkv, kb, vb,
+                                                             states)]
+                for i, (_, k, v) in enumerate(qkv):
+                    ks_out[i].append(k)
+                    vs_out[i].append(v)
+                return [sa.heads(l, acc) for _, l, acc in states]
+            xs = tp_layer(self.cfg, xs, lps, devices, attend)
+        return (xs[devices[0]], [torch.stack(k) for k in ks_out],
+                [torch.stack(v) for v in vs_out])
 
     def _window_prefetch(self, parts) -> None:
         self._kv_window.prefetch([(p["key"], p["handle"]) for p in parts])
@@ -1472,27 +1635,23 @@ class LLMEngine:
         b0, w0, f0 = win.bytes_fetched, win.wait_s, win.fetches
         t0 = rec.begin()
         self._window_prefetch(req.ext_parts)
-        x = sa.embed(self.params, [[self._last[req.slot]]])
-        pages_row = self._to_device(np.asarray(req.pages, np.int64))
-        ks_new, vs_new = [], []
-        for li in range(self.cfg.num_layers):
-            q, k, v = sa.qkv(self.params["layers"], li, x, pos)
-            m, l, acc = sa.init(1)
+        pages = self._to_device(np.asarray(req.pages, np.int64))
+        tail = [pages.to(d) for d in self._tp_devices]
+
+        def blocks(li, ks, vs):
+            """Per part, the tail, then the incoming token itself."""
             for part in req.ext_parts:
                 pk, pv, valid = self._part_layer(part, li)
-                m, l, acc = _stream_block_fn(q, pk, pv, valid, pos,
-                                             part["span"][0], m, l, acc,
-                                             scale=sa.scale)
+                yield pk, pv, valid, part["span"][0]
             if t > 0:
-                tk, tv = self._tail_gather(li, pages_row)
-                m, l, acc = _stream_block_fn(q, tk, tv, t, pos, S, m, l, acc,
-                                             scale=sa.scale)
-            m, l, acc = _stream_block_fn(q, k, v, 1, pos, pos, m, l, acc,
-                                         scale=sa.scale)
-            x = sa.finish(self.params["layers"], li, x, l, acc)
-            ks_new.append(k)
-            vs_new.append(v)
-        logits = sa.logits(self.params, x, 0)
+                yield ([pk[li][p].flatten(0, 1) for pk, p in
+                        zip(self._pk, tail)],
+                       [pv[li][p].flatten(0, 1) for pv, p in
+                        zip(self._pv, tail)], t, S)
+            yield ks, vs, 1, pos
+        x, ks_new, vs_new = self._stream_layers([[self._last[req.slot]]],
+                                                pos, blocks)
+        logits = sa.logits(self._shards[0], x, 0)
         # The span covers the prefetch kick to the last layer's dispatch;
         # gather_wait_us is its blocking part.
         rec.end("request", "sp:gather", t0,
@@ -1501,8 +1660,8 @@ class LLMEngine:
                 gather_bytes=win.bytes_fetched - b0,
                 gather_wait_us=int((win.wait_s - w0) * 1e6),
                 fetches=win.fetches - f0)
-        self._append_tail(torch.stack(ks_new)[:, 0],
-                          torch.stack(vs_new)[:, 0],
+        self._append_tail([k[:, 0] for k in ks_new],
+                          [v[:, 0] for v in vs_new],
                           req.pages[t // self.page], t % self.page)
         req.ext_written = t + 1
         return self._sample_batch([logits], [req.params])[0]
@@ -1530,27 +1689,21 @@ class LLMEngine:
         self._window_prefetch(ctx)
         toks = np.zeros((1, span), np.int64)
         toks[0, :Sc] = chunk_tokens
-        x = sa.embed(self.params, toks)
-        ks_out, vs_out = [], []
-        for li in range(self.cfg.num_layers):
-            q, k, v = sa.qkv(self.params["layers"], li, x, pos0)
-            m, l, acc = sa.init(span)
+
+        def blocks(li, ks, vs):
+            """Per context part, then the chunk itself, causally."""
             for part in ctx:
                 pk, pv, valid = self._part_layer(part, li)
-                m, l, acc = _stream_block_fn(q, pk, pv, valid, pos0,
-                                             part["span"][0], m, l, acc,
-                                             scale=sa.scale)
-            m, l, acc = _stream_block_fn(q, k, v, Sc, pos0, pos0, m, l, acc,
-                                         scale=sa.scale)
-            x = sa.finish(self.params["layers"], li, x, l, acc)
-            ks_out.append(k)
-            vs_out.append(v)
+                yield pk, pv, valid, part["span"][0]
+            yield ks, vs, Sc, pos0
+        x, ks_out, vs_out = self._stream_layers(toks, pos0, blocks)
         rec.end("request", "sp:gather", t0, parts=len(ctx),
                 gather_bytes=win.bytes_fetched - b0,
                 gather_wait_us=int((win.wait_s - w0) * 1e6),
                 fetches=win.fetches - f0, prefill_chunk=True)
-        part = {"k": torch.stack(ks_out), "v": torch.stack(vs_out), "len": Sc}
-        logits = sa.logits(self.params, x, Sc - 1) if is_last else None
+        part = {"k": self._join_heads(ks_out), "v": self._join_heads(vs_out),
+                "len": Sc}
+        logits = sa.logits(self._shards[0], x, Sc - 1) if is_last else None
         return part, logits
 
     @torch.no_grad()
@@ -1677,21 +1830,21 @@ class LLMEngine:
         c, shared = 0, []
         if self._cache is not None:
             c, shared = self._cache.lookup(prompt)
-        L, KV, D = self.cfg.num_layers, self.cfg.num_kv_heads, \
-            self.cfg.head_dim_
+        L, D = self.cfg.num_layers, self.cfg.head_dim_
         if c:
             row = np.zeros(self.pages_per_slot, np.int64)
             row[:len(shared)] = shared
             logits, ks, vs = self._run_suffix(prompt, c, row)
-            idx = torch.tensor(shared, dtype=torch.long, device=self.device)
-            k_full = torch.cat([self._pk[:, idx].reshape(L, c, KV, D),
-                                ks[:, :S - c]], 1)
-            v_full = torch.cat([self._pv[:, idx].reshape(L, c, KV, D),
-                                vs[:, :S - c]], 1)
+            k_full = self._join_heads([
+                torch.cat([pk[:, shared].reshape(L, c, -1, D), k[:, :S - c]],
+                          1) for pk, k in zip(self._pk, ks)])
+            v_full = self._join_heads([
+                torch.cat([pv[:, shared].reshape(L, c, -1, D), v[:, :S - c]],
+                          1) for pv, v in zip(self._pv, vs)])
         else:
             logits, ks, vs = self._run_prefill(prompt)
-            k_full = ks[:, :S]
-            v_full = vs[:, :S]
+            k_full = self._join_heads([k[:, :S] for k in ks])
+            v_full = self._join_heads([v[:, :S] for v in vs])
         # The full prompt pages past the cached prefix install into fresh
         # pool pages held by the cache entries alone (skipped under pool
         # pressure: eviction is the admission path's call).
@@ -1701,7 +1854,8 @@ class LLMEngine:
                 and len(self._free_pages) >= new_cnt:
             fresh = [self._alloc_page() for _ in range(new_cnt)]
             span = full * self.page - c       # tokens [c, full * page)
-            self._install_pages(fresh, ks[:, :span], vs[:, :span])
+            self._install_pages(fresh, [k[:, :span] for k in ks],
+                                [v[:, :span] for v in vs])
             row = np.zeros(self.pages_per_slot, np.int64)
             row[:len(shared)] = shared
             row[len(shared):full] = fresh

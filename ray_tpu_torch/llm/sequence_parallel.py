@@ -263,21 +263,28 @@ def _stream_block_fn(q, k_blk, v_blk, k_valid: int, q_pos0: int, k_pos0: int,
 
 class StreamAttn:
     """The pieces of attention over streamed KV parts. The engine drives
-    them layers outer, parts inner:
+    them layers outer, tp positions and parts inner
+    (``LLMEngine._stream_layers``; one position without tp):
 
         x = sa.embed(params, tokens)
         for li in range(L):
-            q, k, v = sa.qkv(params["layers"], li, x, pos0)
-            m, l, acc = sa.init(Sq)
-            for each KV block (an external part, the pool tail, the self
-            block):
-                m, l, acc = _stream_block_fn(q, kb, vb, valid, q0, k0,
-                                             m, l, acc, scale=sa.scale)
-            x = sa.finish(params["layers"], li, x, l, acc)
+            def attend(h):                   # h: the normed layer input
+                for each position i (its layer params lp_i, its device):
+                    q, k, v = sa.rope_qkv(lp_i, h, pos0)
+                    m, l, acc = sa.init(Sq, KV_i, device_i)
+                    for each KV block (an external part, the pool tail,
+                    the self block), position i's kv heads of it:
+                        m, l, acc = _stream_block_fn(q, kb, vb, valid, q0,
+                                                     k0, m, l, acc,
+                                                     scale=sa.scale)
+                    o_i = sa.heads(l, acc)
+                return [o_0, o_1, ...]
+            x = tp_layer(cfg, x, lps, devices, attend)
         logits = sa.logits(params, x, last_idx)
 
-    Only one block is read per ``_stream_block_fn`` call, so the
-    attention's device working set is one part, not the context."""
+    ``tp_layer`` does wo, the all-reduces, the residuals and the MLP. Only
+    one block is read per ``_stream_block_fn`` call, so the attention's
+    device working set is one part, not the context."""
 
     def __init__(self, cfg: TransformerConfig,
                  device: Union[str, torch.device] = "cuda"):
@@ -285,17 +292,20 @@ class StreamAttn:
         self.device = resolve_device(device)
         self.scale = 1.0 / math.sqrt(cfg.head_dim_)
 
-    def init(self, sq: int) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
+    def init(self, sq: int, kv_heads: Optional[int] = None,
+             device: Optional[torch.device] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """m = -1e30, l = 0, acc = 0, in f32: (KV, G, Sq, 1) and
-        (KV, G, Sq, D)."""
+        (KV, G, Sq, D); ``kv_heads`` (default all) and ``device`` (default
+        the engine's) for a tp position's share."""
         cfg = self.cfg
-        shape = (cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, sq)
-        m = torch.full(shape + (1,), -1e30, dtype=torch.float32,
-                       device=self.device)
-        l = torch.zeros(shape + (1,), dtype=torch.float32, device=self.device)
+        kv = kv_heads or cfg.num_kv_heads
+        dev = device or self.device
+        shape = (kv, cfg.num_heads // cfg.num_kv_heads, sq)
+        m = torch.full(shape + (1,), -1e30, dtype=torch.float32, device=dev)
+        l = torch.zeros(shape + (1,), dtype=torch.float32, device=dev)
         acc = torch.zeros(shape + (cfg.head_dim_,), dtype=torch.float32,
-                          device=self.device)
+                          device=dev)
         return m, l, acc
 
     def embed(self, params, tokens) -> torch.Tensor:
@@ -303,27 +313,21 @@ class StreamAttn:
         t = torch.as_tensor(np.asarray(tokens), device=self.device).long()
         return params["embed"].to(self.cfg.dtype)[t]
 
-    def qkv(self, layers, li: int, x, pos0: int):
-        """-> (q (Sq, Hq, D), k, v (Sq, KV, D)), rope'd at pos0 + i."""
+    def rope_qkv(self, lp, h, pos0: int):
+        """-> (q (Sq, H_i, D), k, v (Sq, KV_i, D)) from the normed input h
+        (1, Sq, E) and one layer's params (a tp position's, for its heads),
+        rope'd at pos0 + i."""
         cfg = self.cfg
-        lp = layer_params({"layers": layers}, li)
-        h = rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
         q, k, v = _layer_qkv(lp, h, cfg)
-        cos, sin = rope_angles(x.shape[1], cfg.head_dim_, cfg.rope_theta,
-                               offset=pos0, device=x.device)
+        cos, sin = rope_angles(h.shape[1], cfg.head_dim_, cfg.rope_theta,
+                               offset=pos0, device=h.device)
         return apply_rope(q, cos, sin)[0], apply_rope(k, cos, sin)[0], v[0]
 
-    def finish(self, layers, li: int, x, l, acc) -> torch.Tensor:
-        """Normalise the merged attention, then wo, the residual and the
-        MLP: the layer's output (1, Sq, E)."""
-        cfg = self.cfg
-        lp = layer_params({"layers": layers}, li)
+    def heads(self, l, acc) -> torch.Tensor:
+        """The merged attention normalised: (1, Sq, H, D) in the dtype."""
         o = acc / l.clamp_min(1e-30)                     # (KV, G, Sq, D)
-        Sq = x.shape[1]
-        o = o.permute(2, 0, 1, 3).reshape(1, Sq, -1, cfg.head_dim_).to(
-            cfg.dtype)
-        o = torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(cfg.dtype))
-        return _mlp(lp, x + o, cfg)
+        return o.permute(2, 0, 1, 3).reshape(
+            1, o.shape[2], -1, self.cfg.head_dim_).to(self.cfg.dtype)
 
     def logits(self, params, x, idx: int) -> torch.Tensor:
         """f32 logits (V,) at sequence index ``idx``: the final norm, then

@@ -19,9 +19,17 @@ tensor); no other caller should grow a third form.
 only axis larger than 1 is ``sp``: with ``attention_impl="ring"`` each
 layer's attention runs ``ops.ring_attention.ring_attention`` over it, and
 every other op runs on ``device``, whose values the reference's sharding
-constraints do not change. Not ported yet, each raising
-NotImplementedError: meshes with dp, fsdp or tp larger than 1 (the
-reference's logical-axis shardings) and pp larger than 1 (pipeline stages).
+constraints do not change. ``forward`` also takes a mesh whose only axis
+larger than 1 is ``tp``: the params are split over its positions
+(``tp_shards``, the Megatron layout: heads, kv heads and the MLP's hidden
+units over ``tp``; embedding, norms and lm_head replicated) and each layer
+runs as ``tp_layer``, one share per position and an all-reduce after the
+attention and after the MLP. The reference's forward under such a mesh
+shards the vocabulary too (its default rules); the values are the same.
+Not ported yet, each raising NotImplementedError: ``loss_fn`` under a tp
+mesh and meshes with dp, fsdp or more than one axis larger than 1
+(training's shardings, ROADMAP Queue 1 item 4), and pp larger than 1
+(pipeline stages).
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..ops.flash_attention import flash_attention, reference_attention
 from ..ops.ring_attention import ring_attention
+from ..parallel.sharding import LogicalAxisRules, shard_params, tree_specs, \
+    tp_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +115,77 @@ PRESETS: Dict[str, TransformerConfig] = {
         num_layers=32, num_heads=32, num_kv_heads=8, max_seq_len=8192,
         rope_theta=500000.0),
 }
+
+
+# ---------------------------------------------------------------------------
+# Logical axis annotations (consumed by parallel.sharding)
+# ---------------------------------------------------------------------------
+
+def param_logical_axes(cfg: Optional[TransformerConfig]):
+    """Tree (same structure as init params) of logical-axis tuples; the
+    same for every config."""
+    layer = {
+        "attn": {
+            "wq": ("layer", "embed", "heads", "head_dim"),
+            "wk": ("layer", "embed", "kv_heads", "head_dim"),
+            "wv": ("layer", "embed", "kv_heads", "head_dim"),
+            "wo": ("layer", "heads", "head_dim", "embed"),
+        },
+        "mlp": {
+            "w_gate": ("layer", "embed", "mlp"),
+            "w_up": ("layer", "embed", "mlp"),
+            "w_down": ("layer", "mlp", "embed"),
+        },
+        "ln_attn": ("layer", "norm"),
+        "ln_mlp": ("layer", "norm"),
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": layer,
+        "ln_f": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+def megatron_rules() -> LogicalAxisRules:
+    """The rules of the JAX engine's tensor-parallel serving
+    (ray_tpu/llm/engine.py:714-715): the default table with the vocabulary
+    and the embedding dim replicated, so that heads, kv heads and the MLP's
+    hidden units are the only dims split over ``tp``."""
+    return LogicalAxisRules.default().with_overrides(("vocab", None),
+                                                     ("embed", None))
+
+
+def tp_shards(params: Dict[str, Any], mesh, rules=None) -> list:
+    """``shard_params`` under ``rules`` (default ``megatron_rules()``) for
+    ``tp_layer``: each position's params, in order. Rules that split any
+    other dim over ``tp`` (the reference's default, which splits the
+    vocabulary) raise NotImplementedError: the port's layer runs the
+    Megatron split only."""
+    rules = rules or megatron_rules()
+    axes = param_logical_axes(None)
+
+    def dims(r):
+        return _flat(tree_specs(axes, mesh, r), tp_dim)
+    want, got = dims(megatron_rules()), dims(rules)
+    if got != want:
+        names = _flat(axes, lambda a: a)
+        bad = {k: names[k] for k in got if got[k] != want[k]}
+        raise NotImplementedError(
+            f"rules that split {bad} over tp are not ported: the "
+            f"tensor-parallel layer splits heads, kv_heads and mlp only "
+            f"(megatron_rules())")
+    return shard_params(params, mesh, rules, axes)
+
+
+def _flat(tree, fn, prefix="") -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, fn, prefix + k + "."))
+        else:
+            out[prefix + k] = fn(v)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -258,23 +339,110 @@ def _layer_qkv(lp, h, cfg: TransformerConfig):
     return q, k, v
 
 
-def _mlp(lp, x, cfg: TransformerConfig):
-    """The SwiGLU half of a layer, with its norm and residual."""
+def _mlp_down(lp, h, cfg: TransformerConfig):
+    """SwiGLU of the normed input h: w_down(silu(h w_gate) * (h w_up)); a
+    tp position's partial sum where ``lp`` holds its hidden units."""
     dt = cfg.dtype
-    h = rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
     g = torch.einsum("bse,em->bsm", h, lp["mlp"]["w_gate"].to(dt))
     u = torch.einsum("bse,em->bsm", h, lp["mlp"]["w_up"].to(dt))
-    return x + torch.einsum("bsm,me->bse", F.silu(g) * u,
-                            lp["mlp"]["w_down"].to(dt))
+    return torch.einsum("bsm,me->bse", F.silu(g) * u,
+                        lp["mlp"]["w_down"].to(dt))
+
+
+def _mlp(lp, x, cfg: TransformerConfig):
+    """The SwiGLU half of a layer, with its norm and residual."""
+    return x + _mlp_down(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps), cfg)
+
+
+def on_each(t: torch.Tensor, devices) -> Dict[torch.device, torch.Tensor]:
+    """``t`` on each distinct device of ``devices`` (no copy where it is)."""
+    return {d: t.to(d) for d in dict.fromkeys(devices)}
+
+
+def all_reduce(parts, devices) -> Dict[torch.device, torch.Tensor]:
+    """The sum of one partial per tp position (``parts[i]`` on
+    ``devices[i]``), on each distinct device: {device: sum}.
+
+    Each partial goes to the first position's device, where they are added
+    in f32 in position order and the sum is rounded to the partials' dtype
+    once; the sum then goes to every other distinct device. Against the
+    unsharded product, whose one matmul accumulates every term in f32 and
+    rounds once, each partial here was rounded once more: a bf16 sum is
+    within a few bf16 ulps of it, an f32 one within f32 rounding. (XLA's
+    all-reduce does not fix an order.) On one device nothing is copied."""
+    if len(parts) == 1:
+        total = parts[0]
+    else:
+        home = devices[0]
+        total = parts[0].to(torch.float32, copy=True)
+        for p in parts[1:]:
+            total += p.to(home)
+        total = total.to(parts[0].dtype)
+    return on_each(total, devices)
+
+
+def tp_layer(cfg: TransformerConfig, xs, lps, devices, attend):
+    """One decoder layer over the tp positions (Megatron): ``xs`` is the
+    layer's input {device: (B, S, E)}, the same values on each distinct
+    device; ``lps[i]`` position i's layer params on ``devices[i]``, which
+    hold its heads, kv heads and MLP hidden units (a single position holds
+    all of them: the plain layer).
+
+    The norms and residuals run once per distinct device. ``attend(h)``
+    gets the normed input {device: (B, S, E)} and returns each position's
+    attention output over its own heads, (B, S, H_i, D) on its device (QKV,
+    RoPE and the attention are the caller's). Each position's partial
+    ``wo`` product is summed by ``all_reduce``; then each position's share
+    of the MLP and a second all-reduce. Returns the layer's output
+    {device: (B, S, E)}."""
+    eps, dt = cfg.rms_norm_eps, cfg.dtype
+    first = {}
+    for i, d in enumerate(devices):
+        first.setdefault(d, i)
+    h = {d: rms_norm(xs[d], lps[i]["ln_attn"], eps) for d, i in first.items()}
+    parts = [torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(dt))
+             for o, lp in zip(attend(h), lps)]
+    o = all_reduce(parts, devices)
+    xs = {d: xs[d] + o[d] for d in first}
+    h = {d: rms_norm(xs[d], lps[i]["ln_mlp"], eps) for d, i in first.items()}
+    m = all_reduce([_mlp_down(lp, h[d], cfg)
+                    for lp, d in zip(lps, devices)], devices)
+    return {d: xs[d] + m[d] for d in first}
 
 
 def _layer(cfg: TransformerConfig, x, lp, cos, sin, mesh=None):
-    h = rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
-    q, k, v = _layer_qkv(lp, h, cfg)
-    o = _attention(cfg, apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
-                   mesh)
-    x = x + torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(cfg.dtype))
-    return _mlp(lp, x, cfg)
+    def attend(h):
+        q, k, v = _layer_qkv(lp, h[x.device], cfg)
+        return [_attention(cfg, apply_rope(q, cos, sin),
+                           apply_rope(k, cos, sin), v, mesh)]
+    return tp_layer(cfg, {x.device: x}, [lp], [x.device], attend)[x.device]
+
+
+def _tp_forward(params, tokens, cfg: TransformerConfig, mesh):
+    """forward's tensor-parallel body: embedding, final norm and lm_head
+    once on the first position's device, each layer as ``tp_layer``."""
+    devices = mesh.axis_devices("tp")
+    shards = tp_shards(params, mesh)
+    dt = cfg.dtype
+    xs = on_each(shards[0]["embed"].to(dt)[tokens.to(devices[0])], devices)
+    S = tokens.shape[1]
+    ropes = {d: rope_angles(S, cfg.head_dim_, cfg.rope_theta, device=d)
+             for d in xs}
+    for li in range(cfg.num_layers):
+        lps = [layer_params(p, li) for p in shards]
+
+        def attend(h):
+            out = []
+            for lp, d in zip(lps, devices):
+                cos, sin = ropes[d]
+                q, k, v = _layer_qkv(lp, h[d], cfg)
+                # Each position's own heads: the ring's sp axis is 1 here.
+                out.append(_attention(cfg, apply_rope(q, cos, sin),
+                                      apply_rope(k, cos, sin), v))
+            return out
+        xs = tp_layer(cfg, xs, lps, devices, attend)
+    x = rms_norm(xs[devices[0]], shards[0]["ln_f"], cfg.rms_norm_eps)
+    return torch.einsum("bse,ev->bsv", x, shards[0]["lm_head"].to(dt)).float()
 
 
 def forward(params: Dict[str, Any], tokens, cfg: TransformerConfig,
@@ -282,14 +450,17 @@ def forward(params: Dict[str, Any], tokens, cfg: TransformerConfig,
             ) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, V) float32 on ``device``, where
     the params must already live. ``mesh``: an sp-only mesh for
-    ``attention_impl="ring"`` (see the module docstring)."""
-    if mesh is not None:
-        mesh.axis_devices("sp")         # raises for the unported axes
+    ``attention_impl="ring"``, or a tp-only mesh whose positions each run
+    their share of every layer, the params split under
+    ``megatron_rules()`` (see the module docstring and ``tp_shards``)."""
+    axis = mesh.split_axis() if mesh is not None else None
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params are on {params['embed'].device}, "
                          f"forward was asked for {dev}")
     tokens = torch.as_tensor(tokens, device=dev).long()
+    if axis == "tp":
+        return _tp_forward(params, tokens, cfg, mesh).to(dev)
     dt = cfg.dtype
     x = params["embed"].to(dt)[tokens]
     S = tokens.shape[1]
@@ -313,7 +484,13 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, Any],
             cfg: TransformerConfig, mesh=None,
             device: Union[str, torch.device] = "cuda") -> torch.Tensor:
     """Next-token cross-entropy, a 0-d f32 tensor; batch = {"tokens": (B,S)}
-    or {"inputs","targets"}; ignores padding id 0 when targets provided."""
+    or {"inputs","targets"}; ignores padding id 0 when targets provided.
+    ``mesh``: None or sp-only; a tp mesh (a training layout) raises
+    NotImplementedError."""
+    if mesh is not None and mesh.split_axis() == "tp":
+        raise NotImplementedError(
+            "loss_fn under a tp mesh is not ported: training meshes come "
+            "with torch.distributed.DeviceMesh (ROADMAP Queue 1 item 4)")
     dev = resolve_device(device)
     if "targets" in batch:
         inputs = torch.as_tensor(batch["inputs"], device=dev).long()

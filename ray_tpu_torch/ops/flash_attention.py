@@ -158,11 +158,15 @@ def _kernel(name: str):
 def _launch(name: str, ptrs, strided, q, k, causal: bool,
             scale: float) -> None:
     B, S, Hq, D = q.shape
-    rc = _kernel(name)(
-        *(t.data_ptr() for t in ptrs), _DTYPE_CODES[q.dtype], B, S, Hq,
-        k.shape[2], D, *(st for t in strided for st in t.stride()[:3]),
-        float(scale), int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    # The kernels make q's device current (hopper.cuh bind_device); the
+    # guard gives the caller's current device back, so a launch on a
+    # second card leaves the thread where it was.
+    with torch.cuda.device(q.device):
+        rc = _kernel(name)(
+            *(t.data_ptr() for t in ptrs), _DTYPE_CODES[q.dtype], B, S, Hq,
+            k.shape[2], D, *(st for t in strided for st in t.stride()[:3]),
+            float(scale), int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
 

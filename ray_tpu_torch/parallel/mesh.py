@@ -5,10 +5,14 @@ are copies. ``Mesh`` is the port's own: where JAX's ``Mesh`` is a grid of
 devices that one process drives through ``shard_map``, this one is a grid
 of ``torch.device``s that one process drives by launching each shard's
 work on that shard's device (the JAX engine's single-controller model), so
-a K/V rotation between shards is a ``.to(next_device)``. It is not
+a K/V rotation between shards is a ``.to(next_device)`` and a tensor-parallel
+all-reduce is a ``.to()`` of each partial and a sum. One axis may be larger
+than 1, ``sp`` (sequence-parallel prefill) or ``tp`` (tensor-parallel
+serving, ``sharding.shard_params``). It is not
 ``torch.distributed.DeviceMesh``, which needs one process per GPU; that
 comes with FSDP/TP training (ROADMAP Queue 1 item 4), built from the same
-``MeshSpec``.
+``MeshSpec``, with the meshes that split more than one axis or any of dp,
+fsdp and pp.
 
 A grid may name one device more than once: a shard is a position in the
 mesh, not a device. ``build_mesh(MeshSpec(sp=4), devices=[cuda:0] * 4)``
@@ -95,19 +99,30 @@ class Mesh:
         return list(dict.fromkeys(self.devices.flat))
 
     def axis_devices(self, axis_name: str = "sp") -> List[torch.device]:
-        """The devices of ``axis_name``'s positions, in order. Every other
-        axis must be 1: the port splits only that axis, and placing batch
-        or heads over another axis (dp/fsdp/tp, ROADMAP Queue 1 item 4) or
-        layers over pp (item 7) is not ported. A value-preserving layout
-        that left those devices idle would hide it, so it raises."""
+        """The devices of ``axis_name``'s positions, in order.
+        ``axis_name`` is ``sp`` or ``tp``, and every other axis must be 1:
+        the port splits one of those two. Placing batch or weights over
+        dp/fsdp, two axes at once (``sp`` x ``tp`` among them; ROADMAP
+        Queue 1 item 4) or layers over pp (item 7) is not ported. A
+        value-preserving layout that left those devices idle would hide
+        it, so it raises."""
         other = {a: s for a, s in self.shape.items()
                  if a != axis_name and s > 1}
-        if other:
+        if axis_name not in ("sp", "tp") or other:
             raise NotImplementedError(
-                f"mesh axes {other} are not ported: the port splits only "
-                f"the {axis_name!r} axis (dp/fsdp/tp meshes are ROADMAP "
-                f"Queue 1 item 4, pp item 7)")
+                f"mesh axes {other or {axis_name: self.shape[axis_name]}} "
+                f"are not ported: the port splits only the sp or the tp "
+                f"axis, one at a time (dp/fsdp meshes and sp x tp are "
+                f"ROADMAP Queue 1 item 4, pp item 7)")
         return list(self.devices.reshape(-1))
+
+    def split_axis(self) -> Optional[str]:
+        """The axis this mesh splits, ``"sp"`` or ``"tp"``, or None where
+        every axis is 1; raises NotImplementedError as ``axis_devices``
+        does for any other layout."""
+        axis = "tp" if self.shape["tp"] > 1 else "sp"
+        self.axis_devices(axis)
+        return axis if self.shape[axis] > 1 else None
 
 
 def _device(d: Union[str, torch.device]) -> torch.device:

@@ -21,7 +21,7 @@ from ray_tpu.models import PRESETS as JAX_PRESETS
 from ray_tpu_torch.llm import LLMEngine, SamplingParams
 from ray_tpu_torch.llm.engine import _prefill_fn
 from ray_tpu_torch.models import PRESETS, from_jax_params
-from ray_tpu_torch.parallel import MeshSpec, build_mesh
+from ray_tpu_torch.parallel import LogicalAxisRules, MeshSpec, build_mesh
 
 CFG, JCFG = PRESETS["tiny"], JAX_PRESETS["tiny"]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,7 +87,9 @@ def test_prefill_fn_matches_jax(length, bucket):
     toks[0, :length] = np.random.default_rng(length).integers(
         1, CFG.vocab_size, length)
     want = jax_prefill_fn(jeng.params, jnp.asarray(toks), length, JCFG)
-    got = _prefill_fn(teng.params, torch.from_numpy(toks).long(), length, CFG)
+    logits, ks, vs = _prefill_fn([teng.params], torch.from_numpy(toks).long(),
+                                 length, CFG)
+    got = (logits, ks[0], vs[0])
     for w, g in zip(want, got):
         assert tuple(g.shape) == w.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
@@ -127,14 +129,19 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
 
 
 def test_unported_engine_options_are_absent():
-    """sp_degree, sp_strategy and an sp-only mesh are ported (see
-    tests/test_torch_sp_prefill.py); what stays unported is the JAX
-    engine's tensor-parallel serving: its ``rules=`` option is absent, and
-    a mesh with dp, fsdp, tp or pp larger than 1 raises
+    """sp_degree, sp_strategy, an sp-only mesh, a tp-only mesh and the
+    engine's own rules are ported (tests/test_torch_sp_prefill.py,
+    tests/test_torch_tp_engine.py); what stays unported: rules that split
+    another dim than heads, kv_heads and mlp over tp (the reference's
+    default table splits the vocabulary) and a mesh with dp, fsdp or pp
+    larger than 1, or with sp and tp both larger than 1, each raising
     NotImplementedError."""
-    with pytest.raises(TypeError, match="rules"):
-        LLMEngine(CFG, device="cpu", rules=None)
-    for spec in (dict(tp=2), dict(dp=2), dict(fsdp=2, sp=2), dict(pp=2)):
+    tp2 = build_mesh(MeshSpec(tp=2), devices=["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="vocab"):
+        LLMEngine(CFG, device="cpu", mesh=tp2,
+                  rules=LogicalAxisRules.default())
+    for spec in (dict(sp=2, tp=2), dict(dp=2), dict(fsdp=2, sp=2),
+                 dict(pp=2)):
         mesh = build_mesh(MeshSpec(**spec),
                           devices=["cpu"] * MeshSpec(**spec).n_devices)
         with pytest.raises(NotImplementedError, match="item 4"):
@@ -163,7 +170,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch._config, ray_tpu_torch.exceptions\n"
         "import ray_tpu_torch._private.flight_recorder\n"
         "import ray_tpu_torch.llm.sequence_parallel\n"
-        "import ray_tpu_torch.parallel.mesh\n"
+        "import ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding\n"
         "import ray_tpu_torch.ops.ring_attention\n"
         "import ray_tpu_torch.models.transformer, ray_tpu_torch.ops._build\n"
         "import ray_tpu_torch.models.train_step\n"

@@ -126,8 +126,12 @@ def test_suffix_prefill_fn_matches_jax(prefix_pages, suffix_len, bucket):
                                  JCFG, page)
     args = (torch.from_numpy(pages).long(), torch.from_numpy(toks).long(),
             prefix_len, suffix_len, CFG, page)
-    got = _suffix_prefill_fn(teng.params, torch.from_numpy(pk),
-                             torch.from_numpy(pv), *args)
+    def suffix():
+        logits, ks, vs = _suffix_prefill_fn(
+            [teng.params], [torch.from_numpy(pk)], [torch.from_numpy(pv)],
+            *args)
+        return logits, ks[0], vs[0]
+    got = suffix()
     for w, g in zip(want, got):
         assert tuple(g.shape) == w.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
@@ -135,8 +139,7 @@ def test_suffix_prefill_fn_matches_jax(prefix_pages, suffix_len, bucket):
     # The garbage pages are masked: new garbage changes no bit.
     garbage = pages[prefix_pages:]
     pk[:, garbage], pv[:, garbage] = pk[:, garbage] * 7 + 3, -pv[:, garbage]
-    again = _suffix_prefill_fn(teng.params, torch.from_numpy(pk),
-                               torch.from_numpy(pv), *args)
+    again = suffix()
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 

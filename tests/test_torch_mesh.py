@@ -81,13 +81,28 @@ def test_repeated_devices_are_shard_positions():
     assert one.axis_devices("sp") == [CPU]
 
 
-@pytest.mark.parametrize("spec", [dict(dp=2, sp=4), dict(tp=2), dict(pp=2),
-                                  dict(fsdp=2, sp=2)])
+@pytest.mark.parametrize("spec", [dict(dp=2, sp=4), dict(sp=2, tp=2),
+                                  dict(pp=2), dict(fsdp=2, sp=2)])
 def test_other_axes_than_sp_raise_not_implemented(spec):
     mesh = build_mesh(MeshSpec(**spec),
                       devices=[CPU] * MeshSpec(**spec).n_devices)
     with pytest.raises(NotImplementedError, match="item 4"):
         mesh.axis_devices("sp")
+
+
+@pytest.mark.parametrize("spec,axis", [(dict(sp=4), "sp"),
+                                       (dict(tp=2), "tp"), (dict(), None)])
+def test_a_mesh_splits_sp_or_tp_alone(spec, axis):
+    """A tp mesh's positions are its devices, as an sp mesh's are; a dp
+    axis asked for by name, or sp and tp together, raise."""
+    n = MeshSpec(**spec).n_devices
+    mesh = build_mesh(MeshSpec(**spec), devices=[CPU] * n)
+    assert mesh.split_axis() == axis
+    assert mesh.axis_devices(axis or "tp") == [CPU] * n
+    with pytest.raises(NotImplementedError, match="item 4"):
+        build_mesh(MeshSpec(dp=2), devices=[CPU] * 2).axis_devices("dp")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        build_mesh(MeshSpec(sp=2, tp=2), devices=[CPU] * 4).split_axis()
 
 
 def test_sp_mesh_matches_jax_and_its_error_word_for_word():

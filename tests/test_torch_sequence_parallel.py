@@ -21,6 +21,7 @@ from ray_tpu.models import PRESETS as JAX_PRESETS
 from ray_tpu.models import init_params as jax_init_params
 from ray_tpu_torch.llm.sequence_parallel import StreamAttn, _stream_block_fn
 from ray_tpu_torch.models import PRESETS, from_jax_params
+from ray_tpu_torch.models.transformer import layer_params, tp_layer
 
 CFG, JCFG = PRESETS["tiny"], JAX_PRESETS["tiny"]
 HQ, HKV, D = 8, 4, 16
@@ -145,8 +146,10 @@ def stream_pair():
 @pytest.mark.parametrize("pos0", [0, 37])
 @pytest.mark.parametrize("sq", [1, 6])
 def test_stream_attn_pieces_match_jax(stream_pair, pos0, sq):
-    """embed, qkv (RoPE at pos0 + i), finish and logits of the port's
-    StreamAttn against JAX's on the same tokens and state."""
+    """embed, rope_qkv (RoPE at pos0 + i) and heads through tp_layer (one
+    position, as the engine's streamed layer runs them), and logits, of
+    the port's StreamAttn against JAX's qkv, finish and logits on the
+    same tokens and state."""
     (jsa, jparams), (tsa, params) = stream_pair
     rng = np.random.default_rng(pos0 + sq)
     toks = rng.integers(1, CFG.vocab_size, (1, sq)).astype(np.int32)
@@ -156,17 +159,21 @@ def test_stream_attn_pieces_match_jax(stream_pair, pos0, sq):
     shape = (CFG.num_kv_heads, CFG.num_heads // CFG.num_kv_heads, sq)
     l = rng.uniform(0.5, 3.0, shape + (1,)).astype(np.float32)
     acc = rng.standard_normal(shape + (CFG.head_dim_,)).astype(np.float32)
+    dev = tx.device
     for li in range(CFG.num_layers):
         want = jsa.qkv(jparams["layers"], li, jx, pos0)
-        got = tsa.qkv(params["layers"], li, tx, pos0)
-        for w, g in zip(want, got):
-            assert tuple(g.shape) == w.shape
-            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
-                                       atol=ATOL)
+        lp = layer_params(params, li)
+
+        def attend(h):
+            got = tsa.rope_qkv(lp, h[dev], pos0)
+            for w, g in zip(want, got):
+                assert tuple(g.shape) == w.shape
+                np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                           rtol=RTOL, atol=ATOL)
+            return [tsa.heads(torch.from_numpy(l), torch.from_numpy(acc))]
         jx = jsa.finish(jparams["layers"], li, jx, jnp.asarray(l),
                         jnp.asarray(acc))
-        tx = tsa.finish(params["layers"], li, tx, torch.from_numpy(l),
-                        torch.from_numpy(acc))
+        tx = tp_layer(CFG, {dev: tx}, [lp], [dev], attend)[dev]
         np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=RTOL,
                                    atol=ATOL)
     for idx in range(sq):

@@ -40,6 +40,11 @@ SIDES = (True, False)               # (JAX, port)
 EXACT_STATS = ("completed", "cancelled", "expired", "shed", "tokens_out",
                "kv_broken", "kv_pages_free", "kv_pages_total",
                "prefix_cache")
+# A script's whole run, and an event a script waits on: generous bounds,
+# so that a stuck wait fails with the test's name instead of eating the
+# suite's time limit.
+SCRIPT_TIMEOUT_S = 120.0
+WAIT_TIMEOUT_S = 60.0
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,9 +92,14 @@ class Side:
         return (JaxSP if self.jax else SamplingParams)(**kw)
 
 
+def _run(coro):
+    """asyncio.run of a script, bounded by SCRIPT_TIMEOUT_S."""
+    return asyncio.run(asyncio.wait_for(coro, SCRIPT_TIMEOUT_S))
+
+
 def _both(params, script, *args):
     """script(side, *args) run on an event loop per side: [JAX's, port's]."""
-    return [asyncio.run(script(Side(j, params), *args)) for j in SIDES]
+    return [_run(script(Side(j, params), *args)) for j in SIDES]
 
 
 def _prompt(n, seed=0):
@@ -143,7 +153,7 @@ async def _streams_script(side):
     async def late_arrival():
         # Arrives while the first request is decoding (its second token is
         # out), whatever the speed of a tick.
-        await started.wait()
+        await asyncio.wait_for(started.wait(), WAIT_TIMEOUT_S)
         return await _consume(er, [9, 8, 7], opts)
 
     (ta, ra, sa), (tb, rb, sb) = await asyncio.gather(
@@ -199,7 +209,7 @@ async def _deadline_script(side):
     # the pool is exhausted and the ticks left are short. Waiting on the
     # event, not a fixed sleep, keeps a slow first tick (under load) from
     # racing the deadline below.
-    await started.wait()
+    await asyncio.wait_for(started.wait(), WAIT_TIMEOUT_S)
     assert (await er.debug_stats())["kv_pages_free"] == 0
     tok = side.deadlines.set_current(time.time() + 0.2)
     try:
@@ -353,8 +363,8 @@ def test_pd_routes_match_jax(params):
     resolve, and callbacks), prefill -> decode and admit_external +
     collect_stream each give the JAX replica's channel-route tokens."""
     prompt = _prompt(21, seed=5)
-    want = asyncio.run(_pd_reference(Side(True, params), prompt))
-    got = asyncio.run(_pd_routes(Side(False, params), prompt))
+    want = _run(_pd_reference(Side(True, params), prompt))
+    got = _run(_pd_routes(Side(False, params), prompt))
     assert len(want) == 6
     assert got == {k: want for k in got}
 
@@ -410,8 +420,8 @@ def test_paged_routes_match_jax(params):
     collect_stream, and a chain of prefill_paged_chunk calls give the JAX
     replica's admit_paged tokens of the JAX engine's by-value handoff."""
     prompt = _prompt(PAGED_LEN, seed=6)
-    first, items = asyncio.run(_paged_reference(Side(True, params), prompt))
-    got = asyncio.run(_paged_routes(Side(False, params), prompt))
+    first, items = _run(_paged_reference(Side(True, params), prompt))
+    got = _run(_paged_routes(Side(False, params), prompt))
     toks = items[:-1]
     assert items[-1] == {"finish_reason": "length", "n_tokens": 5}
     assert got["decode_paged"] == got["chunks"] == toks and toks[0] == first
@@ -529,7 +539,7 @@ def test_request_spans_and_instants_match_jax(params):
         with _captured(jax_flight_recorder, categories={"request"}) \
                 as jrec, \
                 _captured(flight_recorder) as trec:
-            outs, broken = asyncio.run(
+            outs, broken = _run(
                 _span_script(Side(jax_side, params), prompt))
             rows = (jrec if jax_side else trec).rows()
         broken.pop("stats")
@@ -624,9 +634,9 @@ def test_a_malformed_handoff_fails_only_its_caller(params, spoil):
         assert st["completed"] == 2 and st["queue_depth"] == 0
         return other, good
 
-    other, good = asyncio.run(script())
+    other, good = _run(script())
     assert len(other["tokens"]) == 6 and len(good["tokens"]) == 6
-    want = asyncio.run(_pd_reference(Side(True, params), prompt))
+    want = _run(_pd_reference(Side(True, params), prompt))
     assert good["tokens"] == want
 
 
@@ -639,12 +649,13 @@ def test_replica_defaults_to_cuda_and_raises_without_it():
 
 def test_unported_replica_options_are_absent(params):
     """mesh, sp_degree and sp_strategy reach the engine (their parity is in
-    tests/test_torch_sp_prefill.py); a mesh with an axis other than sp
-    larger than 1 still raises NotImplementedError, as in the engine."""
+    tests/test_torch_sp_prefill.py and tests/test_torch_tp_engine.py); a
+    mesh with dp, fsdp or pp larger than 1, or with sp and tp both larger
+    than 1, still raises NotImplementedError, as in the engine."""
     er = EngineReplica(CFG, params, device="cpu", sp_degree=2,
                        sp_strategy="ulysses")
     assert (er.engine.sp_degree, er.engine.sp_strategy) == (2, "ulysses")
-    for spec in (dict(tp=2), dict(dp=2, sp=2)):
+    for spec in (dict(sp=2, tp=2), dict(dp=2, sp=2)):
         mesh = build_mesh(MeshSpec(**spec),
                           devices=["cpu"] * MeshSpec(**spec).n_devices)
         with pytest.raises(NotImplementedError, match="item 4"):
@@ -658,4 +669,4 @@ def test_replica_uses_given_params_and_serves_load(params):
     assert er.engine.params is params and er.engine.cfg == CFG
     assert er.__serve_load__() == 0.0
     assert EngineReplica(CFG, params, device="cpu").engine.params is params
-    assert asyncio.run(er.pid()) > 0
+    assert _run(er.pid()) > 0

@@ -38,6 +38,9 @@ from ray_tpu_torch.parallel import MeshSpec, build_mesh
 CFG, JCFG = PRESETS["tiny"], JAX_PRESETS["tiny"]
 CPU = torch.device("cpu")
 TOL = dict(rtol=2e-4, atol=2e-4)
+# A replica's whole script: generous, so that a stuck wait fails with the
+# test's name instead of eating the suite's time limit.
+SCRIPT_TIMEOUT_S = 120.0
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -76,6 +79,13 @@ def _pair(params, **kw):
 
 # ------------------------------------------------------------- SP parity ---
 
+def _plain_prefill(params, toks, length):
+    """The port's unsharded _prefill_fn: (logits, ks, vs) as tensors."""
+    logits, ks, vs = _prefill_fn([params], torch.from_numpy(toks), length,
+                                 CFG)
+    return logits, ks[0], vs[0]
+
+
 @pytest.mark.parametrize("degree", [2, 4])
 @pytest.mark.parametrize("strategy", ["ring", "ulysses"])
 def test_sp_prefill_fn_parity(params, degree, strategy):
@@ -93,7 +103,7 @@ def test_sp_prefill_fn_parity(params, degree, strategy):
                 jp, jnp.asarray(toks, jnp.int32), S)
         got = sp_prefill_fn(rep, torch.from_numpy(toks), S, CFG, mesh,
                             strategy)
-        plain = _prefill_fn(tp, torch.from_numpy(toks), S, CFG)
+        plain = _plain_prefill(tp, toks, S)
         for g, w, p in zip(got, want, plain):
             g, w, p = g.numpy(), np.asarray(w), p.numpy()
             if g.ndim > 1:              # padded-tail rows are garbage
@@ -111,7 +121,7 @@ def test_sp_suffix_prefill_fn_matches_jax(params, degree):
     prompt = _prompt(pre + suf, seed=degree)
     toks = np.zeros((1, 32), np.int64)
     toks[0, :pre] = prompt[:pre]
-    _, pk, pv = _prefill_fn(tp, torch.from_numpy(toks), pre, CFG)
+    _, pk, pv = _plain_prefill(tp, toks, pre)
     pool_k = torch.zeros((CFG.num_layers, 9, page) + pk.shape[2:])
     pool_v = torch.zeros_like(pool_k)
     pages = np.array([3, 5, 1, 0, 0, 0, 0, 0], np.int64)
@@ -132,7 +142,7 @@ def test_sp_suffix_prefill_fn_matches_jax(params, degree):
                                mesh)
     full = np.zeros((1, 64), np.int64)
     full[0, :pre + suf] = prompt
-    plain = _prefill_fn(tp, torch.from_numpy(full), pre + suf, CFG)
+    plain = _plain_prefill(tp, full, pre + suf)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), **TOL)
     np.testing.assert_allclose(got[0].numpy(), plain[0].numpy(), **TOL)
     for g, w, p in zip(got[1:], want[1:], plain[1:]):
@@ -295,7 +305,9 @@ def test_replica_with_sp_degree_2_matches_the_sp1_replica(params):
         assert er.engine.sp_degree == degree
         return [(await er.generate(p))["tokens"] for p in prompts]
 
-    want = asyncio.run(run(1))
-    assert asyncio.run(run(2, sp_degree=2)) == want
-    assert asyncio.run(run(4, mesh=_cpu_mesh(4),
-                           sp_strategy="ulysses")) == want
+    def script(coro):
+        return asyncio.run(asyncio.wait_for(coro, SCRIPT_TIMEOUT_S))
+    want = script(run(1))
+    assert script(run(2, sp_degree=2)) == want
+    assert script(run(4, mesh=_cpu_mesh(4),
+                      sp_strategy="ulysses")) == want
