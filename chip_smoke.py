@@ -20,10 +20,13 @@ Phases, each printing one JSON line on stdout:
    device time under torch.profiler, and which SDPA backend ran).
 4. kernel_bwd: the dQ and dK/dV kernels against their plain versions, dq,
    dk and dv, and the delta = rowsum(dO * O) that the dQ kernel computes
-   against the plain row-sum, at the training shapes and the same f32 /
+   against the plain row-sum, at the training shapes, at the heads of one
+   tensor-parallel position (Hq 16 / Hkv 4 and 8 / 2 at S=2048, the
+   train_mesh phase's) and at the same f32 /
    non-causal / D=64 / GQA / ragged shapes; the autograd Function's grads
-   against autograd through plain attention; kernel, plain delta, plain and
-   SDPA-backward times (SDPA's as for the forward). At the main training
+   against autograd through plain attention; kernel (CUDA events, and the
+   kernel's device time alone under torch.profiler), plain delta, plain
+   and SDPA-backward times (SDPA's as for the forward). At the main training
    shape one profiled backward must run exactly the dQ and the dK/dV
    kernel on the card, nothing else.
    Then (tiling) bf16 cases that cross the kernels' tiles (S 1, 127, 129,
@@ -148,6 +151,32 @@ Phases, each printing one JSON line on stdout:
    gradient (wq, wk, wv, wo of every layer) from a flash pass against the
    plain pass's, beside a control: the plain pass again on the same model
    with its MLP hidden units relabelled, which changes only the rounding.
+12. train_mesh: the same model at full width and depth trained on
+   build_mesh(MeshSpec(dp=2, fsdp=2, tp=2), devices=[cuda:0] * 8), the
+   reference's own test mesh: four batch groups of one 2048-token sequence
+   (one fixed batch of 4 from np.random.default_rng(5)), each tp position
+   at Hq 16 / Hkv 4, its weights gathered across fsdp a layer at a time;
+   the positions take turns on the one card, so the phase reads the
+   mechanism's cost. First an unsharded value_and_grad on the same params
+   and batch (no optimizer state: params, grads and the (4, 2048, 128256)
+   logits fit where two states would not) keeps its loss, grad norm and a
+   sample of gradients (embed, lm_head, wq/wk/wv/wo/w_down of layers 0 and
+   31); then the params are sharded, the sharded value_and_grad's
+   sampled gradients are gathered one at a time and held against those
+   (5e-2 relative), and the Adam moments are made. Checks: the sharded
+   state's distinct tensors hold exactly the unsharded params', mu's and
+   nu's bytes; each position's shard shapes are those its specs give; the
+   planner's per-position params and optimizer bytes equal each
+   position's own; step 1's loss and grad norm against the unsharded
+   pass (the train phase's limits); four finite steps with a falling loss;
+   512 / 256 / 256 launches of kernels 1 / 2 / 3 a step; the thread's
+   current CUDA device unchanged. Prints step ms, tokens/s and MFU beside
+   the train phase's, one profiled step (device time by class, with the tp
+   all-reduce, the fsdp gather and the vocabulary-parallel cross-entropy
+   as named ranges, and the idle share), the peak memory beside the
+   planner's figure. Where torch.cuda.device_count() >= 2 the same mesh
+   also runs over the visible cards (the grid in order, each card named
+   8/n times), and the phase prints which ran.
 
 Then the kernels line, the card line and, last, the ok line. Any failure
 exits non-zero without the ok line, as does a machine without CUDA.
@@ -182,9 +211,11 @@ from ray_tpu_torch.llm import (EngineReplica, LLMEngine, SamplingParams,
 from ray_tpu_torch.models import (PRESETS, forward, init_params,
                                   make_optimizer, make_train_step)
 from ray_tpu_torch.models import transformer
-from ray_tpu_torch.models.train_step import value_and_grad
+from ray_tpu_torch.models.train_step import global_norm, value_and_grad
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.parallel import MeshSpec, build_mesh
+from ray_tpu_torch.parallel import (MeshSpec, build_mesh, plan_train_memory,
+                                    shard_params)
+from ray_tpu_torch.parallel.sharding import gather_tensor, shard_slices
 from ray_tpu_torch.ops.flash_attention import (
     attention_bwd_delta, flash_attention, flash_attention_bwd,
     flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
@@ -323,7 +354,12 @@ BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 DELTA_REL_TOL = 1e-4
 TRAIN_HEADS = dict(B=1, Hq=32, Hkv=8, D=128, dtype=torch.bfloat16,
                    causal=True)
+# train_mesh: each of the tp=2 positions runs the backward over its
+# Hq 16 / Hkv 4 heads; Hq 8 / Hkv 2 is a tp=4 position's.
+TP_BWD_CASES = [dict(TRAIN_HEADS, S=2048, Hq=32 // n, Hkv=8 // n)
+                for n in TP_DEGREES]
 BWD_CASES = ([dict(TRAIN_HEADS, S=s) for s in (64, 512, 1024, 2048)]
+             + TP_BWD_CASES
              + [c for c in KERNEL_CASES if c["dtype"] == torch.float32
                 or c["S"] == 200])
 
@@ -350,6 +386,24 @@ TRAIN_GNORM_REL_TOL = 5e-2
 # through 32 layers), so the limit sits just above both (PERF.md).
 TRAIN_ATTN_GRAD_REL_TOL = 5e-2
 ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
+# train_mesh: the reference's own test mesh (tests/test_models.py:80-122),
+# one 2049-token sequence per batch group, from np.random.default_rng(5).
+TRAIN_MESH = dict(dp=2, fsdp=2, tp=2)
+TRAIN_MESH_BATCH = 4
+# The sampled gradients, sharded against unsharded, ||g - g_ref|| /
+# ||g_ref||: the same bf16 drift as the train phase's flash-against-plain
+# attention weights (TRAIN_ATTN_GRAD_REL_TOL), from another order of sums
+# (the tp all-reduce, the split cross-entropy, per-group accumulation).
+TRAIN_MESH_GRAD_REL_TOL = 5e-2
+TRAIN_MESH_SAMPLE = (("embed",), ("lm_head",)) + tuple(
+    ("layers", li, part, name) for li in (0, 31)
+    for part, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                       ("attn", "wo"), ("mlp", "w_down")))
+# The profiled step's named ranges (the functions of models.transformer
+# that one step calls, wrapped while profiling).
+TRAIN_MESH_RANGES = {"all_reduce": "tp:all_reduce",
+                     "fsdp_gather": "fsdp:gather",
+                     "vocab_parallel_nll": "vocab:cross_entropy"}
 
 
 def emit(obj) -> None:
@@ -567,6 +621,13 @@ def kernel_bwd_phase(card: str, failures: list) -> list:
             return torch.autograd.grad(sdpa, (qt, kt, vt), dot,
                                        retain_graph=True)
         library_ms, library_kernels = device_ms(sdpa_bwd)
+        # The kernels' device time alone: where a launch takes less time
+        # on the card than on the host, the CUDA-events loop reads the
+        # launch rate.
+        dq_device = device_ms(lambda: flash_attention_dq(
+            q, k, v, o, do, lse, causal=causal))[0]
+        dkv_device = device_ms(lambda: flash_attention_dkv(
+            q, k, v, do, lse, delta, causal=causal))[0]
         shape = (B, S, Hq, Hkv, D, dtype, causal)
         dq_bound, dq_by = attention_bound(*shape, kernel="dq")
         dkv_bound, dkv_by = attention_bound(*shape, kernel="dkv")
@@ -586,6 +647,7 @@ def kernel_bwd_phase(card: str, failures: list) -> list:
                 q, k, v, o, do, lse, causal=causal)),
             dkv_ms=time_ms(lambda: flash_attention_dkv(
                 q, k, v, do, lse, delta, causal=causal)),
+            dq_device_ms=dq_device, dkv_device_ms=dkv_device,
             plain_delta_ms=time_ms(lambda: attention_bwd_delta(o, do)),
             bwd_ms=time_ms(lambda: flash_attention_bwd(
                 q, k, v, o, lse, do, causal=causal)),
@@ -895,17 +957,23 @@ def profiled(fn, ranges=()) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     split, top = device_time_split(prof)
     busy = sum(split.values())
+    split_ranges(prof, split, ranges)
+    return dict(wall_ms=wall_ms, device_ms=split if busy else "not measured",
+                idle_share=1 - busy / wall_ms if busy else "not measured",
+                top_kernels=top[:5])
+
+
+def split_ranges(prof, split: dict, ranges) -> None:
+    """Take each of ``ranges``' device time out of ``split``'s "other"
+    into a class of its own name. The CPU side of a ``record_function``
+    range: its device time is that of the kernels its ops launched, all
+    elementwise work, copies and reductions ("other")."""
     for name in ranges:
-        # The CPU side of a range: its device time is that of the kernels
-        # its ops launched, all elementwise work ("other").
         ms = sum(e.device_time_total for e in prof.events()
                  if e.name == name
                  and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
         split[name] = ms if ms else "not measured"
         split["other"] -= ms
-    return dict(wall_ms=wall_ms, device_ms=split if busy else "not measured",
-                idle_share=1 - busy / wall_ms if busy else "not measured",
-                top_kernels=top[:5])
 
 
 def run_timed(eng) -> tuple:
@@ -2042,20 +2110,27 @@ def serve_sp_phase(card: str, failures: list, params) -> dict:
 
 
 @contextlib.contextmanager
-def named_all_reduce():
-    """Run every tensor-parallel all-reduce (``tp_layer`` calls
-    ``transformer.all_reduce``) inside a ``tp:all_reduce`` profiler range,
-    so that a profile names its copies and sums apart."""
-    real = transformer.all_reduce
+def named_ranges(names: dict):
+    """Run every call of each ``models.transformer`` function named in
+    ``names`` inside a ``record_function`` range of the given name (the tp
+    layer calls ``transformer.all_reduce``, which becomes
+    ``tp:all_reduce``), so that a profile names their kernels apart. Only
+    the calls made on the profiled thread fall in a range: the backward's
+    kernels, which autograd launches from its own thread, do not."""
+    real = {attr: getattr(transformer, attr) for attr in names}
 
-    def named(parts, devices):
-        with torch.profiler.record_function("tp:all_reduce"):
-            return real(parts, devices)
-    transformer.all_reduce = named
+    def wrap(attr):
+        def named(*args, **kwargs):
+            with torch.profiler.record_function(names[attr]):
+                return real[attr](*args, **kwargs)
+        return named
+    for attr in names:
+        setattr(transformer, attr, wrap(attr))
     try:
         yield
     finally:
-        transformer.all_reduce = real
+        for attr, fn in real.items():
+            setattr(transformer, attr, fn)
 
 
 @contextlib.contextmanager
@@ -2160,7 +2235,7 @@ def serve_tp_run(cfg, params, devices, prompts, hit_prompt, pd_fresh, refs,
     firsts = {}
     for rid, tok, _ in eng.take_tick_events():
         firsts.setdefault(rid, tok)
-    with named_all_reduce():
+    with named_ranges({"all_reduce": "tp:all_reduce"}):
         prof_decode = profiled(eng.step, ranges=("tp:all_reduce",))
     outs, _, step_ms = run_timed(eng)
     counted("wave", len(prompts))
@@ -2281,7 +2356,7 @@ def serve_tp_run(cfg, params, devices, prompts, hit_prompt, pd_fresh, refs,
     with uncounted(), torch.no_grad():
         timings["prefill_1900_ms"] = host_ms(
             lambda: eng._run_prefill(prompts[-1]), iters=1)
-        with named_all_reduce():
+        with named_ranges({"all_reduce": "tp:all_reduce"}):
             timings["profiled_prefill_1900"] = profiled(
                 lambda: eng._run_prefill(prompts[-1]),
                 ranges=("tp:all_reduce",))
@@ -2642,6 +2717,267 @@ def train_phase(card: str, failures: list) -> dict:
     return res
 
 
+def _sample(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _dict_leaves(tree, prefix="") -> dict:
+    """{dotted path: leaf} of nested dicts (a leaf may be a tuple)."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_dict_leaves(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+def _unique_bytes(trees) -> int:
+    """The bytes of the distinct tensors of per-position trees."""
+    return sum({id(t): t.nbytes for tree in trees
+                for t in _dict_leaves(tree).values()}.values())
+
+
+def mesh_layout_checks(cfg, mesh, state, specs, plan) -> dict:
+    """The one-card mesh's state against the unsharded state's bytes
+    (distinct tensors only: no second copy), each position's shard shapes
+    against its specs, and the planner's per-position bytes against each
+    position's own params, mu and nu."""
+    shapes = _dict_leaves(transformer.param_shapes(cfg))
+    specs = _dict_leaves(specs)
+    whole = sum(math.prod(shape) * torch.tensor([], dtype=dt).element_size()
+                for shape, dt in shapes.values())
+    opt = state["opt_state"]
+    held = {k: _unique_bytes(v) for k, v in (("params", state["params"]),
+                                            ("mu", opt["mu"]),
+                                            ("nu", opt["nu"]))}
+    bad_shapes, bad_plan = [], []
+    for i, coord in enumerate(mesh.coords()):
+        for name, t in _dict_leaves(state["params"][i]).items():
+            want = tuple(s.stop - s.start for s in shard_slices(
+                specs[name], shapes[name][0], mesh, coord))
+            if tuple(t.shape) != want:
+                bad_shapes.append((i, name, tuple(t.shape), want))
+        own = sum(t.nbytes for t in _dict_leaves(state["params"][i]).values())
+        moments = sum(t.nbytes for k in ("mu", "nu")
+                      for t in _dict_leaves(opt[k][i]).values())
+        if (own, moments) != (plan.params_bytes, plan.opt_bytes):
+            bad_plan.append((i, own, moments))
+    return dict(ok=(all(v == whole for v in held.values())
+                    and not bad_shapes and not bad_plan),
+                unsharded_params_bytes=whole, held_bytes=held,
+                shard_shape_mismatches=bad_shapes[:5],
+                plan_mismatches=bad_plan[:5],
+                position_params_bytes=plan.params_bytes,
+                position_opt_bytes=plan.opt_bytes)
+
+
+def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
+                   plan) -> dict:
+    """Train on ``build_mesh(MeshSpec(**TRAIN_MESH), devices=devices)``
+    from the seed-0 params (drawn again on the first device, as the
+    unsharded pass drew them): the sharded value_and_grad's sampled
+    gradients against ``ref``'s, then TRAIN_STEPS steps (the last
+    profiled) with their launch counts, step 1 against ``ref``'s loss and
+    grad norm."""
+    what = f"train_mesh on {len(set(devices))} card(s)"
+
+    def fail(msg):
+        failures.append(f"{what}: {msg}")
+    current = torch.cuda.current_device()
+    mesh = build_mesh(MeshSpec(**TRAIN_MESH), devices=devices)
+    bundle = make_train_step(cfg, mesh,
+                             optimizer=make_optimizer(warmup_steps=1),
+                             device="cuda")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(devices[0]).manual_seed(0),
+                         devices[0])
+    shards = shard_params(params, mesh, bundle.rules)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_s = time.perf_counter() - t0
+    specs = bundle.state_specs["params"]
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(shards, batch, cfg, device="cuda",
+                                 mesh=mesh)
+    torch.cuda.synchronize()
+    vg_s = time.perf_counter() - t0
+    sample_errs = {}
+    for path in TRAIN_MESH_SAMPLE:
+        spec = _sample(specs, [k for k in path if not isinstance(k, int)])
+        if len(path) > 1:
+            spec = spec[1:]                  # one layer of a stacked leaf
+        got = gather_tensor([_sample(g, path) for g in grads], spec, mesh,
+                            device=ref["grads"][path].device)
+        want = ref["grads"][path]
+        sample_errs[".".join(map(str, path))] = (
+            torch.linalg.vector_norm(got.float() - want.float())
+            / torch.linalg.vector_norm(want, dtype=torch.float32)).item()
+        del got
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = max(sample_errs, key=sample_errs.get)
+    if not sample_errs[worst] <= TRAIN_MESH_GRAD_REL_TOL:
+        fail(f"sampled gradient {worst} against the unsharded pass: "
+             f"{sample_errs[worst]}")
+    vg_loss_rel = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+    state = {"params": shards,
+             "opt_state": bundle.optimizer.init(shards), "step": 0}
+    del shards
+    layout = (mesh_layout_checks(cfg, mesh, state, specs, plan) if one_card
+              else None)
+    if layout is not None and not layout["ok"]:
+        fail(f"layout {layout}")
+
+    # Per layer, batch group and tp position: kernel 1 in the forward and
+    # in the recompute, dQ and dK/dV once.
+    per = cfg.num_layers * len(mesh.batch_groups()) * TRAIN_MESH["tp"]
+    want = (2 * per, per, per)
+    flash_attention_fwd.launches = 0
+    flash_attention_dq.launches = 0
+    flash_attention_dkv.launches = 0
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        last = i == TRAIN_STEPS - 1
+        prof = (profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) if last
+                else contextlib.nullcontext())
+        names = (named_ranges(TRAIN_MESH_RANGES) if last
+                 else contextlib.nullcontext())
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        with prof, names:
+            t0 = time.perf_counter()
+            state, metrics = bundle.step(state, batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        launches = tuple(a - b for a, b in zip(_launch_counts(), before))
+        steps.append(dict(metrics, step_ms=step_s * 1e3,
+                          launches=dict(zip(("fwd", "dq", "dkv"),
+                                            launches))))
+        if launches != want:
+            fail(f"step {metrics['step']} launched (fwd, dq, dkv) "
+                 f"{launches}, expected {want}")
+        if not (np.isfinite(metrics["loss"])
+                and np.isfinite(metrics["grad_norm"])):
+            fail(f"step not finite: {metrics}")
+    totals = dict(zip(("fwd", "dq", "dkv"), _launch_counts()))
+    peak = [torch.cuda.max_memory_allocated(i) / 1e9
+            for i in range(torch.cuda.device_count())]
+    split, top = device_time_split(prof)
+    busy = sum(split.values())
+    split_ranges(prof, split, TRAIN_MESH_RANGES.values())
+    first, last = steps[0], steps[-1]
+    loss_rel = abs(first["loss"] - ref["loss"]) / abs(ref["loss"])
+    gnorm_rel = abs(first["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    if not last["loss"] < first["loss"]:
+        fail(f"loss did not fall: {first['loss']} -> {last['loss']}")
+    if not (loss_rel <= TRAIN_LOSS_REL_TOL
+            and gnorm_rel <= TRAIN_GNORM_REL_TOL):
+        fail(f"step 1 against the unsharded pass: loss rel {loss_rel}, "
+             f"grad_norm rel {gnorm_rel}")
+    if torch.cuda.current_device() != current:
+        fail(f"left cuda:{torch.cuda.current_device()} current, not "
+             f"cuda:{current}")
+    steady_s = np.mean([st["step_ms"] for st in steps[1:-1]]) / 1e3
+    tokens = TRAIN_MESH_BATCH * TRAIN_SEQ
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        cards=len(set(devices)), devices=[str(d) for d in devices],
+        shard_s=shard_s, value_and_grad_s=vg_s,
+        value_and_grad_loss_rel_err=vg_loss_rel,
+        sampled_grad_rel_err=sample_errs,
+        sampled_grad_rel_tol=TRAIN_MESH_GRAD_REL_TOL, layout=layout,
+        steps=steps, launches=totals,
+        expected_launches_per_step=dict(zip(("fwd", "dq", "dkv"), want)),
+        loss_rel_err=loss_rel, grad_norm_rel_err=gnorm_rel,
+        steady_step_ms=steady_s * 1e3, tokens_per_s=tokens / steady_s,
+        model_flops_utilization=(cfg.flops_per_token(TRAIN_SEQ) * tokens
+                                 / steady_s / PEAK_FLOPS[torch.bfloat16]),
+        # Device time summed over the cards; the idle share is the cards'
+        # mean.
+        profiled_step=dict(
+            step=last["step"], wall_ms=last["step_ms"],
+            device_ms=split if busy else "not measured",
+            idle_share=(1 - busy / (last["step_ms"] * len(set(devices)))
+                        if busy else "not measured"),
+            top_kernels=top),
+        peak_memory_gb=peak,
+        current_device_kept=torch.cuda.current_device() == current)
+
+
+def train_mesh_phase(card: str, failures: list, train: dict) -> dict:
+    """Training on a dp x fsdp x tp mesh (see the module docstring)."""
+    cfg = dataclasses.replace(PRESETS["8b-gqa"], remat=True,
+                              attention_impl="flash")
+    t_phase = time.perf_counter()
+    tokens = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (TRAIN_MESH_BATCH, TRAIN_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    cuda0 = torch.device("cuda", 0)
+    # The unsharded pass: params, grads and the whole batch's logits, no
+    # optimizer state; it keeps the loss, the norm and the sample.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(cuda0).manual_seed(0), cuda0)
+    loss, grads = value_and_grad(params, batch, cfg, device="cuda")
+    ref = dict(loss=float(loss), grad_norm=float(global_norm(grads)),
+               grads={path: _sample(grads, path)
+                      for path in TRAIN_MESH_SAMPLE})
+    del params, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    unsharded = dict(loss=ref["loss"], grad_norm=ref["grad_norm"],
+                     seconds=time.perf_counter() - t0,
+                     peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    plan = plan_train_memory(cfg, MeshSpec(**TRAIN_MESH),
+                             global_batch=TRAIN_MESH_BATCH,
+                             seq_len=TRAIN_SEQ)
+    runs = [train_mesh_run(cfg, [cuda0] * 8, batch, ref, failures, True,
+                           plan)]
+    count = torch.cuda.device_count()
+    if count >= 2:
+        n = max(k for k in (2, 4, 8) if k <= count)
+        devices = [torch.device("cuda", i) for i in range(n)
+                   for _ in range(8 // n)]
+        runs.append(train_mesh_run(cfg, devices, batch, ref, failures,
+                                   False, plan))
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    extra = plan.activation_bytes + plan.logits_bytes + plan.workspace_bytes
+    res = dict(
+        phase="train_mesh", preset="8b-gqa", mesh=TRAIN_MESH,
+        batch=TRAIN_MESH_BATCH, seq_len=TRAIN_SEQ, remat=cfg.remat,
+        device_count=count,
+        ran=[dict(cards=r["cards"]) for r in runs], unsharded=unsharded,
+        runs=runs,
+        launches=runs[0]["launches"],
+        plan=dict(position_state_gb=plan.state_bytes / 1e9,
+                  position_activations_gb=plan.activation_bytes / 1e9,
+                  position_logits_gb=plan.logits_bytes / 1e9,
+                  position_workspace_gb=plan.workspace_bytes / 1e9,
+                  position_total_gb=plan.total_bytes / 1e9,
+                  one_card_gb=(4 * runs[0]["layout"]["unsharded_params_bytes"]
+                               + extra) / 1e9,
+                  card_gb=plan.hbm_bytes / 1e9),
+        train=dict(steady_step_ms=train["steady_step_ms"],
+                   tokens_per_s=train["tokens_per_s"],
+                   model_flops_utilization=train["model_flops_utilization"]),
+        loss_rel_tol=TRAIN_LOSS_REL_TOL,
+        grad_norm_rel_tol=TRAIN_GNORM_REL_TOL,
+        seconds=time.perf_counter() - t_phase, card=card)
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2684,6 +3020,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train = train_phase(card, failures)
+    train_mesh = train_mesh_phase(card, failures, train)
 
     def main_shape(rs, heads):
         mine = [r for r in rs if r["dtype"] == "bfloat16"
@@ -2697,6 +3034,8 @@ def main() -> int:
     engine_rows, at = main_shape(rows, ENGINE_HEADS)
     tp_rows = [r for c in TP_KERNEL_CASES for r in main_shape(rows, c)[0]]
     train_rows, bat = main_shape(bwd_rows, TRAIN_HEADS)
+    train_rows += [r for c in TP_BWD_CASES
+                   for r in main_shape(bwd_rows, c)[0]]
     src = "ray_tpu_torch/ops/csrc/"
     emit({"kernels": [
         dict(name="flash_attention_fwd", route="cuda",
@@ -2708,7 +3047,8 @@ def main() -> int:
                        + serve_replica["flash_launches"]
                        + serve_sp["flash_launches"]
                        + serve_tp["flash_launches"]
-                       + train["launches"]["fwd"]),
+                       + train["launches"]["fwd"]
+                       + train_mesh["launches"]["fwd"]),
              launches_by_path=dict(
                  serve=serve["flash_launches"],
                  serve_cache=serve_cache["flash_launches"],
@@ -2716,7 +3056,8 @@ def main() -> int:
                  serve_replica=serve_replica["flash_launches"],
                  serve_sp=serve_sp["flash_launches"],
                  serve_tp=serve_tp["flash_launches"],
-                 train=train["launches"]["fwd"]),
+                 train=train["launches"]["fwd"],
+                 train_mesh=train_mesh["launches"]["fwd"]),
              max_abs_err=max(r["max_abs_err_o"]
                              for r in engine_rows + tp_rows),
              ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
@@ -2727,8 +3068,10 @@ def main() -> int:
              replaces="ray_tpu/ops/flash_attention.py:107",
              fuses="delta (ray_tpu/ops/flash_attention.py:270)",
              delta_max_rel_err=max(r["delta_rel_err"] for r in train_rows),
-             launches=train["launches"]["dq"],
-             launches_by_path=dict(train=train["launches"]["dq"]),
+             launches=(train["launches"]["dq"]
+                       + train_mesh["launches"]["dq"]),
+             launches_by_path=dict(train=train["launches"]["dq"],
+                                   train_mesh=train_mesh["launches"]["dq"]),
              max_abs_err=max(r["max_abs_err_dq"] for r in train_rows),
              ms=bat["dq_ms"], plain_ms=bat["plain_dq_ms"],
              bound_ms=bat["dq_bound_ms"], bound_by=bat["dq_bound_by"],
@@ -2737,8 +3080,10 @@ def main() -> int:
         dict(name="flash_attention_dkv", route="cuda",
              source=src + "flash_attention_dkv.cu",
              replaces="ray_tpu/ops/flash_attention.py:154",
-             launches=train["launches"]["dkv"],
-             launches_by_path=dict(train=train["launches"]["dkv"]),
+             launches=(train["launches"]["dkv"]
+                       + train_mesh["launches"]["dkv"]),
+             launches_by_path=dict(train=train["launches"]["dkv"],
+                                   train_mesh=train_mesh["launches"]["dkv"]),
              max_abs_err=max(max(r["max_abs_err_dk"], r["max_abs_err_dv"])
                              for r in train_rows),
              ms=bat["dkv_ms"], plain_ms=bat["plain_dkv_ms"],

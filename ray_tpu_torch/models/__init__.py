@@ -1,5 +1,5 @@
 """Model zoo of the port: the Llama-style decoder (transformer.py) and its
-single-device training step (train_step.py)."""
+training step, on one device or a dp x fsdp x tp mesh (train_step.py)."""
 
 from .train_step import (TrainStepBundle, from_jax_state, make_eval_step,
                          make_optimizer, make_train_step)

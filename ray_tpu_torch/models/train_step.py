@@ -1,4 +1,5 @@
-"""Training step on one device: loss, backward, clipped AdamW, in place.
+"""Training step: loss, backward, clipped AdamW, in place, on one device or
+on a mesh's positions.
 
 Port of ray_tpu/models/train_step.py. ``make_optimizer`` is the port's own
 copy of the optax chain the reference builds (no optax import):
@@ -21,7 +22,22 @@ inside one 80 GB card:
 - the optimizer runs tensor by tensor with in-place ops, so its
   temporaries are the size of one tensor, not of the model.
 
-Meshes and pipeline microbatches are not ported: both raise.
+Under a mesh (``parallel.mesh.Mesh``, any of dp, fsdp and tp, or sp alone)
+params, ``mu`` and ``nu`` are lists of per-position trees
+(``parallel.sharding.shard_params`` under ``rules``; ``state_specs`` holds
+their specs), each shard held once per distinct device. A step runs the
+batch groups' forward and backward in turn
+(``transformer.mesh_group_losses``), the single-controller counterpart of
+each data-parallel rank's own backward. A shard's gradients from its
+replicas (the positions that hold the same slice) meet in its one tensor,
+where autograd's accumulation sums them in batch-group order, or, for
+replicas on distinct devices, in an explicit all-reduce in position
+order. The global norm counts each element of the logical array once,
+and the clip and AdamW run once per distinct shard, whose replicas then
+take its values.
+
+Pipeline microbatches and pp meshes raise NotImplementedError (ROADMAP
+Queue 1 item 7), as does sp beside another split axis (item 4).
 """
 
 from __future__ import annotations
@@ -34,8 +50,11 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..parallel.sharding import (LogicalAxisRules, PartitionSpec,
+                                 shard_params, shard_slices, tree_specs)
 from .transformer import (TransformerConfig, from_jax_params, init_params,
-                          loss_fn)
+                          loss_fn, mesh_group_losses, mesh_rules,
+                          param_logical_axes, param_shapes)
 
 _TOP = ("embed", "ln_f", "lm_head")
 # optax.adamw's default eps, which the reference's make_optimizer keeps (its
@@ -97,10 +116,12 @@ def _leaves(tree):
 def global_norm(tree) -> torch.Tensor:
     """optax.global_norm: the square root of the sum of squares of every
     element of every tensor in ``tree`` (nested dicts and lists), an f32
-    0-d tensor."""
+    0-d tensor on the first tensor's device (the tensors may lie on
+    several)."""
     norms = [torch.linalg.vector_norm(t, dtype=torch.float32)
              for t in _leaves(tree)]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    return torch.linalg.vector_norm(torch.stack(
+        [n.to(norms[0].device) for n in norms]))
 
 
 def _backward(params, batch, cfg: TransformerConfig, device):
@@ -114,16 +135,136 @@ def _backward(params, batch, cfg: TransformerConfig, device):
     return loss.detach(), leaves
 
 
-def value_and_grad(params: Dict[str, Any], batch: Dict[str, Any],
-                   cfg: TransformerConfig,
-                   device: Union[str, torch.device] = "cuda"
-                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+class _MeshLayout:
+    """A sharded state's layout on ``mesh`` under ``rules``: per stacked
+    tensor of the params (``_paths``), its replica classes, one per
+    distinct slice, each the positions that hold that slice on distinct
+    devices, the first of each device in position order (positions that
+    share a device share the tensor)."""
+
+    def __init__(self, cfg: TransformerConfig, mesh, rules):
+        self.mesh, self.rules = mesh, rules
+        self.specs = tree_specs(param_logical_axes(cfg), mesh, rules)
+        shapes = param_shapes(cfg)
+        self.classes: List[Tuple[Tuple[str, ...], List[int]]] = []
+        for path in _paths(shapes):
+            spec, (shape, _) = _get(self.specs, path), _get(shapes, path)
+            by_slice: Dict[Any, Dict[Any, int]] = {}
+            for i, (coord, dev) in enumerate(zip(mesh.coords(),
+                                                 mesh.devices.flat)):
+                key = tuple((s.start, s.stop) for s in
+                            shard_slices(spec, shape, mesh, coord))
+                by_slice.setdefault(key, {}).setdefault(dev, i)
+            self.classes += [(path, list(devs.values()))
+                             for devs in by_slice.values()]
+
+
+def _paths(tree) -> List[Tuple[str, ...]]:
+    """The stacked tensors' paths of a params-shaped tree, in ``_pieces``'
+    order of kinds."""
+    return [(k,) for k in _TOP] + [("layers",) + p
+                                   for p in _layer_paths(tree["layers"])]
+
+
+def _views(t: torch.Tensor, path, num_layers: int):
+    """The per-layer views of a stacked layer tensor; a top-level tensor
+    itself, in a list of one."""
+    return [t[i] for i in range(num_layers)] if path[0] == "layers" else [t]
+
+
+def _mesh_leaves(trees, cfg: TransformerConfig):
+    """(per-position trees for the forward, {id(stacked tensor): leaves}):
+    one autograd leaf per distinct stored tensor (per layer for layer
+    tensors, see the module docstring), shared by every position that
+    holds the tensor."""
+    L = cfg.num_layers
+    made: Dict[int, List[torch.Tensor]] = {}
+    out = []
+    for tree in trees:
+        per_path = {}
+        for path in _paths(tree):
+            t = _get(tree, path)
+            if id(t) not in made:
+                made[id(t)] = [v.detach().requires_grad_()
+                               for v in _views(t, path, L)]
+            per_path[path] = made[id(t)]
+        pieces = ([per_path[(k,)][0] for k in _TOP]
+                  + [per_path[("layers",) + p][i] for i in range(L)
+                     for p in _layer_paths(tree["layers"])])
+        out.append(_assemble(pieces, tree, L))
+    return out, made
+
+
+@torch.no_grad()
+def _all_reduce_replicas(lay: _MeshLayout, trees, made) -> None:
+    """Sum each shard's gradient over its replicas on distinct devices, in
+    position order, in the gradient's dtype, on the first replica's
+    device, and give every replica the sum. A replica that took no
+    gradient (a tensor its position did not use) adds nothing."""
+    for path, reps in lay.classes:
+        if len(reps) == 1:
+            continue
+        leaves = [made[id(_get(trees[i], path))] for i in reps]
+        for per_layer in zip(*leaves):
+            grads = [leaf.grad for leaf in per_layer if leaf.grad is not None]
+            if not grads:
+                continue
+            total = grads[0].clone()
+            for g in grads[1:]:
+                total += g.to(total.device)
+            for leaf in per_layer:
+                leaf.grad = (total if leaf.device == total.device
+                             else total.to(leaf.device))
+
+
+def _mesh_backward(trees, batch, cfg: TransformerConfig, lay: _MeshLayout,
+                   device):
+    """(loss, leaf trees, made): each batch group's forward and backward in
+    turn, the replicas' gradients all-reduced; the leaf trees and ``made``
+    as ``_mesh_leaves`` gives them."""
+    fwd_trees, made = _mesh_leaves(trees, cfg)
+    loss = None
+    for part in mesh_group_losses(fwd_trees, batch, cfg, lay.mesh,
+                                  lay.rules, device):
+        part.backward()
+        part = part.detach().to(device)
+        loss = part if loss is None else loss + part
+    _all_reduce_replicas(lay, trees, made)
+    return loss, fwd_trees, made
+
+
+def _canonical(lay: _MeshLayout, trees, num_layers: int):
+    """Per replica class and layer, the first replica's tensor of
+    ``trees`` (params, mu or nu), in a fixed order."""
+    return [v for path, reps in lay.classes
+            for v in _views(_get(trees[reps[0]], path), path, num_layers)]
+
+
+def _replicas(lay: _MeshLayout, trees, num_layers: int):
+    """(first replica's tensor, another replica's) pairs of ``trees``."""
+    return [(v0, v) for path, reps in lay.classes for i in reps[1:]
+            for v0, v in zip(_views(_get(trees[reps[0]], path), path,
+                                    num_layers),
+                             _views(_get(trees[i], path), path,
+                                    num_layers))]
+
+
+def value_and_grad(params, batch: Dict[str, Any], cfg: TransformerConfig,
+                   device: Union[str, torch.device] = "cuda", mesh=None,
+                   rules: Optional[LogicalAxisRules] = None):
     """(loss, grads): the grads as a params tree whose "layers" is a list of
     per-layer dicts (one gradient tensor per layer, see the module
-    docstring). ``params`` are not changed."""
-    loss, leaves = _backward(params, batch, cfg, device)
-    return loss, _assemble([leaf.grad for leaf in leaves], params,
-                           cfg.num_layers)
+    docstring); under ``mesh`` ``params`` and the grads are lists of
+    per-position trees (the state's layout, each replica holding the
+    all-reduced sum). ``params`` are not changed."""
+    if mesh is None:
+        loss, leaves = _backward(params, batch, cfg, device)
+        return loss, _assemble([leaf.grad for leaf in leaves], params,
+                               cfg.num_layers)
+    lay = _MeshLayout(cfg, mesh, mesh_rules(mesh, rules))
+    loss, leaves, _ = _mesh_backward(params, batch, cfg, lay,
+                                     resolve_device(device))
+    return loss, _map(lambda leaf: leaf.grad, leaves)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,10 +323,18 @@ class AdamW:
                 "schedule_count": opt_state["schedule_count"] + 1}, gnorm
 
 
-def _map(fn, tree):
+def _map(fn, tree, memo=None):
+    """``fn`` over every tensor of nested dicts and lists, once per
+    distinct tensor: a tensor that several positions share maps to one
+    result that they share."""
+    memo = {} if memo is None else memo
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map(fn, v, memo) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v, memo) for v in tree]
+    if id(tree) not in memo:
+        memo[id(tree)] = fn(tree)
+    return memo[id(tree)]
 
 
 def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,
@@ -200,7 +349,10 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,
 
 @dataclasses.dataclass
 class TrainStepBundle:
-    """What a trainer needs to run steps on one device."""
+    """What a trainer needs to run steps on one device or a mesh.
+    ``state_specs`` (under a mesh) is the counterpart of JAX's
+    ``state_shardings``: the state's tree with a ``PartitionSpec`` per
+    params, mu and nu leaf and ``PartitionSpec()`` for the counts."""
     cfg: TransformerConfig
     init: Callable[..., Dict[str, Any]]         # generator -> state
     step: Callable[[Dict[str, Any], Dict[str, Any]],
@@ -208,10 +360,13 @@ class TrainStepBundle:
     optimizer: AdamW
     device: torch.device
     mesh: Any = None
+    rules: Optional[LogicalAxisRules] = None
+    state_specs: Any = None
 
 
 def make_train_step(cfg: TransformerConfig, mesh=None,
                     optimizer: Optional[AdamW] = None,
+                    rules: Optional[LogicalAxisRules] = None,
                     donate_state: bool = True,
                     num_microbatches: Optional[int] = None,
                     device: Union[str, torch.device] = "cuda"
@@ -219,41 +374,69 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
     """``step(state, batch) -> (state, {"loss", "grad_norm", "step"})``,
     ``grad_norm`` being the norm of the unclipped grads. With
     ``donate_state`` the step updates ``state``'s tensors in place (the
-    port of JAX's donation); otherwise it works on a copy."""
+    port of JAX's donation); otherwise it works on a copy. ``mesh``: the
+    state is sharded over its positions under ``rules`` (default
+    ``LogicalAxisRules.default()``, or ``megatron_rules()``; see the
+    module docstring); batches and metrics live on ``device``."""
     if mesh is not None:
-        raise NotImplementedError("meshes are not ported yet: the train "
-                                  "step runs on one device")
+        mesh.train_axes()
     if num_microbatches is not None:
         raise NotImplementedError("pipeline microbatches need a pp mesh, "
-                                  "which is not ported yet")
+                                  "which is not ported: ROADMAP Queue 1 "
+                                  "item 7")
     dev = resolve_device(device)
     tx = optimizer or make_optimizer()
+    L = cfg.num_layers
+    lay = specs = None
+    if mesh is not None:
+        rules = mesh_rules(mesh, rules)
+        lay = _MeshLayout(cfg, mesh, rules)
+        scalar = PartitionSpec()
+        specs = {"params": lay.specs,
+                 "opt_state": {"count": scalar, "mu": lay.specs,
+                               "nu": lay.specs, "schedule_count": scalar},
+                 "step": scalar}
 
     def init(generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         params = init_params(cfg, generator, dev)
+        if mesh is not None:
+            params = shard_params(params, mesh, rules)
         return {"params": params, "opt_state": tx.init(params), "step": 0}
 
     def step(state, batch):
         if not donate_state:
             state = _copy_state(state)
-        L = cfg.num_layers
         params, opt = state["params"], state["opt_state"]
-        loss, leaves = _backward(params, batch, cfg, dev)
-        grads = [leaf.grad for leaf in leaves]
+        if mesh is None:
+            loss, leaves = _backward(params, batch, cfg, dev)
+            grads = [leaf.grad for leaf in leaves]
+            mu, nu = _pieces(opt["mu"], L), _pieces(opt["nu"], L)
+        else:
+            loss, _, made = _mesh_backward(params, batch, cfg, lay, dev)
+            leaves = [v for path, reps in lay.classes
+                      for v in made[id(_get(params[reps[0]], path))]]
+            grads = [leaf.grad for leaf in leaves]
+            mu, nu = (_canonical(lay, opt[k], L) for k in ("mu", "nu"))
+            del made
         for leaf in leaves:
             leaf.grad = None
         # The leaves share the params' storage: updating them in place
         # updates state["params"].
-        new_opt, gnorm = tx.update_(leaves, grads, _pieces(opt["mu"], L),
-                                    _pieces(opt["nu"], L), opt)
+        new_opt, gnorm = tx.update_(leaves, grads, mu, nu, opt)
         del grads
+        if mesh is not None:
+            with torch.no_grad():
+                for tree in (params, opt["mu"], opt["nu"]):
+                    for src, dst in _replicas(lay, tree, L):
+                        dst.copy_(src)
         new_state = {"params": params, "opt_state": new_opt,
                      "step": state["step"] + 1}
         return new_state, {"loss": loss.item(), "grad_norm": gnorm,
                            "step": new_state["step"]}
 
     return TrainStepBundle(cfg=cfg, init=init, step=step, optimizer=tx,
-                           device=dev)
+                           device=dev, mesh=mesh, rules=rules,
+                           state_specs=specs)
 
 
 def _copy_state(state):
@@ -265,15 +448,19 @@ def _copy_state(state):
 
 
 def make_eval_step(cfg: TransformerConfig, mesh=None,
+                   rules: Optional[LogicalAxisRules] = None,
                    device: Union[str, torch.device] = "cuda"):
-    """``eval(params, batch) -> loss`` (0-d f32 tensor), without grads."""
-    if mesh is not None:
-        raise NotImplementedError("meshes are not ported yet")
+    """``eval(params, batch) -> loss`` (0-d f32 tensor on ``device``),
+    without grads; under ``mesh`` ``params`` are the state's per-position
+    trees (or a full tree, which it shards)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        mesh.train_axes()
+        rules = mesh_rules(mesh, rules)
 
     @torch.no_grad()
     def _eval(params, batch):
-        return loss_fn(params, batch, cfg, device=dev)
+        return loss_fn(params, batch, cfg, mesh, device=dev, rules=rules)
 
     return _eval
 
@@ -292,22 +479,31 @@ def _find(node, pred):
 
 
 def from_jax_state(np_state, cfg: TransformerConfig,
-                   device: Union[str, torch.device] = "cuda"
+                   device: Union[str, torch.device] = "cuda", mesh=None,
+                   rules: Optional[LogicalAxisRules] = None
                    ) -> Dict[str, Any]:
     """Carry a JAX train state across: ``np_state`` is the state of the
     reference's ``make_train_step`` as numpy arrays
     (``jax.tree.map(np.asarray, state)``). Its params and the Adam mu, nu
     and count, and the schedule's count, are copied bit-exactly onto
-    ``device``, so training continues where JAX left off."""
+    ``device``, so training continues where JAX left off; under ``mesh``
+    params, mu and nu are then sharded over its positions under ``rules``
+    (the layout of ``make_train_step(cfg, mesh, rules=rules)``)."""
     opt = np_state["opt_state"]
     adam = _find(opt, lambda n: hasattr(n, "mu") and hasattr(n, "nu"))
     sched = _find(opt, lambda n: getattr(n, "_fields", None) == ("count",))
     if adam is None or sched is None:
         raise ValueError("opt_state holds no Adam moments and schedule "
                          "count: not the state of make_optimizer's chain")
-    return {"params": from_jax_params(np_state["params"], cfg, device),
+    if mesh is not None:
+        mesh.train_axes()
+        rules = mesh_rules(mesh, rules)
+
+    def carry(tree):
+        full = from_jax_params(tree, cfg, device)
+        return full if mesh is None else shard_params(full, mesh, rules)
+    return {"params": carry(np_state["params"]),
             "opt_state": {"count": int(np.asarray(adam.count)),
-                          "mu": from_jax_params(adam.mu, cfg, device),
-                          "nu": from_jax_params(adam.nu, cfg, device),
+                          "mu": carry(adam.mu), "nu": carry(adam.nu),
                           "schedule_count": int(np.asarray(sched.count))},
             "step": int(np.asarray(np_state["step"]))}

@@ -1,13 +1,13 @@
 """Llama-style decoder-only transformer in PyTorch.
 
-Port of ray_tpu/models/transformer.py for one device. Params are a plain
-dict with the JAX package's keys and layouts (``wq (L,E,H,D)``,
-``wo (L,H,D,E)``, ...), so ``from_jax_params`` is a plain copy. bf16
-activations and weights, f32 RMSNorm math and f32 logits, GQA, RoPE and
-SwiGLU, as in the reference. The layers run as a Python loop in place of
-``lax.scan``; with ``remat`` each layer is checkpointed when a gradient is
-needed (``torch.utils.checkpoint`` in place of ``jax.checkpoint``), so
-inference is unchanged by it.
+Port of ray_tpu/models/transformer.py. Params are a plain dict with the
+JAX package's keys and layouts (``wq (L,E,H,D)``, ``wo (L,H,D,E)``, ...),
+so ``from_jax_params`` is a plain copy. bf16 activations and weights, f32
+RMSNorm math and f32 logits, GQA, RoPE and SwiGLU, as in the reference.
+The layers run as a Python loop in place of ``lax.scan``; with ``remat``
+each layer is checkpointed when a gradient is needed
+(``torch.utils.checkpoint`` in place of ``jax.checkpoint``), so inference
+is unchanged by it.
 
 ``params["layers"]`` comes in two forms. Every entry point takes the
 stacked JAX form, one (L, ...) tensor per weight. ``layer_params`` also
@@ -15,21 +15,29 @@ takes a list of per-layer dicts, which only ``train_step`` builds (views of
 the stacked storage, so that autograd gives each layer its own gradient
 tensor); no other caller should grow a third form.
 
-``forward`` and ``loss_fn`` take a ``mesh`` (``parallel.mesh.Mesh``) whose
-only axis larger than 1 is ``sp``: with ``attention_impl="ring"`` each
-layer's attention runs ``ops.ring_attention.ring_attention`` over it, and
-every other op runs on ``device``, whose values the reference's sharding
-constraints do not change. ``forward`` also takes a mesh whose only axis
-larger than 1 is ``tp``: the params are split over its positions
-(``tp_shards``, the Megatron layout: heads, kv heads and the MLP's hidden
-units over ``tp``; embedding, norms and lm_head replicated) and each layer
-runs as ``tp_layer``, one share per position and an all-reduce after the
-attention and after the MLP. The reference's forward under such a mesh
-shards the vocabulary too (its default rules); the values are the same.
-Not ported yet, each raising NotImplementedError: ``loss_fn`` under a tp
-mesh and meshes with dp, fsdp or more than one axis larger than 1
-(training's shardings, ROADMAP Queue 1 item 4), and pp larger than 1
-(pipeline stages).
+``forward`` and ``loss_fn`` take a ``mesh`` (``parallel.mesh.Mesh``):
+
+- sp alone: with ``attention_impl="ring"`` each layer's attention runs
+  ``ops.ring_attention.ring_attention`` over it, and every other op runs on
+  ``device``, whose values the reference's sharding constraints do not
+  change.
+- any of dp, fsdp and tp (training's layouts, and tensor-parallel
+  ``forward``): the params are split over the mesh's positions by
+  ``rules`` (``LogicalAxisRules.default()``: batch over dp x fsdp, embed
+  over fsdp, heads, kv heads, MLP and vocabulary over tp; or
+  ``megatron_rules()``; any other table raises NotImplementedError), and
+  ``params`` may be the full tree or the per-position list that
+  ``parallel.sharding.shard_params`` returns under the same rules. The
+  batch groups (one per (dp, fsdp) pair) run in turn. In a group, each tp
+  position gathers its tp slice of a layer's weights across the fsdp
+  positions (``fsdp_gather``) and the layer runs as ``tp_layer``; the
+  embedding is looked up per vocabulary slice and summed
+  (``all_reduce``), the logits stay split over tp, and the cross-entropy
+  reads them slice by slice (``vocab_parallel_nll``). The values are
+  those of the unsharded model.
+
+pp larger than 1 (pipeline stages, ROADMAP Queue 1 item 7) and sp beside
+another split axis (item 4) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,8 +54,8 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..ops.flash_attention import flash_attention, reference_attention
 from ..ops.ring_attention import ring_attention
-from ..parallel.sharding import LogicalAxisRules, shard_params, tree_specs, \
-    tp_dim
+from ..parallel.sharding import (LogicalAxisRules, _tree_map, axis_dim,
+                                 shard_batch, shard_params, tree_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +155,29 @@ def param_logical_axes(cfg: Optional[TransformerConfig]):
     }
 
 
+def param_shapes(cfg: TransformerConfig):
+    """Tree (same structure as init params) of (shape, dtype): what
+    ``init_params`` allocates, without allocating it."""
+    h, d, m, L = (cfg.hidden_size, cfg.head_dim_, cfg.intermediate_size,
+                  cfg.num_layers)
+    nh, nkv, v, dt = cfg.num_heads, cfg.num_kv_heads, cfg.vocab_size, \
+        cfg.dtype
+    f32 = torch.float32
+    return {
+        "embed": ((v, h), dt),
+        "layers": {
+            "attn": {"wq": ((L, h, nh, d), dt), "wk": ((L, h, nkv, d), dt),
+                     "wv": ((L, h, nkv, d), dt), "wo": ((L, nh, d, h), dt)},
+            "mlp": {"w_gate": ((L, h, m), dt), "w_up": ((L, h, m), dt),
+                    "w_down": ((L, m, h), dt)},
+            "ln_attn": ((L, h), f32),
+            "ln_mlp": ((L, h), f32),
+        },
+        "ln_f": ((h,), f32),
+        "lm_head": ((h, v), dt),
+    }
+
+
 def megatron_rules() -> LogicalAxisRules:
     """The rules of the JAX engine's tensor-parallel serving
     (ray_tpu/llm/engine.py:714-715): the default table with the vocabulary
@@ -166,7 +197,8 @@ def tp_shards(params: Dict[str, Any], mesh, rules=None) -> list:
     axes = param_logical_axes(None)
 
     def dims(r):
-        return _flat(tree_specs(axes, mesh, r), tp_dim)
+        return _flat(tree_specs(axes, mesh, r),
+                     lambda spec: axis_dim(spec, "tp"))
     want, got = dims(megatron_rules()), dims(rules)
     if got != want:
         names = _flat(axes, lambda a: a)
@@ -418,49 +450,269 @@ def _layer(cfg: TransformerConfig, x, lp, cos, sin, mesh=None):
     return tp_layer(cfg, {x.device: x}, [lp], [x.device], attend)[x.device]
 
 
-def _tp_forward(params, tokens, cfg: TransformerConfig, mesh):
-    """forward's tensor-parallel body: embedding, final norm and lm_head
-    once on the first position's device, each layer as ``tp_layer``."""
-    devices = mesh.axis_devices("tp")
-    shards = tp_shards(params, mesh)
+# ---------------------------------------------------------------------------
+# Meshes with dp, fsdp or tp: the sharded layout
+# ---------------------------------------------------------------------------
+
+def mesh_rules(mesh, rules: Optional[LogicalAxisRules] = None
+               ) -> LogicalAxisRules:
+    """``rules`` (default ``LogicalAxisRules.default()``), which must split
+    the params and the batch on ``mesh`` as the default table or
+    ``megatron_rules()`` does: the sharded model knows those two layouts
+    (the vocabulary and the embed dim split or not). Any other table
+    raises NotImplementedError, as ``tp_shards`` does."""
+    rules = rules or LogicalAxisRules.default()
+    axes = param_logical_axes(None)
+
+    def layout(r):
+        return (tree_specs(axes, mesh, r), r.spec(("batch",), mesh))
+    got = layout(rules)
+    if got not in (layout(LogicalAxisRules.default()),
+                   layout(megatron_rules())):
+        default = _flat(layout(LogicalAxisRules.default())[0], tuple)
+        names = _flat(axes, lambda a: a)
+        bad = {k: names[k] for k, v in _flat(got[0], tuple).items()
+               if v != default[k]} or {"batch": got[1]}
+        raise NotImplementedError(
+            f"rules that lay out {bad} otherwise than "
+            f"LogicalAxisRules.default() and megatron_rules() are not "
+            f"ported: the sharded model runs those two")
+    return rules
+
+
+class _Layout:
+    """Where a sharded forward's pieces live: per batch group, its tp
+    positions (flat mesh indices) and their devices, and per (group, tp
+    position) the positions whose embed-dim slices it gathers; per leaf,
+    the dim its spec splits over fsdp (of one layer's tensor for layer
+    leaves); whether the vocabulary is split over tp."""
+
+    def __init__(self, mesh, rules: LogicalAxisRules):
+        mesh.train_axes()
+        self.rules = rules
+        specs = tree_specs(param_logical_axes(None), mesh, rules)
+        fsdp = mesh.shape["fsdp"] > 1
+        self.top_dims = {k: axis_dim(specs[k], "fsdp") if fsdp else None
+                         for k in ("embed", "ln_f", "lm_head")}
+        # A layer's tensor is its stacked tensor without the (L) dim.
+        self.layer_dims = _tree_map(
+            lambda sp: axis_dim(sp[1:], "fsdp") if fsdp else None,
+            specs["layers"])
+        self.vocab_split = (mesh.shape["tp"] > 1
+                            and axis_dim(specs["embed"], "tp") == 0)
+        self.groups = mesh.batch_groups()
+        self.positions = [mesh.group_positions(d, f) for d, f in self.groups]
+        self.devices = [[mesh.devices.flat[i] for i in pos]
+                        for pos in self.positions]
+        self.sources = [[mesh.fsdp_positions(d, t)
+                         for t in range(mesh.shape["tp"])]
+                        for d, f in self.groups]
+        self.ring = mesh if mesh.shape["sp"] > 1 else None
+
+
+def fsdp_gather(parts, dim: int, device) -> torch.Tensor:
+    """A weight's tp slice on ``device`` from its embed-dim slices
+    ``parts``, one per fsdp position in fsdp order: a ``.to()`` of each
+    and a ``cat`` along ``dim``. Autograd's backward of it returns each
+    slice its own part of the gradient, on its own device (the
+    reduce-scatter)."""
+    return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+def _gathered(own, sources, dims, device):
+    """A tree of a position's tensors: each leaf its own where ``dims``
+    says it is not split over fsdp, else gathered from ``sources``."""
+    if isinstance(dims, dict):
+        return {k: _gathered(own[k], [s[k] for s in sources], dims[k],
+                             device) for k in dims}
+    return own if dims is None else fsdp_gather(sources, dims, device)
+
+
+def _position_params(trees, lay: _Layout, g: int, t: int, li=None):
+    """Group ``g``'s tp position ``t``'s params, gathered across fsdp: the
+    top-level tensors, or layer ``li``'s."""
+    own = trees[lay.positions[g][t]]
+    srcs = [trees[i] for i in lay.sources[g][t]]
+    dev = lay.devices[g][t]
+    if li is None:
+        return _gathered({k: own[k] for k in lay.top_dims},
+                         [{k: s[k] for k in lay.top_dims} for s in srcs],
+                         lay.top_dims, dev)
+    return _gathered(layer_params(own, li),
+                     [layer_params(s, li) for s in srcs], lay.layer_dims,
+                     dev)
+
+
+def _group_layer(cfg: TransformerConfig, xs, trees, lay: _Layout, g: int,
+                 li: int, ropes):
+    """Layer ``li`` over group ``g``'s tp positions: each gathers its
+    weights across fsdp, then ``tp_layer``."""
+    devices = lay.devices[g]
+    lps = [_position_params(trees, lay, g, t, li)
+           for t in range(len(devices))]
+
+    def attend(h):
+        out = []
+        for lp, d in zip(lps, devices):
+            cos, sin = ropes[d]
+            q, k, v = _layer_qkv(lp, h[d], cfg)
+            out.append(_attention(cfg, apply_rope(q, cos, sin),
+                                  apply_rope(k, cos, sin), v, lay.ring))
+        return out
+    return tp_layer(cfg, xs, lps, devices, attend)
+
+
+def _group_logits(trees, lay: _Layout, g: int, tokens,
+                  cfg: TransformerConfig):
+    """Group ``g``'s logits, split over the vocabulary: [(logits
+    (B_g, S, V/tp) f32 on its position's device, the slice's first id)],
+    one per tp position where the vocabulary is split, else one on the
+    first position. ``tokens`` (B_g, S) is on the group's first device."""
+    devices = lay.devices[g]
     dt = cfg.dtype
-    xs = on_each(shards[0]["embed"].to(dt)[tokens.to(devices[0])], devices)
+    top = [_position_params(trees, lay, g, t)
+           for t in range(len(devices) if lay.vocab_split else 1)]
+    n_v = top[0]["embed"].shape[0]
+    parts = []
+    for t, p in enumerate(top):
+        tok = tokens.to(devices[t])
+        table = p["embed"].to(dt)
+        if lay.vocab_split:
+            # The slice's rows; other slices' tokens read zeros, so the sum
+            # over slices is the lookup (JAX's one-hot matmul).
+            local = tok - t * n_v
+            inside = (local >= 0) & (local < n_v)
+            row = table[local.clamp(0, n_v - 1)]
+            parts.append(torch.where(inside[..., None], row,
+                                     torch.zeros((), dtype=dt,
+                                                 device=row.device)))
+        else:
+            parts.append(table[tok])
+    x = all_reduce(parts, devices[:len(parts)])[devices[0]]
+    xs = on_each(x, devices)
     S = tokens.shape[1]
     ropes = {d: rope_angles(S, cfg.head_dim_, cfg.rope_theta, device=d)
              for d in xs}
+    remat = cfg.remat and torch.is_grad_enabled()
     for li in range(cfg.num_layers):
-        lps = [layer_params(p, li) for p in shards]
-
-        def attend(h):
-            out = []
-            for lp, d in zip(lps, devices):
-                cos, sin = ropes[d]
-                q, k, v = _layer_qkv(lp, h[d], cfg)
-                # Each position's own heads: the ring's sp axis is 1 here.
-                out.append(_attention(cfg, apply_rope(q, cos, sin),
-                                      apply_rope(k, cos, sin), v))
-            return out
-        xs = tp_layer(cfg, xs, lps, devices, attend)
-    x = rms_norm(xs[devices[0]], shards[0]["ln_f"], cfg.rms_norm_eps)
-    return torch.einsum("bse,ev->bsv", x, shards[0]["lm_head"].to(dt)).float()
+        if remat:
+            xs = checkpoint(_group_layer, cfg, xs, trees, lay, g, li, ropes,
+                            use_reentrant=False, preserve_rng_state=False)
+        else:
+            xs = _group_layer(cfg, xs, trees, lay, g, li, ropes)
+    out = []
+    for t, p in enumerate(top):
+        x = rms_norm(xs[devices[t]], p["ln_f"], cfg.rms_norm_eps)
+        out.append((torch.einsum("bse,ev->bsv", x,
+                                 p["lm_head"].to(dt)).float(), t * n_v))
+    return out
 
 
-def forward(params: Dict[str, Any], tokens, cfg: TransformerConfig,
-            mesh=None, device: Union[str, torch.device] = "cuda"
-            ) -> torch.Tensor:
+def vocab_parallel_nll(logits, targets) -> torch.Tensor:
+    """-log softmax(logits)[target] per token, (B, S) f32 on the first
+    slice's device, from logits split over the vocabulary: ``logits`` is
+    [(slice (B, S, V_i) f32, its first id)] in order. The max and the sum
+    of exponentials are taken slice by slice and combined in f32 in slice
+    order; the target's logit comes from the slice that holds it. No
+    device holds (B, S, V)."""
+    home = logits[0][0].device
+    m = None
+    for lg, _ in logits:
+        mx = lg.detach().amax(dim=-1).to(home)
+        m = mx if m is None else torch.maximum(m, mx)
+    total, picked = None, None
+    for lg, first in logits:
+        d = lg.device
+        e = (lg - m.to(d)[..., None]).exp().sum(dim=-1).to(home)
+        local = targets.to(d) - first
+        inside = (local >= 0) & (local < lg.shape[-1])
+        tl = lg.gather(-1, local.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        tl = torch.where(inside, tl, torch.zeros((), device=d)).to(home)
+        total = e if total is None else total + e
+        picked = tl if picked is None else picked + tl
+    return m + total.log() - picked
+
+
+def _sharded(params, mesh, rules):
+    """(per-position params, layout) for the sharded model."""
+    rules = mesh_rules(mesh, rules)
+    trees = (params if isinstance(params, (list, tuple))
+             else shard_params(params, mesh, rules))
+    if len(trees) != mesh.devices.size:
+        raise ValueError(f"{len(trees)} position trees for a mesh of "
+                         f"{mesh.devices.size} positions")
+    return trees, _Layout(mesh, rules)
+
+
+def _splits(mesh, params) -> bool:
+    """Whether ``forward``/``loss_fn`` take the sharded path: a mesh that
+    splits dp, fsdp or tp (sp alone keeps the ring path), or per-position
+    params."""
+    if mesh is None:
+        return False
+    axes = mesh.train_axes()
+    return (isinstance(params, (list, tuple))
+            or bool(set(axes) & {"dp", "fsdp", "tp"}))
+
+
+def mesh_group_losses(params, batch: Dict[str, Any], cfg: TransformerConfig,
+                      mesh, rules: Optional[LogicalAxisRules] = None,
+                      device: Union[str, torch.device] = "cuda"):
+    """Each batch group's share of ``loss_fn``, in group order, as it is
+    computed (a generator): its weighted token loss over the global
+    weight sum, which is taken from the targets first, a 0-d f32 tensor
+    on the group's first device. ``loss_fn`` sums them; the train step
+    runs each one's backward before the next group's forward, so that one
+    group's activations are alive at a time."""
+    trees, lay = _sharded(params, mesh, rules)
+    dev = resolve_device(device)
+    if "targets" in batch:
+        inputs = torch.as_tensor(batch["inputs"], device=dev).long()
+        targets = torch.as_tensor(batch["targets"], device=dev).long()
+        weights = (targets != 0).float()
+    else:
+        toks = torch.as_tensor(batch["tokens"], device=dev).long()
+        inputs, targets = toks[:, :-1], toks[:, 1:]
+        weights = torch.ones(targets.shape, dtype=torch.float32, device=dev)
+    denom = weights.sum().clamp(min=1.0)
+    per_pos = shard_batch({"inputs": inputs, "targets": targets,
+                           "weights": weights}, mesh, lay.rules)
+    for g in range(len(lay.groups)):
+        b = per_pos[lay.positions[g][0]]
+        logits = _group_logits(trees, lay, g, b["inputs"], cfg)
+        nll = vocab_parallel_nll(logits, b["targets"])
+        home = nll.device
+        yield (nll * b["weights"].to(home)).sum() / denom.to(home)
+
+
+def _mesh_forward(params, tokens, cfg: TransformerConfig, mesh, rules, dev):
+    trees, lay = _sharded(params, mesh, rules)
+    per_pos = shard_batch(tokens, mesh, lay.rules)
+    out = []
+    for g in range(len(lay.groups)):
+        logits = _group_logits(trees, lay, g, per_pos[lay.positions[g][0]],
+                               cfg)
+        out.append(torch.cat([lg.to(dev) for lg, _ in logits], dim=-1))
+    return torch.cat(out, dim=0)
+
+
+def forward(params, tokens, cfg: TransformerConfig, mesh=None,
+            device: Union[str, torch.device] = "cuda",
+            rules: Optional[LogicalAxisRules] = None) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, V) float32 on ``device``, where
     the params must already live. ``mesh``: an sp-only mesh for
-    ``attention_impl="ring"``, or a tp-only mesh whose positions each run
-    their share of every layer, the params split under
-    ``megatron_rules()`` (see the module docstring and ``tp_shards``)."""
-    axis = mesh.split_axis() if mesh is not None else None
+    ``attention_impl="ring"``, or a mesh that splits dp, fsdp or tp, over
+    whose positions the params are split by ``rules`` (see the module
+    docstring); the logits are then joined on ``device``."""
     dev = resolve_device(device)
-    if params["embed"].device.type != dev.type:
-        raise ValueError(f"params are on {params['embed'].device}, "
-                         f"forward was asked for {dev}")
+    where = (params[0] if isinstance(params, (list, tuple))
+             else params)["embed"].device
+    if where.type != dev.type:
+        raise ValueError(f"params are on {where}, forward was asked for "
+                         f"{dev}")
     tokens = torch.as_tensor(tokens, device=dev).long()
-    if axis == "tp":
-        return _tp_forward(params, tokens, cfg, mesh).to(dev)
+    if _splits(mesh, params):
+        return _mesh_forward(params, tokens, cfg, mesh, rules, dev)
     dt = cfg.dtype
     x = params["embed"].to(dt)[tokens]
     S = tokens.shape[1]
@@ -480,18 +732,20 @@ def forward(params: Dict[str, Any], tokens, cfg: TransformerConfig,
     return torch.einsum("bse,ev->bsv", x, params["lm_head"].to(dt)).float()
 
 
-def loss_fn(params: Dict[str, Any], batch: Dict[str, Any],
-            cfg: TransformerConfig, mesh=None,
-            device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+def loss_fn(params, batch: Dict[str, Any], cfg: TransformerConfig, mesh=None,
+            device: Union[str, torch.device] = "cuda",
+            rules: Optional[LogicalAxisRules] = None) -> torch.Tensor:
     """Next-token cross-entropy, a 0-d f32 tensor; batch = {"tokens": (B,S)}
     or {"inputs","targets"}; ignores padding id 0 when targets provided.
-    ``mesh``: None or sp-only; a tp mesh (a training layout) raises
-    NotImplementedError."""
-    if mesh is not None and mesh.split_axis() == "tp":
-        raise NotImplementedError(
-            "loss_fn under a tp mesh is not ported: training meshes come "
-            "with torch.distributed.DeviceMesh (ROADMAP Queue 1 item 4)")
+    ``mesh`` and ``rules`` as in ``forward``; under a mesh that splits dp,
+    fsdp or tp the loss is the sum of ``mesh_group_losses``, on
+    ``device``."""
     dev = resolve_device(device)
+    if _splits(mesh, params):
+        total = None
+        for part in mesh_group_losses(params, batch, cfg, mesh, rules, dev):
+            total = part.to(dev) if total is None else total + part.to(dev)
+        return total
     if "targets" in batch:
         inputs = torch.as_tensor(batch["inputs"], device=dev).long()
         targets = torch.as_tensor(batch["targets"], device=dev).long()

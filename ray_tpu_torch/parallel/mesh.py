@@ -2,17 +2,22 @@
 
 Port of ray_tpu/parallel/mesh.py. ``AXES``, ``EP_AXES`` and ``MeshSpec``
 are copies. ``Mesh`` is the port's own: where JAX's ``Mesh`` is a grid of
-devices that one process drives through ``shard_map``, this one is a grid
-of ``torch.device``s that one process drives by launching each shard's
-work on that shard's device (the JAX engine's single-controller model), so
-a K/V rotation between shards is a ``.to(next_device)`` and a tensor-parallel
-all-reduce is a ``.to()`` of each partial and a sum. One axis may be larger
-than 1, ``sp`` (sequence-parallel prefill) or ``tp`` (tensor-parallel
-serving, ``sharding.shard_params``). It is not
-``torch.distributed.DeviceMesh``, which needs one process per GPU; that
-comes with FSDP/TP training (ROADMAP Queue 1 item 4), built from the same
-``MeshSpec``, with the meshes that split more than one axis or any of dp,
-fsdp and pp.
+devices that one process drives through ``shard_map`` and GSPMD, this one
+is a grid of ``torch.device``s that one process drives by launching each
+position's work on that position's device (the JAX engine's
+single-controller model), so a K/V rotation between shards is a
+``.to(next_device)``, a tensor-parallel all-reduce a ``.to()`` of each
+partial and a sum, and an fsdp gather a ``.to()`` and a ``cat``.
+
+Serving splits one axis, ``sp`` (sequence-parallel prefill) or ``tp``
+(tensor-parallel serving): ``axis_devices`` and ``split_axis``. Training
+splits any of ``dp``, ``fsdp`` and ``tp`` at once (``models.train_step``):
+``coords``, ``batch_groups``, ``group_positions`` and ``fsdp_positions``
+give its layout. Both raise NotImplementedError for pp > 1 (ROADMAP Queue
+1 item 7) and for sp beside another split axis (item 4). It is not
+``torch.distributed.DeviceMesh``: one process per GPU comes with the NCCL
+group and the Train backend (items 8 and 9), built from the same
+``MeshSpec``.
 
 A grid may name one device more than once: a shard is a position in the
 mesh, not a device. ``build_mesh(MeshSpec(sp=4), devices=[cuda:0] * 4)``
@@ -99,30 +104,79 @@ class Mesh:
         return list(dict.fromkeys(self.devices.flat))
 
     def axis_devices(self, axis_name: str = "sp") -> List[torch.device]:
-        """The devices of ``axis_name``'s positions, in order.
+        """The devices of ``axis_name``'s positions, in order, for serving.
         ``axis_name`` is ``sp`` or ``tp``, and every other axis must be 1:
-        the port splits one of those two. Placing batch or weights over
-        dp/fsdp, two axes at once (``sp`` x ``tp`` among them; ROADMAP
-        Queue 1 item 4) or layers over pp (item 7) is not ported. A
-        value-preserving layout that left those devices idle would hide
-        it, so it raises."""
+        the engine splits one of those two. Serving over dp/fsdp or over
+        ``sp`` x ``tp`` (ROADMAP Queue 1 item 4), or layers over pp (item
+        7), is not ported; a value-preserving layout that left those
+        devices idle would hide it, so it raises. Training takes dp, fsdp
+        and tp (``batch_groups``)."""
         other = {a: s for a, s in self.shape.items()
                  if a != axis_name and s > 1}
         if axis_name not in ("sp", "tp") or other:
             raise NotImplementedError(
                 f"mesh axes {other or {axis_name: self.shape[axis_name]}} "
-                f"are not ported: the port splits only the sp or the tp "
-                f"axis, one at a time (dp/fsdp meshes and sp x tp are "
-                f"ROADMAP Queue 1 item 4, pp item 7)")
+                f"are not ported for serving: the engine splits only the "
+                f"sp or the tp axis, one at a time (dp/fsdp serving and "
+                f"sp x tp are ROADMAP Queue 1 item 4, pp item 7; training "
+                f"splits dp, fsdp and tp)")
         return list(self.devices.reshape(-1))
 
     def split_axis(self) -> Optional[str]:
-        """The axis this mesh splits, ``"sp"`` or ``"tp"``, or None where
-        every axis is 1; raises NotImplementedError as ``axis_devices``
-        does for any other layout."""
+        """The axis a serving mesh splits, ``"sp"`` or ``"tp"``, or None
+        where every axis is 1; raises NotImplementedError as
+        ``axis_devices`` does for any other layout."""
         axis = "tp" if self.shape["tp"] > 1 else "sp"
         self.axis_devices(axis)
         return axis if self.shape[axis] > 1 else None
+
+    # -- the training layout ---------------------------------------------
+
+    def train_axes(self) -> Tuple[str, ...]:
+        """The axes larger than 1 of a training layout, in ``AXES`` order:
+        any of dp, fsdp and tp, or sp alone. pp > 1 (pipeline stages,
+        ROADMAP Queue 1 item 7) and sp beside another split axis (item 4)
+        raise NotImplementedError."""
+        split = tuple(a for a, s in self.shape.items() if s > 1)
+        if "pp" in split:
+            raise NotImplementedError(
+                f"a pp axis of {self.shape['pp']} is not ported: pipeline "
+                f"stages are ROADMAP Queue 1 item 7")
+        if "sp" in split and len(split) > 1:
+            raise NotImplementedError(
+                f"mesh axes {split} are not ported: sp beside another "
+                f"split axis is ROADMAP Queue 1 item 4")
+        return split
+
+    def coords(self) -> List[Tuple[int, ...]]:
+        """Each position's coordinate over ``AXES``, in grid order (the
+        order of ``devices.flat``)."""
+        return list(np.ndindex(self.devices.shape))
+
+    def _index(self, **coord: int) -> int:
+        at = tuple(coord.get(a, 0) for a in AXES)
+        return int(np.ravel_multi_index(at, self.devices.shape))
+
+    def batch_groups(self) -> List[Tuple[int, int]]:
+        """One (dp, fsdp) pair per batch group, in the order of JAX's
+        ``("dp", "fsdp")`` batch axis: group g holds the g-th of
+        dp x fsdp equal slices of the batch's leading dim."""
+        self.train_axes()
+        return [(d, f) for d in range(self.shape["dp"])
+                for f in range(self.shape["fsdp"])]
+
+    def group_positions(self, dp: int, fsdp: int) -> List[int]:
+        """The flat indices of a batch group's tp positions, in tp
+        order."""
+        return [self._index(dp=dp, fsdp=fsdp, tp=t)
+                for t in range(self.shape["tp"])]
+
+    def fsdp_positions(self, dp: int, tp: int) -> List[int]:
+        """The flat indices of the positions that share a (dp, tp) slice,
+        in fsdp order: between them they hold every embed-dim slice of
+        that tp slice."""
+        return [self._index(dp=dp, fsdp=f, tp=tp)
+                for f in range(self.shape["fsdp"])]
 
 
 def _device(d: Union[str, torch.device]) -> torch.device:

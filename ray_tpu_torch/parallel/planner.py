@@ -1,0 +1,207 @@
+"""Per-position memory accounting for the port's sharded training step.
+
+Port of ray_tpu/parallel/planner.py (``MemoryPlan``, ``plan_train_memory``):
+given a ``TransformerConfig``, a ``MeshSpec`` and ``LogicalAxisRules``, the
+bytes one mesh position holds, checked against a card's memory, before
+anything is allocated.
+
+Accounting model (per position):
+  params     exact: each leaf's bytes over the product of the mesh-axis
+             sizes its spec consumes, ceil per dim (the same consumption
+             as ``LogicalAxisRules.spec``), so it equals the bytes of the
+             position's own shards (``sharding.shard_params``).
+  grads      the same shards and dtypes as the params.
+  optimizer  ``opt_slots`` copies of the params' accounting (Adam: mu and
+             nu in the params' dtypes).
+  activations the port's remat (``torch.utils.checkpoint`` per layer): each
+             layer's input, (B_loc, S, E) in the config's dtype, for every
+             layer of the position's batch group. The reference keeps XLA's
+             ``dots_with_no_batch_dims_saveable`` residuals instead; those
+             are not what the port saves.
+  logits     the f32 logits of the position's vocabulary slice (split over
+             tp) and the exponentials the cross-entropy saves beside them,
+             (B_loc, S, V/tp) f32 each.
+  workspace  one layer at a time in the backward: its recomputed
+             activations (q, k, v, o, the two normed inputs, gate, up and
+             their product, each at the position's heads and hidden
+             units) and, under fsdp, the layer's tp slice of the weights
+             gathered across the fsdp positions.
+
+Batch groups take turns (the train step runs one group's forward and
+backward at a time), so one group's activations are live at once.
+
+Not ported: ``plan_7b_north_star`` chooses its mesh for a v5e's
+interconnect; it comes with the pp / multi-card slice (ROADMAP Queue 1
+item 7), which re-derives that choice for NVLink. The reference's default
+of 16 GiB is a TPU's memory: here the default is the card's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+from .mesh import MeshSpec
+from .sharding import LogicalAxisRules
+
+GiB = float(1 << 30)
+
+
+def _leaf_local_bytes(shape: Sequence[int], itemsize: int,
+                      logical_axes: Sequence[Optional[str]],
+                      rules: LogicalAxisRules,
+                      sizes: Dict[str, int]) -> int:
+    """Per-position bytes of one leaf under the rule table (ceil per
+    dim)."""
+    spec = rules.spec(logical_axes)
+    elems = 1
+    for i, dim in enumerate(shape):
+        axes = spec[i] if i < len(spec) else None
+        if axes is None:
+            elems *= dim
+            continue
+        if isinstance(axes, str):
+            axes = (axes,)
+        shards = math.prod(sizes.get(a, 1) for a in axes)
+        elems *= math.ceil(dim / shards)
+    return elems * itemsize
+
+
+@dataclasses.dataclass
+class MemoryPlan:
+    """Per-position byte budget for one (config, mesh, batch) choice."""
+    cfg: Any
+    spec: MeshSpec
+    global_batch: int
+    seq_len: int
+    params_bytes: int
+    grads_bytes: int
+    opt_bytes: int
+    activation_bytes: int
+    logits_bytes: int
+    workspace_bytes: int
+    hbm_bytes: int
+
+    @property
+    def state_bytes(self) -> int:
+        return self.params_bytes + self.grads_bytes + self.opt_bytes
+
+    @property
+    def total_bytes(self) -> int:
+        return (self.state_bytes + self.activation_bytes +
+                self.logits_bytes + self.workspace_bytes)
+
+    @property
+    def fits(self) -> bool:
+        return self.total_bytes <= self.hbm_bytes
+
+    def table(self) -> str:
+        rows = [
+            ("params", self.params_bytes),
+            ("grads", self.grads_bytes),
+            ("optimizer", self.opt_bytes),
+            ("activations", self.activation_bytes),
+            ("logits+exps", self.logits_bytes),
+            ("layer workspace", self.workspace_bytes),
+            ("TOTAL", self.total_bytes),
+            ("card", self.hbm_bytes),
+        ]
+        sizes = self.spec.sizes()
+        mesh_s = "x".join(f"{a}={s}" for a, s in sizes.items() if s > 1) or "1"
+        n_params = self.cfg.param_count()
+        head = (f"mem-plan mesh[{mesh_s}] n={self.spec.n_devices} "
+                f"params={n_params/1e9:.2f}B batch={self.global_batch} "
+                f"seq={self.seq_len}")
+        body = "\n".join(f"  {name:<18}{b/GiB:8.3f} GiB" for name, b in rows)
+        verdict = "FITS" if self.fits else "DOES NOT FIT"
+        margin = (self.hbm_bytes - self.total_bytes) / GiB
+        return f"{head}\n{body}\n  => {verdict} (margin {margin:+.2f} GiB)"
+
+
+def _card_bytes() -> int:
+    """The current CUDA card's memory; raises where there is none."""
+    from .._device import resolve_device
+    resolve_device("cuda")
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).total_memory
+
+
+def plan_train_memory(cfg, spec: MeshSpec, *,
+                      global_batch: int,
+                      seq_len: Optional[int] = None,
+                      num_microbatches: Optional[int] = None,
+                      rules: Optional[LogicalAxisRules] = None,
+                      hbm_gib: Optional[float] = None,
+                      opt_slots: int = 2) -> MemoryPlan:
+    """The per-position budget for ``make_train_step(cfg)`` on ``spec``.
+
+    Pure arithmetic over shapes: needs no device but for the default
+    ``hbm_gib``, which is the current CUDA card's memory (raising without
+    one). ``spec`` must be fully resolved (no -1). pp > 1 and
+    ``num_microbatches`` (ROADMAP Queue 1 item 7), and sp beside another
+    split axis (item 4), raise NotImplementedError as the train step
+    does."""
+    from ..models.transformer import param_logical_axes, param_shapes
+
+    rules = rules or LogicalAxisRules.default()
+    sizes = spec.sizes()
+    if any(s == -1 for s in sizes.values()):
+        raise ValueError("resolve() the MeshSpec first (no -1 axes)")
+    split = [a for a, s in sizes.items() if s > 1]
+    if "pp" in split or num_microbatches is not None:
+        raise NotImplementedError(
+            "pipeline stages and microbatches are not ported: ROADMAP "
+            "Queue 1 item 7")
+    if "sp" in split and len(split) > 1:
+        raise NotImplementedError(
+            f"mesh axes {tuple(split)} are not ported: sp beside another "
+            f"split axis is ROADMAP Queue 1 item 4")
+    seq = seq_len or cfg.max_seq_len
+    hbm = int(hbm_gib * GiB) if hbm_gib is not None else _card_bytes()
+
+    # ---- state: exact, leaf by leaf ---------------------------------------
+    def leaves(shapes, axes):
+        if isinstance(shapes, dict):
+            for k in shapes:
+                yield from leaves(shapes[k], axes[k])
+        else:
+            yield shapes, axes
+    params_b = sum(
+        _leaf_local_bytes(shape, torch.tensor([], dtype=dtype).element_size(),
+                          ax, rules, sizes)
+        for (shape, dtype), ax in leaves(param_shapes(cfg),
+                                         param_logical_axes(cfg)))
+    grads_b = params_b                       # same shards and dtypes
+    opt_b = opt_slots * params_b             # Adam: mu and nu mirror params
+
+    # ---- one batch group's activations ------------------------------------
+    dp, fsdp, sp, tp = sizes["dp"], sizes["fsdp"], sizes["sp"], sizes["tp"]
+    act = torch.tensor([], dtype=cfg.dtype).element_size()
+    h, m, d = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    B_loc = math.ceil(global_batch / (dp * fsdp))
+    tokens_loc = B_loc * math.ceil(seq / sp)
+    act_b = cfg.num_layers * tokens_loc * h * act        # each layer's input
+
+    V_loc = math.ceil(cfg.vocab_size / tp)
+    logits_b = 2 * tokens_loc * V_loc * 4                # logits + exps, f32
+
+    layer_tok = (2 * h                                   # the normed inputs
+                 + 2 * math.ceil(nh / tp) * d            # q (and roped)
+                 + 2 * math.ceil(nkv / tp) * d           # k, v
+                 + math.ceil(nh / tp) * d                # o
+                 + 3 * math.ceil(m / tp))                # gate, up, product
+    gathered = 0
+    if fsdp > 1:
+        w_elems = h * d * (2 * nh + 2 * nkv) + 3 * h * m
+        gathered = math.ceil(w_elems / tp) * act
+    ws_b = tokens_loc * layer_tok * act + gathered
+
+    return MemoryPlan(
+        cfg=cfg, spec=spec, global_batch=global_batch, seq_len=seq,
+        params_bytes=params_b, grads_bytes=grads_b, opt_bytes=opt_b,
+        activation_bytes=act_b, logits_bytes=logits_b, workspace_bytes=ws_b,
+        hbm_bytes=hbm)

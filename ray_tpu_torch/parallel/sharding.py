@@ -1,4 +1,5 @@
-"""Logical-axis sharding rules, and the tensor-parallel split of params.
+"""Logical-axis sharding rules, and the explicit split of params and
+batches over a mesh's positions.
 
 Port of ray_tpu/parallel/sharding.py. ``LogicalAxisRules`` is a copy: the
 same rule table, the same first-match lookup and the same "a mesh axis
@@ -6,26 +7,26 @@ shards only one dim of a spec" rule. ``spec`` returns the port's own
 ``PartitionSpec``, a plain tuple, so a port spec and a JAX spec compare as
 tuples. ``tree_specs`` is the counterpart of ``tree_shardings`` and
 ``replicated`` of the reference's: the port has no ``NamedSharding``, a
-spec is applied by ``shard_params``.
+spec is applied by ``shard_params`` and ``shard_batch``.
 
-``shard_params`` is the port's own. JAX hands a pytree of shardings to
-``jax.device_put`` and GSPMD inserts the collectives; the port's mesh is a
-single controller (``parallel.mesh.Mesh``: one process launches each
-position's work on that position's device), so the split is explicit: each
-``tp`` position gets its slice of every tensor whose spec names ``tp``, and
-the model runs each position's share of a layer and all-reduces the
-partials (``models.transformer.tp_layer``).
+JAX hands a pytree of shardings to ``jax.device_put`` and GSPMD inserts the
+collectives; the port's mesh is a single controller
+(``parallel.mesh.Mesh``: one process launches each position's work on that
+position's device), so the split is explicit. ``shard_params`` gives each
+position JAX's addressable shard of every tensor: along each dim its spec
+splits, the slice that the position's coordinate picks. The model runs
+each position's share and moves the partials itself
+(``models.transformer``: the tp all-reduce, the fsdp gather, the
+vocabulary-parallel cross-entropy). ``gather_params`` is the inverse.
 
-Not ported: ``with_logical_constraint`` (a GSPMD layout hint inside a
-jitted program, which has no meaning when every tensor already lives where
-its position's work runs) and ``shard_batch`` (a dp/fsdp split of the
-batch; one controller with only ``tp`` has no batch axis to split). Both
-wait for FSDP/TP training on ``torch.distributed.DeviceMesh`` (ROADMAP
-Queue 1 item 4).
+``with_logical_constraint`` is not ported: it is a layout hint to GSPMD
+inside a jitted program, and here every tensor already lives where its
+position's work runs.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -153,10 +154,10 @@ def replicated(mesh: Mesh) -> PartitionSpec:
     return PartitionSpec()
 
 
-def tp_dim(spec: PartitionSpec) -> Optional[int]:
-    """The dim a spec splits over ``tp``, or None."""
+def axis_dim(spec: PartitionSpec, axis: str) -> Optional[int]:
+    """The dim ``spec`` splits over the mesh axis ``axis``, or None."""
     for i, axes in enumerate(spec):
-        if axes == "tp" or (isinstance(axes, tuple) and "tp" in axes):
+        if axes == axis or (isinstance(axes, tuple) and axis in axes):
             return i
     return None
 
@@ -170,42 +171,147 @@ def _zip_trees(a, b, fn):
     return fn(a, b)
 
 
-def shard_params(params: Dict[str, Any], mesh: Mesh,
-                 rules: Optional[LogicalAxisRules] = None,
-                 logical_axes=None) -> List[Dict[str, Any]]:
-    """Each ``tp`` position's params, in position order.
+def _dim_axes(spec: PartitionSpec, d: int) -> Tuple[str, ...]:
+    axes = spec[d] if d < len(spec) else None
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
-    ``logical_axes`` is the params' tree of logical-axis tuples (default:
-    the transformer's, ``models.transformer.param_logical_axes``). A tensor
-    whose spec names ``tp`` on dim d is cut into n equal slices on d, and
-    position i gets slice i as a contiguous tensor of its own on its
-    device. A tensor whose spec does not name ``tp`` is replicated: held
-    once per distinct device (``.to`` returns the tensor itself where it
-    already lives, so a device that holds ``params``, or that the mesh
-    names several times, holds no copy). Only ``tp`` may be larger than 1
-    (``Mesh.axis_devices``)."""
-    devices = mesh.axis_devices("tp")
-    n = len(devices)
+
+def shard_slices(spec: PartitionSpec, shape: Sequence[int], mesh: Mesh,
+                 coord: Tuple[int, ...]) -> Tuple[slice, ...]:
+    """The slice of a tensor of ``shape`` that the position at ``coord``
+    (over ``AXES``) holds under ``spec``: along each dim, the piece that
+    the coordinate's row-major index over the dim's mesh axes picks, as
+    JAX's ``addressable_shards`` place it. A dim that does not divide
+    raises ValueError."""
+    sizes = mesh.shape
+    at = dict(zip(sizes, coord))
+    out = []
+    for d, dim in enumerate(shape):
+        axes = _dim_axes(spec, d)
+        n = math.prod(sizes[a] for a in axes)
+        if dim % n:
+            raise ValueError(f"a dim of size {dim} does not split over "
+                             f"{' x '.join(axes)}={n}")
+        i = 0
+        for a in axes:
+            i = i * sizes[a] + at[a]
+        size = dim // n
+        out.append(slice(i * size, (i + 1) * size))
+    return tuple(out)
+
+
+def shard_tensor(t: torch.Tensor, spec: PartitionSpec,
+                 mesh: Mesh) -> List[torch.Tensor]:
+    """Each position's shard of ``t`` under ``spec``, in grid order. A
+    shard is held once per distinct device: positions that hold the same
+    slice on one device (dp replicas, or a dim that is not split) share
+    one tensor. A slice that is the whole tensor is ``t.to(device)``,
+    which is ``t`` itself on its own device; any other is a contiguous
+    tensor of its own."""
+    held: Dict[Any, torch.Tensor] = {}
+    out = []
+    for coord, dev in zip(mesh.coords(), mesh.devices.flat):
+        sl = shard_slices(spec, t.shape, mesh, coord)
+        key = (tuple((s.start, s.stop) for s in sl), dev)
+        if key not in held:
+            part = t[sl]
+            held[key] = (t.to(dev) if part.shape == t.shape else
+                         torch.empty(part.shape, dtype=t.dtype,
+                                     device=dev).copy_(part))
+        out.append(held[key])
+    return out
+
+
+def gather_tensor(parts: Sequence[torch.Tensor], spec: PartitionSpec,
+                  mesh: Mesh, device=None) -> torch.Tensor:
+    """The inverse of ``shard_tensor``: the full tensor, on ``device``
+    (default: the first position's), from each position's shard, each
+    element copied once from the first position that holds it."""
+    coords = mesh.coords()
+    shape = [dim * math.prod(mesh.shape[a] for a in _dim_axes(spec, d))
+             for d, dim in enumerate(parts[0].shape)]
+    full = torch.empty(shape, dtype=parts[0].dtype,
+                       device=device if device is not None
+                       else parts[0].device)
+    done = set()
+    for part, coord in zip(parts, coords):
+        sl = shard_slices(spec, shape, mesh, coord)
+        key = tuple((s.start, s.stop) for s in sl)
+        if key not in done:
+            done.add(key)
+            full[sl].copy_(part)
+    return full
+
+
+def _specs(mesh, rules, logical_axes):
     if logical_axes is None:
         from ..models.transformer import param_logical_axes
         logical_axes = param_logical_axes(None)
-    specs = tree_specs(logical_axes, mesh, rules)
+    return tree_specs(logical_axes, mesh, rules)
 
-    def split(t: torch.Tensor, spec: PartitionSpec) -> List[torch.Tensor]:
-        d = tp_dim(spec)
-        if d is None or n == 1:
-            on = {dev: t.to(dev) for dev in dict.fromkeys(devices)}
-            return [on[dev] for dev in devices]
-        if t.shape[d] % n:
-            raise ValueError(f"a dim of size {t.shape[d]} does not split "
-                             f"over tp={n}")
-        return [torch.empty(s.shape, dtype=s.dtype, device=dev).copy_(s)
-                for s, dev in zip(torch.chunk(t, n, dim=d), devices)]
 
-    per_leaf = _zip_trees(params, specs, split)
-
+def _per_position(per_leaf, n: int) -> List[Dict[str, Any]]:
     def pick(tree, i):
         if isinstance(tree, dict):
             return {k: pick(v, i) for k, v in tree.items()}
         return tree[i]
     return [pick(per_leaf, i) for i in range(n)]
+
+
+def shard_params(params: Dict[str, Any], mesh: Mesh,
+                 rules: Optional[LogicalAxisRules] = None,
+                 logical_axes=None) -> List[Dict[str, Any]]:
+    """Each position's params, in grid order (``mesh.coords()``).
+
+    ``logical_axes`` is the params' tree of logical-axis tuples (default:
+    the transformer's, ``models.transformer.param_logical_axes``), mapped
+    to specs by ``rules`` (default ``LogicalAxisRules.default()``). Each
+    tensor is cut by ``shard_tensor``: a position gets the slice its
+    coordinate picks along every dim the spec splits, bit-equal to JAX's
+    addressable shard on that position's device, and a shard that several
+    positions hold on one device is one tensor (no second copy)."""
+    specs = _specs(mesh, rules, logical_axes)
+    per_leaf = _zip_trees(params, specs,
+                          lambda t, spec: shard_tensor(t, spec, mesh))
+    return _per_position(per_leaf, mesh.devices.size)
+
+
+def gather_params(shards: Sequence[Dict[str, Any]], mesh: Mesh,
+                  rules: Optional[LogicalAxisRules] = None,
+                  logical_axes=None, device=None) -> Dict[str, Any]:
+    """The inverse of ``shard_params``: full tensors on ``device``
+    (default: the first position's), bit for bit. For the tests and for
+    checkpoints; a trainer never builds them."""
+    specs = _specs(mesh, rules, logical_axes)
+
+    def walk(spec, path):
+        if isinstance(spec, dict):
+            return {k: walk(v, path + (k,)) for k, v in spec.items()}
+        parts = []
+        for tree in shards:
+            for k in path:
+                tree = tree[k]
+            parts.append(tree)
+        return gather_tensor(parts, spec, mesh, device)
+    return walk(specs, ())
+
+
+def shard_batch(batch, mesh: Mesh,
+                rules: Optional[LogicalAxisRules] = None) -> List[Any]:
+    """Each position's batch, in grid order: every array's leading dim
+    split under ``("batch", None, ...)`` (the default rules: over the dp x
+    fsdp batch groups, in the order of JAX's ``("dp", "fsdp")`` axis) and
+    0-d values replicated, each on its position's device (one tensor per
+    distinct device and slice)."""
+    rules = rules or LogicalAxisRules.default()
+
+    def split(x):
+        t = torch.as_tensor(x)
+        axes = ("batch",) + (None,) * (t.dim() - 1) if t.dim() else ()
+        return shard_tensor(t, rules.spec(axes, mesh), mesh)
+    if isinstance(batch, dict):
+        per_leaf = {k: split(v) for k, v in batch.items()}
+        return _per_position(per_leaf, mesh.devices.size)
+    return split(batch)

@@ -84,25 +84,60 @@ def test_repeated_devices_are_shard_positions():
 @pytest.mark.parametrize("spec", [dict(dp=2, sp=4), dict(sp=2, tp=2),
                                   dict(pp=2), dict(fsdp=2, sp=2)])
 def test_other_axes_than_sp_raise_not_implemented(spec):
+    """Serving splits sp or tp alone: these raise naming ROADMAP item 4.
+    As training layouts, pp raises naming item 7 and sp beside another
+    split axis item 4."""
     mesh = build_mesh(MeshSpec(**spec),
                       devices=[CPU] * MeshSpec(**spec).n_devices)
     with pytest.raises(NotImplementedError, match="item 4"):
         mesh.axis_devices("sp")
+    with pytest.raises(NotImplementedError,
+                       match="item 7" if "pp" in spec else "item 4"):
+        mesh.batch_groups()
 
 
 @pytest.mark.parametrize("spec,axis", [(dict(sp=4), "sp"),
                                        (dict(tp=2), "tp"), (dict(), None)])
 def test_a_mesh_splits_sp_or_tp_alone(spec, axis):
-    """A tp mesh's positions are its devices, as an sp mesh's are; a dp
-    axis asked for by name, or sp and tp together, raise."""
+    """For serving, a tp mesh's positions are its devices, as an sp mesh's
+    are; a dp axis asked for by name, or sp and tp together, raise. dp is a
+    training axis: its positions are batch groups."""
     n = MeshSpec(**spec).n_devices
     mesh = build_mesh(MeshSpec(**spec), devices=[CPU] * n)
     assert mesh.split_axis() == axis
     assert mesh.axis_devices(axis or "tp") == [CPU] * n
+    dp2 = build_mesh(MeshSpec(dp=2), devices=[CPU] * 2)
     with pytest.raises(NotImplementedError, match="item 4"):
-        build_mesh(MeshSpec(dp=2), devices=[CPU] * 2).axis_devices("dp")
+        dp2.axis_devices("dp")
+    assert dp2.train_axes() == ("dp",)
+    assert dp2.batch_groups() == [(0, 0), (1, 0)]
     with pytest.raises(NotImplementedError, match="item 4"):
         build_mesh(MeshSpec(sp=2, tp=2), devices=[CPU] * 4).split_axis()
+
+
+@pytest.mark.parametrize("spec", [dict(dp=2, fsdp=2, tp=2), dict(fsdp=8),
+                                  dict(dp=2, tp=4), dict(fsdp=2, tp=4)])
+def test_training_layout_follows_jax_device_order(spec):
+    """A position's coordinate is that of JAX's device at the same place of
+    the same mesh; batch groups follow JAX's ("dp", "fsdp") batch axis, the
+    order in which shard_batch hands out the leading dim; a group's tp
+    positions and a (dp, tp) slice's fsdp positions are the grid's."""
+    jmesh = jax_build_mesh(JaxMeshSpec(**spec))
+    mesh = build_mesh(MeshSpec(**spec), devices=[CPU] * 8)
+    ids = np.vectorize(lambda d: d.id)(jmesh.devices)
+    coords = mesh.coords()
+    assert len(coords) == 8
+    for i, c in enumerate(coords):
+        assert ids[c] == ids.flat[i]
+    s = mesh.shape
+    assert mesh.batch_groups() == [(d, f) for d in range(s["dp"])
+                                   for f in range(s["fsdp"])]
+    for d, f in mesh.batch_groups():
+        got = [coords[i] for i in mesh.group_positions(d, f)]
+        assert got == [(0, d, f, 0, t) for t in range(s["tp"])]
+        for t in range(s["tp"]):
+            got = [coords[i] for i in mesh.fsdp_positions(d, t)]
+            assert got == [(0, d, g, 0, t) for g in range(s["fsdp"])]
 
 
 def test_sp_mesh_matches_jax_and_its_error_word_for_word():

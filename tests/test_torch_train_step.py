@@ -27,6 +27,8 @@ from ray_tpu_torch.models import (PRESETS, from_jax_params, from_jax_state,
                                   loss_fn, make_eval_step, make_optimizer,
                                   make_train_step)
 from ray_tpu_torch.models.train_step import global_norm, value_and_grad
+from ray_tpu_torch.parallel import MeshSpec as TorchMeshSpec
+from ray_tpu_torch.parallel import build_mesh as torch_build_mesh
 
 CFG, JCFG = PRESETS["tiny"], JAX_PRESETS["tiny"]
 # f32 through two layers and a 512-way softmax: the order of the sums
@@ -287,7 +289,10 @@ def test_train_step_defaults_to_cuda_and_raises_without_it():
 
 
 def test_unported_train_options_raise():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_train_step(CFG, mesh=object(), device="cpu")
+    # A mesh with pipeline stages (pp > 1); dp, fsdp and tp meshes are
+    # ported (tests/test_torch_train_mesh.py).
+    pp2 = torch_build_mesh(TorchMeshSpec(pp=2), devices=["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="pp axis"):
+        make_train_step(CFG, mesh=pp2, device="cpu")
     with pytest.raises(NotImplementedError, match="microbatch"):
         make_train_step(CFG, num_microbatches=2, device="cpu")

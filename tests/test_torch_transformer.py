@@ -211,12 +211,19 @@ def test_unported_options_raise(tiny):
     want = forward(tp, toks, no_remat, device="cpu")
     torch.testing.assert_close(forward(tp, toks, dataclasses.replace(
         PRESETS["tiny"], remat=True), device="cpu"), want, rtol=0, atol=0)
-    # Meshes: sp-only is ported; dp/fsdp/tp and pp (pipeline stages) are
-    # not, and raise.
-    for spec in (dict(dp=2), dict(tp=2, sp=2), dict(fsdp=2), dict(pp=2)):
+    # Meshes: sp, dp and fsdp give the unsharded values (their parity with
+    # JAX is in tests/test_torch_train_mesh.py); sp beside tp and pp
+    # (pipeline stages) are not ported, and raise.
+    want = forward(tp, toks, PRESETS["tiny"], device="cpu")
+    for spec in (dict(dp=2), dict(fsdp=2)):
+        mesh = build_mesh(MeshSpec(**spec), devices=["cpu"] * 2)
+        torch.testing.assert_close(
+            forward(tp, toks, PRESETS["tiny"], mesh=mesh, device="cpu"),
+            want, rtol=0, atol=0)
+    for spec, item in ((dict(tp=2, sp=2), "item 4"), (dict(pp=2), "item 7")):
         mesh = build_mesh(MeshSpec(**spec),
                           devices=["cpu"] * MeshSpec(**spec).n_devices)
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(NotImplementedError, match=item):
             forward(tp, toks, PRESETS["tiny"], mesh=mesh, device="cpu")
     sp2 = build_mesh(MeshSpec(sp=2), devices=["cpu"] * 2)
     torch.testing.assert_close(
