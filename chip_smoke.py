@@ -177,6 +177,35 @@ Phases, each printing one JSON line on stdout:
    planner's figure. Where torch.cuda.device_count() >= 2 the same mesh
    also runs over the visible cards (the grid in order, each card named
    8/n times), and the phase prints which ran.
+13. train_pp: the same model at full width and depth trained on
+   build_mesh(MeshSpec(pp=2, dp=2, tp=2), devices=[cuda:0] * 8), the
+   reference's own pp training mesh, with two microbatches per batch
+   group: train_mesh's batch and seeded params (drawn again after
+   train_mesh's state is freed), held against train_mesh's unsharded
+   pass (loss, grad norm, the sampled gradients of layers 0 and 31, which
+   lie on different stages). Each stage's positions hold its 16 layers
+   (each distinct shard bit-equal to its slice of the unsharded params),
+   the embedding runs on stage 0 and the head on stage 1, the hand-off is
+   a .to() between the stages' devices. The same checks as train_mesh;
+   512 / 256 / 256 launches of kernels 1 / 2 / 3 a step (32 layers x 2
+   microbatches x 2 batch groups x 2 tp positions, kernel 1 twice).
+   Prints the same numbers, the stage hand-off's device time as the named
+   range pp:send, and the train and train_mesh phases' step ms beside
+   its own. Where torch.cuda.device_count() >= 2 the same mesh also runs
+   over the visible cards, the stage boundary between cards.
+14. moe: one MoE layer at Mixtral-8x7B's published widths (d_model 4096,
+   d_ff 14336, 8 experts, top 2; capacity_factor 1.25, MoEConfig's
+   default), bf16 on x of (4, 2048, 4096) from a seed, f32 params as
+   JAX's init makes them (5.64 GB of experts): the forward and the
+   backward of y.float().sum() plus the aux losses, unsharded and then
+   ep-sharded over build_mesh(MeshSpec(fsdp=2, sp=2, tp=2), devices=
+   [cuda:0] * 8), the reference's EP test mesh. Checks the routing
+   (expert_idx, keep) and the fraction dropped equal between the two, y
+   and every parameter's gradient within a bf16 limit of the unsharded
+   layer's beside a control (the unsharded layer with its MLP units
+   relabelled), each position's shard shapes, the shards on the card
+   holding exactly the params' bytes. Prints forward and backward ms
+   (host and device) of both and the peak memory.
 
 Then the kernels line, the card line and, last, the ok line. Any failure
 exits non-zero without the ok line, as does a machine without CUDA.
@@ -188,6 +217,7 @@ import asyncio
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -208,13 +238,17 @@ from ray_tpu_torch.exceptions import (DeadlineExceededError, KVGatherError,
                                       OverloadedError, StreamBrokenError)
 from ray_tpu_torch.llm import (EngineReplica, LLMEngine, SamplingParams,
                                run_open_loop)
-from ray_tpu_torch.models import (PRESETS, forward, init_params,
-                                  make_optimizer, make_train_step)
+from ray_tpu_torch.models import (PRESETS, MoEConfig, forward,
+                                  init_moe_params, init_params,
+                                  make_optimizer, make_train_step,
+                                  moe_logical_axes)
 from ray_tpu_torch.models import transformer
+from ray_tpu_torch.models.moe import moe_layer_routed
 from ray_tpu_torch.models.train_step import global_norm, value_and_grad
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.parallel import (MeshSpec, build_mesh, plan_train_memory,
-                                    shard_params)
+                                    shard_params, tree_specs)
+from ray_tpu_torch.parallel.mesh import Mesh
 from ray_tpu_torch.parallel.sharding import gather_tensor, shard_slices
 from ray_tpu_torch.ops.flash_attention import (
     attention_bwd_delta, flash_attention, flash_attention_bwd,
@@ -404,6 +438,30 @@ TRAIN_MESH_SAMPLE = (("embed",), ("lm_head",)) + tuple(
 TRAIN_MESH_RANGES = {"all_reduce": "tp:all_reduce",
                      "fsdp_gather": "fsdp:gather",
                      "vocab_parallel_nll": "vocab:cross_entropy"}
+# train_pp: the reference's own pp training mesh
+# (tests/test_parallel_advanced.py:158-182), train_mesh's batch, two
+# microbatches per batch group; the stage hand-off as a named range.
+TRAIN_PP = dict(pp=2, dp=2, tp=2)
+TRAIN_PP_MICROBATCHES = 2
+TRAIN_PP_RANGES = dict(TRAIN_MESH_RANGES, stage_send="pp:send")
+# moe: one MoE layer at Mixtral-8x7B's published widths
+# (mistralai/Mixtral-8x7B-v0.1 config.json: hidden_size 4096,
+# intermediate_size 14336, num_local_experts 8, num_experts_per_tok 2),
+# MoEConfig's own defaults otherwise (capacity_factor 1.25), bf16, on x of
+# (4, 2048, 4096); then ep-sharded on the reference's EP test mesh
+# (tests/test_parallel_advanced.py:120-140).
+MOE = dict(d_model=4096, d_ff=14336, num_experts=8, num_experts_per_token=2)
+MOE_X = (4, 2048)
+MOE_MESH = dict(fsdp=2, sp=2, tp=2)
+# ||sharded - unsharded|| / ||unsharded|| of y and of each parameter's
+# gradient. The sharded layer rounds each tp position's w_down partial to
+# bf16 before the f32 sum (the unsharded product rounds once), so y moves
+# by about one bf16 rounding of ye (2^-9 relative per element); the
+# gradients see the same rounding through ye and the dispatched slots.
+# The control is the unsharded layer with its MLP units relabelled, which
+# changes only the order of w_down's sums.
+MOE_Y_REL_TOL = 2e-2
+MOE_GRAD_REL_TOL = 5e-2
 
 
 def emit(obj) -> None:
@@ -2773,45 +2831,80 @@ def mesh_layout_checks(cfg, mesh, state, specs, plan) -> dict:
                 position_opt_bytes=plan.opt_bytes)
 
 
+def shards_hold_their_slices(cfg, mesh, specs, shards, params) -> bool:
+    """Whether each distinct shard equals its slice of the unsharded
+    params (under pp: its stage's layers), bit for bit."""
+    shapes = _dict_leaves(transformer.param_shapes(cfg))
+    specs = _dict_leaves(specs)
+    full = _dict_leaves(params)
+    seen = set()
+    for coord, tree in zip(mesh.coords(), shards):
+        for name, t in _dict_leaves(tree).items():
+            if id(t) in seen:
+                continue
+            seen.add(id(t))
+            sl = shard_slices(specs[name], shapes[name][0], mesh, coord)
+            if not torch.equal(t, full[name][sl].to(t.device)):
+                return False
+    return True
+
+
+def gather_sample(grads, path, specs, mesh, cfg, device):
+    """A sampled gradient of per-position grads, whole, on ``device``: a
+    top-level leaf over the mesh, or one layer's (``path[1]``) over the
+    positions of the stage that holds it (its index in that stage's own
+    list of layers)."""
+    spec = _sample(specs, [k for k in path if not isinstance(k, int)])
+    if len(path) == 1:
+        return gather_tensor([_sample(g, path) for g in grads], spec, mesh,
+                             device=device)
+    stage, li = divmod(path[1], cfg.num_layers // mesh.shape["pp"])
+    sub = Mesh(mesh.devices[stage:stage + 1])
+    local = ("layers", li) + tuple(path[2:])
+    return gather_tensor([_sample(grads[i], local)
+                          for i in mesh.stage_positions(stage)],
+                         spec[1:], sub, device=device)
+
+
 def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
-                   plan) -> dict:
-    """Train on ``build_mesh(MeshSpec(**TRAIN_MESH), devices=devices)``
-    from the seed-0 params (drawn again on the first device, as the
-    unsharded pass drew them): the sharded value_and_grad's sampled
-    gradients against ``ref``'s, then TRAIN_STEPS steps (the last
-    profiled) with their launch counts, step 1 against ``ref``'s loss and
-    grad norm."""
-    what = f"train_mesh on {len(set(devices))} card(s)"
+                   plan, spec=TRAIN_MESH, microbatches=None,
+                   ranges=TRAIN_MESH_RANGES, name="train_mesh") -> dict:
+    """Train on ``build_mesh(MeshSpec(**spec), devices=devices)`` with
+    ``microbatches`` per batch group under pp, from the seed-0 params
+    (drawn again on the first device, as the unsharded pass drew them):
+    the sharded value_and_grad's sampled gradients against ``ref``'s, then
+    TRAIN_STEPS steps (the last profiled, with ``ranges`` named) with
+    their launch counts, step 1 against ``ref``'s loss and grad norm."""
+    what = f"{name} on {len(set(devices))} card(s)"
 
     def fail(msg):
         failures.append(f"{what}: {msg}")
     current = torch.cuda.current_device()
-    mesh = build_mesh(MeshSpec(**TRAIN_MESH), devices=devices)
+    mesh = build_mesh(MeshSpec(**spec), devices=devices)
     bundle = make_train_step(cfg, mesh,
                              optimizer=make_optimizer(warmup_steps=1),
-                             device="cuda")
+                             num_microbatches=microbatches, device="cuda")
+    specs = bundle.state_specs["params"]
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(devices[0]).manual_seed(0),
                          devices[0])
     shards = shard_params(params, mesh, bundle.rules)
+    slices_ok = shards_hold_their_slices(cfg, mesh, specs, shards, params)
+    if not slices_ok:
+        fail("a shard differs from its slice of the unsharded params")
     del params
     gc.collect()
     torch.cuda.empty_cache()
     shard_s = time.perf_counter() - t0
-    specs = bundle.state_specs["params"]
     t0 = time.perf_counter()
     loss, grads = value_and_grad(shards, batch, cfg, device="cuda",
-                                 mesh=mesh)
+                                 mesh=mesh, num_microbatches=microbatches)
     torch.cuda.synchronize()
     vg_s = time.perf_counter() - t0
     sample_errs = {}
     for path in TRAIN_MESH_SAMPLE:
-        spec = _sample(specs, [k for k in path if not isinstance(k, int)])
-        if len(path) > 1:
-            spec = spec[1:]                  # one layer of a stacked leaf
-        got = gather_tensor([_sample(g, path) for g in grads], spec, mesh,
-                            device=ref["grads"][path].device)
-        want = ref["grads"][path]
+        got = gather_sample(grads, path, specs, mesh, cfg, devices[0])
+        want = ref["grads"][path].to(devices[0])
         sample_errs[".".join(map(str, path))] = (
             torch.linalg.vector_norm(got.float() - want.float())
             / torch.linalg.vector_norm(want, dtype=torch.float32)).item()
@@ -2832,9 +2925,11 @@ def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
     if layout is not None and not layout["ok"]:
         fail(f"layout {layout}")
 
-    # Per layer, batch group and tp position: kernel 1 in the forward and
-    # in the recompute, dQ and dK/dV once.
-    per = cfg.num_layers * len(mesh.batch_groups()) * TRAIN_MESH["tp"]
+    # Per layer, microbatch, batch group and tp position: kernel 1 in the
+    # forward and in the recompute, dQ and dK/dV once.
+    pp = mesh.shape["pp"]
+    mb = (microbatches or pp) if pp > 1 else 1
+    per = cfg.num_layers * mb * len(mesh.batch_groups()) * mesh.shape["tp"]
     want = (2 * per, per, per)
     flash_attention_fwd.launches = 0
     flash_attention_dq.launches = 0
@@ -2847,8 +2942,7 @@ def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
         prof = (profile(activities=[ProfilerActivity.CPU,
                                     ProfilerActivity.CUDA]) if last
                 else contextlib.nullcontext())
-        names = (named_ranges(TRAIN_MESH_RANGES) if last
-                 else contextlib.nullcontext())
+        names = named_ranges(ranges) if last else contextlib.nullcontext()
         before = _launch_counts()
         torch.cuda.synchronize()
         with prof, names:
@@ -2871,7 +2965,7 @@ def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
             for i in range(torch.cuda.device_count())]
     split, top = device_time_split(prof)
     busy = sum(split.values())
-    split_ranges(prof, split, TRAIN_MESH_RANGES.values())
+    split_ranges(prof, split, ranges.values())
     first, last = steps[0], steps[-1]
     loss_rel = abs(first["loss"] - ref["loss"]) / abs(ref["loss"])
     gnorm_rel = abs(first["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
@@ -2891,7 +2985,8 @@ def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
     torch.cuda.empty_cache()
     return dict(
         cards=len(set(devices)), devices=[str(d) for d in devices],
-        shard_s=shard_s, value_and_grad_s=vg_s,
+        shard_s=shard_s, shards_hold_their_slices=slices_ok,
+        value_and_grad_s=vg_s,
         value_and_grad_loss_rel_err=vg_loss_rel,
         sampled_grad_rel_err=sample_errs,
         sampled_grad_rel_tol=TRAIN_MESH_GRAD_REL_TOL, layout=layout,
@@ -2913,17 +3008,26 @@ def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
         current_device_kept=torch.cuda.current_device() == current)
 
 
-def train_mesh_phase(card: str, failures: list, train: dict) -> dict:
-    """Training on a dp x fsdp x tp mesh (see the module docstring)."""
-    cfg = dataclasses.replace(PRESETS["8b-gqa"], remat=True,
-                              attention_impl="flash")
-    t_phase = time.perf_counter()
-    tokens = np.random.default_rng(5).integers(
-        1, cfg.vocab_size, (TRAIN_MESH_BATCH, TRAIN_SEQ + 1))
-    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+def plan_summary(plan, runs) -> dict:
+    """The planner's per-position figures in GB, and what one card holds
+    when every position shares it: the state once plus one position's
+    activations, logits and workspace."""
+    extra = plan.activation_bytes + plan.logits_bytes + plan.workspace_bytes
+    return dict(position_state_gb=plan.state_bytes / 1e9,
+                position_activations_gb=plan.activation_bytes / 1e9,
+                position_logits_gb=plan.logits_bytes / 1e9,
+                position_workspace_gb=plan.workspace_bytes / 1e9,
+                position_total_gb=plan.total_bytes / 1e9,
+                one_card_gb=(4 * runs[0]["layout"]["unsharded_params_bytes"]
+                             + extra) / 1e9,
+                card_gb=plan.hbm_bytes / 1e9)
+
+
+def unsharded_reference(cfg, batch) -> tuple:
+    """The unsharded pass of the seed-0 params on ``batch``: params, grads
+    and the whole batch's logits, no optimizer state. (ref: the loss, the
+    grad norm and the sampled gradients, kept; a summary.)"""
     cuda0 = torch.device("cuda", 0)
-    # The unsharded pass: params, grads and the whole batch's logits, no
-    # optimizer state; it keeps the loss, the norm and the sample.
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(cuda0).manual_seed(0), cuda0)
@@ -2934,9 +3038,21 @@ def train_mesh_phase(card: str, failures: list, train: dict) -> dict:
     del params, grads, loss
     gc.collect()
     torch.cuda.empty_cache()
-    unsharded = dict(loss=ref["loss"], grad_norm=ref["grad_norm"],
+    return ref, dict(loss=ref["loss"], grad_norm=ref["grad_norm"],
                      seconds=time.perf_counter() - t0,
                      peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def train_mesh_phase(card: str, failures: list, train: dict) -> tuple:
+    """Training on a dp x fsdp x tp mesh (see the module docstring)."""
+    cfg = dataclasses.replace(PRESETS["8b-gqa"], remat=True,
+                              attention_impl="flash")
+    t_phase = time.perf_counter()
+    tokens = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (TRAIN_MESH_BATCH, TRAIN_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    cuda0 = torch.device("cuda", 0)
+    ref, unsharded = unsharded_reference(cfg, batch)
     plan = plan_train_memory(cfg, MeshSpec(**TRAIN_MESH),
                              global_batch=TRAIN_MESH_BATCH,
                              seq_len=TRAIN_SEQ)
@@ -2949,25 +3065,13 @@ def train_mesh_phase(card: str, failures: list, train: dict) -> dict:
                    for _ in range(8 // n)]
         runs.append(train_mesh_run(cfg, devices, batch, ref, failures,
                                    False, plan))
-    del ref
-    gc.collect()
-    torch.cuda.empty_cache()
-    extra = plan.activation_bytes + plan.logits_bytes + plan.workspace_bytes
     res = dict(
         phase="train_mesh", preset="8b-gqa", mesh=TRAIN_MESH,
         batch=TRAIN_MESH_BATCH, seq_len=TRAIN_SEQ, remat=cfg.remat,
         device_count=count,
         ran=[dict(cards=r["cards"]) for r in runs], unsharded=unsharded,
         runs=runs,
-        launches=runs[0]["launches"],
-        plan=dict(position_state_gb=plan.state_bytes / 1e9,
-                  position_activations_gb=plan.activation_bytes / 1e9,
-                  position_logits_gb=plan.logits_bytes / 1e9,
-                  position_workspace_gb=plan.workspace_bytes / 1e9,
-                  position_total_gb=plan.total_bytes / 1e9,
-                  one_card_gb=(4 * runs[0]["layout"]["unsharded_params_bytes"]
-                               + extra) / 1e9,
-                  card_gb=plan.hbm_bytes / 1e9),
+        launches=runs[0]["launches"], plan=plan_summary(plan, runs),
         train=dict(steady_step_ms=train["steady_step_ms"],
                    tokens_per_s=train["tokens_per_s"],
                    model_flops_utilization=train["model_flops_utilization"]),
@@ -2975,6 +3079,232 @@ def train_mesh_phase(card: str, failures: list, train: dict) -> dict:
         grad_norm_rel_tol=TRAIN_GNORM_REL_TOL,
         seconds=time.perf_counter() - t_phase, card=card)
     emit(res)
+    return res, ref
+
+
+def train_pp_phase(card: str, failures: list, train: dict,
+                   train_mesh: dict, ref: dict) -> dict:
+    """Training on a pp x dp x tp mesh (see the module docstring), held
+    against train_mesh's unsharded pass ``ref`` on the same params and
+    batch."""
+    cfg = dataclasses.replace(PRESETS["8b-gqa"], remat=True,
+                              attention_impl="flash")
+    t_phase = time.perf_counter()
+    tokens = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (TRAIN_MESH_BATCH, TRAIN_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    cuda0 = torch.device("cuda", 0)
+    # The kept reference samples (2.6 GB) wait in pinned host memory: a
+    # group's two microbatches hold twice train_mesh's logits, and the
+    # steps came within 6 GB of the card's memory with them on it.
+    ref["grads"] = {path: torch.empty(g.shape, dtype=g.dtype,
+                                      pin_memory=True).copy_(g)
+                    for path, g in ref["grads"].items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = plan_train_memory(cfg, MeshSpec(**TRAIN_PP),
+                             global_batch=TRAIN_MESH_BATCH,
+                             seq_len=TRAIN_SEQ,
+                             num_microbatches=TRAIN_PP_MICROBATCHES)
+    run = functools.partial(train_mesh_run, spec=TRAIN_PP,
+                            microbatches=TRAIN_PP_MICROBATCHES,
+                            ranges=TRAIN_PP_RANGES, name="train_pp")
+    runs = [run(cfg, [cuda0] * 8, batch, ref, failures, True, plan)]
+    count = torch.cuda.device_count()
+    if count >= 2:
+        # The grid in order, each card named 8/n times: the stage boundary
+        # falls between cards, as do the dp replicas.
+        n = max(k for k in (2, 4, 8) if k <= count)
+        devices = [torch.device("cuda", i) for i in range(n)
+                   for _ in range(8 // n)]
+        runs.append(run(cfg, devices, batch, ref, failures, False, plan))
+    res = dict(
+        phase="train_pp", preset="8b-gqa", mesh=TRAIN_PP,
+        num_microbatches=TRAIN_PP_MICROBATCHES, batch=TRAIN_MESH_BATCH,
+        seq_len=TRAIN_SEQ, remat=cfg.remat, device_count=count,
+        ran=[dict(cards=r["cards"]) for r in runs], runs=runs,
+        launches=runs[0]["launches"], plan=plan_summary(plan, runs),
+        train=dict(steady_step_ms=train["steady_step_ms"],
+                   tokens_per_s=train["tokens_per_s"],
+                   model_flops_utilization=train["model_flops_utilization"]),
+        train_mesh=dict(
+            steady_step_ms=train_mesh["runs"][0]["steady_step_ms"],
+            tokens_per_s=train_mesh["runs"][0]["tokens_per_s"],
+            model_flops_utilization=train_mesh["runs"][0][
+                "model_flops_utilization"]),
+        loss_rel_tol=TRAIN_LOSS_REL_TOL,
+        grad_norm_rel_tol=TRAIN_GNORM_REL_TOL,
+        seconds=time.perf_counter() - t_phase, card=card)
+    emit(res)
+    return res
+
+
+def _rel(got, want) -> float:
+    return (torch.linalg.vector_norm(got.float() - want.float())
+            / torch.linalg.vector_norm(want.float())).item()
+
+
+def moe_pass(params, x, cfg, mesh=None):
+    """One MoE forward and the backward of y.float().sum() plus the two aux
+    losses: (y, aux as floats, (expert_idx, keep))."""
+    y, aux, routing = moe_layer_routed(params, x, cfg, mesh)
+    (y.float().sum() + aux["moe_load_balance_loss"]
+     + aux["moe_router_z_loss"]).backward()
+    return y.detach(), {k: float(v.detach()) for k, v in aux.items()}, \
+        routing
+
+
+def moe_timing(params, x, cfg, mesh=None) -> dict:
+    """The forward alone and forward + backward, each once under
+    torch.profiler after a warm-up: host (synchronised wall) and device
+    (summed kernel) ms; the backward's are the difference."""
+    def fwd():
+        with torch.no_grad():
+            moe_layer_routed(params, x, cfg, mesh)
+
+    def both():
+        moe_pass(params, x, cfg, mesh)
+    f, b = profiled(fwd), profiled(both)
+    for t in params if isinstance(params, list) else [params]:
+        for v in t.values():
+            v.grad = None
+
+    def dev(p):
+        d = p["device_ms"]
+        return sum(d.values()) if isinstance(d, dict) else None
+    fd, bd = dev(f), dev(b)
+    return dict(forward_host_ms=f["wall_ms"],
+                backward_host_ms=b["wall_ms"] - f["wall_ms"],
+                forward_device_ms=fd if fd is not None else "not measured",
+                backward_device_ms=(bd - fd if None not in (fd, bd)
+                                    else "not measured"),
+                forward_idle_share=f["idle_share"],
+                forward_backward=b)
+
+
+@torch.no_grad()
+def relabel_experts_(params, perm) -> None:
+    """Permute every expert's MLP units in place (w_gate and w_up columns,
+    w_down rows): the same function, another order of w_down's sums."""
+    for name in ("w_gate", "w_up"):
+        params[name].copy_(params[name][:, :, perm])
+    params["w_down"].copy_(params["w_down"][:, perm])
+
+
+def moe_phase(card: str, failures: list) -> dict:
+    """One MoE layer at Mixtral-8x7B's widths, unsharded and ep-sharded
+    (see the module docstring)."""
+    t_phase = time.perf_counter()
+    cfg = MoEConfig(**MOE)
+    cuda0 = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_moe_params(cfg, torch.Generator(cuda0).manual_seed(0),
+                             cuda0)
+    expert_bytes = sum(params[k].nbytes for k in ("w_gate", "w_up",
+                                                  "w_down"))
+    x = torch.randn(MOE_X + (cfg.d_model,), device=cuda0,
+                    generator=torch.Generator(cuda0).manual_seed(1)
+                    ).to(cfg.dtype)
+    N = MOE_X[0] * MOE_X[1]
+    for v in params.values():
+        v.requires_grad_()
+    y0, aux0, (idx0, keep0) = moe_pass(params, x, cfg)
+    grads0 = {k: v.grad for k, v in params.items()}
+    for v in params.values():
+        v.grad = None
+    plain = moe_timing(params, x, cfg)
+    # The control: the unsharded layer with its MLP units relabelled.
+    perm = torch.randperm(cfg.d_ff, device=cuda0,
+                          generator=torch.Generator(cuda0).manual_seed(2))
+    relabel_experts_(params, perm)
+    yc, _, _ = moe_pass(params, x, cfg)
+    inv = torch.argsort(perm)
+    # The relabelled layer's gradients, in the original order of units.
+    cgrads = {"router": params["router"].grad,
+              "w_gate": params["w_gate"].grad[:, :, inv],
+              "w_up": params["w_up"].grad[:, :, inv],
+              "w_down": params["w_down"].grad[:, inv]}
+    control = dict(y_rel_err=_rel(yc, y0),
+                   grad_rel_err={k: _rel(g, grads0[k])
+                                 for k, g in cgrads.items()})
+    del cgrads, yc
+    for v in params.values():
+        v.grad = None
+    relabel_experts_(params, inv)
+
+    mesh = build_mesh(MeshSpec(**MOE_MESH), devices=[cuda0] * 8)
+    with torch.no_grad():
+        shards = shard_params({k: v.detach() for k, v in params.items()},
+                              mesh, logical_axes=moe_logical_axes())
+    distinct = {id(t): t for s in shards for t in s.values()}
+    for t in distinct.values():
+        t.requires_grad_()
+    held = sum(t.nbytes for t in distinct.values())
+    on_card = all(t.device == cuda0 for t in distinct.values())
+    whole = sum(v.nbytes for v in params.values())
+    shapes = {k: tuple(v.shape) for k, v in shards[0].items()}
+    ep = MOE_MESH["fsdp"] * MOE_MESH["sp"]
+    want_shapes = {"router": (cfg.d_model // MOE_MESH["fsdp"],
+                              cfg.num_experts),
+                   "w_gate": (cfg.num_experts // ep, cfg.d_model,
+                              cfg.d_ff // MOE_MESH["tp"]),
+                   "w_up": (cfg.num_experts // ep, cfg.d_model,
+                            cfg.d_ff // MOE_MESH["tp"]),
+                   "w_down": (cfg.num_experts // ep,
+                              cfg.d_ff // MOE_MESH["tp"], cfg.d_model)}
+    y1, aux1, (idx1, keep1) = moe_pass(shards, x, cfg, mesh)
+    specs = tree_specs(moe_logical_axes(), mesh)
+    grads1 = {k: gather_tensor([s[k].grad for s in shards], specs[k], mesh)
+              for k in params}
+    for t in distinct.values():
+        t.grad = None
+    sharded = moe_timing(shards, x, cfg, mesh)
+    routing_equal = bool(torch.equal(idx1, idx0) and torch.equal(keep1,
+                                                                 keep0))
+    errs = dict(y_rel_err=_rel(y1, y0),
+                grad_rel_err={k: _rel(grads1[k], grads0[k])
+                              for k in params})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not routing_equal:
+        failures.append("moe: sharded routing differs from the unsharded "
+                        "layer's")
+    if aux1["moe_fraction_dropped"] != aux0["moe_fraction_dropped"]:
+        failures.append(f"moe: fraction dropped {aux1} vs {aux0}")
+    if not errs["y_rel_err"] <= MOE_Y_REL_TOL:
+        failures.append(f"moe: sharded y against unsharded {errs}")
+    if not max(errs["grad_rel_err"].values()) <= MOE_GRAD_REL_TOL:
+        failures.append(f"moe: sharded grads against unsharded {errs}")
+    if not (held == whole and on_card and shapes == want_shapes):
+        failures.append(f"moe: shards hold {held} bytes (params {whole}), "
+                        f"on card {on_card}, shapes {shapes} against "
+                        f"{want_shapes}")
+    if not (y0.shape == x.shape and torch.isfinite(y0).all()):
+        failures.append("moe: y not finite or of the wrong shape")
+    # Work of one forward: the three expert products over E x C slots,
+    # the dispatch and the combine.
+    C = cfg.capacity(N)
+    flops = (2 * 3 * cfg.num_experts * C * cfg.d_model * cfg.d_ff
+             + 2 * 2 * N * cfg.num_experts * C * cfg.d_model)
+    res = dict(
+        phase="moe", widths=MOE, x=list(MOE_X) + [cfg.d_model],
+        dtype=str(cfg.dtype).replace("torch.", ""),
+        capacity_factor=cfg.capacity_factor, tokens=N, capacity=C,
+        expert_params_bytes=expert_bytes,
+        dispatch_bytes=N * cfg.num_experts * C * 2,
+        combine_bytes=N * cfg.num_experts * C * 4,
+        forward_flops=flops, aux=aux0, sharded_aux=aux1,
+        fraction_dropped=aux0["moe_fraction_dropped"],
+        routing_equal=routing_equal, sharded=errs, control=control,
+        y_rel_tol=MOE_Y_REL_TOL, grad_rel_tol=MOE_GRAD_REL_TOL,
+        mesh=MOE_MESH, shard_shapes=shapes, shards_bytes=held,
+        params_bytes=whole, shards_on_card=on_card,
+        unsharded_timing=plain, sharded_timing=sharded,
+        peak_memory_gb=peak_gb,
+        seconds=time.perf_counter() - t_phase, card=card)
+    emit(res)
+    del params, shards, distinct, grads0, grads1
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3020,7 +3350,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train = train_phase(card, failures)
-    train_mesh = train_mesh_phase(card, failures, train)
+    train_mesh, ref = train_mesh_phase(card, failures, train)
+    train_pp = train_pp_phase(card, failures, train, train_mesh, ref)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_phase(card, failures)
 
     def main_shape(rs, heads):
         mine = [r for r in rs if r["dtype"] == "bfloat16"
@@ -3048,7 +3383,8 @@ def main() -> int:
                        + serve_sp["flash_launches"]
                        + serve_tp["flash_launches"]
                        + train["launches"]["fwd"]
-                       + train_mesh["launches"]["fwd"]),
+                       + train_mesh["launches"]["fwd"]
+                       + train_pp["launches"]["fwd"]),
              launches_by_path=dict(
                  serve=serve["flash_launches"],
                  serve_cache=serve_cache["flash_launches"],
@@ -3057,7 +3393,8 @@ def main() -> int:
                  serve_sp=serve_sp["flash_launches"],
                  serve_tp=serve_tp["flash_launches"],
                  train=train["launches"]["fwd"],
-                 train_mesh=train_mesh["launches"]["fwd"]),
+                 train_mesh=train_mesh["launches"]["fwd"],
+                 train_pp=train_pp["launches"]["fwd"]),
              max_abs_err=max(r["max_abs_err_o"]
                              for r in engine_rows + tp_rows),
              ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
@@ -3069,9 +3406,11 @@ def main() -> int:
              fuses="delta (ray_tpu/ops/flash_attention.py:270)",
              delta_max_rel_err=max(r["delta_rel_err"] for r in train_rows),
              launches=(train["launches"]["dq"]
-                       + train_mesh["launches"]["dq"]),
+                       + train_mesh["launches"]["dq"]
+                       + train_pp["launches"]["dq"]),
              launches_by_path=dict(train=train["launches"]["dq"],
-                                   train_mesh=train_mesh["launches"]["dq"]),
+                                   train_mesh=train_mesh["launches"]["dq"],
+                                   train_pp=train_pp["launches"]["dq"]),
              max_abs_err=max(r["max_abs_err_dq"] for r in train_rows),
              ms=bat["dq_ms"], plain_ms=bat["plain_dq_ms"],
              bound_ms=bat["dq_bound_ms"], bound_by=bat["dq_bound_by"],
@@ -3081,9 +3420,11 @@ def main() -> int:
              source=src + "flash_attention_dkv.cu",
              replaces="ray_tpu/ops/flash_attention.py:154",
              launches=(train["launches"]["dkv"]
-                       + train_mesh["launches"]["dkv"]),
+                       + train_mesh["launches"]["dkv"]
+                       + train_pp["launches"]["dkv"]),
              launches_by_path=dict(train=train["launches"]["dkv"],
-                                   train_mesh=train_mesh["launches"]["dkv"]),
+                                   train_mesh=train_mesh["launches"]["dkv"],
+                                   train_pp=train_pp["launches"]["dkv"]),
              max_abs_err=max(max(r["max_abs_err_dk"], r["max_abs_err_dv"])
                              for r in train_rows),
              ms=bat["dkv_ms"], plain_ms=bat["plain_dkv_ms"],

@@ -61,10 +61,10 @@ moves between sharded and unsharded engines. One process drives every
 position, as the JAX engine's single controller does; the engine keeps only
 the positions' params (``params`` is None).
 
-Not ported yet: serving meshes with dp or fsdp larger than 1 (training
-takes them, ``models.train_step``), or with both sp and tp larger than 1,
-and rules that split another dim over tp (ROADMAP Queue 1 item 4), and pp
-larger than 1 (item 7), which raise NotImplementedError.
+Not ported yet: serving meshes with dp, fsdp or pp larger than 1
+(training takes them, ``models.train_step``), or with both sp and tp
+larger than 1, and rules that split another dim over tp (ROADMAP Queue 1
+item 4), which raise NotImplementedError.
 """
 
 from __future__ import annotations

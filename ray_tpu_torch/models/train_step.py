@@ -22,8 +22,8 @@ inside one 80 GB card:
 - the optimizer runs tensor by tensor with in-place ops, so its
   temporaries are the size of one tensor, not of the model.
 
-Under a mesh (``parallel.mesh.Mesh``, any of dp, fsdp and tp, or sp alone)
-params, ``mu`` and ``nu`` are lists of per-position trees
+Under a mesh (``parallel.mesh.Mesh``, any of pp, dp, fsdp and tp, or sp
+alone) params, ``mu`` and ``nu`` are lists of per-position trees
 (``parallel.sharding.shard_params`` under ``rules``; ``state_specs`` holds
 their specs), each shard held once per distinct device. A step runs the
 batch groups' forward and backward in turn
@@ -36,8 +36,15 @@ order. The global norm counts each element of the logical array once,
 and the clip and AdamW run once per distinct shard, whose replicas then
 take its values.
 
-Pipeline microbatches and pp meshes raise NotImplementedError (ROADMAP
-Queue 1 item 7), as does sp beside another split axis (item 4).
+Under a pp axis a position's layer tensors hold its stage's L/pp layers
+(the default rules split the layer stack over pp), and a group's forward
+runs its ``num_microbatches`` through the pipeline's stages
+(``transformer.mesh_group_losses``). The top-level tensors are replicas
+across the stages: stage 0 takes the embedding's gradient and the last
+stage ``ln_f``'s and ``lm_head``'s, and the replicas that took none get
+the sum like any other replica. As in the JAX package,
+``num_microbatches`` is ignored without a pp axis. sp beside another
+split axis raises NotImplementedError (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -166,18 +173,19 @@ def _paths(tree) -> List[Tuple[str, ...]]:
                                    for p in _layer_paths(tree["layers"])]
 
 
-def _views(t: torch.Tensor, path, num_layers: int):
-    """The per-layer views of a stacked layer tensor; a top-level tensor
-    itself, in a list of one."""
-    return [t[i] for i in range(num_layers)] if path[0] == "layers" else [t]
+def _views(t: torch.Tensor, path):
+    """The per-layer views of a stacked layer tensor (a position's own
+    layers: L/pp of them under pp); a top-level tensor itself, in a list
+    of one."""
+    return ([t[i] for i in range(t.shape[0])] if path[0] == "layers"
+            else [t])
 
 
-def _mesh_leaves(trees, cfg: TransformerConfig):
+def _mesh_leaves(trees):
     """(per-position trees for the forward, {id(stacked tensor): leaves}):
     one autograd leaf per distinct stored tensor (per layer for layer
     tensors, see the module docstring), shared by every position that
     holds the tensor."""
-    L = cfg.num_layers
     made: Dict[int, List[torch.Tensor]] = {}
     out = []
     for tree in trees:
@@ -186,8 +194,9 @@ def _mesh_leaves(trees, cfg: TransformerConfig):
             t = _get(tree, path)
             if id(t) not in made:
                 made[id(t)] = [v.detach().requires_grad_()
-                               for v in _views(t, path, L)]
+                               for v in _views(t, path)]
             per_path[path] = made[id(t)]
+        L = len(per_path[_paths(tree)[-1]])
         pieces = ([per_path[(k,)][0] for k in _TOP]
                   + [per_path[("layers",) + p][i] for i in range(L)
                      for p in _layer_paths(tree["layers"])])
@@ -218,14 +227,14 @@ def _all_reduce_replicas(lay: _MeshLayout, trees, made) -> None:
 
 
 def _mesh_backward(trees, batch, cfg: TransformerConfig, lay: _MeshLayout,
-                   device):
+                   device, num_microbatches=None):
     """(loss, leaf trees, made): each batch group's forward and backward in
     turn, the replicas' gradients all-reduced; the leaf trees and ``made``
     as ``_mesh_leaves`` gives them."""
-    fwd_trees, made = _mesh_leaves(trees, cfg)
+    fwd_trees, made = _mesh_leaves(trees)
     loss = None
     for part in mesh_group_losses(fwd_trees, batch, cfg, lay.mesh,
-                                  lay.rules, device):
+                                  lay.rules, device, num_microbatches):
         part.backward()
         part = part.detach().to(device)
         loss = part if loss is None else loss + part
@@ -233,37 +242,39 @@ def _mesh_backward(trees, batch, cfg: TransformerConfig, lay: _MeshLayout,
     return loss, fwd_trees, made
 
 
-def _canonical(lay: _MeshLayout, trees, num_layers: int):
+def _canonical(lay: _MeshLayout, trees):
     """Per replica class and layer, the first replica's tensor of
     ``trees`` (params, mu or nu), in a fixed order."""
     return [v for path, reps in lay.classes
-            for v in _views(_get(trees[reps[0]], path), path, num_layers)]
+            for v in _views(_get(trees[reps[0]], path), path)]
 
 
-def _replicas(lay: _MeshLayout, trees, num_layers: int):
+def _replicas(lay: _MeshLayout, trees):
     """(first replica's tensor, another replica's) pairs of ``trees``."""
     return [(v0, v) for path, reps in lay.classes for i in reps[1:]
-            for v0, v in zip(_views(_get(trees[reps[0]], path), path,
-                                    num_layers),
-                             _views(_get(trees[i], path), path,
-                                    num_layers))]
+            for v0, v in zip(_views(_get(trees[reps[0]], path), path),
+                             _views(_get(trees[i], path), path))]
 
 
 def value_and_grad(params, batch: Dict[str, Any], cfg: TransformerConfig,
                    device: Union[str, torch.device] = "cuda", mesh=None,
-                   rules: Optional[LogicalAxisRules] = None):
+                   rules: Optional[LogicalAxisRules] = None,
+                   num_microbatches: Optional[int] = None):
     """(loss, grads): the grads as a params tree whose "layers" is a list of
     per-layer dicts (one gradient tensor per layer, see the module
     docstring); under ``mesh`` ``params`` and the grads are lists of
     per-position trees (the state's layout, each replica holding the
-    all-reduced sum). ``params`` are not changed."""
+    all-reduced sum; under pp a position's list holds its stage's
+    layers). ``num_microbatches`` as in ``make_train_step``. ``params``
+    are not changed."""
     if mesh is None:
         loss, leaves = _backward(params, batch, cfg, device)
         return loss, _assemble([leaf.grad for leaf in leaves], params,
                                cfg.num_layers)
     lay = _MeshLayout(cfg, mesh, mesh_rules(mesh, rules))
     loss, leaves, _ = _mesh_backward(params, batch, cfg, lay,
-                                     resolve_device(device))
+                                     resolve_device(device),
+                                     num_microbatches)
     return loss, _map(lambda leaf: leaf.grad, leaves)
 
 
@@ -377,13 +388,11 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
     port of JAX's donation); otherwise it works on a copy. ``mesh``: the
     state is sharded over its positions under ``rules`` (default
     ``LogicalAxisRules.default()``, or ``megatron_rules()``; see the
-    module docstring); batches and metrics live on ``device``."""
+    module docstring); batches and metrics live on ``device``.
+    ``num_microbatches`` only matters under a pp > 1 mesh axis: it sets
+    the pipeline schedule's depth (default pp)."""
     if mesh is not None:
         mesh.train_axes()
-    if num_microbatches is not None:
-        raise NotImplementedError("pipeline microbatches need a pp mesh, "
-                                  "which is not ported: ROADMAP Queue 1 "
-                                  "item 7")
     dev = resolve_device(device)
     tx = optimizer or make_optimizer()
     L = cfg.num_layers
@@ -412,11 +421,12 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
             grads = [leaf.grad for leaf in leaves]
             mu, nu = _pieces(opt["mu"], L), _pieces(opt["nu"], L)
         else:
-            loss, _, made = _mesh_backward(params, batch, cfg, lay, dev)
+            loss, _, made = _mesh_backward(params, batch, cfg, lay, dev,
+                                           num_microbatches)
             leaves = [v for path, reps in lay.classes
                       for v in made[id(_get(params[reps[0]], path))]]
             grads = [leaf.grad for leaf in leaves]
-            mu, nu = (_canonical(lay, opt[k], L) for k in ("mu", "nu"))
+            mu, nu = (_canonical(lay, opt[k]) for k in ("mu", "nu"))
             del made
         for leaf in leaves:
             leaf.grad = None
@@ -427,7 +437,7 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
         if mesh is not None:
             with torch.no_grad():
                 for tree in (params, opt["mu"], opt["nu"]):
-                    for src, dst in _replicas(lay, tree, L):
+                    for src, dst in _replicas(lay, tree):
                         dst.copy_(src)
         new_state = {"params": params, "opt_state": new_opt,
                      "step": state["step"] + 1}

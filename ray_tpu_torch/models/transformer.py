@@ -35,9 +35,20 @@ tensor); no other caller should grow a third form.
   (``all_reduce``), the logits stay split over tp, and the cross-entropy
   reads them slice by slice (``vocab_parallel_nll``). The values are
   those of the unsharded model.
+- pp beside any of those (pipeline stages): the default rules split the
+  layer stack over pp, so stage s's positions hold layers [s L/pp,
+  (s+1) L/pp), and each stage is a dp x fsdp x tp layout of its own. A
+  batch group's rows are split into ``num_microbatches`` (default pp)
+  microbatches that run the GPipe schedule (``parallel.pipeline``): the
+  embedding on stage 0, each stage's layers on its positions as above,
+  the hand-off to the next stage's devices by ``.to()``
+  (``pipeline.stage_send``), ``ln_f``, ``lm_head`` and the cross-entropy
+  on the last stage. JAX splits the global batch into microbatches before
+  its dp x fsdp split; here each group's contiguous rows are split. The
+  token-weighted loss is a sum over rows either way, so the two agree.
 
-pp larger than 1 (pipeline stages, ROADMAP Queue 1 item 7) and sp beside
-another split axis (item 4) raise NotImplementedError.
+sp beside another split axis (ROADMAP Queue 1 item 4) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..ops.flash_attention import flash_attention, reference_attention
 from ..ops.ring_attention import ring_attention
+from ..parallel.pipeline import check_microbatches, gpipe_ticks, stage_send
 from ..parallel.sharding import (LogicalAxisRules, _tree_map, axis_dim,
                                  shard_batch, shard_params, tree_specs)
 
@@ -481,11 +493,12 @@ def mesh_rules(mesh, rules: Optional[LogicalAxisRules] = None
 
 
 class _Layout:
-    """Where a sharded forward's pieces live: per batch group, its tp
-    positions (flat mesh indices) and their devices, and per (group, tp
-    position) the positions whose embed-dim slices it gathers; per leaf,
-    the dim its spec splits over fsdp (of one layer's tensor for layer
-    leaves); whether the vocabulary is split over tp."""
+    """Where a sharded forward's pieces live: per pipeline stage and batch
+    group, its tp positions (flat mesh indices) and their devices, and per
+    (stage, group, tp position) the positions whose embed-dim slices it
+    gathers, all indexed [stage][group]; per leaf, the dim its spec splits
+    over fsdp (of one layer's tensor for layer leaves); whether the
+    vocabulary is split over tp."""
 
     def __init__(self, mesh, rules: LogicalAxisRules):
         mesh.train_axes()
@@ -501,12 +514,15 @@ class _Layout:
         self.vocab_split = (mesh.shape["tp"] > 1
                             and axis_dim(specs["embed"], "tp") == 0)
         self.groups = mesh.batch_groups()
-        self.positions = [mesh.group_positions(d, f) for d, f in self.groups]
-        self.devices = [[mesh.devices.flat[i] for i in pos]
-                        for pos in self.positions]
-        self.sources = [[mesh.fsdp_positions(d, t)
-                         for t in range(mesh.shape["tp"])]
-                        for d, f in self.groups]
+        self.pp = mesh.shape["pp"]
+        stages = range(self.pp)
+        self.positions = [[mesh.group_positions(d, f, s)
+                           for d, f in self.groups] for s in stages]
+        self.devices = [[[mesh.devices.flat[i] for i in pos] for pos in st]
+                        for st in self.positions]
+        self.sources = [[[mesh.fsdp_positions(d, t, s)
+                          for t in range(mesh.shape["tp"])]
+                         for d, f in self.groups] for s in stages]
         self.ring = mesh if mesh.shape["sp"] > 1 else None
 
 
@@ -528,27 +544,28 @@ def _gathered(own, sources, dims, device):
     return own if dims is None else fsdp_gather(sources, dims, device)
 
 
-def _position_params(trees, lay: _Layout, g: int, t: int, li=None):
-    """Group ``g``'s tp position ``t``'s params, gathered across fsdp: the
-    top-level tensors, or layer ``li``'s."""
-    own = trees[lay.positions[g][t]]
-    srcs = [trees[i] for i in lay.sources[g][t]]
-    dev = lay.devices[g][t]
-    if li is None:
-        return _gathered({k: own[k] for k in lay.top_dims},
-                         [{k: s[k] for k in lay.top_dims} for s in srcs],
-                         lay.top_dims, dev)
+def _position_params(trees, lay: _Layout, s: int, g: int, t: int, li):
+    """Stage ``s``'s group ``g``'s tp position ``t``'s params, gathered
+    across fsdp: the top-level tensors named in the tuple ``li``, or the
+    stage's layer ``li``'s (an index into the stage's own L/pp layers)."""
+    own = trees[lay.positions[s][g][t]]
+    srcs = [trees[i] for i in lay.sources[s][g][t]]
+    dev = lay.devices[s][g][t]
+    if isinstance(li, tuple):
+        dims = {k: lay.top_dims[k] for k in li}
+        return _gathered({k: own[k] for k in li},
+                         [{k: src[k] for k in li} for src in srcs], dims, dev)
     return _gathered(layer_params(own, li),
-                     [layer_params(s, li) for s in srcs], lay.layer_dims,
+                     [layer_params(src, li) for src in srcs], lay.layer_dims,
                      dev)
 
 
-def _group_layer(cfg: TransformerConfig, xs, trees, lay: _Layout, g: int,
-                 li: int, ropes):
-    """Layer ``li`` over group ``g``'s tp positions: each gathers its
-    weights across fsdp, then ``tp_layer``."""
-    devices = lay.devices[g]
-    lps = [_position_params(trees, lay, g, t, li)
+def _group_layer(cfg: TransformerConfig, xs, trees, lay: _Layout, s: int,
+                 g: int, li: int, ropes):
+    """Stage ``s``'s layer ``li`` over group ``g``'s tp positions: each
+    gathers its weights across fsdp, then ``tp_layer``."""
+    devices = lay.devices[s][g]
+    lps = [_position_params(trees, lay, s, g, t, li)
            for t in range(len(devices))]
 
     def attend(h):
@@ -562,19 +579,18 @@ def _group_layer(cfg: TransformerConfig, xs, trees, lay: _Layout, g: int,
     return tp_layer(cfg, xs, lps, devices, attend)
 
 
-def _group_logits(trees, lay: _Layout, g: int, tokens,
-                  cfg: TransformerConfig):
-    """Group ``g``'s logits, split over the vocabulary: [(logits
-    (B_g, S, V/tp) f32 on its position's device, the slice's first id)],
-    one per tp position where the vocabulary is split, else one on the
-    first position. ``tokens`` (B_g, S) is on the group's first device."""
-    devices = lay.devices[g]
+def _group_embed(trees, lay: _Layout, g: int, tokens,
+                 cfg: TransformerConfig):
+    """Group ``g``'s embedding on stage 0: {device: (B, S, E)} on each
+    distinct device of its tp positions. The table is looked up per
+    vocabulary slice and summed where the vocabulary is split."""
+    devices = lay.devices[0][g]
     dt = cfg.dtype
-    top = [_position_params(trees, lay, g, t)
-           for t in range(len(devices) if lay.vocab_split else 1)]
-    n_v = top[0]["embed"].shape[0]
+    tops = [_position_params(trees, lay, 0, g, t, ("embed",))
+            for t in range(len(devices) if lay.vocab_split else 1)]
+    n_v = tops[0]["embed"].shape[0]
     parts = []
-    for t, p in enumerate(top):
+    for t, p in enumerate(tops):
         tok = tokens.to(devices[t])
         table = p["embed"].to(dt)
         if lay.vocab_split:
@@ -589,22 +605,69 @@ def _group_logits(trees, lay: _Layout, g: int, tokens,
         else:
             parts.append(table[tok])
     x = all_reduce(parts, devices[:len(parts)])[devices[0]]
-    xs = on_each(x, devices)
-    S = tokens.shape[1]
-    ropes = {d: rope_angles(S, cfg.head_dim_, cfg.rope_theta, device=d)
-             for d in xs}
+    return on_each(x, devices)
+
+
+def _stage_layers(cfg: TransformerConfig, xs, trees, lay: _Layout, s: int,
+                  g: int, ropes):
+    """Stage ``s``'s L/pp layers over group ``g``'s positions, each
+    checkpointed when a gradient is needed."""
     remat = cfg.remat and torch.is_grad_enabled()
-    for li in range(cfg.num_layers):
+    for li in range(cfg.num_layers // lay.pp):
         if remat:
-            xs = checkpoint(_group_layer, cfg, xs, trees, lay, g, li, ropes,
-                            use_reentrant=False, preserve_rng_state=False)
+            xs = checkpoint(_group_layer, cfg, xs, trees, lay, s, g, li,
+                            ropes, use_reentrant=False,
+                            preserve_rng_state=False)
         else:
-            xs = _group_layer(cfg, xs, trees, lay, g, li, ropes)
+            xs = _group_layer(cfg, xs, trees, lay, s, g, li, ropes)
+    return xs
+
+
+def _group_head(trees, lay: _Layout, g: int, xs, cfg: TransformerConfig):
+    """Group ``g``'s logits on the last stage, split over the vocabulary:
+    [(logits (B, S, V/tp) f32 on its position's device, the slice's first
+    id)], one per tp position where the vocabulary is split, else one on
+    the first position."""
+    s = lay.pp - 1
+    devices = lay.devices[s][g]
     out = []
-    for t, p in enumerate(top):
+    for t in range(len(devices) if lay.vocab_split else 1):
+        p = _position_params(trees, lay, s, g, t, ("ln_f", "lm_head"))
         x = rms_norm(xs[devices[t]], p["ln_f"], cfg.rms_norm_eps)
         out.append((torch.einsum("bse,ev->bsv", x,
-                                 p["lm_head"].to(dt)).float(), t * n_v))
+                                 p["lm_head"].to(cfg.dtype)).float(),
+                    t * p["lm_head"].shape[1]))
+    return out
+
+
+def _group_logits(trees, lay: _Layout, g: int, tokens,
+                  cfg: TransformerConfig, num_microbatches=None) -> list:
+    """Group ``g``'s logits per microbatch: a list, one entry per
+    microbatch (one where there is no pp axis), of ``_group_head``'s
+    vocabulary slices. ``tokens`` (B_g, S) is on the group's first device
+    of stage 0. Under pp the group's rows are split into
+    ``num_microbatches`` (default pp) that run the GPipe schedule
+    (``pipeline.gpipe_ticks``), launched tick by tick; a stage's output
+    goes to the next stage's devices by ``stage_send``."""
+    pp = lay.pp
+    mb = (num_microbatches or pp) if pp > 1 else 1
+    if pp > 1:
+        if cfg.num_layers % pp:
+            raise ValueError(f"{cfg.num_layers} layers not divisible by "
+                             f"pp={pp}")
+        check_microbatches(tokens.shape[0], mb, pp)
+    S = tokens.shape[1]
+    ropes = {d: rope_angles(S, cfg.head_dim_, cfg.rope_theta, device=d)
+             for d in dict.fromkeys(d for st in lay.devices for d in st[g])}
+    xs = list(tokens.split(tokens.shape[0] // mb))
+    out = [None] * mb
+    for _, s, m in gpipe_ticks(mb, pp):
+        x = (_group_embed(trees, lay, g, xs[m], cfg) if s == 0 else
+             stage_send(xs[m][lay.devices[s - 1][g][0]], lay.devices[s][g]))
+        xs[m] = _stage_layers(cfg, x, trees, lay, s, g, ropes)
+        if s == pp - 1:
+            out[m] = _group_head(trees, lay, g, xs[m], cfg)
+            xs[m] = None
     return out
 
 
@@ -646,24 +709,27 @@ def _sharded(params, mesh, rules):
 
 def _splits(mesh, params) -> bool:
     """Whether ``forward``/``loss_fn`` take the sharded path: a mesh that
-    splits dp, fsdp or tp (sp alone keeps the ring path), or per-position
-    params."""
+    splits pp, dp, fsdp or tp (sp alone keeps the ring path), or
+    per-position params."""
     if mesh is None:
         return False
     axes = mesh.train_axes()
     return (isinstance(params, (list, tuple))
-            or bool(set(axes) & {"dp", "fsdp", "tp"}))
+            or bool(set(axes) & {"pp", "dp", "fsdp", "tp"}))
 
 
 def mesh_group_losses(params, batch: Dict[str, Any], cfg: TransformerConfig,
                       mesh, rules: Optional[LogicalAxisRules] = None,
-                      device: Union[str, torch.device] = "cuda"):
+                      device: Union[str, torch.device] = "cuda",
+                      num_microbatches: Optional[int] = None):
     """Each batch group's share of ``loss_fn``, in group order, as it is
     computed (a generator): its weighted token loss over the global
     weight sum, which is taken from the targets first, a 0-d f32 tensor
-    on the group's first device. ``loss_fn`` sums them; the train step
-    runs each one's backward before the next group's forward, so that one
-    group's activations are alive at a time."""
+    on the group's first device of the last stage (under pp, the sum of
+    its microbatches' shares, in microbatch order). ``loss_fn`` sums
+    them; the train step runs each one's backward before the next group's
+    forward, so that one group's activations (all of its microbatches')
+    are alive at a time."""
     trees, lay = _sharded(params, mesh, rules)
     dev = resolve_device(device)
     if "targets" in batch:
@@ -678,32 +744,46 @@ def mesh_group_losses(params, batch: Dict[str, Any], cfg: TransformerConfig,
     per_pos = shard_batch({"inputs": inputs, "targets": targets,
                            "weights": weights}, mesh, lay.rules)
     for g in range(len(lay.groups)):
-        b = per_pos[lay.positions[g][0]]
-        logits = _group_logits(trees, lay, g, b["inputs"], cfg)
-        nll = vocab_parallel_nll(logits, b["targets"])
-        home = nll.device
-        yield (nll * b["weights"].to(home)).sum() / denom.to(home)
+        b = per_pos[lay.positions[0][g][0]]
+        last = per_pos[lay.positions[-1][g][0]]
+        logits = _group_logits(trees, lay, g, b["inputs"], cfg,
+                               num_microbatches)
+        rows = last["targets"].shape[0] // len(logits)
+        total = None
+        for m, lg in enumerate(logits):
+            nll = vocab_parallel_nll(
+                lg, last["targets"][m * rows:(m + 1) * rows])
+            home = nll.device
+            w = last["weights"][m * rows:(m + 1) * rows].to(home)
+            part = (nll * w).sum() / denom.to(home)
+            total = part if total is None else total + part
+        yield total
 
 
-def _mesh_forward(params, tokens, cfg: TransformerConfig, mesh, rules, dev):
+def _mesh_forward(params, tokens, cfg: TransformerConfig, mesh, rules, dev,
+                  num_microbatches=None):
     trees, lay = _sharded(params, mesh, rules)
     per_pos = shard_batch(tokens, mesh, lay.rules)
     out = []
     for g in range(len(lay.groups)):
-        logits = _group_logits(trees, lay, g, per_pos[lay.positions[g][0]],
-                               cfg)
-        out.append(torch.cat([lg.to(dev) for lg, _ in logits], dim=-1))
+        for logits in _group_logits(trees, lay, g,
+                                    per_pos[lay.positions[0][g][0]], cfg,
+                                    num_microbatches):
+            out.append(torch.cat([lg.to(dev) for lg, _ in logits], dim=-1))
     return torch.cat(out, dim=0)
 
 
 def forward(params, tokens, cfg: TransformerConfig, mesh=None,
             device: Union[str, torch.device] = "cuda",
-            rules: Optional[LogicalAxisRules] = None) -> torch.Tensor:
+            rules: Optional[LogicalAxisRules] = None,
+            num_microbatches: Optional[int] = None) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, V) float32 on ``device``, where
     the params must already live. ``mesh``: an sp-only mesh for
-    ``attention_impl="ring"``, or a mesh that splits dp, fsdp or tp, over
-    whose positions the params are split by ``rules`` (see the module
-    docstring); the logits are then joined on ``device``."""
+    ``attention_impl="ring"``, or a mesh that splits pp, dp, fsdp or tp,
+    over whose positions the params are split by ``rules`` (see the module
+    docstring); the logits are then joined on ``device``.
+    ``num_microbatches`` sets the pipeline's depth under a pp axis
+    (default pp) and is ignored without one, as in the JAX package."""
     dev = resolve_device(device)
     where = (params[0] if isinstance(params, (list, tuple))
              else params)["embed"].device
@@ -712,7 +792,8 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None,
                          f"{dev}")
     tokens = torch.as_tensor(tokens, device=dev).long()
     if _splits(mesh, params):
-        return _mesh_forward(params, tokens, cfg, mesh, rules, dev)
+        return _mesh_forward(params, tokens, cfg, mesh, rules, dev,
+                             num_microbatches)
     dt = cfg.dtype
     x = params["embed"].to(dt)[tokens]
     S = tokens.shape[1]
@@ -734,16 +815,18 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None,
 
 def loss_fn(params, batch: Dict[str, Any], cfg: TransformerConfig, mesh=None,
             device: Union[str, torch.device] = "cuda",
-            rules: Optional[LogicalAxisRules] = None) -> torch.Tensor:
+            rules: Optional[LogicalAxisRules] = None,
+            num_microbatches: Optional[int] = None) -> torch.Tensor:
     """Next-token cross-entropy, a 0-d f32 tensor; batch = {"tokens": (B,S)}
     or {"inputs","targets"}; ignores padding id 0 when targets provided.
-    ``mesh`` and ``rules`` as in ``forward``; under a mesh that splits dp,
-    fsdp or tp the loss is the sum of ``mesh_group_losses``, on
-    ``device``."""
+    ``mesh``, ``rules`` and ``num_microbatches`` as in ``forward``; under a
+    mesh that splits pp, dp, fsdp or tp the loss is the sum of
+    ``mesh_group_losses``, on ``device``."""
     dev = resolve_device(device)
     if _splits(mesh, params):
         total = None
-        for part in mesh_group_losses(params, batch, cfg, mesh, rules, dev):
+        for part in mesh_group_losses(params, batch, cfg, mesh, rules, dev,
+                                      num_microbatches):
             total = part.to(dev) if total is None else total + part.to(dev)
         return total
     if "targets" in batch:

@@ -11,12 +11,14 @@ partial and a sum, and an fsdp gather a ``.to()`` and a ``cat``.
 
 Serving splits one axis, ``sp`` (sequence-parallel prefill) or ``tp``
 (tensor-parallel serving): ``axis_devices`` and ``split_axis``. Training
-splits any of ``dp``, ``fsdp`` and ``tp`` at once (``models.train_step``):
-``coords``, ``batch_groups``, ``group_positions`` and ``fsdp_positions``
-give its layout. Both raise NotImplementedError for pp > 1 (ROADMAP Queue
-1 item 7) and for sp beside another split axis (item 4). It is not
-``torch.distributed.DeviceMesh``: one process per GPU comes with the NCCL
-group and the Train backend (items 8 and 9), built from the same
+splits any of ``pp``, ``dp``, ``fsdp`` and ``tp`` at once
+(``models.train_step``): ``coords``, ``stage_positions``,
+``batch_groups``, ``group_positions`` and ``fsdp_positions`` give its
+layout, each stage (the positions with one pp coordinate) a dp x fsdp x
+tp layout of its own. Serving over dp, fsdp or pp, and sp beside another
+split axis, raise NotImplementedError (ROADMAP Queue 1 item 4). It is
+not ``torch.distributed.DeviceMesh``: one process per GPU comes with the
+NCCL group and the Train backend (items 8 and 9), built from the same
 ``MeshSpec``.
 
 A grid may name one device more than once: a shard is a position in the
@@ -106,20 +108,20 @@ class Mesh:
     def axis_devices(self, axis_name: str = "sp") -> List[torch.device]:
         """The devices of ``axis_name``'s positions, in order, for serving.
         ``axis_name`` is ``sp`` or ``tp``, and every other axis must be 1:
-        the engine splits one of those two. Serving over dp/fsdp or over
-        ``sp`` x ``tp`` (ROADMAP Queue 1 item 4), or layers over pp (item
-        7), is not ported; a value-preserving layout that left those
-        devices idle would hide it, so it raises. Training takes dp, fsdp
-        and tp (``batch_groups``)."""
+        the engine splits one of those two. Serving over dp, fsdp or pp,
+        or over ``sp`` x ``tp`` (ROADMAP Queue 1 item 4), is not ported; a
+        value-preserving layout that left those devices idle would hide
+        it, so it raises. Training takes pp, dp, fsdp and tp
+        (``batch_groups``)."""
         other = {a: s for a, s in self.shape.items()
                  if a != axis_name and s > 1}
         if axis_name not in ("sp", "tp") or other:
             raise NotImplementedError(
                 f"mesh axes {other or {axis_name: self.shape[axis_name]}} "
                 f"are not ported for serving: the engine splits only the "
-                f"sp or the tp axis, one at a time (dp/fsdp serving and "
-                f"sp x tp are ROADMAP Queue 1 item 4, pp item 7; training "
-                f"splits dp, fsdp and tp)")
+                f"sp or the tp axis, one at a time (dp/fsdp/pp serving and "
+                f"sp x tp are ROADMAP Queue 1 item 4; training splits pp, "
+                f"dp, fsdp and tp)")
         return list(self.devices.reshape(-1))
 
     def split_axis(self) -> Optional[str]:
@@ -134,14 +136,9 @@ class Mesh:
 
     def train_axes(self) -> Tuple[str, ...]:
         """The axes larger than 1 of a training layout, in ``AXES`` order:
-        any of dp, fsdp and tp, or sp alone. pp > 1 (pipeline stages,
-        ROADMAP Queue 1 item 7) and sp beside another split axis (item 4)
-        raise NotImplementedError."""
+        any of pp, dp, fsdp and tp, or sp alone. sp beside another split
+        axis (ROADMAP Queue 1 item 4) raises NotImplementedError."""
         split = tuple(a for a, s in self.shape.items() if s > 1)
-        if "pp" in split:
-            raise NotImplementedError(
-                f"a pp axis of {self.shape['pp']} is not ported: pipeline "
-                f"stages are ROADMAP Queue 1 item 7")
         if "sp" in split and len(split) > 1:
             raise NotImplementedError(
                 f"mesh axes {split} are not ported: sp beside another "
@@ -157,25 +154,33 @@ class Mesh:
         at = tuple(coord.get(a, 0) for a in AXES)
         return int(np.ravel_multi_index(at, self.devices.shape))
 
+    def stage_positions(self, stage: int) -> List[int]:
+        """The flat indices of pipeline stage ``stage``'s positions (those
+        with pp == stage), in grid order: a dp x fsdp x sp x tp layout of
+        their own, which holds the stage's layers."""
+        return [i for i, c in enumerate(self.coords()) if c[0] == stage]
+
     def batch_groups(self) -> List[Tuple[int, int]]:
         """One (dp, fsdp) pair per batch group, in the order of JAX's
         ``("dp", "fsdp")`` batch axis: group g holds the g-th of
-        dp x fsdp equal slices of the batch's leading dim."""
+        dp x fsdp equal slices of the batch's leading dim. Every stage
+        has the same groups."""
         self.train_axes()
         return [(d, f) for d in range(self.shape["dp"])
                 for f in range(self.shape["fsdp"])]
 
-    def group_positions(self, dp: int, fsdp: int) -> List[int]:
-        """The flat indices of a batch group's tp positions, in tp
-        order."""
-        return [self._index(dp=dp, fsdp=fsdp, tp=t)
+    def group_positions(self, dp: int, fsdp: int,
+                        stage: int = 0) -> List[int]:
+        """The flat indices of a batch group's tp positions in pipeline
+        stage ``stage``, in tp order."""
+        return [self._index(pp=stage, dp=dp, fsdp=fsdp, tp=t)
                 for t in range(self.shape["tp"])]
 
-    def fsdp_positions(self, dp: int, tp: int) -> List[int]:
-        """The flat indices of the positions that share a (dp, tp) slice,
-        in fsdp order: between them they hold every embed-dim slice of
-        that tp slice."""
-        return [self._index(dp=dp, fsdp=f, tp=tp)
+    def fsdp_positions(self, dp: int, tp: int, stage: int = 0) -> List[int]:
+        """The flat indices of the positions of pipeline stage ``stage``
+        that share a (dp, tp) slice, in fsdp order: between them they hold
+        every embed-dim slice of that tp slice."""
+        return [self._index(pp=stage, dp=dp, fsdp=f, tp=tp)
                 for f in range(self.shape["fsdp"])]
 
 

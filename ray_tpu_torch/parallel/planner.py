@@ -15,25 +15,31 @@ Accounting model (per position):
              nu in the params' dtypes).
   activations the port's remat (``torch.utils.checkpoint`` per layer): each
              layer's input, (B_loc, S, E) in the config's dtype, for every
-             layer of the position's batch group. The reference keeps XLA's
-             ``dots_with_no_batch_dims_saveable`` residuals instead; those
-             are not what the port saves.
+             layer the position holds (L/pp of them) and every row of its
+             batch group. The reference keeps XLA's
+             ``dots_with_no_batch_dims_saveable`` residuals of all
+             mb + pp - 1 pipeline ticks instead; those are not what the
+             port saves.
   logits     the f32 logits of the position's vocabulary slice (split over
              tp) and the exponentials the cross-entropy saves beside them,
-             (B_loc, S, V/tp) f32 each.
-  workspace  one layer at a time in the backward: its recomputed
-             activations (q, k, v, o, the two normed inputs, gate, up and
-             their product, each at the position's heads and hidden
-             units) and, under fsdp, the layer's tp slice of the weights
-             gathered across the fsdp positions.
+             (B_loc, S, V/tp) f32 each, on the last stage.
+  workspace  one layer of one microbatch at a time in the backward: its
+             recomputed activations (q, k, v, o, the two normed inputs,
+             gate, up and their product, each at the position's heads and
+             hidden units) and, under fsdp, the layer's tp slice of the
+             weights gathered across the fsdp positions.
 
 Batch groups take turns (the train step runs one group's forward and
-backward at a time), so one group's activations are live at once.
+backward at a time), so one group's activations are live at once. Under
+pp the group's rows run as ``num_microbatches`` microbatches (default
+pp) through the GPipe schedule, and the group's backward starts after its
+whole forward: every microbatch's layer inputs (the stage's L/pp layers)
+and, on the last stage, every microbatch's logits are alive at once, so
+those two terms are the group's, as without pp, while the workspace is
+one microbatch's. The plan is the last stage's, which holds the most.
 
-Not ported: ``plan_7b_north_star`` chooses its mesh for a v5e's
-interconnect; it comes with the pp / multi-card slice (ROADMAP Queue 1
-item 7), which re-derives that choice for NVLink. The reference's default
-of 16 GiB is a TPU's memory: here the default is the card's.
+The reference's default of 16 GiB is a TPU's memory: here the default is
+the card's.
 """
 
 from __future__ import annotations
@@ -140,9 +146,10 @@ def plan_train_memory(cfg, spec: MeshSpec, *,
 
     Pure arithmetic over shapes: needs no device but for the default
     ``hbm_gib``, which is the current CUDA card's memory (raising without
-    one). ``spec`` must be fully resolved (no -1). pp > 1 and
-    ``num_microbatches`` (ROADMAP Queue 1 item 7), and sp beside another
-    split axis (item 4), raise NotImplementedError as the train step
+    one). ``spec`` must be fully resolved (no -1). ``num_microbatches``
+    sets the pipeline's depth under pp > 1 (default pp) and is ignored
+    without it, as the train step does. sp beside another split axis
+    (ROADMAP Queue 1 item 4) raises NotImplementedError as the train step
     does."""
     from ..models.transformer import param_logical_axes, param_shapes
 
@@ -151,10 +158,6 @@ def plan_train_memory(cfg, spec: MeshSpec, *,
     if any(s == -1 for s in sizes.values()):
         raise ValueError("resolve() the MeshSpec first (no -1 axes)")
     split = [a for a, s in sizes.items() if s > 1]
-    if "pp" in split or num_microbatches is not None:
-        raise NotImplementedError(
-            "pipeline stages and microbatches are not ported: ROADMAP "
-            "Queue 1 item 7")
     if "sp" in split and len(split) > 1:
         raise NotImplementedError(
             f"mesh axes {tuple(split)} are not ported: sp beside another "
@@ -178,13 +181,20 @@ def plan_train_memory(cfg, spec: MeshSpec, *,
     opt_b = opt_slots * params_b             # Adam: mu and nu mirror params
 
     # ---- one batch group's activations ------------------------------------
-    dp, fsdp, sp, tp = sizes["dp"], sizes["fsdp"], sizes["sp"], sizes["tp"]
+    pp, dp, fsdp = sizes["pp"], sizes["dp"], sizes["fsdp"]
+    sp, tp = sizes["sp"], sizes["tp"]
     act = torch.tensor([], dtype=cfg.dtype).element_size()
     h, m, d = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
     nh, nkv = cfg.num_heads, cfg.num_kv_heads
     B_loc = math.ceil(global_batch / (dp * fsdp))
-    tokens_loc = B_loc * math.ceil(seq / sp)
-    act_b = cfg.num_layers * tokens_loc * h * act        # each layer's input
+    S_loc = math.ceil(seq / sp)
+    tokens_loc = B_loc * S_loc
+    # Under pp the group's microbatches are all alive until its backward;
+    # the workspace is one microbatch's.
+    mb = (num_microbatches or pp) if pp > 1 else 1
+    tokens_mb = math.ceil(B_loc / mb) * S_loc
+    L_loc = math.ceil(cfg.num_layers / pp)
+    act_b = L_loc * tokens_loc * h * act                 # each layer's input
 
     V_loc = math.ceil(cfg.vocab_size / tp)
     logits_b = 2 * tokens_loc * V_loc * 4                # logits + exps, f32
@@ -198,10 +208,39 @@ def plan_train_memory(cfg, spec: MeshSpec, *,
     if fsdp > 1:
         w_elems = h * d * (2 * nh + 2 * nkv) + 3 * h * m
         gathered = math.ceil(w_elems / tp) * act
-    ws_b = tokens_loc * layer_tok * act + gathered
+    ws_b = tokens_mb * layer_tok * act + gathered
 
     return MemoryPlan(
         cfg=cfg, spec=spec, global_batch=global_batch, seq_len=seq,
         params_bytes=params_b, grads_bytes=grads_b, opt_bytes=opt_b,
         activation_bytes=act_b, logits_bytes=logits_b, workspace_bytes=ws_b,
         hbm_bytes=hbm)
+
+
+def plan_7b_north_star(n_devices: int, *,
+                       global_batch: Optional[int] = None,
+                       seq_len: int = 4096,
+                       hbm_gib: Optional[float] = None) -> MemoryPlan:
+    """The BASELINE.json north-star shape, Llama-2-7B (``PRESETS["7b"]``),
+    on ``n_devices`` H100s; ``hbm_gib`` defaults to the card's memory.
+
+    The mesh is fsdp over every card (the mesh of torchtitan's published
+    Llama-3-8B recipe, which sets no tensor parallelism). The reference
+    picks fsdp x tp=4 for a v5e, whose 16 GiB cannot hold 7B's state on few
+    chips and whose 2D interconnect makes tp > 4 cross its slow axis. On
+    80 GB cards the state (params, grads and two moments in bf16, 54 GB
+    for 7B) split over 16 or more cards leaves most of each card free, so
+    tp is not needed for memory. fsdp moves each layer's weights, a cost
+    independent of the batch that can cross the slower links between
+    8-card NVLink nodes, while tp all-reduces the activations twice a
+    layer in each direction, which only NVLink inside a node carries at
+    speed. The batch defaults to one 4096-token sequence per card (at
+    least 8).
+    """
+    from ..models.transformer import PRESETS
+    cfg = PRESETS["7b"]
+    spec = MeshSpec(fsdp=n_devices)
+    if global_batch is None:
+        global_batch = max(n_devices, 8)
+    return plan_train_memory(cfg, spec, global_batch=global_batch,
+                             seq_len=seq_len, hbm_gib=hbm_gib)

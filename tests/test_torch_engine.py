@@ -173,7 +173,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding\n"
         "import ray_tpu_torch.ops.ring_attention\n"
         "import ray_tpu_torch.models.transformer, ray_tpu_torch.ops._build\n"
-        "import ray_tpu_torch.models.train_step\n"
+        "import ray_tpu_torch.models.train_step, ray_tpu_torch.models.moe\n"
+        "import ray_tpu_torch.parallel.pipeline\n"
+        "import ray_tpu_torch.parallel.planner\n"
         "import ray_tpu_torch.llm.serving, ray_tpu_torch.llm.openai_api\n"
         "import ray_tpu_torch.llm.batch, ray_tpu_torch._private.deadlines\n"
         "import chip_smoke\n"

@@ -85,15 +85,21 @@ def test_repeated_devices_are_shard_positions():
                                   dict(pp=2), dict(fsdp=2, sp=2)])
 def test_other_axes_than_sp_raise_not_implemented(spec):
     """Serving splits sp or tp alone: these raise naming ROADMAP item 4.
-    As training layouts, pp raises naming item 7 and sp beside another
-    split axis item 4."""
+    As training layouts, sp beside another split axis raises naming item
+    4; pp is a training layout, whose stages each hold the batch groups."""
     mesh = build_mesh(MeshSpec(**spec),
                       devices=[CPU] * MeshSpec(**spec).n_devices)
     with pytest.raises(NotImplementedError, match="item 4"):
         mesh.axis_devices("sp")
-    with pytest.raises(NotImplementedError,
-                       match="item 7" if "pp" in spec else "item 4"):
-        mesh.batch_groups()
+    if "pp" in spec:
+        assert mesh.train_axes() == ("pp",)
+        assert mesh.batch_groups() == [(0, 0)]
+        assert [mesh.stage_positions(s) for s in range(2)] == [[0], [1]]
+        assert mesh.group_positions(0, 0, stage=1) == [1]
+        assert mesh.fsdp_positions(0, 0, stage=1) == [1]
+    else:
+        with pytest.raises(NotImplementedError, match="item 4"):
+            mesh.batch_groups()
 
 
 @pytest.mark.parametrize("spec,axis", [(dict(sp=4), "sp"),

@@ -20,11 +20,12 @@ from ray_tpu.parallel.sharding import LogicalAxisRules as JaxRules
 from ray_tpu_torch.models import PRESETS, make_optimizer, make_train_step
 from ray_tpu_torch.models.transformer import megatron_rules
 from ray_tpu_torch.parallel import (MemoryPlan, MeshSpec, build_mesh,
-                                    plan_train_memory)
+                                    plan_7b_north_star, plan_train_memory)
 
 SPECS = [dict(), dict(dp=2), dict(fsdp=2), dict(tp=2), dict(fsdp=2, tp=2),
          dict(dp=2, fsdp=2, tp=2), dict(fsdp=4, tp=2), dict(dp=8),
-         dict(sp=4)]
+         dict(sp=4), dict(pp=2), dict(pp=2, dp=2, tp=2),
+         dict(pp=4, fsdp=2)]
 ENGINE_OVERRIDES = (("vocab", None), ("embed", None))
 
 
@@ -68,11 +69,13 @@ def test_the_8b_state_on_one_position_is_the_unsharded_state():
 @pytest.mark.parametrize("megatron", [False, True])
 @pytest.mark.parametrize("spec", [dict(dp=2, fsdp=2, tp=2),
                                   dict(fsdp=4, tp=2), dict(dp=2, tp=4),
-                                  dict(fsdp=8)])
+                                  dict(fsdp=8), dict(pp=2, dp=2, tp=2),
+                                  dict(pp=2, fsdp=2, tp=2)])
 def test_position_bytes_equal_the_shards_bytes(spec, megatron):
     """For every position of the sharded train state, the planner's params
     and optimizer bytes are those of that position's own params, mu and nu
-    (the tensors it shares with other positions included)."""
+    (the tensors it shares with other positions included); under pp a
+    position's layer tensors hold its stage's L/pp layers."""
     cfg = PRESETS["tiny"]
     rules = megatron_rules() if megatron else None
     mesh = build_mesh(MeshSpec(**spec), devices=["cpu"] * 8)
@@ -109,13 +112,58 @@ def test_activation_part_reckons_the_ports_remat():
                                 + plan.logits_bytes + plan.workspace_bytes)
 
 
+def test_pp_part_reckons_the_pipeline_schedule():
+    """Under pp=2 x dp=2 x tp=2 with 2 microbatches a position holds its
+    stage's 16 layers' inputs for every row of its batch group and, on the
+    last stage, the group's logits (the group's backward starts after all
+    of its microbatches' forwards); the workspace is one microbatch's."""
+    cfg = PRESETS["8b-gqa"]
+    plan = plan_train_memory(cfg, MeshSpec(pp=2, dp=2, tp=2),
+                             global_batch=4, seq_len=2048,
+                             num_microbatches=2, hbm_gib=80.0)
+    group = 2 * 2048                      # two sequences per batch group
+    assert plan.activation_bytes == 16 * group * 4096 * 2
+    assert plan.logits_bytes == 2 * group * (128256 // 2) * 4
+    layer = 2 * 4096 + 2 * 16 * 128 + 2 * 4 * 128 + 16 * 128 + 3 * 7168
+    assert plan.workspace_bytes == (group // 2) * layer * 2
+    deeper = plan_train_memory(cfg, MeshSpec(pp=2, dp=2, tp=2),
+                               global_batch=4, seq_len=2048,
+                               num_microbatches=1, hbm_gib=80.0)
+    assert deeper.workspace_bytes == group * layer * 2
+    default = plan_train_memory(cfg, MeshSpec(pp=2, dp=2, tp=2),
+                                global_batch=4, seq_len=2048, hbm_gib=80.0)
+    assert default == plan
+
+
+def test_7b_north_star_plans_fit():
+    """Llama-2-7B state and activations fit 80 GB cards at n=16 and n=64
+    (the port of tests/test_parallel_advanced.py:242-256, at the H100's
+    memory), the total param bytes across the mesh within the reference's
+    bounds of param_count * 2."""
+    for n in (16, 64):
+        plan = plan_7b_north_star(n, hbm_gib=80.0)
+        assert plan.fits, plan.table()
+        assert plan.spec.n_devices == n
+        assert plan.cfg == PRESETS["7b"] and plan.seq_len == 4096
+        total_params = plan.params_bytes * plan.spec.n_devices
+        expect = plan.cfg.param_count() * 2
+        assert expect * 0.98 <= total_params <= expect * 1.30, \
+            (total_params, expect)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            plan_7b_north_star(16)
+
+
 def test_unported_layouts_and_a_missing_card_raise():
     cfg = PRESETS["tiny"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        plan_train_memory(cfg, MeshSpec(pp=2), global_batch=8, hbm_gib=1.0)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        plan_train_memory(cfg, MeshSpec(), global_batch=8, hbm_gib=1.0,
-                          num_microbatches=2)
+    # pp is a training layout now; num_microbatches without a pp axis is
+    # ignored, as the train step ignores it.
+    assert plan_train_memory(cfg, MeshSpec(pp=2), global_batch=8,
+                             hbm_gib=1.0).params_bytes < plan_train_memory(
+        cfg, MeshSpec(), global_batch=8, hbm_gib=1.0).params_bytes
+    assert plan_train_memory(cfg, MeshSpec(), global_batch=8, hbm_gib=1.0,
+                             num_microbatches=2) == plan_train_memory(
+        cfg, MeshSpec(), global_batch=8, hbm_gib=1.0)
     with pytest.raises(NotImplementedError, match="item 4"):
         plan_train_memory(cfg, MeshSpec(sp=2, tp=2), global_batch=8,
                           hbm_gib=1.0)

@@ -289,10 +289,16 @@ def test_train_step_defaults_to_cuda_and_raises_without_it():
 
 
 def test_unported_train_options_raise():
-    # A mesh with pipeline stages (pp > 1); dp, fsdp and tp meshes are
-    # ported (tests/test_torch_train_mesh.py).
+    # Every train option is ported now: a mesh with pipeline stages
+    # (tests/test_torch_train_pp.py) builds, and num_microbatches without
+    # a pp axis is ignored, as JAX's make_train_step ignores it.
     pp2 = torch_build_mesh(TorchMeshSpec(pp=2), devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="pp axis"):
-        make_train_step(CFG, mesh=pp2, device="cpu")
-    with pytest.raises(NotImplementedError, match="microbatch"):
-        make_train_step(CFG, num_microbatches=2, device="cpu")
+    tb = make_train_step(CFG, mesh=pp2, device="cpu")
+    assert tb.mesh is pp2
+    batch = {"tokens": torch.from_numpy(_tokens((2, 17), 3))}
+    metrics = []
+    for mb in (None, 2):
+        b = make_train_step(CFG, num_microbatches=mb, device="cpu")
+        _, m = b.step(b.init(torch.Generator().manual_seed(0)), batch)
+        metrics.append(m)
+    assert metrics[0] == metrics[1]

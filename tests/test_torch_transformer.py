@@ -211,20 +211,23 @@ def test_unported_options_raise(tiny):
     want = forward(tp, toks, no_remat, device="cpu")
     torch.testing.assert_close(forward(tp, toks, dataclasses.replace(
         PRESETS["tiny"], remat=True), device="cpu"), want, rtol=0, atol=0)
-    # Meshes: sp, dp and fsdp give the unsharded values (their parity with
-    # JAX is in tests/test_torch_train_mesh.py); sp beside tp and pp
-    # (pipeline stages) are not ported, and raise.
+    # Meshes: sp, dp, fsdp and pp give the unsharded values (their parity
+    # with JAX is in tests/test_torch_train_mesh.py and
+    # tests/test_torch_train_pp.py); sp beside tp is not ported, and
+    # raises.
     want = forward(tp, toks, PRESETS["tiny"], device="cpu")
     for spec in (dict(dp=2), dict(fsdp=2)):
         mesh = build_mesh(MeshSpec(**spec), devices=["cpu"] * 2)
         torch.testing.assert_close(
             forward(tp, toks, PRESETS["tiny"], mesh=mesh, device="cpu"),
             want, rtol=0, atol=0)
-    for spec, item in ((dict(tp=2, sp=2), "item 4"), (dict(pp=2), "item 7")):
-        mesh = build_mesh(MeshSpec(**spec),
-                          devices=["cpu"] * MeshSpec(**spec).n_devices)
-        with pytest.raises(NotImplementedError, match=item):
-            forward(tp, toks, PRESETS["tiny"], mesh=mesh, device="cpu")
+    tp2sp2 = build_mesh(MeshSpec(tp=2, sp=2), devices=["cpu"] * 4)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        forward(tp, toks, PRESETS["tiny"], mesh=tp2sp2, device="cpu")
+    pp2 = build_mesh(MeshSpec(pp=2), devices=["cpu"] * 2)
+    torch.testing.assert_close(
+        forward(tp, toks, PRESETS["tiny"], mesh=pp2, device="cpu"),
+        want, rtol=0, atol=0)
     sp2 = build_mesh(MeshSpec(sp=2), devices=["cpu"] * 2)
     torch.testing.assert_close(
         forward(tp, toks, PRESETS["tiny"], mesh=sp2, device="cpu"),
