@@ -143,7 +143,34 @@ Phases, each printing one JSON line on stdout:
    1900-token prefill and the 4-slot decode step ms beside the unsharded
    ones, one profiled prefill and decode step per n (device time by
    class, the all-reduce's apart, and the idle share) and peak memory.
-11. train: the same model at full width and depth, random weights, four
+11. serve_mesh: the same params behind LLMEngine (TP_ENGINE's shape) on
+   the serving meshes beside sp alone and tp alone, each naming the card
+   n times (on distinct devices too where torch.cuda.device_count() >= n;
+   the phase prints which ran): sp=2 x tp=2 with ring and with Ulysses
+   (each tp position's ring or all-to-all over its two sp positions at
+   Hq 16 / Hkv 4), pp=2 and pp=2 x tp=2 (each stage its 16 layers and a
+   pool of them, the hidden state handed on by .to()), dp=2 and fsdp=2
+   (weights and pool once per distinct device, every step on each). The
+   serve phase's four prompts in one wave: each last-token prefill
+   logits against forward() with plain attention (the serve gate, the
+   first token tie-aware as in serve_sp) and 16 greedy tokens equal to an
+   unsharded engine's, or parting only at a tie: where the two tokens'
+   logits differ, as the unsharded engine scores them, by no more than
+   the two engines' logits differ at that step; kernel 1 launches per
+   full prefill, 0 under sp, 32 x tp under pp, 32 per replica under dp
+   and fsdp, none elsewhere; each replica's weights (slices plus the
+   replicated tensors) the params' bytes, the replicated ones at the
+   params' data_ptr on their card, and its pools the unsharded pool's
+   (the sp positions holding nothing of their own on one card). On the
+   sp x tp and pp engines a hit on the 1900-token prompt's 16 leading
+   pages and P/D of a fresh 1000-token prompt both ways with the
+   unsharded engine (the blob within 5e-2); on dp and fsdp each replica's
+   prefill logits bit for bit equal to the first's. Then an
+   EngineReplica on pp=2 whose tokens equal the pp=2 engine's closed
+   loop. Fails if a run leaves another card current. Prints each run's
+   1900-token prefill (host ms and one profiled prefill) and decode step
+   ms beside the unsharded prefill, and peak memory.
+12. train: the same model at full width and depth, random weights, four
    steps of make_train_step on one fixed 2048-token batch with per-layer
    checkpointing; checks finite metrics, a falling loss, each kernel's
    launches per step, step 1's loss and grad norm against a pass with
@@ -151,7 +178,7 @@ Phases, each printing one JSON line on stdout:
    gradient (wq, wk, wv, wo of every layer) from a flash pass against the
    plain pass's, beside a control: the plain pass again on the same model
    with its MLP hidden units relabelled, which changes only the rounding.
-12. train_mesh: the same model at full width and depth trained on
+13. train_mesh: the same model at full width and depth trained on
    build_mesh(MeshSpec(dp=2, fsdp=2, tp=2), devices=[cuda:0] * 8), the
    reference's own test mesh: four batch groups of one 2048-token sequence
    (one fixed batch of 4 from np.random.default_rng(5)), each tp position
@@ -177,7 +204,7 @@ Phases, each printing one JSON line on stdout:
    planner's figure. Where torch.cuda.device_count() >= 2 the same mesh
    also runs over the visible cards (the grid in order, each card named
    8/n times), and the phase prints which ran.
-13. train_pp: the same model at full width and depth trained on
+14. train_pp: the same model at full width and depth trained on
    build_mesh(MeshSpec(pp=2, dp=2, tp=2), devices=[cuda:0] * 8), the
    reference's own pp training mesh, with two microbatches per batch
    group: train_mesh's batch and seeded params (drawn again after
@@ -193,7 +220,21 @@ Phases, each printing one JSON line on stdout:
    range pp:send, and the train and train_mesh phases' step ms beside
    its own. Where torch.cuda.device_count() >= 2 the same mesh also runs
    over the visible cards, the stage boundary between cards.
-14. moe: one MoE layer at Mixtral-8x7B's published widths (d_model 4096,
+15. train_sp: the same model trained on build_mesh(MeshSpec(dp=2, sp=2,
+   tp=2), devices=[cuda:0] * 8) with attention_impl="ring": each batch
+   group's sequence split over its two sp positions, each (group, tp
+   position) running the ring over them at Hq 16 / Hkv 4; train_mesh's
+   batch and seeded params, held against train_mesh's unsharded pass as
+   train_pp is (its samples in pinned host memory). The same checks as
+   train_mesh for three steps, with no kernel launched by the ring's
+   steps; then one value_and_grad with attention_impl="flash" on the same
+   mesh (each tp position's sequence gathered on its first sp position
+   around kernel 1): 256 / 128 / 128 launches of kernels 1 / 2 / 3, its
+   loss and sampled gradients against the unsharded pass. Prints the
+   same numbers as train_mesh and the peak beside the planner's figure.
+   Where torch.cuda.device_count() >= 2 the same mesh also runs over the
+   visible cards.
+16. moe: one MoE layer at Mixtral-8x7B's published widths (d_model 4096,
    d_ff 14336, 8 experts, top 2; capacity_factor 1.25, MoEConfig's
    default), bf16 on x of (4, 2048, 4096) from a seed, f32 params as
    JAX's init makes them (5.64 GB of experts): the forward and the
@@ -238,6 +279,7 @@ from ray_tpu_torch.exceptions import (DeadlineExceededError, KVGatherError,
                                       OverloadedError, StreamBrokenError)
 from ray_tpu_torch.llm import (EngineReplica, LLMEngine, SamplingParams,
                                run_open_loop)
+from ray_tpu_torch.llm import engine as llm_engine
 from ray_tpu_torch.models import (PRESETS, MoEConfig, forward,
                                   init_moe_params, init_params,
                                   make_optimizer, make_train_step,
@@ -377,6 +419,22 @@ TP_PD_LEN = 1000
 TP_REPLICA_LENS = (37, 300)
 TP_DEMOTE_BYTES = 8 << 30
 
+# serve_mesh: the serving meshes beside sp alone and tp alone, on the
+# serve phase's params and TP_ENGINE's shape: sp=2 x tp=2 with ring and
+# with Ulysses (Hkv 8 / tp 2 = 4 kv heads a position, split over sp 2),
+# pp=2 and pp=2 x tp=2, dp=2 and fsdp=2. The serve phase's four prompts in
+# one wave; on the sp x tp and pp engines also a hit on the 1900-token
+# prompt's 16 leading pages with a 300-token suffix (TP_HIT_*) and P/D of
+# a fresh 1000-token prompt both ways with the unsharded engine (prompts
+# from np.random.default_rng(6)); on pp=2 an EngineReplica held to the pp
+# engine's closed loop on two fresh prompts.
+MESH_RUNS = (("sp2tp2-ring", dict(sp=2, tp=2), "ring"),
+             ("sp2tp2-ulysses", dict(sp=2, tp=2), "ulysses"),
+             ("pp2", dict(pp=2), "ring"),
+             ("pp2tp2", dict(pp=2, tp=2), "ring"),
+             ("dp2", dict(dp=2), "ring"), ("fsdp2", dict(fsdp=2), "ring"))
+MESH_REPLICA_LENS = (37, 300)
+
 # Backward, per gradient. bf16, max |diff| / max |ref|: the kernels round P
 # and dS to bf16 as the operands of their products and emit bf16, where
 # the plain version stays in f32 until its one final cast. f32, max |diff|:
@@ -444,6 +502,20 @@ TRAIN_MESH_RANGES = {"all_reduce": "tp:all_reduce",
 TRAIN_PP = dict(pp=2, dp=2, tp=2)
 TRAIN_PP_MICROBATCHES = 2
 TRAIN_PP_RANGES = dict(TRAIN_MESH_RANGES, stage_send="pp:send")
+# train_sp: the reference's own sp training mesh beside dp and tp
+# (tests/test_ops.py:50-100 runs dp=2 x sp=4; here tp=2 takes two of its
+# positions so that each tp position holds Hq 16 / Hkv 4, as in
+# train_mesh), train_mesh's batch and seeded params, ring attention over
+# each (batch group, tp position)'s two sp positions, three steps; then
+# one value_and_grad with the flash kernels on the same mesh (each
+# position's sequence gathered on its first sp position around kernel 1,
+# and kernels 2-3 in its backward). Step 1 is held to train_mesh's
+# unsharded flash pass with the train phase's limits: the ring differs
+# from the flash kernel as the flash kernel differs from plain attention
+# (bf16 probabilities into an f32 sum, in another order), the control the
+# train phase measured those limits on (PERF.md).
+TRAIN_SP = dict(dp=2, sp=2, tp=2)
+TRAIN_SP_STEPS = 3
 # moe: one MoE layer at Mixtral-8x7B's published widths
 # (mistralai/Mixtral-8x7B-v0.1 config.json: hidden_size 4096,
 # intermediate_size 14336, num_local_experts 8, num_experts_per_tok 2),
@@ -2207,34 +2279,42 @@ def demoted_bytes_limit(limit: int):
             os.environ[name] = old
 
 
-def tp_memory(eng, params, flat) -> dict:
-    """Where a tp engine's weights are and what they take: every position's
-    tensors on the card; the positions' slices plus the replicated tensors
-    (once per distinct device) against the params' bytes, on one card no
-    more; each replicated tensor on the params' device the params' own
-    (same data_ptr); the positions' pools against the unsharded pool."""
+def tp_memory(shards, positions, mesh, pools, params, flat) -> dict:
+    """Where a split engine's weights are and what they take: every
+    position's tensors (``shards``, the mesh positions ``positions``) on
+    the card; on each device, the distinct tensors' bytes equal to the
+    distinct slices its positions' specs (the Megatron rules) give, so no
+    slice is held twice on a device (on one card: the params' bytes); each
+    replicated tensor on the params' device the params' own (same
+    data_ptr); the positions' pools (``pools``, k and v) against the
+    unsharded pool."""
     whole = dict(_named_leaves(params))
-    sliced, replicated, on_card, own = 0, {}, True, True
-    for shard in eng._shards:
+    specs = _dict_leaves(tree_specs(transformer.param_logical_axes(None),
+                                    mesh, transformer.megatron_rules()))
+    coords = mesh.coords()
+    held, want, on_card, own = {}, {}, True, True
+    for shard, i in zip(shards, positions):
         for name, t in _named_leaves(shard):
             on_card &= t.is_cuda
-            if t.shape == whole[name].shape:
-                replicated[(name, t.device)] = t
-                if t.device == whole[name].device:
-                    own &= t.data_ptr() == whole[name].data_ptr()
-            else:
-                sliced += t.nbytes
+            held.setdefault(t.device, {})[id(t)] = t.nbytes
+            sl = shard_slices(specs[name], whole[name].shape, mesh, coords[i])
+            want.setdefault(t.device, {})[
+                (name, tuple((x.start, x.stop) for x in sl))] = (
+                math.prod(x.stop - x.start for x in sl)
+                * whole[name].element_size())
+            if t.shape == whole[name].shape \
+                    and t.device == whole[name].device:
+                own &= t.data_ptr() == whole[name].data_ptr()
+    held = {str(d): sum(v.values()) for d, v in held.items()}
+    want = {str(d): sum(v.values()) for d, v in want.items()}
     total = sum(t.nbytes for t in whole.values())
-    rep_once = sum(whole[name].nbytes for name in {n for n, _ in replicated})
-    devices = {d for _, d in replicated}
-    held = sliced + sum(t.nbytes for t in replicated.values())
-    pools = sum(t.nbytes for t in eng._pk + eng._pv)
+    pools = sum(t.nbytes for t in pools)
     flat_pool = sum(t.nbytes for t in flat._pk + flat._pv)
-    ok = (on_card and own and held == total + (len(devices) - 1) * rep_once
-          and pools == flat_pool)
+    ok = on_card and own and held == want and pools == flat_pool
     return dict(ok=ok, on_card=on_card, replicated_not_copied=own,
-                params_gb=total / 1e9, slices_gb=sliced / 1e9,
-                replicated_gb=(held - sliced) / 1e9, held_gb=held / 1e9,
+                params_gb=total / 1e9,
+                held_gb={d: b / 1e9 for d, b in held.items()},
+                expected_gb={d: b / 1e9 for d, b in want.items()},
                 pools_gb=pools / 1e9, unsharded_pool_gb=flat_pool / 1e9)
 
 
@@ -2270,7 +2350,8 @@ def serve_tp_run(cfg, params, devices, prompts, hit_prompt, pd_fresh, refs,
         sections_s[section] = now - t_lap[0]
         t_lap[0] = now
     lap("build")
-    memory = tp_memory(eng, params, flat)
+    memory = tp_memory(eng._shards, range(n), eng.mesh, eng._pk + eng._pv,
+                       params, flat)
     if eng.tp_degree != n or not memory["ok"]:
         fail("memory", memory)
     waves = keep_sampled_logits(eng)
@@ -2544,6 +2625,296 @@ def serve_tp_phase(card: str, failures: list, params) -> dict:
     return res
 
 
+def mesh_memory(eng, params, flat) -> dict:
+    """``tp_memory`` for each replica of a mesh engine (one, but under dp
+    or fsdp over distinct cards), each held to the params' bytes and its
+    pools to the unsharded pool; under sp x tp on one card also the sp
+    positions' tensors, which must be the first sp position's (no second
+    copy)."""
+    mesh = eng.mesh
+    if len(eng._reps) > 1:
+        # One replica per distinct device: the first position on each.
+        first = {}
+        for i, d in enumerate(mesh.devices.flat):
+            first.setdefault(d, i)
+        positions = [[i] for i in first.values()]
+    else:
+        positions = [[i for i, c in enumerate(mesh.coords()) if c[3] == 0]]
+    per = []
+    for r, (rep, pos) in enumerate(zip(eng._reps, positions)):
+        pk, pv = eng._rep_pools(r)
+        per.append(tp_memory(rep, pos, mesh, pk + pv, params, flat))
+    res = dict(ok=all(m["ok"] for m in per), replicas=len(per),
+               per_replica=per)
+    if eng._sp_params is not None and isinstance(eng._sp_params, list):
+        devices = {t.device for tree in eng._sp_params
+                   for _, t in _named_leaves(tree)}
+        res["sp_positions_copy_nothing"] = (
+            len(devices) > 1
+            or _unique_bytes(eng._sp_params) == _unique_bytes(eng._shards))
+        res["ok"] &= res["sp_positions_copy_nothing"]
+    return res
+
+
+def mesh_tokens(eng, flat, prompt, got, want) -> dict:
+    """A mesh engine's greedy tokens against the unsharded engine's:
+    equal, or parting at a step where the two are tied: where the two
+    tokens' logits, as the unsharded engine scores them, differ by no
+    more than the two engines' logits differ anywhere at that step (each
+    engine's prefill of the prompt and the agreed tokens), so that two
+    bf16 orderings of one model may pick either (the tie the first-token
+    gate of sp_check allows)."""
+    if got == want:
+        return dict(equal=True, ok=True)
+    i = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    if i >= min(len(got), len(want)):
+        return dict(equal=False, ok=False, step=i)
+    ctx = prompt + want[:i]
+    with uncounted(), torch.no_grad():
+        mine = eng._run_prefill(ctx)[0].float()
+        theirs = flat._run_prefill(ctx)[0].float()
+    spread = (mine - theirs.to(mine.device)).abs().max().item()
+    gap = (theirs[want[i]] - theirs[got[i]]).item()
+    return dict(equal=False, ok=abs(gap) <= spread, step=i, got=got[i],
+                want=want[i], unsharded_gap=gap, engines_spread=spread)
+
+
+def serve_mesh_run(cfg, params, name, spec, strategy, devices, prompts,
+                   hit_prompt, pd_prompt, refs, flat, flat_outs,
+                   closed_prompts, failures) -> tuple:
+    """One engine on ``build_mesh(MeshSpec(**spec), devices=devices)``: the
+    wave; on sp x tp and pp the hit and P/D both ways; on dp and fsdp the
+    replicas' prefill logits bit for bit; the closed loop the replica is
+    held to; the checks and times of the module docstring."""
+    t_run = time.perf_counter()
+    ndev = len(set(devices))
+    what = f"{name} on {sorted(set(map(str, devices)))}"
+    L = cfg.num_layers
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+
+    def fail(section, detail):
+        failures.append(f"serve_mesh {what} {section}: {detail}")
+
+    def tokens_ok(out, count=MAX_TOKENS):
+        return len(out) == count and all(0 <= t < cfg.vocab_size
+                                         for t in out)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    current = torch.cuda.current_device()
+    eng = LLMEngine(cfg, params, device="cuda", sp_strategy=strategy,
+                    mesh=build_mesh(MeshSpec(**spec), devices=devices),
+                    **TP_ENGINE)
+    memory = mesh_memory(eng, params, flat)
+    replicated = "dp" in spec or "fsdp" in spec
+    if not memory["ok"] or (replicated and len(eng._reps) != ndev):
+        fail("memory", memory)
+    # Kernel 1 per full prefill: none under sp (ring or Ulysses, plain as
+    # in the JAX package); every layer once per tp position (each stage
+    # its own layers under pp); every layer once per replica under dp or
+    # fsdp.
+    per_prefill = (0 if eng.sp_degree > 1 else
+                   L * eng.tp_degree * len(eng._reps))
+    waves = keep_sampled_logits(eng)
+    launches = {}
+
+    def counted(section, full_prefills):
+        launches[section] = dict(got=flash_attention_fwd.launches,
+                                 want=full_prefills * per_prefill)
+        flash_attention_fwd.launches = 0
+        if launches[section]["got"] != launches[section]["want"]:
+            fail("kernel 1 launches", launches)
+    torch.cuda.synchronize()
+    flash_attention_fwd.launches = 0
+
+    ids = [eng.add_request(p, sp) for p in prompts]
+    outs, _, step_ms = run_timed(eng)
+    counted("wave", len(prompts))
+    checks, tokens = [], []
+    if [len(w) for w in waves] != [len(prompts)]:
+        fail("admission waves", [len(w) for w in waves])
+    else:
+        for rid, p, logits, ref, want in zip(ids, prompts, waves[0], refs,
+                                             flat_outs):
+            out = outs.get(rid, [])
+            checks.append(dict(sp_check(logits, out[0] if out else -1,
+                                        *ref, what, failures,
+                                        phase="serve_mesh",
+                                        base="unsharded"),
+                               prompt_len=len(p)))
+            tokens.append(dict(mesh_tokens(eng, flat, p, out, want),
+                               prompt_len=len(p)))
+            if not (tokens_ok(out) and tokens[-1]["ok"]):
+                fail("tokens", (rid, out, tokens[-1]))
+
+    hit = pd = replicas = closed = None
+    if not replicated:
+        # The prefix hit on the 1900-token prompt's 16 pages (a suffix
+        # prefill: sequence-parallel under sp, stage by stage under pp).
+        before = eng.prefix_cache_stats()
+        rid = eng.add_request(hit_prompt, SamplingParams(
+            max_tokens=TP_HIT_TOKENS))
+        req = eng._requests[rid]
+        out = run_timed(eng)[0].get(rid, [])
+        after = eng.prefix_cache_stats()
+        hit = dict(prefix_len=req.prefix_len, hits=after["hits"]
+                   - before["hits"], hit_pages=after["hit_pages"]
+                   - before["hit_pages"], out=out)
+        counted("hit", 0)
+        if (hit["hits"], hit["prefix_len"]) != (1, TP_HIT_PREFIX) \
+                or not tokens_ok(out, TP_HIT_TOKENS):
+            fail("hit", hit)
+        # P/D both ways with the unsharded engine on a fresh prompt.
+        with uncounted():
+            flat_blob, flat_first = flat.prefill_only(pd_prompt, sp)
+        blob, first = eng.prefill_only(pd_prompt, sp)
+        with uncounted():
+            to_flat = flat.decode_from(blob, first, sp)
+        to_mesh = eng.decode_from(flat_blob, flat_first, sp)
+        counted("pd", 1)
+        pd = dict(blob_rel_err=max(rel_err(blob[x].float(),
+                                           flat_blob[x].float())
+                                   for x in ("k", "v")),
+                  first=first, unsharded_first=flat_first,
+                  blob_shape=list(blob["k"].shape))
+        if not (tokens_ok(to_flat) and tokens_ok(to_mesh)
+                and to_flat[0] == first and to_mesh[0] == flat_first
+                and pd["blob_rel_err"] < LOGITS_REL_TOL
+                and blob["k"].shape == flat_blob["k"].shape):
+            fail("P/D", dict(pd, to_unsharded=to_flat, to_mesh=to_mesh))
+        del flat_blob, blob
+    else:
+        # Each replica's prefill logits of the 1900-token prompt, on its
+        # own weights and card, against the first's: bit for bit.
+        toks = np.zeros((1, eng._bucket(len(prompts[-1]))), np.int64)
+        toks[0, :len(prompts[-1])] = prompts[-1]
+        with uncounted(), torch.no_grad():
+            got = [llm_engine._prefill_fn(
+                rep, torch.from_numpy(toks).to(
+                    llm_engine._devices(rep)[0]),
+                len(prompts[-1]), cfg)[0].cpu() for rep in eng._reps]
+        replicas = dict(count=len(got),
+                        bit_equal=all(torch.equal(g, got[0]) for g in got))
+        if not replicas["bit_equal"]:
+            fail("replicas", replicas)
+    if closed_prompts:
+        closed = [eng.generate([p], sp)[0] for p in closed_prompts]
+        counted("closed_loop", len(closed_prompts))
+
+    timings = dict(decode_step_ms=step_ms,
+                   decode_step_ms_median=float(np.median(step_ms)))
+    with uncounted(), torch.no_grad():
+        timings["prefill_1900_ms"] = host_ms(
+            lambda: eng._run_prefill(prompts[-1]), iters=1)
+        timings["profiled_prefill_1900"] = prof = profiled(
+            lambda: eng._run_prefill(prompts[-1]))
+    if ndev > 1:
+        prof["idle_share"] = "not measured (several cards)"
+    if torch.cuda.current_device() != current:
+        fail("current device", f"cuda:{torch.cuda.current_device()} after "
+             f"the run, was cuda:{current}")
+    res = dict(name=name, mesh=spec, strategy=strategy,
+               devices=[str(d) for d in devices], memory=memory,
+               launches=launches,
+               flash_launches=sum(s["got"] for s in launches.values()),
+               logits=checks, tokens=tokens,
+               hit=hit and {k: v for k, v in hit.items() if k != "out"},
+               pd=pd, replicas=replicas, timings=timings,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - t_run)
+    del eng, waves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, closed
+
+
+def serve_mesh_replica(cfg, params, prompts, closed, failures) -> dict:
+    """EngineReplica on a pp=2 mesh that names the card twice, on its own
+    event loop thread: generate's tokens against the pp=2 engine's closed
+    loop."""
+    t0 = time.perf_counter()
+    bridge = LoopThread()
+    cuda0 = torch.device("cuda", 0)
+    R = EngineReplica(cfg, params, device="cuda", mesh=build_mesh(
+        MeshSpec(pp=2), devices=[cuda0] * 2), **REPLICA)
+    torch.cuda.synchronize()
+    flash_attention_fwd.launches = 0
+    got = [bridge.call(R.generate(p))["tokens"] for p in prompts]
+    launches = flash_attention_fwd.launches
+    want_launches = len(prompts) * cfg.num_layers
+    res = dict(pp=2, tokens_equal=got == closed, flash_launches=launches,
+               expected_launches=want_launches,
+               seconds=time.perf_counter() - t0)
+    if got != closed or launches != want_launches:
+        failures.append(f"serve_mesh replica: {res}, got {got}, closed "
+                        f"loop {closed}")
+    bridge.close()
+    del R
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_mesh_phase(card: str, failures: list, params) -> dict:
+    """Serving on sp x tp, pp, pp x tp, dp and fsdp meshes on the serve
+    phase's params (see the module docstring)."""
+    cfg = PRESETS["8b-gqa"]
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)              # the serve phase's prompts
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    rng = np.random.default_rng(6)
+    hit_prompt = prompts[-1][:TP_HIT_PREFIX] + rng.integers(
+        0, cfg.vocab_size, TP_HIT_SUFFIX).tolist()
+    pd_prompt = rng.integers(0, cfg.vocab_size, TP_PD_LEN).tolist()
+    closed_prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                      for n in MESH_REPLICA_LENS]
+    # The unsharded engine: the tokens each layout is held to, the P/D
+    # partner, and the kernel 1 prefill of each prompt beside the plain
+    # reference.
+    flat = LLMEngine(cfg, params, device="cuda", **SERVE_ENGINE)
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+    with uncounted(), torch.no_grad():
+        refs = [(*plain_logits(params, cfg, p, flat._bucket(len(p))),
+                 flat._run_prefill(p)[0]) for p in prompts]
+        flat_outs = flat.generate(prompts, sp)
+        flat_prefill_ms = host_ms(lambda: flat._run_prefill(prompts[-1]),
+                                  iters=1)
+    cuda0 = torch.device("cuda", 0)
+    runs, layouts, closed = [], [], None
+    for name, spec, strategy in MESH_RUNS:
+        n = MeshSpec(**spec).n_devices
+        grids = [[cuda0] * n]
+        if torch.cuda.device_count() >= n:
+            grids.append([torch.device("cuda", i) for i in range(n)])
+        for devices in grids:
+            one_card = len(set(devices)) == 1
+            layouts.append(dict(name=name, distinct=not one_card))
+            run, loop = serve_mesh_run(
+                cfg, params, name, spec, strategy, devices, prompts,
+                hit_prompt, pd_prompt, refs, flat, flat_outs,
+                closed_prompts if name == "pp2" and one_card else None,
+                failures)
+            runs.append(run)
+            closed = closed or loop
+    del flat, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    replica = serve_mesh_replica(cfg, params, closed_prompts, closed,
+                                 failures)
+    res = dict(phase="serve_mesh", preset="8b-gqa", engine=TP_ENGINE,
+               prompt_lens=list(PROMPT_LENS),
+               hit=dict(prefix=TP_HIT_PREFIX, suffix=TP_HIT_SUFFIX),
+               device_count=torch.cuda.device_count(), ran=layouts,
+               flash_launches=(sum(r["flash_launches"] for r in runs)
+                               + replica["flash_launches"]),
+               unsharded=dict(prefill_1900_ms=flat_prefill_ms),
+               runs=runs, replica=replica, logits_rel_tol=LOGITS_REL_TOL,
+               seconds=time.perf_counter() - t_phase, card=card)
+    emit(res)
+    return res
+
+
 MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS on Hopper
 
 
@@ -2554,16 +2925,22 @@ def device_time_split(prof) -> tuple:
     copies), and the ten kernels that took the most."""
     split = {"fa_fwd": 0.0, "fa_dq": 0.0, "fa_dkv": 0.0, "matmul": 0.0,
              "other": 0.0}
-    kernels = []
-    for evt in prof.key_averages():
+    # One pass over the events, summed by name as key_averages() sums
+    # them: key_averages() took most of train_sp's time over the events of
+    # a profiled ring training step (PERF.md).
+    by_name: dict = {}
+    for evt in prof.events():
         # A record_function range also shows as a device event spanning its
         # kernels: skip it, its kernels are counted.
         if evt.device_type != torch.autograd.DeviceType.CUDA \
                 or getattr(evt, "is_user_annotation", False):
             continue
-        name = evt.key
-        ms = evt.self_device_time_total / 1e3
-        kernels.append(dict(name=name[:90], ms=ms, calls=evt.count))
+        acc = by_name.setdefault(evt.key, [0.0, 0])
+        acc[0] += evt.self_device_time_total / 1e3
+        acc[1] += 1
+    kernels = []
+    for name, (ms, calls) in by_name.items():
+        kernels.append(dict(name=name[:90], ms=ms, calls=calls))
         if "fa_dkv" in name:
             split["fa_dkv"] += ms
         elif "fa_dq" in name:
@@ -2868,13 +3245,15 @@ def gather_sample(grads, path, specs, mesh, cfg, device):
 
 def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
                    plan, spec=TRAIN_MESH, microbatches=None,
-                   ranges=TRAIN_MESH_RANGES, name="train_mesh") -> dict:
+                   ranges=TRAIN_MESH_RANGES, name="train_mesh",
+                   steps=TRAIN_STEPS) -> dict:
     """Train on ``build_mesh(MeshSpec(**spec), devices=devices)`` with
     ``microbatches`` per batch group under pp, from the seed-0 params
     (drawn again on the first device, as the unsharded pass drew them):
     the sharded value_and_grad's sampled gradients against ``ref``'s, then
-    TRAIN_STEPS steps (the last profiled, with ``ranges`` named) with
-    their launch counts, step 1 against ``ref``'s loss and grad norm."""
+    ``steps`` steps (the last profiled, with ``ranges`` named) with their
+    launch counts (none under ring attention), step 1 against ``ref``'s
+    loss and grad norm."""
     what = f"{name} on {len(set(devices))} card(s)"
 
     def fail(msg):
@@ -2930,15 +3309,17 @@ def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
     pp = mesh.shape["pp"]
     mb = (microbatches or pp) if pp > 1 else 1
     per = cfg.num_layers * mb * len(mesh.batch_groups()) * mesh.shape["tp"]
+    if cfg.attention_impl != "flash":
+        per = 0
     want = (2 * per, per, per)
     flash_attention_fwd.launches = 0
     flash_attention_dq.launches = 0
     flash_attention_dkv.launches = 0
     for i in range(torch.cuda.device_count()):
         torch.cuda.reset_peak_memory_stats(i)
-    steps = []
-    for i in range(TRAIN_STEPS):
-        last = i == TRAIN_STEPS - 1
+    n_steps, steps = steps, []
+    for i in range(n_steps):
+        last = i == n_steps - 1
         prof = (profile(activities=[ProfilerActivity.CPU,
                                     ProfilerActivity.CUDA]) if last
                 else contextlib.nullcontext())
@@ -3134,6 +3515,112 @@ def train_pp_phase(card: str, failures: list, train: dict,
                 "model_flops_utilization"]),
         loss_rel_tol=TRAIN_LOSS_REL_TOL,
         grad_norm_rel_tol=TRAIN_GNORM_REL_TOL,
+        seconds=time.perf_counter() - t_phase, card=card)
+    emit(res)
+    return res
+
+
+def train_sp_flash(cfg, devices, batch, ref, failures) -> dict:
+    """One value_and_grad with the flash kernels on the train_sp mesh over
+    ``devices``: kernels 1-3 launched per layer, batch group and tp
+    position (kernel 1 in the forward and in the recompute), the loss and
+    the sampled gradients against ``ref``'s."""
+    what = f"train_sp flash on {len(set(devices))} card(s)"
+    mesh = build_mesh(MeshSpec(**TRAIN_SP), devices=devices)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(devices[0]).manual_seed(0),
+                         devices[0])
+    shards = shard_params(params, mesh)
+    specs = tree_specs(transformer.param_logical_axes(cfg), mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    per = cfg.num_layers * len(mesh.batch_groups()) * mesh.shape["tp"]
+    want = (2 * per, per, per)
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+    before = _launch_counts()
+    loss, grads = value_and_grad(shards, batch, cfg, device="cuda",
+                                 mesh=mesh)
+    torch.cuda.synchronize()
+    launches = tuple(a - b for a, b in zip(_launch_counts(), before))
+    vg_s = time.perf_counter() - t0
+    errs = {}
+    for path in TRAIN_MESH_SAMPLE:
+        got = gather_sample(grads, path, specs, mesh, cfg, devices[0])
+        want_g = ref["grads"][path].to(devices[0])
+        errs[".".join(map(str, path))] = (
+            torch.linalg.vector_norm(got.float() - want_g.float())
+            / torch.linalg.vector_norm(want_g, dtype=torch.float32)).item()
+        del got, want_g
+    loss_rel = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+    peak = [torch.cuda.max_memory_allocated(i) / 1e9
+            for i in range(torch.cuda.device_count())]
+    del shards, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = max(errs, key=errs.get)
+    if launches != want:
+        failures.append(f"{what}: launched (fwd, dq, dkv) {launches}, "
+                        f"expected {want}")
+    if not (errs[worst] <= TRAIN_MESH_GRAD_REL_TOL
+            and loss_rel <= TRAIN_LOSS_REL_TOL):
+        failures.append(f"{what}: loss rel {loss_rel}, sampled gradient "
+                        f"{worst} {errs[worst]}")
+    return dict(cards=len(set(devices)),
+                launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+                expected_launches=dict(zip(("fwd", "dq", "dkv"), want)),
+                loss_rel_err=loss_rel, sampled_grad_rel_err=errs,
+                value_and_grad_s=vg_s, peak_memory_gb=peak)
+
+
+def train_sp_phase(card: str, failures: list, train: dict,
+                   train_mesh: dict, ref: dict) -> dict:
+    """Training on a dp x sp x tp mesh with ring attention, then one flash
+    value_and_grad on it (see the module docstring), held against
+    train_mesh's unsharded pass ``ref``, whose sampled gradients
+    train_pp left in pinned host memory."""
+    cfg = dataclasses.replace(PRESETS["8b-gqa"], remat=True,
+                              attention_impl="ring")
+    t_phase = time.perf_counter()
+    tokens = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (TRAIN_MESH_BATCH, TRAIN_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    cuda0 = torch.device("cuda", 0)
+    plan = plan_train_memory(cfg, MeshSpec(**TRAIN_SP),
+                             global_batch=TRAIN_MESH_BATCH,
+                             seq_len=TRAIN_SEQ)
+    run = functools.partial(train_mesh_run, spec=TRAIN_SP,
+                            name="train_sp", steps=TRAIN_SP_STEPS)
+    flash_cfg = dataclasses.replace(cfg, attention_impl="flash")
+    grids = [[cuda0] * 8]
+    count = torch.cuda.device_count()
+    if count >= 2:
+        # The grid in order, each card named 8/n times: the dp replicas
+        # and the sp positions of a slice fall on different cards.
+        n = max(k for k in (2, 4, 8) if k <= count)
+        grids.append([torch.device("cuda", i) for i in range(n)
+                      for _ in range(8 // n)])
+    runs, flash = [], []
+    for devices in grids:
+        one_card = len(set(devices)) == 1
+        runs.append(run(cfg, devices, batch, ref, failures, one_card, plan))
+        flash.append(train_sp_flash(flash_cfg, devices, batch, ref,
+                                    failures))
+    res = dict(
+        phase="train_sp", preset="8b-gqa", mesh=TRAIN_SP,
+        attention_impl=cfg.attention_impl, batch=TRAIN_MESH_BATCH,
+        seq_len=TRAIN_SEQ, steps=TRAIN_SP_STEPS, remat=cfg.remat,
+        device_count=count, ran=[dict(cards=r["cards"]) for r in runs],
+        runs=runs, flash=flash,
+        launches=flash[0]["launches"], plan=plan_summary(plan, runs),
+        train_mesh=dict(
+            steady_step_ms=train_mesh["runs"][0]["steady_step_ms"],
+            tokens_per_s=train_mesh["runs"][0]["tokens_per_s"]),
+        train=dict(steady_step_ms=train["steady_step_ms"]),
+        loss_rel_tol=TRAIN_LOSS_REL_TOL,
+        grad_norm_rel_tol=TRAIN_GNORM_REL_TOL,
+        sampled_grad_rel_tol=TRAIN_MESH_GRAD_REL_TOL,
         seconds=time.perf_counter() - t_phase, card=card)
     emit(res)
     return res
@@ -3346,12 +3833,14 @@ def main() -> int:
     serve_replica = serve_replica_phase(card, failures, params)
     serve_sp = serve_sp_phase(card, failures, params)
     serve_tp = serve_tp_phase(card, failures, params)
+    serve_mesh = serve_mesh_phase(card, failures, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     train = train_phase(card, failures)
     train_mesh, ref = train_mesh_phase(card, failures, train)
     train_pp = train_pp_phase(card, failures, train, train_mesh, ref)
+    train_sp = train_sp_phase(card, failures, train, train_mesh, ref)
     del ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -3382,9 +3871,11 @@ def main() -> int:
                        + serve_replica["flash_launches"]
                        + serve_sp["flash_launches"]
                        + serve_tp["flash_launches"]
+                       + serve_mesh["flash_launches"]
                        + train["launches"]["fwd"]
                        + train_mesh["launches"]["fwd"]
-                       + train_pp["launches"]["fwd"]),
+                       + train_pp["launches"]["fwd"]
+                       + train_sp["launches"]["fwd"]),
              launches_by_path=dict(
                  serve=serve["flash_launches"],
                  serve_cache=serve_cache["flash_launches"],
@@ -3392,9 +3883,11 @@ def main() -> int:
                  serve_replica=serve_replica["flash_launches"],
                  serve_sp=serve_sp["flash_launches"],
                  serve_tp=serve_tp["flash_launches"],
+                 serve_mesh=serve_mesh["flash_launches"],
                  train=train["launches"]["fwd"],
                  train_mesh=train_mesh["launches"]["fwd"],
-                 train_pp=train_pp["launches"]["fwd"]),
+                 train_pp=train_pp["launches"]["fwd"],
+                 train_sp=train_sp["launches"]["fwd"]),
              max_abs_err=max(r["max_abs_err_o"]
                              for r in engine_rows + tp_rows),
              ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
@@ -3407,10 +3900,12 @@ def main() -> int:
              delta_max_rel_err=max(r["delta_rel_err"] for r in train_rows),
              launches=(train["launches"]["dq"]
                        + train_mesh["launches"]["dq"]
-                       + train_pp["launches"]["dq"]),
+                       + train_pp["launches"]["dq"]
+                       + train_sp["launches"]["dq"]),
              launches_by_path=dict(train=train["launches"]["dq"],
                                    train_mesh=train_mesh["launches"]["dq"],
-                                   train_pp=train_pp["launches"]["dq"]),
+                                   train_pp=train_pp["launches"]["dq"],
+                                   train_sp=train_sp["launches"]["dq"]),
              max_abs_err=max(r["max_abs_err_dq"] for r in train_rows),
              ms=bat["dq_ms"], plain_ms=bat["plain_dq_ms"],
              bound_ms=bat["dq_bound_ms"], bound_by=bat["dq_bound_by"],
@@ -3421,10 +3916,12 @@ def main() -> int:
              replaces="ray_tpu/ops/flash_attention.py:154",
              launches=(train["launches"]["dkv"]
                        + train_mesh["launches"]["dkv"]
-                       + train_pp["launches"]["dkv"]),
+                       + train_pp["launches"]["dkv"]
+                       + train_sp["launches"]["dkv"]),
              launches_by_path=dict(train=train["launches"]["dkv"],
                                    train_mesh=train_mesh["launches"]["dkv"],
-                                   train_pp=train_pp["launches"]["dkv"]),
+                                   train_pp=train_pp["launches"]["dkv"],
+                                   train_sp=train_sp["launches"]["dkv"]),
              max_abs_err=max(max(r["max_abs_err_dk"], r["max_abs_err_dv"])
                              for r in train_rows),
              ms=bat["dkv_ms"], plain_ms=bat["plain_dkv_ms"],

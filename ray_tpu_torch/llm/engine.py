@@ -61,10 +61,38 @@ moves between sharded and unsharded engines. One process drives every
 position, as the JAX engine's single controller does; the engine keeps only
 the positions' params (``params`` is None).
 
-Not ported yet: serving meshes with dp, fsdp or pp larger than 1
-(training takes them, ``models.train_step``), or with both sp and tp
-larger than 1, and rules that split another dim over tp (ROADMAP Queue 1
-item 4), which raise NotImplementedError.
+The other serving meshes (``Mesh.serve_axes``):
+
+- sp x tp: the weights split over tp as above, each tp position's pool at
+  its first sp position (JAX replicates it over sp: the placement differs,
+  the values do not). Full prefills, chunks and suffixes run
+  sequence-parallel, each tp position running the ring or Ulysses over its
+  sp positions at its own heads (``sp_prefill_fn`` on ``tp_shards``'
+  per-position params, the reference's ``heads_axis="tp"``); decode,
+  install, the prefix cache, demotion, P/D and the paged path run per tp
+  position, as on a tp mesh.
+- pp, alone or beside tp: the layer stack splits over the stages (the
+  Megatron rules' ``layer -> pp``), stage s's positions holding layers
+  [s L/pp, (s+1) L/pp) and a pool for those layers. Every prefill, suffix,
+  decode step and streamed step goes stage by stage, the hidden state
+  handed on by ``.to()`` (``pipeline.stage_send``); a full prefill runs
+  the flash kernel on each stage's layers. Embedding and sampling run on
+  the first position, the final norm and lm_head on the last stage's;
+  blobs join the stages' layers in order and split them at install.
+- dp or fsdp: the Megatron rules put no param on either axis, so JAX
+  replicates the weights and the pool over every device. Here they are
+  replicated once per distinct device of the mesh (``_reps``): n distinct
+  cards hold n times the weight bytes and do n times the work, for the
+  same tokens. Every prefill, suffix and decode step runs on each replica
+  and installs into its pool; the first samples, and a later replica's
+  greedy decode tokens that differ from the first's raise RuntimeError.
+  The paged path's streamed attention runs on the first replica, its
+  tail KV written into every replica's pool. A mesh that names one device
+  n times holds one replica.
+
+Any other mesh (dp or fsdp beside another split axis, pp beside sp;
+ROADMAP Queue 1 item 13), and rules that lay out a dim otherwise than the
+Megatron rules, raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -89,10 +117,11 @@ from .._private import flight_recorder
 from ..exceptions import KVGatherError
 from ..models.transformer import (TransformerConfig, _layer_qkv,
                                   _to_tensor, apply_rope, init_params,
-                                  layer_params, on_each, rms_norm,
+                                  layer_params, rms_norm,
                                   rope_angles, tp_layer, tp_shards)
 from ..ops.flash_attention import flash_attention
 from ..parallel.mesh import MeshSpec, build_mesh
+from ..parallel.pipeline import stage_send
 from ..parallel.sharding import LogicalAxisRules
 from .sequence_parallel import (StreamAttn, _stream_block_fn,
                                 replicate_params, sp_mesh, sp_prefill_fn,
@@ -157,23 +186,49 @@ def _sqrt_head_dim(cfg: TransformerConfig) -> float:
 
 
 def _devices(shards) -> List[torch.device]:
-    """Each tp position's device: where its layer weights live."""
+    """Each position's device: where its layer weights live."""
     return [s["layers"]["attn"]["wq"].device for s in shards]
 
 
-def _kv_buffers(shards, L: int, S: int, cfg: TransformerConfig):
-    """Empty (L, S, KV_i, D) k and v per position, for its kv heads."""
-    ks = [torch.empty((L, S, p["layers"]["attn"]["wk"].shape[2],
-                       cfg.head_dim_), dtype=cfg.dtype, device=d)
+def _walk(shards, cfg: TransformerConfig):
+    """(li, lj, idx) for every layer li in order: ``shards`` is the
+    positions' list, pipeline stage by stage (each stage its tp positions
+    in order, one stage without pp), each position holding its stage's
+    L/pp layers; lj is li's index among them and idx the flat indices of
+    its stage's positions."""
+    n = shards[0]["layers"]["attn"]["wq"].shape[0]
+    tp = len(shards) * n // cfg.num_layers
+    for li in range(cfg.num_layers):
+        s = li // n
+        yield li, li % n, list(range(s * tp, (s + 1) * tp))
+
+
+def _onto(xs, devices) -> Dict[torch.device, torch.Tensor]:
+    """The activation {device: x} on each distinct device of ``devices``:
+    as it is where it already is there, else handed from the previous
+    pipeline stage's first device (``pipeline.stage_send``)."""
+    if all(d in xs for d in devices):
+        return xs
+    return stage_send(next(iter(xs.values())), devices)
+
+
+def _kv_buffers(shards, S: int, cfg: TransformerConfig):
+    """Empty (L_i, S, KV_i, D) k and v per position, for its layers and kv
+    heads."""
+    ks = [torch.empty(p["layers"]["attn"]["wk"].shape[:1]
+                      + (S, p["layers"]["attn"]["wk"].shape[2],
+                         cfg.head_dim_), dtype=cfg.dtype, device=d)
           for p, d in zip(shards, _devices(shards))]
     return ks, [torch.empty_like(k) for k in ks]
 
 
-def _logits(shards, xs, devices, idx, cfg: TransformerConfig):
-    """The final norm and lm_head at index ``idx`` of the first position's
-    activation, once, on its device: f32 logits."""
-    x = rms_norm(xs[devices[0]], shards[0]["ln_f"], cfg.rms_norm_eps)
-    return (x[idx] @ shards[0]["lm_head"].to(cfg.dtype)).float()
+def _logits(shards, xs, idx, at, home, cfg: TransformerConfig):
+    """The final norm and lm_head at index ``at`` of the last stage's first
+    position's activation (``idx`` the last stage's positions), once, on
+    its device: f32 logits, on ``home``."""
+    p = shards[idx[0]]
+    x = rms_norm(xs[_devices([p])[0]], p["ln_f"], cfg.rms_norm_eps)
+    return (x[at] @ p["lm_head"].to(cfg.dtype)).float().to(home)
 
 
 def _prefill_fn(params, tokens, length: int, cfg: TransformerConfig):
@@ -184,35 +239,41 @@ def _prefill_fn(params, tokens, length: int, cfg: TransformerConfig):
     via per-slot lengths, and the last real token's logits only attend
     backwards (causal), so padding never leaks into results.
 
-    ``params`` is the list of the tp positions' params
-    (``models.transformer.tp_shards``; one entry without tp): each position
-    runs the flash kernel over its own heads, and ks, vs are lists of
-    (L, Sb, KV_i, D), one per position on its device."""
+    ``params`` is the list of the positions' params
+    (``models.transformer.tp_shards``; one entry without a mesh): per
+    pipeline stage its tp positions (``_walk``). Each position runs the
+    flash kernel over its own heads and layers, and ks, vs are lists of
+    (L_i, Sb, KV_i, D), one per position on its device. The embedding
+    runs on the first position, the final norm and lm_head on the last
+    stage's, and the logits come back to tokens' device."""
     devices = _devices(params)
     B, S = tokens.shape
-    xs = on_each(params[0]["embed"].to(cfg.dtype)[tokens], devices)
+    xs = {devices[0]: params[0]["embed"].to(cfg.dtype)[tokens]}
     ropes = {d: rope_angles(S, cfg.head_dim_, cfg.rope_theta, device=d)
-             for d in xs}
-    ks, vs = _kv_buffers(params, cfg.num_layers, S, cfg)
-    for li in range(cfg.num_layers):
-        lps = [layer_params(p, li) for p in params]
+             for d in dict.fromkeys(devices)}
+    ks, vs = _kv_buffers(params, S, cfg)
+    for li, lj, idx in _walk(params, cfg):
+        devs = [devices[i] for i in idx]
+        xs = _onto(xs, devs)
+        lps = [layer_params(params[i], lj) for i in idx]
 
         def attend(h):
             out = []
-            for i, (lp, d) in enumerate(zip(lps, devices)):
+            for i, lp, d in zip(idx, lps, devs):
                 cos, sin = ropes[d]
                 q, k, v = _layer_qkv(lp, h[d], cfg)
                 k = apply_rope(k, cos, sin)
-                ks[i][li] = k[0]          # drop the B=1 dim for the cache
-                vs[i][li] = v[0]
+                ks[i][lj] = k[0]          # drop the B=1 dim for the cache
+                vs[i][lj] = v[0]
                 # The JAX engine writes this causal GQA attention inline;
                 # it is reference_attention, so here it runs through the
                 # flash kernel.
                 out.append(flash_attention(apply_rope(q, cos, sin), k, v,
                                            causal=True))
             return out
-        xs = tp_layer(cfg, xs, lps, devices, attend)
-    return _logits(params, xs, devices, (0, length - 1), cfg), ks, vs
+        xs = tp_layer(cfg, xs, lps, devs, attend)
+    return (_logits(params, xs, idx, (0, length - 1), tokens.device, cfg),
+            ks, vs)
 
 
 def _suffix_prefill_fn(params, pool_k, pool_v, pages, tokens, prefix_len: int,
@@ -229,7 +290,7 @@ def _suffix_prefill_fn(params, pool_k, pool_v, pages, tokens, prefix_len: int,
     (L, Sb, KV, D)), the contract of _prefill_fn, so installing is shared.
     ``params`` is the positions' list (as _prefill_fn), pool_k and pool_v
     are the positions' pools, and each position attends over its own kv
-    heads.
+    heads and layers.
 
     The attention is plain PyTorch, as in the JAX engine: the flash kernel
     takes as many queries as keys."""
@@ -239,7 +300,7 @@ def _suffix_prefill_fn(params, pool_k, pool_v, pages, tokens, prefix_len: int,
     D = cfg.head_dim_
     groups = cfg.num_heads // cfg.num_kv_heads
     dev = tokens.device
-    xs = on_each(params[0]["embed"].to(cfg.dtype)[tokens], devices)
+    xs = {devices[0]: params[0]["embed"].to(cfg.dtype)[tokens]}
     # RoPE at absolute positions prefix_len + i.
     cos, sin = rope_angles(Sb, D, cfg.rope_theta, offset=prefix_len,
                            device=dev)
@@ -249,23 +310,25 @@ def _suffix_prefill_fn(params, pool_k, pool_v, pages, tokens, prefix_len: int,
     qpos = torch.arange(Sb, device=dev)[:, None]
     valid = (tpos < prefix_len) | ((tpos >= T) & (tpos - T <= qpos))
     on = {d: [t.to(d) for t in (cos, sin, ~valid[None, None], pages)]
-          for d in xs}
+          for d in dict.fromkeys(devices)}
     sqrt_d = _sqrt_head_dim(cfg)
-    ks, vs = _kv_buffers(params, cfg.num_layers, Sb, cfg)
-    for li in range(cfg.num_layers):
-        lps = [layer_params(p, li) for p in params]
+    ks, vs = _kv_buffers(params, Sb, cfg)
+    for li, lj, idx in _walk(params, cfg):
+        devs = [devices[i] for i in idx]
+        xs = _onto(xs, devs)
+        lps = [layer_params(params[i], lj) for i in idx]
 
         def attend(h):
             out = []
-            for i, (lp, d) in enumerate(zip(lps, devices)):
+            for i, lp, d in zip(idx, lps, devs):
                 cos, sin, masked, pg = on[d]
                 q, k, v = _layer_qkv(lp, h[d], cfg)
                 q = apply_rope(q, cos, sin)
                 k = apply_rope(k, cos, sin)
                 KV = k.shape[2]
-                kk = torch.cat([pool_k[i][li][pg].reshape(1, T, KV, D), k],
+                kk = torch.cat([pool_k[i][lj][pg].reshape(1, T, KV, D), k],
                                dim=1)
-                vv = torch.cat([pool_v[i][li][pg].reshape(1, T, KV, D), v],
+                vv = torch.cat([pool_v[i][lj][pg].reshape(1, T, KV, D), v],
                                dim=1)
                 kr = kk.repeat_interleave(groups, dim=2)    # (1, T+Sb, H, D)
                 vr = vv.repeat_interleave(groups, dim=2)
@@ -273,11 +336,11 @@ def _suffix_prefill_fn(params, pool_k, pool_v, pages, tokens, prefix_len: int,
                 scores = scores.masked_fill(masked, -1e30)
                 p = torch.softmax(scores.float(), -1).to(q.dtype)
                 out.append(torch.einsum("bhst,bthd->bshd", p, vr))
-                ks[i][li] = k[0]
-                vs[i][li] = v[0]
+                ks[i][lj] = k[0]
+                vs[i][lj] = v[0]
             return out
-        xs = tp_layer(cfg, xs, lps, devices, attend)
-    return _logits(params, xs, devices, (0, length - 1), cfg), ks, vs
+        xs = tp_layer(cfg, xs, lps, devs, attend)
+    return _logits(params, xs, idx, (0, length - 1), dev, cfg), ks, vs
 
 
 def _install_fn(pool_k, pool_v, ks, vs, pages, page: int) -> None:
@@ -302,8 +365,8 @@ def _decode_fn(params, pool_k, pool_v, tables, last_tokens, lengths, active,
     """One decode step for ALL slots against the paged pool, which it
     updates in place.
 
-    ``params`` is the tp positions' list (as _prefill_fn); pool_k/pool_v
-    the positions' pools, (L, N, page, KV_i, D) each, written and read by
+    ``params`` is the positions' list (as _prefill_fn); pool_k/pool_v
+    the positions' pools, (L_i, N, page, KV_i, D) each, written and read by
     its own position; tables (B, P) physical page ids (page 0 = scratch
     for inactive slots); lengths (B,) = tokens already in cache (the new
     token is written at index lengths); active (B,) bool; temps (B,) f32
@@ -316,8 +379,7 @@ def _decode_fn(params, pool_k, pool_v, tables, last_tokens, lengths, active,
     D = cfg.head_dim_
     groups = cfg.num_heads // cfg.num_kv_heads
     dev = last_tokens.device
-    xs = on_each(params[0]["embed"].to(cfg.dtype)[last_tokens][:, None],
-                  devices)                                       # (B,1,E)
+    xs = {devices[0]: params[0]["embed"].to(cfg.dtype)[last_tokens][:, None]}
     # Per-slot RoPE at each slot's own position.
     freqs = 1.0 / (cfg.rope_theta
                    ** (torch.arange(0, D, 2, dtype=torch.float32, device=dev)
@@ -331,7 +393,7 @@ def _decode_fn(params, pool_k, pool_v, tables, last_tokens, lengths, active,
     valid = torch.arange(T, device=dev)[None] <= lengths[:, None]  # (B, T)
     on = {d: [t.to(d) for t in (cos, sin, write_page, write_off, tables,
                                 ~valid[:, None])]
-          for d in xs}
+          for d in dict.fromkeys(devices)}
     sqrt_d = _sqrt_head_dim(cfg)
 
     def rope1(t, cos, sin):             # t: (B, 1, H, D)
@@ -340,16 +402,18 @@ def _decode_fn(params, pool_k, pool_v, tables, last_tokens, lengths, active,
         return torch.cat([t1 * c - t2 * s, t2 * c + t1 * s],
                          dim=-1).to(t.dtype)
 
-    for li in range(cfg.num_layers):
-        lps = [layer_params(p, li) for p in params]
+    for li, lj, idx in _walk(params, cfg):
+        devs = [devices[i] for i in idx]
+        xs = _onto(xs, devs)
+        lps = [layer_params(params[i], lj) for i in idx]
 
         def attend(h):
             out = []
-            for i, (lp, d) in enumerate(zip(lps, devices)):
+            for i, lp, d in zip(idx, lps, devs):
                 cos, sin, wpage, woff, tb, masked = on[d]
                 q, k, v = _layer_qkv(lp, h[d], cfg)
                 q, k = rope1(q, cos, sin), rope1(k, cos, sin)
-                pk, pv = pool_k[i][li], pool_v[i][li]
+                pk, pv = pool_k[i][lj], pool_v[i][lj]
                 pk[wpage, woff] = k[:, 0]
                 pv[wpage, woff] = v[:, 0]
                 # Gather each slot's pages: (B, P, page, KV, D) -> (B, T, ...)
@@ -360,8 +424,8 @@ def _decode_fn(params, pool_k, pool_v, tables, last_tokens, lengths, active,
                 p = torch.softmax(scores.float(), -1).to(q.dtype)
                 out.append(torch.einsum("bht,bthd->bhd", p, vr)[:, None])
             return out
-        xs = tp_layer(cfg, xs, lps, devices, attend)
-    logits = _logits(params, xs, devices, (slice(None), 0), cfg)
+        xs = tp_layer(cfg, xs, lps, devs, attend)
+    logits = _logits(params, xs, idx, (slice(None), 0), dev, cfg)
     nxt = logits.argmax(-1)
     if temps is not None:
         probs = torch.softmax(logits / temps.clamp_min(1e-6)[:, None], -1)
@@ -699,8 +763,10 @@ def _publish_when_made(publish, part: dict,
 
 class LLMEngine:
     """Continuous-batching engine with a paged KV pool on one device,
-    sequence-parallel prefill over an ``sp`` mesh, and tensor-parallel
-    weights and pool over a ``tp`` mesh."""
+    sequence-parallel prefill over an ``sp`` mesh, tensor-parallel weights
+    and pool over a ``tp`` mesh (beside sp or not), pipeline stages over a
+    ``pp`` mesh (beside tp or not), and replicas over a dp or fsdp
+    mesh."""
 
     def __init__(self, cfg: TransformerConfig, params=None, *,
                  max_batch: int = 4, max_len: int = 256, seed: int = 0,
@@ -740,15 +806,18 @@ class LLMEngine:
         the CPU sp_degree times. ``mesh=build_mesh(MeshSpec(sp=n),
         devices=[cuda:0] * n)`` runs n shards in turn on one card.
 
-        A mesh whose only axis larger than 1 is ``tp`` splits the weights
-        (under ``rules``, default ``megatron_rules()``, the JAX engine's)
-        and the pool over its positions. Only tables that split the same
-        dims over tp as ``megatron_rules()`` (heads, kv heads, the MLP's
-        hidden units) are accepted; any other raises NotImplementedError
-        (``tp_shards``). ``mesh=build_mesh(MeshSpec(tp=n),
-        devices=[cuda:0] * n)`` runs n positions in turn on one card. The
-        engine's device must be of the first position's type, and becomes
-        that device. Any other mesh raises NotImplementedError."""
+        A mesh with a ``tp`` or ``pp`` axis splits the weights (under
+        ``rules``, default ``megatron_rules()``, the JAX engine's) and the
+        pool over its positions: tp over heads, kv heads and the MLP's
+        hidden units, pp over the layer stack; beside tp an sp axis splits
+        the prefills as well. A dp or fsdp mesh replicates them once per
+        distinct device. Only tables that lay out the dims as
+        ``megatron_rules()`` does are accepted; any other raises
+        NotImplementedError (``tp_shards``).
+        ``mesh=build_mesh(MeshSpec(tp=n), devices=[cuda:0] * n)`` runs n
+        positions in turn on one card. The engine's device must be of the
+        first position's type, and becomes that device. A mesh that
+        ``Mesh.serve_axes`` refuses raises NotImplementedError."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_batch = max_batch
@@ -780,7 +849,8 @@ class LLMEngine:
                     f"max_len={max_len} must be divisible by "
                     f"sp_degree={self.sp_degree} (prefill buckets clamp "
                     f"to max_len)")
-            validate_sp(cfg, self.sp_degree, sp_strategy)
+            validate_sp(cfg, self.sp_degree, sp_strategy,
+                        mesh.shape["tp"] if mesh is not None else 1)
             if mesh is None:
                 mesh = (build_mesh(MeshSpec(sp=self.sp_degree),
                                    devices=[self.device] * self.sp_degree)
@@ -792,20 +862,27 @@ class LLMEngine:
                     f"axis is {mesh.shape.get('sp', 1)} — build the mesh "
                     f"with MeshSpec(sp={self.sp_degree})")
         self.mesh = mesh
-        # Tensor parallelism: the weights and the pool split over the mesh's
-        # tp positions (Megatron: heads, kv heads and MLP hidden units);
-        # embedding, final norm, lm_head and sampling on the first one.
-        self.tp_degree = 1
-        if mesh is not None and mesh.split_axis() == "tp":
+        # The serving layout (Mesh.serve_axes): tp splits the weights and
+        # the pool over kv heads, pp over the layer stack (Megatron rules,
+        # the JAX engine's), and dp or fsdp replicate both once per
+        # distinct device. Embedding and sampling run on the first
+        # position, the final norm and lm_head on the last stage's.
+        self.tp_degree = self.pp_degree = 1
+        axes = mesh.serve_axes() if mesh is not None else ()
+        if mesh is not None:
             self.tp_degree = mesh.shape["tp"]
+            self.pp_degree = mesh.shape["pp"]
             # The JAX engine's check, word for word.
             if cfg.num_kv_heads % self.tp_degree:
                 raise ValueError(f"num_kv_heads={cfg.num_kv_heads} not "
                                  f"divisible by tp={self.tp_degree}")
-            home = mesh.axis_devices("tp")[0]
+            if cfg.num_layers % self.pp_degree:
+                raise ValueError(f"{cfg.num_layers} layers not divisible "
+                                 f"by pp={self.pp_degree}")
+            home = mesh.devices.flat[0]
             if home.type != self.device.type:
-                raise ValueError(f"the mesh's first tp position is on "
-                                 f"{home}, the engine on {self.device}")
+                raise ValueError(f"the mesh's first position is on {home}, "
+                                 f"the engine on {self.device}")
             self.device = home
         if params is None:
             params = init_params(
@@ -814,29 +891,50 @@ class LLMEngine:
         elif params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
                              f"engine on {self.device}")
-        # Each tp position's params (one position: the params as given).
-        # Under tp the engine keeps only the positions' (``params`` is
-        # None): their slices and, once per distinct device, the
-        # replicated tensors.
-        if self.tp_degree > 1:
-            self._shards = tp_shards(params, mesh, rules)
-            self.params = None
-        else:
-            self._shards = [params]
-            self.params = params
-        self._tp_devices = _devices(self._shards)
-        # The weights on each distinct device of the SP mesh (the engine's
-        # own device keeps the same tensors).
-        self._sp_params = (replicate_params(params, mesh)
-                           if self.sp_degree > 1 else None)
-        # One pool per tp position, holding its kv heads; page ids, tables,
-        # the free list and refcounts are the engine's, one logical pool.
-        pool_shape = (cfg.num_layers, self.n_pages, self.page,
-                      cfg.num_kv_heads // self.tp_degree, cfg.head_dim_)
+        # Each replica's positions' params (``_walk``'s order: per stage its
+        # tp positions), one replica per distinct device under dp or fsdp
+        # (one replica otherwise). Split layouts keep only the positions'
+        # (``params`` is None): their slices and, once per distinct device,
+        # the replicated tensors. A mesh that splits nothing, or only sp,
+        # keeps the params as given; sp prefill reads ``_sp_params``.
+        self._reps = [[params]]
+        self.params = params
+        self._sp_params = None
+        if set(axes) & {"tp", "pp", "dp", "fsdp"}:
+            shards = tp_shards(params, mesh, rules)
+            if set(axes) & {"dp", "fsdp"}:
+                first = {}
+                for i, d in enumerate(mesh.devices.flat):
+                    first.setdefault(d, i)
+                self._reps = [[shards[i]] for i in first.values()]
+            else:
+                sp0 = [i for i, c in enumerate(mesh.coords()) if c[3] == 0]
+                self._reps = [[shards[i] for i in sp0]]
+                if self.sp_degree > 1:
+                    self._sp_params = shards
+                self.params = None
+        elif self.sp_degree > 1:
+            self._sp_params = replicate_params(params, mesh)
+        self._shards = self._reps[0]
+        n = self._n_pos = len(self._shards)
+        # Per position of every replica: (its layers, its kv heads, its
+        # device), for splitting a full (L, ..., KV, D) tensor.
+        L_loc = cfg.num_layers // self.pp_degree
+        kv = cfg.num_kv_heads // self.tp_degree
+        self._pos = [(slice(i // self.tp_degree * L_loc,
+                            (i // self.tp_degree + 1) * L_loc),
+                      slice(i % self.tp_degree * kv,
+                            (i % self.tp_degree + 1) * kv), d)
+                     for rep in self._reps
+                     for i, d in enumerate(_devices(rep))]
+        # One pool per position, holding its layers and kv heads; page ids,
+        # tables, the free list and refcounts are the engine's, one
+        # logical pool.
+        pool_shape = (L_loc, self.n_pages, self.page, kv, cfg.head_dim_)
         self._pk = [torch.zeros(pool_shape, dtype=cfg.dtype, device=d)
-                    for d in self._tp_devices]
+                    for _, _, d in self._pos]
         self._pv = [torch.zeros(pool_shape, dtype=cfg.dtype, device=d)
-                    for d in self._tp_devices]
+                    for _, _, d in self._pos]
         self._gen = torch.Generator(self.device).manual_seed(seed + 1)
         self._free_slots = list(range(max_batch))
         self._free_pages = list(range(1, self.n_pages))
@@ -886,26 +984,35 @@ class LLMEngine:
         self._part_seq = 0
 
     def _head_slices(self, t: torch.Tensor) -> List[torch.Tensor]:
-        """A full-heads (..., KV, D) tensor as each tp position's slice of
-        its kv heads, on the position's device."""
-        n = self.tp_degree
-        kv = t.shape[-2] // n
-        return [t[..., i * kv:(i + 1) * kv, :].to(d)
-                for i, d in enumerate(self._tp_devices)]
+        """A full (L, ..., KV, D) tensor as each position's slice of its
+        layers and kv heads, on the position's device, for every
+        replica."""
+        return [t[lsl][..., hsl, :].to(d) for lsl, hsl, d in self._pos]
 
     def _join_heads(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The positions' (..., KV_i, D) slices joined into (..., KV, D) on
-        the engine's device (one position: its tensor as it is)."""
+        """The first replica's positions' (L_i, ..., KV_i, D) slices
+        (``parts`` may hold every replica's) joined into (L, ..., KV, D) on
+        the engine's device: heads within a stage, then the stages' layers
+        (one position: its tensor as it is)."""
+        parts = list(parts[:self._n_pos])
         if len(parts) == 1:
             return parts[0]
-        return torch.cat([p.to(self.device) for p in parts], dim=-2)
+        tp = self.tp_degree
+        return torch.cat([torch.cat([p.to(self.device)
+                                     for p in parts[i:i + tp]], dim=-2)
+                          for i in range(0, len(parts), tp)], dim=0)
+
+    def _rep_pools(self, r: int):
+        """Replica r's positions' pools (k, v)."""
+        n = self._n_pos
+        return self._pk[r * n:(r + 1) * n], self._pv[r * n:(r + 1) * n]
 
     def _append_tail(self, ks, vs, page_id: int, off: int) -> None:
         """Write one token's k, v at (page_id, off), in place: per position
-        its (L, KV_i, D)."""
+        its (L_i, KV_i, D)."""
         for pk, pv, k, v in zip(self._pk, self._pv, ks, vs):
-            pk[:, page_id, off] = k
-            pv[:, page_id, off] = v
+            pk[:, page_id, off] = k.to(pk.device)
+            pv[:, page_id, off] = v.to(pv.device)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -1125,8 +1232,9 @@ class LLMEngine:
 
     def _run_prefill(self, prompt: Sequence[int]):
         """Bucketed prefill; returns (last_logits, ks, vs), ks and vs one
-        (L, Sb, KV_i, D) per tp position. With sp_degree > 1 it runs
-        sequence-parallel over the mesh."""
+        (L_i, Sb, KV_i, D) per position of every replica, each replica
+        having computed its own (the logits are the first's). With
+        sp_degree > 1 it runs sequence-parallel over the mesh."""
         S = len(prompt)
         toks = np.zeros((1, self._bucket(S)), np.int64)
         toks[0, :S] = prompt
@@ -1135,8 +1243,24 @@ class LLMEngine:
                                            self._to_device(toks), S,
                                            self.cfg, self.mesh,
                                            self.sp_strategy)
-            return logits, [ks], [vs]
-        return _prefill_fn(self._shards, self._to_device(toks), S, self.cfg)
+            return ((logits, [ks], [vs]) if isinstance(ks, torch.Tensor)
+                    else (logits, ks, vs))
+        return self._each(lambda rep, pk, pv, to: _prefill_fn(
+            rep, to(toks), S, self.cfg))
+
+    def _each(self, run):
+        """``run(rep, pool_k, pool_v, to)`` on every replica, ``to`` putting
+        a numpy array on its first device; (the first's logits, every
+        replica's ks and vs in position order)."""
+        logits, ks, vs = None, [], []
+        for r, rep in enumerate(self._reps):
+            dev = _devices(rep)[0]
+            out = run(rep, *self._rep_pools(r),
+                      lambda a, dev=dev: torch.from_numpy(a).to(dev))
+            logits = out[0] if logits is None else logits
+            ks += out[1]
+            vs += out[2]
+        return logits, ks, vs
 
     def _run_suffix(self, prompt: Sequence[int], prefix_len: int, pages_row,
                     upto: Optional[int] = None):
@@ -1148,13 +1272,19 @@ class LLMEngine:
         S = len(suf)
         toks = np.zeros((1, self._bucket(S)), np.int64)
         toks[0, :S] = suf
-        args = (self._to_device(np.asarray(pages_row, np.int64)),
-                self._to_device(toks), prefix_len, S, self.cfg, self.page)
+        row = np.asarray(pages_row, np.int64)
         if self.sp_degree > 1:
+            pk, pv = ((self._pk[0], self._pv[0]) if self.tp_degree == 1
+                      else (self._pk, self._pv))
             logits, ks, vs = sp_suffix_prefill_fn(
-                self._sp_params, self._pk[0], self._pv[0], *args, self.mesh)
-            return logits, [ks], [vs]
-        return _suffix_prefill_fn(self._shards, self._pk, self._pv, *args)
+                self._sp_params, pk, pv, self._to_device(row),
+                self._to_device(toks), prefix_len, S, self.cfg, self.page,
+                self.mesh)
+            return ((logits, [ks], [vs]) if isinstance(ks, torch.Tensor)
+                    else (logits, ks, vs))
+        return self._each(lambda rep, pk, pv, to: _suffix_prefill_fn(
+            rep, pk, pv, to(row), to(toks), prefix_len, S, self.cfg,
+            self.page))
 
     # ------------------------------------------------------ page refcounts --
     def _alloc_page(self) -> int:
@@ -1179,11 +1309,13 @@ class LLMEngine:
         into the demote store BEFORE the refs drop (after decref the pages
         rejoin the free list and any admission may overwrite them)."""
         pages = list(pages)
+        n = self._n_pos
         self._demote.put(key,
-                         self._join_heads([pk[:, pages] for pk in self._pk])
-                         .cpu(),
-                         self._join_heads([pv[:, pages] for pv in self._pv])
-                         .cpu(), len(pages))
+                         self._join_heads([pk[:, pages]
+                                           for pk in self._pk[:n]]).cpu(),
+                         self._join_heads([pv[:, pages]
+                                           for pv in self._pv[:n]]).cpu(),
+                         len(pages))
 
     def _try_promote(self, req: _Request, c: int, shared: List[int],
                      total: int) -> Tuple[int, List[int]]:
@@ -1520,11 +1652,22 @@ class LLMEngine:
             else None
         rec = flight_recorder.recorder()
         t0 = rec.begin()
-        nxt = _decode_fn(
-            self._shards, self._pk, self._pv, self._to_device(self._tables),
-            self._to_device(self._last), self._to_device(self._lengths),
-            self._to_device(active), temps, self._gen, self.cfg, self.page)
-        nxt = nxt.cpu().numpy()
+        nxt = None
+        for r, rep in enumerate(self._reps):
+            # Each replica decodes on its own weights and pool; the first
+            # samples, and the others' greedy tokens must equal its.
+            dev = _devices(rep)[0]
+            out = _decode_fn(
+                rep, *self._rep_pools(r),
+                *(torch.from_numpy(a).to(dev) for a in (
+                    self._tables, self._last, self._lengths, active)),
+                temps if r == 0 else None, self._gen, self.cfg,
+                self.page).cpu().numpy()
+            if nxt is None:
+                nxt = out
+            elif temps is None and not np.array_equal(out, nxt):
+                raise RuntimeError(f"replica {r} decoded {out.tolist()}, "
+                                   f"the first {nxt.tolist()}")
         rec.end("request", "decode", t0, batch=len(batch))
         for slot in batch:
             req = self._slots[slot]
@@ -1558,9 +1701,10 @@ class LLMEngine:
         self._requests.pop(req.req_id, None)
 
     # ------------------------------------------------ streamed external KV --
-    def _part_layer(self, part: dict, li: int):
+    def _part_layer(self, part: dict, li: int, idx: Sequence[int]):
         """Layer li's (ks, vs, valid_len) of an external part, through the
-        gather window: ks and vs hold each tp position's kv heads.
+        gather window: ks and vs hold the kv heads of each position of
+        ``idx`` (li's stage's).
 
         The whole part goes to each distinct device of the engine once per
         window residency and is sliced by layer and heads there, cached in
@@ -1573,50 +1717,57 @@ class LLMEngine:
         on = data.get("_on")
         if on is None:
             kd, vd = self._blob_tensor(data["k"]), self._blob_tensor(data["v"])
-            on = data["_on"] = {d: (kd.to(d), vd.to(d))
-                                for d in dict.fromkeys(self._tp_devices)}
-        kv = self.cfg.num_kv_heads // self.tp_degree
-        ks = [on[d][0][li, :, i * kv:(i + 1) * kv]
-              for i, d in enumerate(self._tp_devices)]
-        vs = [on[d][1][li, :, i * kv:(i + 1) * kv]
-              for i, d in enumerate(self._tp_devices)]
+            on = data["_on"] = {d: (kd.to(d), vd.to(d)) for d in
+                                dict.fromkeys(_devices(self._shards))}
+        at = [self._pos[i] for i in idx]
+        ks = [on[d][0][li, :, hsl] for _, hsl, d in at]
+        vs = [on[d][1][li, :, hsl] for _, hsl, d in at]
         return ks, vs, int(data.get("len", data["k"].shape[1]))
 
     def _stream_layers(self, tokens, pos0: int, blocks):
         """The transformer over ``tokens`` (1, Sq) at absolute positions
-        pos0 + i with streamed attention: in layer li each tp position's
-        queries merge, by online softmax, the blocks that
-        ``blocks(li, ks, vs)`` yields as (ks, vs, valid, k_pos0), ks and vs
-        one (Sk, KV_i, D) per position (``ks``, ``vs`` are the layer's own
-        keys and values, for the self block). A block is read once for
-        every position, so a part goes through the gather window once per
-        layer. Returns (the last layer's output (1, Sq, E) on the engine's
-        device, ks, vs: per position (L, Sq, KV_i, D))."""
+        pos0 + i with streamed attention, on the first replica: in layer li
+        each position of li's stage (``idx``, its layer lj of its own)
+        merges, by online softmax, the blocks that ``blocks(li, lj, idx,
+        ks, vs)`` yields as (ks, vs, valid, k_pos0), ks and vs one (Sk,
+        KV_i, D) per position (``ks``, ``vs`` are the layer's own keys and
+        values, for the self block). A block is read once for every
+        position, so a part goes through the gather window once per layer.
+        Returns (the final norm and lm_head's f32 logits at index ``at``
+        of the last layer's output, on the engine's device, as a function
+        of ``at``; ks, vs: per position (L_i, Sq, KV_i, D))."""
         sa = self._stream_attn
-        devices = self._tp_devices
-        xs = on_each(sa.embed(self._shards[0], tokens), devices)
+        shards = self._shards
+        devices = _devices(shards)
+        xs = {devices[0]: sa.embed(shards[0], tokens)}
         ks_out = [[] for _ in devices]
         vs_out = [[] for _ in devices]
-        for li in range(self.cfg.num_layers):
-            lps = [layer_params(p, li) for p in self._shards]
+        for li, lj, idx in _walk(shards, self.cfg):
+            devs = [devices[i] for i in idx]
+            xs = _onto(xs, devs)
+            lps = [layer_params(shards[i], lj) for i in idx]
 
             def attend(h):
                 qkv = [sa.rope_qkv(lp, h[d], pos0)
-                       for lp, d in zip(lps, devices)]
+                       for lp, d in zip(lps, devs)]
                 states = [sa.init(q.shape[0], k.shape[1], k.device)
                           for q, k, _ in qkv]
-                for kb, vb, valid, k0 in blocks(li, [k for _, k, _ in qkv],
+                for kb, vb, valid, k0 in blocks(li, lj, idx,
+                                                [k for _, k, _ in qkv],
                                                 [v for _, _, v in qkv]):
                     states = [_stream_block_fn(q, k, v, valid, pos0, k0, *st,
                                                scale=sa.scale)
                               for (q, _, _), k, v, st in zip(qkv, kb, vb,
                                                              states)]
-                for i, (_, k, v) in enumerate(qkv):
+                for i, (_, k, v) in zip(idx, qkv):
                     ks_out[i].append(k)
                     vs_out[i].append(v)
                 return [sa.heads(l, acc) for _, l, acc in states]
-            xs = tp_layer(self.cfg, xs, lps, devices, attend)
-        return (xs[devices[0]], [torch.stack(k) for k in ks_out],
+            xs = tp_layer(self.cfg, xs, lps, devs, attend)
+        head = shards[idx[0]]
+        x = xs[devices[idx[0]]]
+        return (lambda at: sa.logits(head, x, at).to(self.device),
+                [torch.stack(k) for k in ks_out],
                 [torch.stack(v) for v in vs_out])
 
     def _window_prefetch(self, parts) -> None:
@@ -1628,7 +1779,6 @@ class LLMEngine:
         pool-resident decode tail and the incoming token itself; the new
         token's KV is appended to the tail pages. Raises KVGatherError if a
         part cannot be gathered."""
-        sa = self._stream_attn
         S, t = req.ext_len, req.ext_written
         pos = S + t                       # absolute write/query position
         rec = flight_recorder.recorder()
@@ -1637,22 +1787,21 @@ class LLMEngine:
         t0 = rec.begin()
         self._window_prefetch(req.ext_parts)
         pages = self._to_device(np.asarray(req.pages, np.int64))
-        tail = [pages.to(d) for d in self._tp_devices]
+        tail = [pages.to(d) for d in _devices(self._shards)]
 
-        def blocks(li, ks, vs):
+        def blocks(li, lj, idx, ks, vs):
             """Per part, the tail, then the incoming token itself."""
             for part in req.ext_parts:
-                pk, pv, valid = self._part_layer(part, li)
+                pk, pv, valid = self._part_layer(part, li, idx)
                 yield pk, pv, valid, part["span"][0]
             if t > 0:
-                yield ([pk[li][p].flatten(0, 1) for pk, p in
-                        zip(self._pk, tail)],
-                       [pv[li][p].flatten(0, 1) for pv, p in
-                        zip(self._pv, tail)], t, S)
+                yield ([self._pk[i][lj][tail[i]].flatten(0, 1) for i in idx],
+                       [self._pv[i][lj][tail[i]].flatten(0, 1) for i in idx],
+                       t, S)
             yield ks, vs, 1, pos
-        x, ks_new, vs_new = self._stream_layers([[self._last[req.slot]]],
-                                                pos, blocks)
-        logits = sa.logits(self._shards[0], x, 0)
+        logits, ks_new, vs_new = self._stream_layers(
+            [[self._last[req.slot]]], pos, blocks)
+        logits = logits(0)
         # The span covers the prefetch kick to the last layer's dispatch;
         # gather_wait_us is its blocking part.
         rec.end("request", "sp:gather", t0,
@@ -1661,8 +1810,10 @@ class LLMEngine:
                 gather_bytes=win.bytes_fetched - b0,
                 gather_wait_us=int((win.wait_s - w0) * 1e6),
                 fetches=win.fetches - f0)
-        self._append_tail([k[:, 0] for k in ks_new],
-                          [v[:, 0] for v in vs_new],
+        # The first replica's tail KV goes into every replica's pool.
+        n = self._n_pos
+        self._append_tail([ks_new[i % n][:, 0] for i in range(len(self._pk))],
+                          [vs_new[i % n][:, 0] for i in range(len(self._pv))],
                           req.pages[t // self.page], t % self.page)
         req.ext_written = t + 1
         return self._sample_batch([logits], [req.params])[0]
@@ -1676,7 +1827,6 @@ class LLMEngine:
         comes back as a new part on this engine's device, padded to
         ``span`` with its real length in "len". Returns (part, the last
         token's f32 logits if ``is_last`` else None)."""
-        sa = self._stream_attn
         Sc = len(chunk_tokens)
         if not (0 < Sc <= span):
             raise ValueError(f"chunk of {Sc} tokens vs span {span}")
@@ -1691,20 +1841,20 @@ class LLMEngine:
         toks = np.zeros((1, span), np.int64)
         toks[0, :Sc] = chunk_tokens
 
-        def blocks(li, ks, vs):
+        def blocks(li, lj, idx, ks, vs):
             """Per context part, then the chunk itself, causally."""
             for part in ctx:
-                pk, pv, valid = self._part_layer(part, li)
+                pk, pv, valid = self._part_layer(part, li, idx)
                 yield pk, pv, valid, part["span"][0]
             yield ks, vs, Sc, pos0
-        x, ks_out, vs_out = self._stream_layers(toks, pos0, blocks)
+        logits, ks_out, vs_out = self._stream_layers(toks, pos0, blocks)
         rec.end("request", "sp:gather", t0, parts=len(ctx),
                 gather_bytes=win.bytes_fetched - b0,
                 gather_wait_us=int((win.wait_s - w0) * 1e6),
                 fetches=win.fetches - f0, prefill_chunk=True)
         part = {"k": self._join_heads(ks_out), "v": self._join_heads(vs_out),
                 "len": Sc}
-        logits = sa.logits(self._shards[0], x, Sc - 1) if is_last else None
+        logits = logits(Sc - 1) if is_last else None
         return part, logits
 
     @torch.no_grad()
@@ -1831,17 +1981,14 @@ class LLMEngine:
         c, shared = 0, []
         if self._cache is not None:
             c, shared = self._cache.lookup(prompt)
-        L, D = self.cfg.num_layers, self.cfg.head_dim_
         if c:
             row = np.zeros(self.pages_per_slot, np.int64)
             row[:len(shared)] = shared
             logits, ks, vs = self._run_suffix(prompt, c, row)
-            k_full = self._join_heads([
-                torch.cat([pk[:, shared].reshape(L, c, -1, D), k[:, :S - c]],
-                          1) for pk, k in zip(self._pk, ks)])
-            v_full = self._join_heads([
-                torch.cat([pv[:, shared].reshape(L, c, -1, D), v[:, :S - c]],
-                          1) for pv, v in zip(self._pv, vs)])
+            k_full, v_full = (self._join_heads([
+                torch.cat([p[:, shared].flatten(1, 2), k[:, :S - c]], 1)
+                for p, k in zip(pool[:self._n_pos], kv)])
+                for pool, kv in ((self._pk, ks), (self._pv, vs)))
         else:
             logits, ks, vs = self._run_prefill(prompt)
             k_full = self._join_heads([k[:, :S] for k in ks])

@@ -39,15 +39,15 @@ The reference's ``_seq_sharding`` (a NamedSharding for
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..models.transformer import (TransformerConfig, _layer_qkv, _mlp,
-                                  apply_rope, layer_params, rms_norm,
-                                  rope_angles)
+from ..models.transformer import (TransformerConfig, _layer_qkv,
+                                  apply_rope, layer_params, on_each,
+                                  rms_norm, rope_angles, sp_layer)
 from ..ops.ring_attention import (_empty_state, _grouped, _merge,
                                   _ring_shards, _split, _ulysses_shards)
 from ..parallel.mesh import Mesh, MeshSpec, _cuda_devices, build_mesh
@@ -73,16 +73,20 @@ def sp_mesh(degree: int, devices=None) -> Mesh:
     return build_mesh(MeshSpec(sp=degree), devices=devices[:degree])
 
 
-def validate_sp(cfg, degree: int, strategy: str) -> None:
-    """Fail fast on layouts the shard bodies cannot express."""
+def validate_sp(cfg, degree: int, strategy: str, tp: int = 1) -> None:
+    """Fail fast on layouts the shard bodies cannot express: Ulysses
+    splits each tp position's kv heads (num_kv_heads / tp) over the sp
+    shards."""
     if strategy not in ("ring", "ulysses"):
         raise ValueError(f"unknown sp strategy {strategy!r}")
     if degree < 2:
         return
-    if strategy == "ulysses" and cfg.num_kv_heads % degree:
+    heads = f"num_kv_heads ({cfg.num_kv_heads})" + (
+        f" / tp ({tp})" if tp > 1 else "")
+    if strategy == "ulysses" and (cfg.num_kv_heads // tp) % degree:
         raise ValueError(
-            f"ulysses needs num_kv_heads ({cfg.num_kv_heads}) divisible "
-            f"by sp_degree ({degree}); use strategy='ring'")
+            f"ulysses needs {heads} divisible by sp_degree ({degree}); use "
+            f"strategy='ring'")
 
 
 def sp_stripe_pages(pages, S: int, n_shards: int, page: int,
@@ -129,50 +133,77 @@ def replicate_params(params: Dict[str, Any], mesh: Mesh
 # SP prefill (ring / Ulysses over the sequence shards)
 # ---------------------------------------------------------------------------
 
-def _layers(params, devices, li: int) -> List[Dict[str, Any]]:
-    """Layer li's params for each shard, one set of views per device."""
-    per_dev = {d: layer_params(params[d], li) for d in dict.fromkeys(devices)}
-    return [per_dev[d] for d in devices]
+def _sp_grid(params, mesh: Mesh):
+    """(params[j][t], devices[j][t]): sp shard j's tp position t's params
+    and device. ``params`` is ``replicate_params``'s {device: params} (no
+    tp axis), or the per-position list of ``models.transformer.tp_shards``
+    on an sp x tp mesh, in ``mesh.coords()`` order."""
+    cols = [mesh.sp_positions(tp=t) for t in range(mesh.shape["tp"])]
+    idx = [list(row) for row in zip(*cols)]
+    tp = len(cols)
+    devices = [[mesh.devices.flat[i] for i in row] for row in idx]
+    if isinstance(params, dict):
+        if tp > 1:
+            raise ValueError("an sp x tp mesh takes the per-position params "
+                             "of tp_shards(params, mesh)")
+        return [[params[row[0]]] for row in devices], devices
+    return [[params[i] for i in row] for row in idx], devices
 
 
 def _run_sp(params, tokens, length: int, cfg: TransformerConfig, mesh: Mesh,
             pos0: int, attend):
     """The body both SP functions share. tokens (1, Sb) split into n
-    shards, RoPE at pos0 + absolute index; ``attend(li, qs, ks, vs,
-    devices)`` gives each shard's attention output. Returns
-    (last_logits (V,) f32, ks, vs (L, Sb, KV, D)) on tokens' device."""
-    devices = mesh.axis_devices("sp")
+    shards, RoPE at pos0 + absolute index; each shard runs embed, QKV and
+    RoPE on its tp positions (``models.transformer.sp_layer``), and
+    ``attend(li, t, qs, ks, vs, devices)`` gives tp position t's
+    attention output for each shard, over its heads; then each shard's
+    wo and MLP with their all-reduces over its tp positions. Returns
+    (last_logits (V,) f32 on tokens' device, ks, vs): per tp position
+    (L, Sb, KV_t, D) on its first shard's device, or, with no tp axis,
+    one (L, Sb, KV, D) pair on tokens' device."""
+    grid, devss = _sp_grid(params, mesh)
+    n, tp = len(devss), len(devss[0])
     B, S = tokens.shape
-    Sl = S // len(devices)
-    L, KV, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
-    dt, eps = cfg.dtype, cfg.rms_norm_eps
+    Sl = S // n
+    L, D = cfg.num_layers, cfg.head_dim_
+    dt = cfg.dtype
     home = tokens.device
     xs, ropes = [], []
-    for i, (d, t) in enumerate(zip(devices, _split(tokens, devices))):
-        xs.append(params[d]["embed"].to(dt)[t])
-        ropes.append(rope_angles(Sl, D, cfg.rope_theta, offset=pos0 + i * Sl,
-                                 device=d))
-    ks = torch.empty((L, S, KV, D), dtype=dt, device=home)
-    vs = torch.empty_like(ks)
+    for j, t in enumerate(_split(tokens, [row[0] for row in devss])):
+        xs.append(on_each(grid[j][0]["embed"].to(dt)[t], devss[j]))
+        ropes.append({d: rope_angles(Sl, D, cfg.rope_theta,
+                                     offset=pos0 + j * Sl, device=d)
+                      for d in dict.fromkeys(devss[j])})
+    where = [home] if isinstance(params, dict) else devss[0]
+    ks = [torch.empty((L, S, p["layers"]["attn"]["wk"].shape[2], D),
+                      dtype=dt, device=d) for p, d in zip(grid[0], where)]
+    vs = [torch.empty_like(k) for k in ks]
     for li in range(L):
-        lps = _layers(params, devices, li)
-        qs, kk, vv = [], [], []
-        for x, lp, (cos, sin) in zip(xs, lps, ropes):
-            q, k, v = _layer_qkv(lp, rms_norm(x, lp["ln_attn"], eps), cfg)
-            qs.append(apply_rope(q, cos, sin))
-            kk.append(apply_rope(k, cos, sin))
-            vv.append(v)
-        outs = attend(li, qs, kk, vv, devices)
-        for i, (o, lp) in enumerate(zip(outs, lps)):
-            o = torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(dt))
-            xs[i] = _mlp(lp, xs[i] + o, cfg)
-            ks[li, i * Sl:(i + 1) * Sl] = kk[i][0]
-            vs[li, i * Sl:(i + 1) * Sl] = vv[i][0]
+        lpss = [[layer_params(p, li) for p in row] for row in grid]
+
+        def attend_all(hs):
+            qkv = [[None] * tp for _ in range(n)]
+            for j in range(n):
+                for t, (lp, d) in enumerate(zip(lpss[j], devss[j])):
+                    cos, sin = ropes[j][d]
+                    q, k, v = _layer_qkv(lp, hs[j][d], cfg)
+                    qkv[j][t] = (apply_rope(q, cos, sin),
+                                 apply_rope(k, cos, sin), v)
+                    ks[t][li, j * Sl:(j + 1) * Sl] = qkv[j][t][1][0]
+                    vs[t][li, j * Sl:(j + 1) * Sl] = v[0]
+            outs = [attend(li, t, *zip(*(qkv[j][t] for j in range(n))),
+                           [devss[j][t] for j in range(n)])
+                    for t in range(tp)]
+            return [[o[j] for o in outs] for j in range(n)]
+        xs = sp_layer(cfg, xs, lpss, devss, attend_all)
     j = (length - 1) // Sl                  # the shard of the last token
-    p = params[devices[j]]
-    last = rms_norm(xs[j], p["ln_f"], eps)[0, length - 1 - j * Sl]
-    logits = (last @ p["lm_head"].to(dt)).float()
-    return logits.to(home), ks, vs
+    p = grid[j][0]
+    last = rms_norm(xs[j][devss[j][0]], p["ln_f"],
+                    cfg.rms_norm_eps)[0, length - 1 - j * Sl]
+    logits = (last @ p["lm_head"].to(dt)).float().to(home)
+    if isinstance(params, dict):
+        return logits, ks[0], vs[0]
+    return logits, ks, vs
 
 
 def sp_prefill_fn(params, tokens, length: int, cfg: TransformerConfig,
@@ -182,11 +213,15 @@ def sp_prefill_fn(params, tokens, length: int, cfg: TransformerConfig,
     (L, Sb, KV, D)) on tokens' device — with the attention split over the
     mesh's ``sp`` axis: shard i holds tokens [i·Sb/n, (i+1)·Sb/n). Sb
     must be divisible by the sp size (pow-2 buckets are). ``params`` is
-    ``replicate_params(params, mesh)``."""
+    ``replicate_params(params, mesh)``, or on an sp x tp mesh the
+    per-position params of ``tp_shards(params, mesh)``: then each tp
+    position runs the ring or Ulysses over its sp positions at its heads
+    (the reference's ``heads_axis="tp"``), and ks, vs are one
+    (L, Sb, KV/tp, D) per tp position, as ``_run_sp`` says."""
     scale = 1.0 / math.sqrt(cfg.head_dim_)
     body = _ring_shards if strategy == "ring" else _ulysses_shards
 
-    def attend(li, qs, ks, vs, devices):
+    def attend(li, t, qs, ks, vs, devices):
         return body(qs, ks, vs, devices, causal=True, scale=scale)
     return _run_sp(params, tokens, length, cfg, mesh, 0, attend)
 
@@ -202,15 +237,21 @@ def sp_suffix_prefill_fn(params, pool_k, pool_v, pages, tokens,
     (``_sp_suffix_shard``'s seed, with p re-masked), then the ring over
     the suffix KV. Always ring — Ulysses would have to split the
     resident prefix's KV heads across shards, which buys nothing for a
-    memory-resident prefix. ``params`` is ``replicate_params``'s."""
+    memory-resident prefix. ``params`` as in ``sp_prefill_fn``; on an sp
+    x tp mesh ``pool_k``/``pool_v`` are the tp positions' pools, each
+    read by its own position, else one pool."""
+    if isinstance(pool_k, torch.Tensor):
+        pool_k, pool_v = [pool_k], [pool_v]
     T = pages.shape[0] * page
-    KV, D = cfg.num_kv_heads, cfg.head_dim_
+    D = cfg.head_dim_
     scale = 1.0 / math.sqrt(D)
-    pvalid = torch.arange(T, device=pool_k.device)[None] < prefix_len
+    pvalid = torch.arange(T, device=pages.device)[None] < prefix_len
 
-    def attend(li, qs, ks, vs, devices):
-        ck = pool_k[li][pages].reshape(1, T, KV, D)
-        cv = pool_v[li][pages].reshape(1, T, KV, D)
+    def attend(li, t, qs, ks, vs, devices):
+        KV = pool_k[t].shape[-2]
+        pg = pages.to(pool_k[t].device)
+        ck = pool_k[t][li][pg].reshape(1, T, KV, D)
+        cv = pool_v[t][li][pg].reshape(1, T, KV, D)
         on = {d: (ck.to(d), cv.to(d), pvalid.to(d))
               for d in dict.fromkeys(devices)}
         states = []

@@ -96,13 +96,10 @@ class EngineReplica:
     ``seed``. ``device`` defaults to ``"cuda"`` and raises without a GPU.
     The boundary callbacks are described in the module docstring.
 
-    ``mesh``, ``sp_degree`` and ``sp_strategy`` go to the engine: an
-    sp-only mesh splits prefill over its ``sp`` positions, a tp-only mesh
-    splits the weights and the KV pool over its ``tp`` positions under the
-    engine's default rules (see ``LLMEngine``); a mesh with dp, fsdp or pp
-    larger than 1, or with both sp and tp, raises NotImplementedError, as
-    the engine does. Left on the runtime side:
-    ``_flush_gauges`` (the runtime's metrics export) and
+    ``mesh``, ``sp_degree`` and ``sp_strategy`` go to the engine, which
+    serves on sp, tp, sp x tp, pp, pp x tp, dp and fsdp meshes and raises
+    NotImplementedError on any other (see ``LLMEngine``). Left on the
+    runtime side: ``_flush_gauges`` (the runtime's metrics export) and
     ``_silence_watch`` (the diagnosis plane's anomaly detector).
 
     Diverges from the reference on a failed decode tick: the reference

@@ -22,17 +22,18 @@ inside one 80 GB card:
 - the optimizer runs tensor by tensor with in-place ops, so its
   temporaries are the size of one tensor, not of the model.
 
-Under a mesh (``parallel.mesh.Mesh``, any of pp, dp, fsdp and tp, or sp
-alone) params, ``mu`` and ``nu`` are lists of per-position trees
+Under a mesh (``parallel.mesh.Mesh``, any of pp, dp, fsdp, sp and tp)
+params, ``mu`` and ``nu`` are lists of per-position trees
 (``parallel.sharding.shard_params`` under ``rules``; ``state_specs`` holds
 their specs), each shard held once per distinct device. A step runs the
 batch groups' forward and backward in turn
 (``transformer.mesh_group_losses``), the single-controller counterpart of
 each data-parallel rank's own backward. A shard's gradients from its
-replicas (the positions that hold the same slice) meet in its one tensor,
-where autograd's accumulation sums them in batch-group order, or, for
-replicas on distinct devices, in an explicit all-reduce in position
-order. The global norm counts each element of the logical array once,
+replicas (the positions that hold the same slice: dp replicas, and the
+sp positions, each of which runs its own sequence shard with its own
+copy) meet in its one tensor, where autograd's accumulation sums them in
+batch-group and shard order, or, for replicas on distinct devices, in an
+explicit all-reduce in position order. The global norm counts each element of the logical array once,
 and the clip and AdamW run once per distinct shard, whose replicas then
 take its values.
 
@@ -43,8 +44,7 @@ runs its ``num_microbatches`` through the pipeline's stages
 across the stages: stage 0 takes the embedding's gradient and the last
 stage ``ln_f``'s and ``lm_head``'s, and the replicas that took none get
 the sum like any other replica. As in the JAX package,
-``num_microbatches`` is ignored without a pp axis. sp beside another
-split axis raises NotImplementedError (ROADMAP Queue 1 item 4).
+``num_microbatches`` is ignored without a pp axis.
 """
 
 from __future__ import annotations
@@ -206,10 +206,11 @@ def _mesh_leaves(trees):
 
 @torch.no_grad()
 def _all_reduce_replicas(lay: _MeshLayout, trees, made) -> None:
-    """Sum each shard's gradient over its replicas on distinct devices, in
-    position order, in the gradient's dtype, on the first replica's
-    device, and give every replica the sum. A replica that took no
-    gradient (a tensor its position did not use) adds nothing."""
+    """Sum each shard's gradient over its replicas on distinct devices
+    (dp replicas and sp positions alike), in position order, in the
+    gradient's dtype, on the first replica's device, and give every
+    replica the sum. A replica that took no gradient (a tensor its
+    position did not use) adds nothing."""
     for path, reps in lay.classes:
         if len(reps) == 1:
             continue

@@ -21,34 +21,40 @@ tensor); no other caller should grow a third form.
   ``ops.ring_attention.ring_attention`` over it, and every other op runs on
   ``device``, whose values the reference's sharding constraints do not
   change.
-- any of dp, fsdp and tp (training's layouts, and tensor-parallel
-  ``forward``): the params are split over the mesh's positions by
-  ``rules`` (``LogicalAxisRules.default()``: batch over dp x fsdp, embed
-  over fsdp, heads, kv heads, MLP and vocabulary over tp; or
-  ``megatron_rules()``; any other table raises NotImplementedError), and
-  ``params`` may be the full tree or the per-position list that
-  ``parallel.sharding.shard_params`` returns under the same rules. The
-  batch groups (one per (dp, fsdp) pair) run in turn. In a group, each tp
-  position gathers its tp slice of a layer's weights across the fsdp
-  positions (``fsdp_gather``) and the layer runs as ``tp_layer``; the
-  embedding is looked up per vocabulary slice and summed
-  (``all_reduce``), the logits stay split over tp, and the cross-entropy
-  reads them slice by slice (``vocab_parallel_nll``). The values are
-  those of the unsharded model.
+- any of dp, fsdp and tp, beside sp or not (training's layouts, and
+  tensor-parallel ``forward``): the params are split over the mesh's
+  positions by ``rules`` (``LogicalAxisRules.default()``: batch over dp x
+  fsdp, embed over fsdp, heads, kv heads, MLP and vocabulary over tp, no
+  param over sp; or ``megatron_rules()``; any other table raises
+  NotImplementedError), and ``params`` may be the full tree or the
+  per-position list that ``parallel.sharding.shard_params`` returns under
+  the same rules. The batch groups (one per (dp, fsdp) pair) run in turn.
+  A group's sequence is split over its sp positions, shard j holding
+  tokens [j S/sp, (j+1) S/sp) (the reference's ``seq`` constraint): each
+  shard's tp positions gather their tp slice of a layer's weights across
+  the fsdp positions (``fsdp_gather``) and the layer runs as
+  ``sp_layer``, ``tp_layer`` per shard. Attention is the one step that
+  crosses shards: per tp position, under ``attention_impl="ring"`` the
+  ring over its sp positions at its heads, under "xla" and "flash" the
+  sequence gathered on its first sp position, attended whole and split
+  back (GSPMD's gather around the reference's attention; "flash" runs
+  the kernel there). The embedding is looked up per vocabulary slice and
+  summed (``all_reduce``), the logits stay split over tp, and the
+  cross-entropy reads them slice by slice (``vocab_parallel_nll``). The
+  values are those of the unsharded model.
 - pp beside any of those (pipeline stages): the default rules split the
   layer stack over pp, so stage s's positions hold layers [s L/pp,
-  (s+1) L/pp), and each stage is a dp x fsdp x tp layout of its own. A
-  batch group's rows are split into ``num_microbatches`` (default pp)
+  (s+1) L/pp), and each stage is a dp x fsdp x sp x tp layout of its own.
+  A batch group's rows are split into ``num_microbatches`` (default pp)
   microbatches that run the GPipe schedule (``parallel.pipeline``): the
   embedding on stage 0, each stage's layers on its positions as above,
-  the hand-off to the next stage's devices by ``.to()``
-  (``pipeline.stage_send``), ``ln_f``, ``lm_head`` and the cross-entropy
-  on the last stage. JAX splits the global batch into microbatches before
-  its dp x fsdp split; here each group's contiguous rows are split. The
-  token-weighted loss is a sum over rows either way, so the two agree.
-
-sp beside another split axis (ROADMAP Queue 1 item 4) raises
-NotImplementedError.
+  the hand-off of each sequence shard to the next stage's devices by
+  ``.to()`` (``pipeline.stage_send``), ``ln_f``, ``lm_head`` and the
+  cross-entropy on the last stage. JAX splits the global batch into
+  microbatches before its dp x fsdp split; here each group's contiguous
+  rows are split. The token-weighted loss is a sum over rows either way,
+  so the two agree. Inside its pipeline JAX elides the ring (plain
+  attention); the port runs each stage's ring, the same values.
 """
 
 from __future__ import annotations
@@ -64,7 +70,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.flash_attention import flash_attention, reference_attention
-from ..ops.ring_attention import ring_attention
+from ..ops.ring_attention import _ring_shards, ring_attention
 from ..parallel.pipeline import check_microbatches, gpipe_ticks, stage_send
 from ..parallel.sharding import (LogicalAxisRules, _tree_map, axis_dim,
                                  shard_batch, shard_params, tree_specs)
@@ -201,24 +207,34 @@ def megatron_rules() -> LogicalAxisRules:
 
 def tp_shards(params: Dict[str, Any], mesh, rules=None) -> list:
     """``shard_params`` under ``rules`` (default ``megatron_rules()``) for
-    ``tp_layer``: each position's params, in order. Rules that split any
-    other dim over ``tp`` (the reference's default, which splits the
-    vocabulary) raise NotImplementedError: the port's layer runs the
-    Megatron split only."""
+    the serving layouts (``tp_layer``): each position's params, in grid
+    order. Rules that lay out any dim on the mesh otherwise than
+    ``megatron_rules()`` does (the reference's default splits the
+    vocabulary over tp, and the embedding dim over fsdp) raise
+    NotImplementedError: the port's layer runs the Megatron split, with
+    the layer stack over pp and every other axis replicated."""
     rules = rules or megatron_rules()
     axes = param_logical_axes(None)
+    sizes = mesh.shape
 
-    def dims(r):
-        return _flat(tree_specs(axes, mesh, r),
-                     lambda spec: axis_dim(spec, "tp"))
-    want, got = dims(megatron_rules()), dims(rules)
+    def split(r):
+        def effective(spec):
+            dims = [tuple(a for a in ((ax,) if isinstance(ax, str)
+                                      else ax or ()) if sizes[a] > 1)
+                    for ax in spec]
+            while dims and not dims[-1]:
+                dims.pop()
+            return tuple(dims)
+        return _flat(tree_specs(axes, mesh, r), effective)
+    want, got = split(megatron_rules()), split(rules)
     if got != want:
         names = _flat(axes, lambda a: a)
         bad = {k: names[k] for k in got if got[k] != want[k]}
         raise NotImplementedError(
-            f"rules that split {bad} over tp are not ported: the "
-            f"tensor-parallel layer splits heads, kv_heads and mlp only "
-            f"(megatron_rules())")
+            f"rules that split {bad} otherwise than megatron_rules() are "
+            f"not ported: the serving layout splits heads, kv_heads and "
+            f"mlp over tp and the layer stack over pp, and replicates the "
+            f"rest")
     return shard_params(params, mesh, rules, axes)
 
 
@@ -393,11 +409,6 @@ def _mlp_down(lp, h, cfg: TransformerConfig):
                         lp["mlp"]["w_down"].to(dt))
 
 
-def _mlp(lp, x, cfg: TransformerConfig):
-    """The SwiGLU half of a layer, with its norm and residual."""
-    return x + _mlp_down(lp, rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps), cfg)
-
-
 def on_each(t: torch.Tensor, devices) -> Dict[torch.device, torch.Tensor]:
     """``t`` on each distinct device of ``devices`` (no copy where it is)."""
     return {d: t.to(d) for d in dict.fromkeys(devices)}
@@ -439,19 +450,41 @@ def tp_layer(cfg: TransformerConfig, xs, lps, devices, attend):
     ``wo`` product is summed by ``all_reduce``; then each position's share
     of the MLP and a second all-reduce. Returns the layer's output
     {device: (B, S, E)}."""
+    return sp_layer(cfg, [xs], [lps], [devices],
+                    lambda hs: [attend(hs[0])])[0]
+
+
+def sp_layer(cfg: TransformerConfig, xss, lpss, devss, attend):
+    """``tp_layer`` over sequence shards: shard j's input ``xss[j]``
+    {device: (B, S_j, E)} runs on its tp positions ``devss[j]``, which
+    hold ``lpss[j]``. ``attend(hs)`` gets every shard's normed input and
+    returns ``outs[j][i]``, shard j's tp position i's attention output
+    (B, S_j, H_i, D) on its device: attention is the only step that
+    crosses shards. Each shard's ``wo``, all-reduces, MLP and residuals
+    are its own. Returns each shard's output {device: (B, S_j, E)}."""
     eps, dt = cfg.rms_norm_eps, cfg.dtype
-    first = {}
-    for i, d in enumerate(devices):
-        first.setdefault(d, i)
-    h = {d: rms_norm(xs[d], lps[i]["ln_attn"], eps) for d, i in first.items()}
-    parts = [torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(dt))
-             for o, lp in zip(attend(h), lps)]
-    o = all_reduce(parts, devices)
-    xs = {d: xs[d] + o[d] for d in first}
-    h = {d: rms_norm(xs[d], lps[i]["ln_mlp"], eps) for d, i in first.items()}
-    m = all_reduce([_mlp_down(lp, h[d], cfg)
-                    for lp, d in zip(lps, devices)], devices)
-    return {d: xs[d] + m[d] for d in first}
+    firsts = []
+    for devices in devss:
+        first = {}
+        for i, d in enumerate(devices):
+            first.setdefault(d, i)
+        firsts.append(first)
+    hs = [{d: rms_norm(xs[d], lps[i]["ln_attn"], eps)
+           for d, i in first.items()}
+          for xs, lps, first in zip(xss, lpss, firsts)]
+    outs = attend(hs)
+    result = []
+    for xs, lps, devices, first, o_j in zip(xss, lpss, devss, firsts, outs):
+        parts = [torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(dt))
+                 for o, lp in zip(o_j, lps)]
+        o = all_reduce(parts, devices)
+        xs = {d: xs[d] + o[d] for d in first}
+        h = {d: rms_norm(xs[d], lps[i]["ln_mlp"], eps)
+             for d, i in first.items()}
+        m = all_reduce([_mlp_down(lp, h[d], cfg)
+                        for lp, d in zip(lps, devices)], devices)
+        result.append({d: xs[d] + m[d] for d in first})
+    return result
 
 
 def _layer(cfg: TransformerConfig, x, lp, cos, sin, mesh=None):
@@ -493,15 +526,14 @@ def mesh_rules(mesh, rules: Optional[LogicalAxisRules] = None
 
 
 class _Layout:
-    """Where a sharded forward's pieces live: per pipeline stage and batch
-    group, its tp positions (flat mesh indices) and their devices, and per
-    (stage, group, tp position) the positions whose embed-dim slices it
-    gathers, all indexed [stage][group]; per leaf, the dim its spec splits
-    over fsdp (of one layer's tensor for layer leaves); whether the
-    vocabulary is split over tp."""
+    """Where a sharded forward's pieces live, all indexed
+    [stage][group][sequence shard]: the tp positions (flat mesh indices)
+    of each pipeline stage's batch group's sp shard and their devices, and
+    per tp position the positions whose embed-dim slices it gathers; per
+    leaf, the dim its spec splits over fsdp (of one layer's tensor for
+    layer leaves); whether the vocabulary is split over tp."""
 
     def __init__(self, mesh, rules: LogicalAxisRules):
-        mesh.train_axes()
         self.rules = rules
         specs = tree_specs(param_logical_axes(None), mesh, rules)
         fsdp = mesh.shape["fsdp"] > 1
@@ -514,16 +546,27 @@ class _Layout:
         self.vocab_split = (mesh.shape["tp"] > 1
                             and axis_dim(specs["embed"], "tp") == 0)
         self.groups = mesh.batch_groups()
-        self.pp = mesh.shape["pp"]
-        stages = range(self.pp)
-        self.positions = [[mesh.group_positions(d, f, s)
+        self.pp, self.sp = mesh.shape["pp"], mesh.shape["sp"]
+        stages, shards = range(self.pp), range(self.sp)
+        self.positions = [[[mesh.group_positions(d, f, s, j) for j in shards]
                            for d, f in self.groups] for s in stages]
-        self.devices = [[[mesh.devices.flat[i] for i in pos] for pos in st]
-                        for st in self.positions]
-        self.sources = [[[mesh.fsdp_positions(d, t, s)
-                          for t in range(mesh.shape["tp"])]
-                         for d, f in self.groups] for s in stages]
-        self.ring = mesh if mesh.shape["sp"] > 1 else None
+        self.devices = [[[[mesh.devices.flat[i] for i in pos] for pos in g]
+                         for g in st] for st in self.positions]
+        self.sources = [[[[mesh.fsdp_positions(d, t, s, j)
+                           for t in range(mesh.shape["tp"])]
+                          for j in shards] for d, f in self.groups]
+                        for s in stages]
+
+
+def _tensors(tree):
+    """Every tensor of nested dicts and lists."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for node in tree:
+            yield from _tensors(node)
+    else:
+        yield tree
 
 
 def fsdp_gather(parts, dim: int, device) -> torch.Tensor:
@@ -544,13 +587,15 @@ def _gathered(own, sources, dims, device):
     return own if dims is None else fsdp_gather(sources, dims, device)
 
 
-def _position_params(trees, lay: _Layout, s: int, g: int, t: int, li):
-    """Stage ``s``'s group ``g``'s tp position ``t``'s params, gathered
-    across fsdp: the top-level tensors named in the tuple ``li``, or the
-    stage's layer ``li``'s (an index into the stage's own L/pp layers)."""
-    own = trees[lay.positions[s][g][t]]
-    srcs = [trees[i] for i in lay.sources[s][g][t]]
-    dev = lay.devices[s][g][t]
+def _position_params(trees, lay: _Layout, s: int, g: int, j: int, t: int,
+                     li):
+    """Stage ``s``'s group ``g``'s sp shard ``j``'s tp position ``t``'s
+    params, gathered across fsdp: the top-level tensors named in the tuple
+    ``li``, or the stage's layer ``li``'s (an index into the stage's own
+    L/pp layers)."""
+    own = trees[lay.positions[s][g][j][t]]
+    srcs = [trees[i] for i in lay.sources[s][g][j][t]]
+    dev = lay.devices[s][g][j][t]
     if isinstance(li, tuple):
         dims = {k: lay.top_dims[k] for k in li}
         return _gathered({k: own[k] for k in li},
@@ -560,33 +605,62 @@ def _position_params(trees, lay: _Layout, s: int, g: int, t: int, li):
                      dev)
 
 
-def _group_layer(cfg: TransformerConfig, xs, trees, lay: _Layout, s: int,
+def _sp_attention(cfg: TransformerConfig, qs, ks, vs, devices):
+    """One tp position's attention over its sequence shards: qs[j] (B,
+    S_j, H, D) and ks[j], vs[j] on ``devices[j]``, shard j's output on its
+    device. Under ``attention_impl="ring"`` the shards run the ring
+    (``ops.ring_attention``); otherwise the sequence is attended whole on
+    the first shard's device and split back, GSPMD's gather around the
+    reference's attention (under "flash" the kernel). One shard: the
+    attention itself."""
+    if len(devices) == 1:
+        return [_attention(cfg, qs[0], ks[0], vs[0])]
+    if cfg.attention_impl == "ring":
+        return _ring_shards(qs, ks, vs, devices, causal=True,
+                            scale=1.0 / math.sqrt(qs[0].shape[-1]))
+    home = devices[0]
+    o = _attention(cfg, *(torch.cat([x.to(home) for x in xs], dim=1)
+                          for xs in (qs, ks, vs)))
+    cuts = np.cumsum([0] + [q.shape[1] for q in qs])
+    return [o[:, a:b].to(d) for a, b, d in zip(cuts[:-1], cuts[1:], devices)]
+
+
+def _group_layer(cfg: TransformerConfig, xss, trees, lay: _Layout, s: int,
                  g: int, li: int, ropes):
-    """Stage ``s``'s layer ``li`` over group ``g``'s tp positions: each
-    gathers its weights across fsdp, then ``tp_layer``."""
-    devices = lay.devices[s][g]
-    lps = [_position_params(trees, lay, s, g, t, li)
-           for t in range(len(devices))]
+    """Stage ``s``'s layer ``li`` over group ``g``'s positions: each
+    gathers its weights across fsdp, then ``sp_layer``, whose attention
+    runs per tp position over the sp shards (``_sp_attention``)."""
+    devss = lay.devices[s][g]
+    lpss = [[_position_params(trees, lay, s, g, j, t, li)
+             for t in range(len(devices))]
+            for j, devices in enumerate(devss)]
 
-    def attend(h):
-        out = []
-        for lp, d in zip(lps, devices):
-            cos, sin = ropes[d]
-            q, k, v = _layer_qkv(lp, h[d], cfg)
-            out.append(_attention(cfg, apply_rope(q, cos, sin),
-                                  apply_rope(k, cos, sin), v, lay.ring))
-        return out
-    return tp_layer(cfg, xs, lps, devices, attend)
+    def attend(hs):
+        qkv = []
+        for j, (lps, devices) in enumerate(zip(lpss, devss)):
+            row = []
+            for lp, d in zip(lps, devices):
+                cos, sin = ropes[j][d]
+                q, k, v = _layer_qkv(lp, hs[j][d], cfg)
+                row.append((apply_rope(q, cos, sin), apply_rope(k, cos, sin),
+                            v))
+            qkv.append(row)
+        by_tp = [_sp_attention(cfg, *zip(*(qkv[j][t] for j in range(lay.sp))),
+                               [devss[j][t] for j in range(lay.sp)])
+                 for t in range(len(devss[0]))]
+        return [[o[j] for o in by_tp] for j in range(lay.sp)]
+    return sp_layer(cfg, xss, lpss, devss, attend)
 
 
-def _group_embed(trees, lay: _Layout, g: int, tokens,
+def _group_embed(trees, lay: _Layout, g: int, j: int, tokens,
                  cfg: TransformerConfig):
-    """Group ``g``'s embedding on stage 0: {device: (B, S, E)} on each
-    distinct device of its tp positions. The table is looked up per
-    vocabulary slice and summed where the vocabulary is split."""
-    devices = lay.devices[0][g]
+    """Group ``g``'s sp shard ``j``'s embedding on stage 0: {device: (B,
+    S_j, E)} on each distinct device of its tp positions. The table is
+    looked up per vocabulary slice and summed where the vocabulary is
+    split."""
+    devices = lay.devices[0][g][j]
     dt = cfg.dtype
-    tops = [_position_params(trees, lay, 0, g, t, ("embed",))
+    tops = [_position_params(trees, lay, 0, g, j, t, ("embed",))
             for t in range(len(devices) if lay.vocab_split else 1)]
     n_v = tops[0]["embed"].shape[0]
     parts = []
@@ -608,31 +682,57 @@ def _group_embed(trees, lay: _Layout, g: int, tokens,
     return on_each(x, devices)
 
 
-def _stage_layers(cfg: TransformerConfig, xs, trees, lay: _Layout, s: int,
+def _stage_layers(cfg: TransformerConfig, xss, trees, lay: _Layout, s: int,
                   g: int, ropes):
     """Stage ``s``'s L/pp layers over group ``g``'s positions, each
-    checkpointed when a gradient is needed."""
-    remat = cfg.remat and torch.is_grad_enabled()
+    checkpointed when a gradient is needed.
+
+    The checkpoint is the reentrant one: a layer's positions may lie on
+    several devices (the ring's sp positions, tp positions), and autograd
+    runs each device's part of the backward on that device's thread; the
+    non-reentrant checkpoint's unpack hook recomputes the layer on the
+    first thread to need a saved tensor and holds no lock, so two devices'
+    threads can both recompute it (torch then raises that a different
+    number of tensors was saved). The reentrant one recomputes in its own
+    backward, on one thread. It tracks top-level tensor arguments only, so
+    the layer's inputs go in flat, in ``xss``' order; the params' gradients
+    reach their leaves through its inner backward, which runs only where
+    an input requires grad: inputs that do not (a frozen embedding) go in
+    as leaves that do."""
+    remat = (cfg.remat and torch.is_grad_enabled()
+             and any(t.requires_grad for t in _tensors(trees)))
+    keys = [list(xs) for xs in xss]
+
+    def layer(li, *flat):
+        it = iter(flat)
+        out = _group_layer(cfg, [{d: next(it) for d in k} for k in keys],
+                           trees, lay, s, g, li, ropes)
+        return tuple(o[d] for o, k in zip(out, keys) for d in k)
     for li in range(cfg.num_layers // lay.pp):
         if remat:
-            xs = checkpoint(_group_layer, cfg, xs, trees, lay, s, g, li,
-                            ropes, use_reentrant=False,
-                            preserve_rng_state=False)
+            flat = [xs[d] for xs, k in zip(xss, keys) for d in k]
+            if not any(t.requires_grad for t in flat):
+                flat = [t.detach().requires_grad_() for t in flat]
+            flat = checkpoint(layer, li, *flat, use_reentrant=True,
+                              preserve_rng_state=False)
+            it = iter(flat)
+            xss = [{d: next(it) for d in k} for k in keys]
         else:
-            xs = _group_layer(cfg, xs, trees, lay, s, g, li, ropes)
-    return xs
+            xss = _group_layer(cfg, xss, trees, lay, s, g, li, ropes)
+    return xss
 
 
-def _group_head(trees, lay: _Layout, g: int, xs, cfg: TransformerConfig):
-    """Group ``g``'s logits on the last stage, split over the vocabulary:
-    [(logits (B, S, V/tp) f32 on its position's device, the slice's first
-    id)], one per tp position where the vocabulary is split, else one on
-    the first position."""
+def _group_head(trees, lay: _Layout, g: int, j: int, xs,
+                cfg: TransformerConfig):
+    """Group ``g``'s sp shard ``j``'s logits on the last stage, split over
+    the vocabulary: [(logits (B, S_j, V/tp) f32 on its position's device,
+    the slice's first id)], one per tp position where the vocabulary is
+    split, else one on the first position."""
     s = lay.pp - 1
-    devices = lay.devices[s][g]
+    devices = lay.devices[s][g][j]
     out = []
     for t in range(len(devices) if lay.vocab_split else 1):
-        p = _position_params(trees, lay, s, g, t, ("ln_f", "lm_head"))
+        p = _position_params(trees, lay, s, g, j, t, ("ln_f", "lm_head"))
         x = rms_norm(xs[devices[t]], p["ln_f"], cfg.rms_norm_eps)
         out.append((torch.einsum("bse,ev->bsv", x,
                                  p["lm_head"].to(cfg.dtype)).float(),
@@ -640,33 +740,53 @@ def _group_head(trees, lay: _Layout, g: int, xs, cfg: TransformerConfig):
     return out
 
 
+def _seq_shards(x, sp: int) -> list:
+    """x (B, S, ...) as sp sequence shards (views)."""
+    S = x.shape[1]
+    if S % sp:
+        raise ValueError(f"sequence length {S} does not split over "
+                         f"{sp} sp shards")
+    return list(x.split(S // sp, dim=1))
+
+
 def _group_logits(trees, lay: _Layout, g: int, tokens,
                   cfg: TransformerConfig, num_microbatches=None) -> list:
-    """Group ``g``'s logits per microbatch: a list, one entry per
-    microbatch (one where there is no pp axis), of ``_group_head``'s
-    vocabulary slices. ``tokens`` (B_g, S) is on the group's first device
-    of stage 0. Under pp the group's rows are split into
-    ``num_microbatches`` (default pp) that run the GPipe schedule
-    (``pipeline.gpipe_ticks``), launched tick by tick; a stage's output
-    goes to the next stage's devices by ``stage_send``."""
-    pp = lay.pp
+    """Group ``g``'s logits per microbatch and sp shard: ``out[m][j]`` is
+    ``_group_head``'s vocabulary slices of microbatch m (one where there
+    is no pp axis) and sequence shard j (one where there is no sp axis).
+    ``tokens`` (B_g, S) is on the group's first device of stage 0; shard
+    j takes tokens [j S/sp, (j+1) S/sp) and RoPE at those positions.
+    Under pp the group's rows are split into ``num_microbatches``
+    (default pp) that run the GPipe schedule (``pipeline.gpipe_ticks``),
+    launched tick by tick; each shard of a stage's output goes to the
+    next stage's devices by ``stage_send``."""
+    pp, sp = lay.pp, lay.sp
     mb = (num_microbatches or pp) if pp > 1 else 1
     if pp > 1:
         if cfg.num_layers % pp:
             raise ValueError(f"{cfg.num_layers} layers not divisible by "
                              f"pp={pp}")
         check_microbatches(tokens.shape[0], mb, pp)
-    S = tokens.shape[1]
-    ropes = {d: rope_angles(S, cfg.head_dim_, cfg.rope_theta, device=d)
-             for d in dict.fromkeys(d for st in lay.devices for d in st[g])}
-    xs = list(tokens.split(tokens.shape[0] // mb))
+    Sl = tokens.shape[1] // sp
+    shards = _seq_shards(tokens, sp)
+    ropes = [{d: rope_angles(Sl, cfg.head_dim_, cfg.rope_theta,
+                             offset=j * Sl, device=d)
+              for d in dict.fromkeys(d for st in lay.devices
+                                     for d in st[g][j])}
+             for j in range(sp)]
+    rows = tokens.shape[0] // mb
+    xs = [[t[m * rows:(m + 1) * rows] for t in shards] for m in range(mb)]
     out = [None] * mb
     for _, s, m in gpipe_ticks(mb, pp):
-        x = (_group_embed(trees, lay, g, xs[m], cfg) if s == 0 else
-             stage_send(xs[m][lay.devices[s - 1][g][0]], lay.devices[s][g]))
+        devss = lay.devices[s][g]
+        x = ([_group_embed(trees, lay, g, j, t, cfg)
+              for j, t in enumerate(xs[m])] if s == 0 else
+             [stage_send(x[lay.devices[s - 1][g][j][0]], devss[j])
+              for j, x in enumerate(xs[m])])
         xs[m] = _stage_layers(cfg, x, trees, lay, s, g, ropes)
         if s == pp - 1:
-            out[m] = _group_head(trees, lay, g, xs[m], cfg)
+            out[m] = [_group_head(trees, lay, g, j, x, cfg)
+                      for j, x in enumerate(xs[m])]
             xs[m] = None
     return out
 
@@ -709,8 +829,8 @@ def _sharded(params, mesh, rules):
 
 def _splits(mesh, params) -> bool:
     """Whether ``forward``/``loss_fn`` take the sharded path: a mesh that
-    splits pp, dp, fsdp or tp (sp alone keeps the ring path), or
-    per-position params."""
+    splits pp, dp, fsdp or tp (beside sp or not; sp alone keeps the ring
+    path), or per-position params."""
     if mesh is None:
         return False
     axes = mesh.train_axes()
@@ -744,19 +864,22 @@ def mesh_group_losses(params, batch: Dict[str, Any], cfg: TransformerConfig,
     per_pos = shard_batch({"inputs": inputs, "targets": targets,
                            "weights": weights}, mesh, lay.rules)
     for g in range(len(lay.groups)):
-        b = per_pos[lay.positions[0][g][0]]
-        last = per_pos[lay.positions[-1][g][0]]
+        b = per_pos[lay.positions[0][g][0][0]]
         logits = _group_logits(trees, lay, g, b["inputs"], cfg,
                                num_microbatches)
-        rows = last["targets"].shape[0] // len(logits)
         total = None
-        for m, lg in enumerate(logits):
-            nll = vocab_parallel_nll(
-                lg, last["targets"][m * rows:(m + 1) * rows])
-            home = nll.device
-            w = last["weights"][m * rows:(m + 1) * rows].to(home)
-            part = (nll * w).sum() / denom.to(home)
-            total = part if total is None else total + part
+        for m, per_shard in enumerate(logits):
+            for j, lg in enumerate(per_shard):
+                last = per_pos[lay.positions[-1][g][j][0]]
+                rows = last["targets"].shape[0] // len(logits)
+                r = slice(m * rows, (m + 1) * rows)
+                nll = vocab_parallel_nll(
+                    lg, _seq_shards(last["targets"][r], lay.sp)[j])
+                home = nll.device
+                w = _seq_shards(last["weights"][r], lay.sp)[j].to(home)
+                part = (nll * w).sum() / denom.to(home)
+                total = part if total is None else total + part.to(
+                    total.device)
         yield total
 
 
@@ -766,10 +889,12 @@ def _mesh_forward(params, tokens, cfg: TransformerConfig, mesh, rules, dev,
     per_pos = shard_batch(tokens, mesh, lay.rules)
     out = []
     for g in range(len(lay.groups)):
-        for logits in _group_logits(trees, lay, g,
-                                    per_pos[lay.positions[0][g][0]], cfg,
-                                    num_microbatches):
-            out.append(torch.cat([lg.to(dev) for lg, _ in logits], dim=-1))
+        for per_shard in _group_logits(trees, lay, g,
+                                       per_pos[lay.positions[0][g][0][0]],
+                                       cfg, num_microbatches):
+            out.append(torch.cat([
+                torch.cat([lg.to(dev) for lg, _ in logits], dim=-1)
+                for logits in per_shard], dim=1))
     return torch.cat(out, dim=0)
 
 

@@ -10,15 +10,18 @@ working dtype's values taken in f32, the reference's
   ulysses_attention  seq -> heads resharding, plain attention over the
                      whole sequence, heads -> seq
 
-The reference runs each as a ``shard_map`` program; here one process runs
-every shard in turn, each on its shard's device (``parallel.mesh.Mesh``),
-and a rotation or an all-to-all is a ``.to(device)``: a no-op where two
-positions share a device. So ``shard_map_compat`` and ``_qkv_specs``, which
-build the reference's ``shard_map`` and its PartitionSpecs, have no
-counterpart, and neither have the ``batch_axes``/``heads_axis`` arguments:
-the port splits only the sequence, and a mesh with any other axis larger
-than 1 raises (``Mesh.axis_devices``). Under autograd the gradient runs
-back through these plain ops.
+The reference runs each as a ``shard_map`` program whose specs put the
+batch over ``batch_axes`` (dp, fsdp), the sequence over ``axis_name`` and
+the heads over ``heads_axis`` (tp); here one process runs every shard in
+turn, each on its shard's device (``parallel.mesh.Mesh``), and a rotation
+or an all-to-all is a ``.to(device)``: a no-op where two positions share a
+device. Each (batch group, tp slice) runs its own ring, or its own
+all-to-all, over the sp positions that share its coordinate
+(``Mesh.sp_positions``): only the sequence communicates. An axis named in
+neither spec replicates the body in the reference; here its coordinate 0
+runs it. So ``shard_map_compat`` and ``_qkv_specs``, which build the
+reference's ``shard_map`` and its PartitionSpecs, have no counterpart.
+Under autograd the gradient runs back through these plain ops.
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ from __future__ import annotations
 import math
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from ..parallel.mesh import AXES
 from .flash_attention import MASK_FILL, reference_attention
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -167,28 +172,70 @@ def _split(x, devices: Sequence[torch.device]) -> List[torch.Tensor]:
 
 
 def _sharded(body, q, k, v, mesh, axis_name: str, causal: bool,
-             scale: Optional[float]):
-    devices = mesh.axis_devices(axis_name)
+             scale: Optional[float], batch_axes: Tuple[str, ...],
+             heads_axis: Optional[str]):
+    """q, k, v whole (B, S, H*, D) on one device: rows split over
+    ``batch_axes`` (row-major over them, JAX's order), heads over
+    ``heads_axis``, and each piece's ``body`` run over its sp positions'
+    devices; the pieces are joined back on q's device."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    outs = body(_split(q, devices), _split(k, devices), _split(v, devices),
-                devices, causal=causal, scale=scale)
-    return torch.cat([o.to(q.device) for o in outs], dim=1)
+    shape = mesh.shape
+    batch_axes = tuple(a for a in batch_axes if shape.get(a, 1) > 1)
+    if heads_axis is not None and shape.get(heads_axis, 1) == 1:
+        heads_axis = None
+    nb = math.prod(shape[a] for a in batch_axes)
+    nh = shape[heads_axis] if heads_axis else 1
+    B, Hq, Hkv = q.shape[0], q.shape[2], k.shape[2]
+    for what, n, size in (("batch", nb, B), ("query heads", nh, Hq),
+                          ("kv heads", nh, Hkv)):
+        if size % n:
+            raise ValueError(f"{what} {size} does not split over {n} "
+                             f"positions")
+    rows, hq, hk = B // nb, Hq // nh, Hkv // nh
+    grid = np.moveaxis(mesh.devices, AXES.index(axis_name), -1)
+    out = []
+    for b, at in enumerate(np.ndindex(*(shape[a] for a in batch_axes))):
+        coord = dict(zip(batch_axes, at))
+        heads = []
+        for h in range(nh):
+            if heads_axis:
+                coord[heads_axis] = h
+            idx = tuple(coord.get(a, 0) for a in AXES if a != axis_name)
+            devices = list(grid[idx])
+            r, qh, kh = (slice(b * rows, (b + 1) * rows),
+                         slice(h * hq, (h + 1) * hq),
+                         slice(h * hk, (h + 1) * hk))
+            outs = body(_split(q[r, :, qh], devices),
+                        _split(k[r, :, kh], devices),
+                        _split(v[r, :, kh], devices), devices,
+                        causal=causal, scale=scale)
+            heads.append(torch.cat([o.to(q.device) for o in outs], dim=1))
+        out.append(torch.cat(heads, dim=2))
+    return torch.cat(out, dim=0)
 
 
 def ring_attention(q, k, v, mesh, axis_name: str = "sp",
-                   causal: bool = True, scale: Optional[float] = None):
+                   causal: bool = True, scale: Optional[float] = None,
+                   batch_axes: Tuple[str, ...] = ("dp", "fsdp"),
+                   heads_axis: Optional[str] = "tp"):
     """Causal GQA attention with the sequence split over ``axis_name``.
 
     q, k, v: (B, S, H*, D) whole tensors; S must divide by the axis size.
-    Shard i takes q, k and v[:, i*S/n:(i+1)*S/n] onto its device; the
-    output is joined back on q's device. Degenerate sp=1 is one local
-    attention pass."""
-    return _sharded(_ring_shards, q, k, v, mesh, axis_name, causal, scale)
+    Batch and heads keep their ``batch_axes``/``heads_axis`` splits and
+    only the sequence communicates: each (batch group, tp slice) takes its
+    rows and heads of q, k and v[:, i*S/n:(i+1)*S/n] onto its i-th sp
+    position's device. The output is joined back on q's device.
+    Degenerate sp=1 is one local attention pass."""
+    return _sharded(_ring_shards, q, k, v, mesh, axis_name, causal, scale,
+                    batch_axes, heads_axis)
 
 
 def ulysses_attention(q, k, v, mesh, axis_name: str = "sp",
-                      causal: bool = True, scale: Optional[float] = None):
+                      causal: bool = True, scale: Optional[float] = None,
+                      batch_axes: Tuple[str, ...] = ("dp", "fsdp"),
+                      heads_axis: Optional[str] = "tp"):
     """All-to-all sequence parallelism: reshard seq→heads, attend locally,
-    reshard back.  Requires head counts divisible by the sp size."""
+    reshard back.  Requires local head count (H / tp) divisible by the sp
+    size."""
     return _sharded(_ulysses_shards, q, k, v, mesh, axis_name, causal,
-                    scale)
+                    scale, batch_axes, heads_axis)

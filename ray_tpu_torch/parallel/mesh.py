@@ -9,17 +9,17 @@ single-controller model), so a K/V rotation between shards is a
 ``.to(next_device)``, a tensor-parallel all-reduce a ``.to()`` of each
 partial and a sum, and an fsdp gather a ``.to()`` and a ``cat``.
 
-Serving splits one axis, ``sp`` (sequence-parallel prefill) or ``tp``
-(tensor-parallel serving): ``axis_devices`` and ``split_axis``. Training
-splits any of ``pp``, ``dp``, ``fsdp`` and ``tp`` at once
+Training splits any of ``pp``, ``dp``, ``fsdp``, ``sp`` and ``tp`` at once
 (``models.train_step``): ``coords``, ``stage_positions``,
-``batch_groups``, ``group_positions`` and ``fsdp_positions`` give its
-layout, each stage (the positions with one pp coordinate) a dp x fsdp x
-tp layout of its own. Serving over dp, fsdp or pp, and sp beside another
-split axis, raise NotImplementedError (ROADMAP Queue 1 item 4). It is
-not ``torch.distributed.DeviceMesh``: one process per GPU comes with the
-NCCL group and the Train backend (items 8 and 9), built from the same
-``MeshSpec``.
+``batch_groups``, ``group_positions``, ``fsdp_positions`` and
+``sp_positions`` give its layout, each stage (the positions with one pp
+coordinate) a dp x fsdp x sp x tp layout of its own. Serving
+(``serve_axes``) takes ``sp``, ``tp`` or both, ``pp`` alone or beside
+``tp``, and ``dp`` or ``fsdp`` alone, where the engine replicates the
+weights and the pool once per distinct device, as the JAX engine's rules
+replicate them over those axes. It is not ``torch.distributed.DeviceMesh``:
+one process per GPU comes with the NCCL group and the Train backend
+(items 8 and 9), built from the same ``MeshSpec``.
 
 A grid may name one device more than once: a shard is a position in the
 mesh, not a device. ``build_mesh(MeshSpec(sp=4), devices=[cuda:0] * 4)``
@@ -105,45 +105,33 @@ class Mesh:
         """Each device of the grid once, in grid order."""
         return list(dict.fromkeys(self.devices.flat))
 
-    def axis_devices(self, axis_name: str = "sp") -> List[torch.device]:
-        """The devices of ``axis_name``'s positions, in order, for serving.
-        ``axis_name`` is ``sp`` or ``tp``, and every other axis must be 1:
-        the engine splits one of those two. Serving over dp, fsdp or pp,
-        or over ``sp`` x ``tp`` (ROADMAP Queue 1 item 4), is not ported; a
-        value-preserving layout that left those devices idle would hide
-        it, so it raises. Training takes pp, dp, fsdp and tp
-        (``batch_groups``)."""
-        other = {a: s for a, s in self.shape.items()
-                 if a != axis_name and s > 1}
-        if axis_name not in ("sp", "tp") or other:
-            raise NotImplementedError(
-                f"mesh axes {other or {axis_name: self.shape[axis_name]}} "
-                f"are not ported for serving: the engine splits only the "
-                f"sp or the tp axis, one at a time (dp/fsdp/pp serving and "
-                f"sp x tp are ROADMAP Queue 1 item 4; training splits pp, "
-                f"dp, fsdp and tp)")
-        return list(self.devices.reshape(-1))
+    # Serving layouts the engine takes (the split axes of each, as sets).
+    SERVE_LAYOUTS = (frozenset(), frozenset({"sp"}), frozenset({"tp"}),
+                     frozenset({"sp", "tp"}), frozenset({"pp"}),
+                     frozenset({"pp", "tp"}), frozenset({"dp"}),
+                     frozenset({"fsdp"}))
 
-    def split_axis(self) -> Optional[str]:
-        """The axis a serving mesh splits, ``"sp"`` or ``"tp"``, or None
-        where every axis is 1; raises NotImplementedError as
-        ``axis_devices`` does for any other layout."""
-        axis = "tp" if self.shape["tp"] > 1 else "sp"
-        self.axis_devices(axis)
-        return axis if self.shape[axis] > 1 else None
+    def serve_axes(self) -> Tuple[str, ...]:
+        """The axes larger than 1 of a serving layout, in ``AXES`` order:
+        sp, tp or both; pp alone or beside tp; dp or fsdp alone. Any
+        other layout raises NotImplementedError: dp or fsdp beside another
+        split axis, and pp beside sp, are ROADMAP Queue 1 item 13 (the JAX
+        engine serves them through GSPMD)."""
+        split = tuple(a for a, s in self.shape.items() if s > 1)
+        if frozenset(split) not in self.SERVE_LAYOUTS:
+            raise NotImplementedError(
+                f"serving on mesh axes {split} is not ported: the engine "
+                f"serves sp, tp, sp x tp, pp, pp x tp, dp or fsdp (dp or "
+                f"fsdp beside another split axis, and pp beside sp, are "
+                f"ROADMAP Queue 1 item 13)")
+        return split
 
     # -- the training layout ---------------------------------------------
 
     def train_axes(self) -> Tuple[str, ...]:
         """The axes larger than 1 of a training layout, in ``AXES`` order:
-        any of pp, dp, fsdp and tp, or sp alone. sp beside another split
-        axis (ROADMAP Queue 1 item 4) raises NotImplementedError."""
-        split = tuple(a for a, s in self.shape.items() if s > 1)
-        if "sp" in split and len(split) > 1:
-            raise NotImplementedError(
-                f"mesh axes {split} are not ported: sp beside another "
-                f"split axis is ROADMAP Queue 1 item 4")
-        return split
+        any of pp, dp, fsdp, sp and tp."""
+        return tuple(a for a, s in self.shape.items() if s > 1)
 
     def coords(self) -> List[Tuple[int, ...]]:
         """Each position's coordinate over ``AXES``, in grid order (the
@@ -169,19 +157,28 @@ class Mesh:
         return [(d, f) for d in range(self.shape["dp"])
                 for f in range(self.shape["fsdp"])]
 
-    def group_positions(self, dp: int, fsdp: int,
-                        stage: int = 0) -> List[int]:
+    def group_positions(self, dp: int, fsdp: int, stage: int = 0,
+                        sp: int = 0) -> List[int]:
         """The flat indices of a batch group's tp positions in pipeline
-        stage ``stage``, in tp order."""
-        return [self._index(pp=stage, dp=dp, fsdp=fsdp, tp=t)
+        stage ``stage`` at sequence shard ``sp``, in tp order."""
+        return [self._index(pp=stage, dp=dp, fsdp=fsdp, sp=sp, tp=t)
                 for t in range(self.shape["tp"])]
 
-    def fsdp_positions(self, dp: int, tp: int, stage: int = 0) -> List[int]:
+    def fsdp_positions(self, dp: int, tp: int, stage: int = 0,
+                       sp: int = 0) -> List[int]:
         """The flat indices of the positions of pipeline stage ``stage``
-        that share a (dp, tp) slice, in fsdp order: between them they hold
-        every embed-dim slice of that tp slice."""
-        return [self._index(pp=stage, dp=dp, fsdp=f, tp=tp)
+        that share a (dp, sp, tp) coordinate, in fsdp order: between them
+        they hold every embed-dim slice of that tp slice."""
+        return [self._index(pp=stage, dp=dp, fsdp=f, sp=sp, tp=tp)
                 for f in range(self.shape["fsdp"])]
+
+    def sp_positions(self, dp: int = 0, fsdp: int = 0, tp: int = 0,
+                     stage: int = 0) -> List[int]:
+        """The flat indices of the positions that share a (stage, dp,
+        fsdp, tp) coordinate, in sp order: between them they hold every
+        sequence shard of that batch group's tp slice."""
+        return [self._index(pp=stage, dp=dp, fsdp=fsdp, sp=j, tp=tp)
+                for j in range(self.shape["sp"])]
 
 
 def _device(d: Union[str, torch.device]) -> torch.device:

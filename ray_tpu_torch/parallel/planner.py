@@ -27,7 +27,11 @@ Accounting model (per position):
              recomputed activations (q, k, v, o, the two normed inputs,
              gate, up and their product, each at the position's heads and
              hidden units) and, under fsdp, the layer's tp slice of the
-             weights gathered across the fsdp positions.
+             weights gathered across the fsdp positions. Under sp with
+             ``attention_impl="ring"`` also the ring's saved f32 blocks:
+             per merge of one of the sp K/V blocks, the scores, their
+             exponentials and the rounded probabilities, each (B_mb,
+             H/tp, S/sp, S/sp).
 
 Batch groups take turns (the train step runs one group's forward and
 backward at a time), so one group's activations are live at once. Under
@@ -148,20 +152,14 @@ def plan_train_memory(cfg, spec: MeshSpec, *,
     ``hbm_gib``, which is the current CUDA card's memory (raising without
     one). ``spec`` must be fully resolved (no -1). ``num_microbatches``
     sets the pipeline's depth under pp > 1 (default pp) and is ignored
-    without it, as the train step does. sp beside another split axis
-    (ROADMAP Queue 1 item 4) raises NotImplementedError as the train step
-    does."""
+    without it, as the train step does. Under sp a position holds its
+    sequence shard, ``ceil(seq / sp)`` tokens of each row, as in JAX."""
     from ..models.transformer import param_logical_axes, param_shapes
 
     rules = rules or LogicalAxisRules.default()
     sizes = spec.sizes()
     if any(s == -1 for s in sizes.values()):
         raise ValueError("resolve() the MeshSpec first (no -1 axes)")
-    split = [a for a, s in sizes.items() if s > 1]
-    if "sp" in split and len(split) > 1:
-        raise NotImplementedError(
-            f"mesh axes {tuple(split)} are not ported: sp beside another "
-            f"split axis is ROADMAP Queue 1 item 4")
     seq = seq_len or cfg.max_seq_len
     hbm = int(hbm_gib * GiB) if hbm_gib is not None else _card_bytes()
 
@@ -208,7 +206,11 @@ def plan_train_memory(cfg, spec: MeshSpec, *,
     if fsdp > 1:
         w_elems = h * d * (2 * nh + 2 * nkv) + 3 * h * m
         gathered = math.ceil(w_elems / tp) * act
-    ws_b = tokens_mb * layer_tok * act + gathered
+    ring = 0
+    if sp > 1 and cfg.attention_impl == "ring":
+        ring = (3 * sp * math.ceil(B_loc / mb) * math.ceil(nh / tp)
+                * S_loc * S_loc * 4)
+    ws_b = tokens_mb * layer_tok * act + gathered + ring
 
     return MemoryPlan(
         cfg=cfg, spec=spec, global_batch=global_batch, seq_len=seq,

@@ -129,13 +129,13 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
 
 
 def test_unported_engine_options_are_absent():
-    """sp_degree, sp_strategy, an sp-only mesh, a tp-only mesh and the
-    engine's own rules are ported (tests/test_torch_sp_prefill.py,
-    tests/test_torch_tp_engine.py); what stays unported: rules that split
-    another dim than heads, kv_heads and mlp over tp (the reference's
-    default table splits the vocabulary) and a mesh with dp, fsdp or pp
-    larger than 1, or with sp and tp both larger than 1, each raising
-    NotImplementedError."""
+    """sp_degree, sp_strategy, sp, tp, sp x tp, pp, dp and fsdp meshes and
+    the engine's own rules are ported (tests/test_torch_sp_prefill.py,
+    tests/test_torch_tp_engine.py, tests/test_torch_mesh_engine.py); what
+    stays unported: rules that lay out a dim otherwise than the Megatron
+    rules (the reference's default table splits the vocabulary) and a
+    mesh with dp or fsdp beside another split axis, or pp beside sp (ROADMAP
+    item 13), each raising NotImplementedError."""
     tp2 = build_mesh(MeshSpec(tp=2), devices=["cpu"] * 2)
     with pytest.raises(NotImplementedError, match="vocab"):
         LLMEngine(CFG, device="cpu", mesh=tp2,
@@ -144,8 +144,13 @@ def test_unported_engine_options_are_absent():
                  dict(pp=2)):
         mesh = build_mesh(MeshSpec(**spec),
                           devices=["cpu"] * MeshSpec(**spec).n_devices)
-        with pytest.raises(NotImplementedError, match="item 4"):
-            LLMEngine(CFG, device="cpu", mesh=mesh)
+        if "fsdp" in spec:
+            with pytest.raises(NotImplementedError, match="item 13"):
+                LLMEngine(CFG, device="cpu", mesh=mesh)
+            continue
+        eng = LLMEngine(CFG, device="cpu", mesh=mesh, max_len=64)
+        assert (eng.tp_degree, eng.pp_degree, eng.sp_degree) == (
+            spec.get("tp", 1), spec.get("pp", 1), spec.get("sp", 1))
     eng = LLMEngine(CFG, device="cpu", max_len=64, sp_degree=2,
                     sp_strategy="ulysses",
                     mesh=build_mesh(MeshSpec(sp=2), devices=["cpu"] * 2))

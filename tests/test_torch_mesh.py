@@ -74,55 +74,80 @@ def test_repeated_devices_are_shard_positions():
     """One device named four times is a 4-way sp mesh over one device."""
     mesh = build_mesh(MeshSpec(sp=4), devices=["cpu"] * 4)
     assert mesh.shape["sp"] == 4
-    assert mesh.axis_devices("sp") == [CPU] * 4
+    assert [mesh.devices.flat[i] for i in mesh.sp_positions()] == [CPU] * 4
     assert mesh.distinct_devices() == [CPU]
     one = single_device_mesh("cpu")
     assert mesh_info(one) == dict.fromkeys(AXES, 1)
-    assert one.axis_devices("sp") == [CPU]
+    assert one.sp_positions() == [0] and one.serve_axes() == ()
+    sptp = build_mesh(MeshSpec(sp=2, tp=2), devices=[CPU] * 4)
+    assert sptp.serve_axes() == ("sp", "tp")
+    assert sptp.sp_positions(tp=1) == [1, 3]
 
 
 @pytest.mark.parametrize("spec", [dict(dp=2, sp=4), dict(sp=2, tp=2),
                                   dict(pp=2), dict(fsdp=2, sp=2)])
 def test_other_axes_than_sp_raise_not_implemented(spec):
-    """Serving splits sp or tp alone: these raise naming ROADMAP item 4.
-    As training layouts, sp beside another split axis raises naming item
-    4; pp is a training layout, whose stages each hold the batch groups."""
+    """sp beside another split axis is a training layout: its batch
+    groups, and each (group, tp) coordinate's sp positions in sp order.
+    For serving, sp x tp and pp are layouts of the engine; dp or fsdp
+    beside sp is not ported, and raises naming what is left (item 13)."""
     mesh = build_mesh(MeshSpec(**spec),
                       devices=[CPU] * MeshSpec(**spec).n_devices)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        mesh.axis_devices("sp")
+    split = tuple(a for a in AXES if spec.get(a, 1) > 1)
+    assert mesh.train_axes() == split
+    if "dp" in spec or "fsdp" in spec:
+        with pytest.raises(NotImplementedError, match="item 13"):
+            mesh.serve_axes()
+    else:
+        assert mesh.serve_axes() == split
     if "pp" in spec:
-        assert mesh.train_axes() == ("pp",)
         assert mesh.batch_groups() == [(0, 0)]
         assert [mesh.stage_positions(s) for s in range(2)] == [[0], [1]]
         assert mesh.group_positions(0, 0, stage=1) == [1]
         assert mesh.fsdp_positions(0, 0, stage=1) == [1]
-    else:
-        with pytest.raises(NotImplementedError, match="item 4"):
-            mesh.batch_groups()
+        assert mesh.sp_positions(stage=1) == [1]
+        return
+    coords = mesh.coords()
+    sp = spec["sp"]
+    assert [mesh.devices.flat[i] for i in mesh.sp_positions()] == [CPU] * sp
+    for d, f in mesh.batch_groups():
+        for t in range(spec.get("tp", 1)):
+            got = [coords[i] for i in mesh.sp_positions(d, f, t)]
+            assert got == [(0, d, f, j, t) for j in range(sp)]
+            for j in range(sp):
+                assert [coords[i] for i in mesh.group_positions(
+                    d, f, sp=j)][t] == (0, d, f, j, t)
+    assert len(mesh.batch_groups()) == (spec.get("dp", 1)
+                                        * spec.get("fsdp", 1))
 
 
 @pytest.mark.parametrize("spec,axis", [(dict(sp=4), "sp"),
                                        (dict(tp=2), "tp"), (dict(), None)])
 def test_a_mesh_splits_sp_or_tp_alone(spec, axis):
     """For serving, a tp mesh's positions are its devices, as an sp mesh's
-    are; a dp axis asked for by name, or sp and tp together, raise. dp is a
-    training axis: its positions are batch groups."""
+    are; dp alone is a serving layout too (replicas, one per distinct
+    device). dp is also a training axis: its positions are batch groups.
+    sp and tp together serve; dp beside tp does not (item 13)."""
     n = MeshSpec(**spec).n_devices
     mesh = build_mesh(MeshSpec(**spec), devices=[CPU] * n)
-    assert mesh.split_axis() == axis
-    assert mesh.axis_devices(axis or "tp") == [CPU] * n
+    assert mesh.serve_axes() == ((axis,) if axis else ())
+    assert list(mesh.devices.flat) == [CPU] * n
+    assert mesh.sp_positions() == (list(range(n)) if axis == "sp" else [0])
     dp2 = build_mesh(MeshSpec(dp=2), devices=[CPU] * 2)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        dp2.axis_devices("dp")
+    assert dp2.distinct_devices() == [CPU]
+    assert dp2.serve_axes() == ("dp",)
     assert dp2.train_axes() == ("dp",)
     assert dp2.batch_groups() == [(0, 0), (1, 0)]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        build_mesh(MeshSpec(sp=2, tp=2), devices=[CPU] * 4).split_axis()
+    assert build_mesh(MeshSpec(sp=2, tp=2),
+                      devices=[CPU] * 4).serve_axes() == ("sp", "tp")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        build_mesh(MeshSpec(dp=2, tp=2), devices=[CPU] * 4).serve_axes()
 
 
 @pytest.mark.parametrize("spec", [dict(dp=2, fsdp=2, tp=2), dict(fsdp=8),
-                                  dict(dp=2, tp=4), dict(fsdp=2, tp=4)])
+                                  dict(dp=2, tp=4), dict(fsdp=2, tp=4),
+                                  dict(dp=2, sp=2, tp=2),
+                                  dict(fsdp=2, sp=2, tp=2)])
 def test_training_layout_follows_jax_device_order(spec):
     """A position's coordinate is that of JAX's device at the same place of
     the same mesh; batch groups follow JAX's ("dp", "fsdp") batch axis, the
@@ -144,6 +169,8 @@ def test_training_layout_follows_jax_device_order(spec):
         for t in range(s["tp"]):
             got = [coords[i] for i in mesh.fsdp_positions(d, t)]
             assert got == [(0, d, g, 0, t) for g in range(s["fsdp"])]
+            got = [coords[i] for i in mesh.sp_positions(d, f, t)]
+            assert got == [(0, d, f, j, t) for j in range(s["sp"])]
 
 
 def test_sp_mesh_matches_jax_and_its_error_word_for_word():

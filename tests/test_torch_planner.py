@@ -9,6 +9,8 @@ part is the port's own (its remat keeps each layer's input), so it is
 checked against its definition, not against JAX's.
 """
 
+import dataclasses
+
 import jax
 import pytest
 import torch
@@ -25,7 +27,8 @@ from ray_tpu_torch.parallel import (MemoryPlan, MeshSpec, build_mesh,
 SPECS = [dict(), dict(dp=2), dict(fsdp=2), dict(tp=2), dict(fsdp=2, tp=2),
          dict(dp=2, fsdp=2, tp=2), dict(fsdp=4, tp=2), dict(dp=8),
          dict(sp=4), dict(pp=2), dict(pp=2, dp=2, tp=2),
-         dict(pp=4, fsdp=2)]
+         dict(pp=4, fsdp=2), dict(dp=2, sp=2), dict(sp=2, tp=2),
+         dict(fsdp=2, sp=2, tp=2), dict(pp=2, sp=2)]
 ENGINE_OVERRIDES = (("vocab", None), ("embed", None))
 
 
@@ -70,7 +73,9 @@ def test_the_8b_state_on_one_position_is_the_unsharded_state():
 @pytest.mark.parametrize("spec", [dict(dp=2, fsdp=2, tp=2),
                                   dict(fsdp=4, tp=2), dict(dp=2, tp=4),
                                   dict(fsdp=8), dict(pp=2, dp=2, tp=2),
-                                  dict(pp=2, fsdp=2, tp=2)])
+                                  dict(pp=2, fsdp=2, tp=2),
+                                  dict(dp=2, sp=2, tp=2),
+                                  dict(pp=2, sp=2, tp=2)])
 def test_position_bytes_equal_the_shards_bytes(spec, megatron):
     """For every position of the sharded train state, the planner's params
     and optimizer bytes are those of that position's own params, mu and nu
@@ -164,9 +169,23 @@ def test_unported_layouts_and_a_missing_card_raise():
     assert plan_train_memory(cfg, MeshSpec(), global_batch=8, hbm_gib=1.0,
                              num_microbatches=2) == plan_train_memory(
         cfg, MeshSpec(), global_batch=8, hbm_gib=1.0)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        plan_train_memory(cfg, MeshSpec(sp=2, tp=2), global_batch=8,
-                          hbm_gib=1.0)
+    # sp beside tp is a training layout now: a position holds its
+    # sequence shard (S / sp tokens of each row), and under ring attention
+    # the ring's saved f32 blocks (3 per merge, sp merges, each
+    # (B, H/tp, S/sp, S/sp)) join the workspace.
+    tp2 = plan_train_memory(cfg, MeshSpec(tp=2), global_batch=8,
+                            hbm_gib=1.0)
+    sptp = plan_train_memory(cfg, MeshSpec(sp=2, tp=2), global_batch=8,
+                             hbm_gib=1.0)
+    assert sptp.state_bytes == tp2.state_bytes
+    assert 2 * sptp.activation_bytes == tp2.activation_bytes
+    assert 2 * sptp.logits_bytes == tp2.logits_bytes
+    ring = plan_train_memory(
+        dataclasses.replace(cfg, attention_impl="ring"), MeshSpec(sp=2, tp=2),
+        global_batch=8, hbm_gib=1.0)
+    S = cfg.max_seq_len // 2
+    assert ring.workspace_bytes - sptp.workspace_bytes == \
+        3 * 2 * 8 * (cfg.num_heads // 2) * S * S * 4
     with pytest.raises(ValueError, match="resolve"):
         plan_train_memory(cfg, MeshSpec(dp=-1), global_batch=8, hbm_gib=1.0)
     if torch.cuda.is_available():

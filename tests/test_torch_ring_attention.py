@@ -4,8 +4,10 @@ package's on the CPU (the ports of tests/test_ops.py:51-100).
 The same numpy inputs go through JAX's ``shard_map`` programs on the
 conftest's 8 CPU devices (a dp=2 x sp=4 mesh, as in tests/test_ops.py; dp
 splits the batch and changes no value) and through the port on a mesh that
-names the CPU four times (the port splits only the sequence). f32
-throughout: 1e-4 for the ops, 2e-3 for the model's logits.
+names the CPU four or eight times: sp alone, and the same dp x sp, sp x tp
+and dp meshes as JAX's (batch over dp, heads over tp, a ring per batch
+group and tp slice). f32 throughout: 1e-4 for the ops and the sharded
+model, 2e-3 for the sp-only model's logits against JAX's dp x sp.
 """
 
 import dataclasses
@@ -108,17 +110,67 @@ def test_ulysses_needs_heads_divisible_by_sp():
     q, k, v = map(torch.from_numpy, _rand_qkv(Hq=4, Hkv=2))
     with pytest.raises(ValueError, match="divisible"):
         ulysses_attention(q, k, v, _sp_mesh(4))
+    # On sp x tp the local heads (H / tp) split over sp: 2 / 2 = 1 does not.
+    sptp = build_mesh(MeshSpec(sp=2, tp=2), devices=[CPU] * 4)
+    with pytest.raises(ValueError, match="divisible"):
+        ulysses_attention(q, k, v, sptp)
+
+
+def _meshes(spec):
+    n = MeshSpec(**spec).n_devices
+    return (jax_build_mesh(JaxMeshSpec(**spec), devices=jax.devices()[:n]),
+            build_mesh(MeshSpec(**spec), devices=[CPU] * n))
 
 
 @pytest.mark.parametrize("spec", [dict(dp=2, sp=4), dict(sp=2, tp=2),
                                   dict(dp=8)])
 def test_non_sp_meshes_raise_not_implemented(spec):
-    q, k, v = map(torch.from_numpy, _rand_qkv())
-    mesh = build_mesh(MeshSpec(**spec),
-                      devices=[CPU] * MeshSpec(**spec).n_devices)
-    for fn in (ring_attention, ulysses_attention):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            fn(q, k, v, mesh)
+    """Meshes with other axes than sp: the batch splits over dp (and
+    fsdp), the heads over tp, and each (batch group, tp slice) runs its
+    own ring or all-to-all over its sp positions; against JAX's
+    shard_map programs on the same mesh."""
+    qkv = _rand_qkv(B=8, S=32, Hq=8, Hkv=4, D=16, seed=11)
+    jmesh, mesh = _meshes(spec)
+    for fn, jfn in ((ring_attention, jax_ring_attention),
+                    (ulysses_attention, jax_ulysses_attention)):
+        got, want = _both(qkv, fn, jfn, jmesh, mesh, causal=True)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_on_a_dp_sp_mesh_matches_jax(causal):
+    """tests/test_ops.py's ring case on the port's own dp=2 x sp=4 mesh
+    (each batch group its own ring), against JAX's on the same mesh and
+    the reference."""
+    qkv = _rand_qkv(B=2, S=32, Hq=4, Hkv=2, D=16)
+    jmesh, mesh = _meshes(dict(dp=2, sp=4))
+    got, want = _both(qkv, ring_attention, jax_ring_attention, jmesh, mesh,
+                      causal=causal)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    ref = reference_attention(*map(torch.from_numpy, qkv), causal=causal)
+    np.testing.assert_allclose(got, ref.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_ring_sp1_degenerates_on_a_dp_mesh():
+    """tests/test_ops.py's degenerate case on the port's dp=8 mesh: eight
+    batch groups of one row, each a one-shard pass."""
+    qkv = _rand_qkv(B=8)
+    jmesh, mesh = _meshes(dict(dp=8))
+    got, want = _both(qkv, ring_attention, jax_ring_attention, jmesh, mesh,
+                      causal=True)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_ulysses_on_a_dp_sp_mesh_matches_jax():
+    """tests/test_ops.py's Ulysses case (Hq = Hkv = 4 over sp = 4) on the
+    port's dp=2 x sp=4 mesh."""
+    qkv = _rand_qkv(B=2, S=32, Hq=4, Hkv=4, D=16)
+    jmesh, mesh = _meshes(dict(dp=2, sp=4))
+    got, want = _both(qkv, ulysses_attention, jax_ulysses_attention, jmesh,
+                      mesh, causal=True)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    ref = reference_attention(*map(torch.from_numpy, qkv), causal=True)
+    np.testing.assert_allclose(got, ref.numpy(), rtol=1e-4, atol=1e-4)
 
 
 def test_a_sequence_that_does_not_split_raises():
@@ -156,6 +208,22 @@ def test_ring_attention_in_model(tiny):
                     device="cpu")
     np.testing.assert_allclose(got.numpy(), plain.numpy(),
                                rtol=2e-3, atol=2e-3)
+
+
+def test_ring_attention_in_model_on_a_dp_sp_mesh(tiny):
+    """tests/test_ops.py's model case on the port's dp=2 x sp=4 mesh (the
+    sharded forward: each batch group's sequence over its sp positions,
+    the ring per layer) against JAX's on the same mesh."""
+    jp, tp = tiny
+    jcfg = dataclasses.replace(JAX_PRESETS["tiny"], attention_impl="ring")
+    cfg = dataclasses.replace(PRESETS["tiny"], attention_impl="ring")
+    toks = np.random.default_rng(0).integers(1, cfg.vocab_size, (4, 32))
+    jmesh, mesh = _meshes(dict(dp=2, sp=4))
+    want = jax.jit(lambda p, t: jax_forward(p, t, jcfg, jmesh))(
+        jp, jnp.asarray(toks, jnp.int32))
+    got = forward(tp, torch.from_numpy(toks), cfg, mesh, device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_ring_without_a_mesh_is_plain_attention():

@@ -150,7 +150,8 @@ def test_forward_and_loss_under_a_mesh_match_jax(jparams, spec):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("spec", [MESH, dict(fsdp=2, tp=2)])
+@pytest.mark.parametrize("spec", [MESH, dict(fsdp=2, tp=2),
+                                  dict(fsdp=2, sp=2, tp=2)])
 def test_shard_params_and_gather_bit_equal_to_jax(jparams, spec, dtype):
     """Under the default rules each position's tensor of every leaf is, bit
     for bit, the shard jax.device_put places on the mesh's device of that
@@ -378,21 +379,31 @@ def test_megatron_rules_give_the_same_loss_and_other_tables_raise(jparams):
         make_train_step(CFG, mesh, rules=other, device="cpu")
 
 
-@pytest.mark.parametrize("spec,match", [
-    (dict(pp=2, sp=2), "item 4"), (dict(sp=2, tp=2), "item 4"),
-    (dict(dp=2, sp=2), "item 4"), (dict(fsdp=2, sp=4), "item 4")])
-def test_unported_layouts_raise_naming_their_roadmap_item(jparams, spec,
-                                                          match):
+@pytest.mark.parametrize("spec", [dict(pp=2, sp=2), dict(sp=2, tp=2),
+                                  dict(dp=2, sp=2), dict(fsdp=2, sp=4)])
+def test_unported_layouts_raise_naming_their_roadmap_item(jparams, spec):
+    """sp beside another split axis, once unported, now trains: loss_fn,
+    make_eval_step and one make_train_step step on the mesh against the
+    unsharded port (the parity with JAX is in
+    tests/test_torch_train_sp.py)."""
     mesh = build_mesh(MeshSpec(**spec),
                       devices=[CPU] * MeshSpec(**spec).n_devices)
     params = from_jax_params(_np(jparams), CFG, "cpu")
     batch = {"tokens": torch.from_numpy(_tokens((8, 9), 8))}
-    with pytest.raises(NotImplementedError, match=match):
-        make_train_step(CFG, mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        loss_fn(params, batch, CFG, mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        make_eval_step(CFG, mesh, device="cpu")
+    with torch.no_grad():
+        want = float(loss_fn(params, batch, CFG, device="cpu"))
+        got = float(loss_fn(params, batch, CFG, mesh, device="cpu"))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    np.testing.assert_allclose(
+        float(make_eval_step(CFG, mesh, device="cpu")(params, batch)), want,
+        rtol=1e-5)
+    tb = make_train_step(CFG, mesh, optimizer=_optimizer(False),
+                         device="cpu")
+    shards = shard_params(from_jax_params(_np(jparams), CFG, "cpu"), mesh)
+    _, m = tb.step({"params": shards,
+                    "opt_state": tb.optimizer.init(shards), "step": 0},
+                   batch)
+    np.testing.assert_allclose(m["loss"], want, rtol=1e-5)
     # Without a pp axis num_microbatches is ignored, as in the JAX package.
     tb = make_train_step(CFG, _meshes(MESH)[1], num_microbatches=2,
                          device="cpu")
