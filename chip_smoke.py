@@ -234,7 +234,34 @@ Phases, each printing one JSON line on stdout:
    same numbers as train_mesh and the peak beside the planner's figure.
    Where torch.cuda.device_count() >= 2 the same mesh also runs over the
    visible cards.
-16. moe: one MoE layer at Mixtral-8x7B's published widths (d_model 4096,
+16. collective: one spawned process per card (the "spawn" start method;
+   torch.cuda.device_count() ranks: one on a machine with one card,
+   four with four), each joining an NCCL world through the Train
+   backend (train.backend.TorchConfig("nccl"): pinned to cuda:rank with
+   every card visible, tcp://localhost rendezvous) and running every op
+   of an NCCL TorchCollectiveGroup on CUDA tensors against numpy: the
+   four allreduce ops, allgather, broadcast, barrier, reducescatter at an
+   even and an uneven length, reduce, and send/recv where world >= 2
+   (the line says where it was not run); where world >= 2 also the bus
+   bandwidth of a 256 MiB bf16 all-reduce (algbw x 2(n - 1)/n). Each
+   rank checks that it imported neither JAX nor the JAX package.
+17. train_ranks: the same model at full width and depth trained with one
+   process per card on MeshSpec(dp=2, fsdp=2) spanning the ranks (a
+   world of one holds all four positions on its card; four ranks hold
+   one each, the fsdp gathers an NCCL all-gather between cards and the
+   dp replicas an NCCL all-reduce): train_mesh's batch, each rank drawing
+   the seed-0 params on its card (their layers.attn.wk's hash against the
+   unsharded pass's), value_and_grad's sampled gradients gathered across
+   ranks against train_mesh's unsharded pass (kept in a file the ranks
+   read), then three steps: step 1's loss and grad norm against it,
+   falling losses, each rank's launches of kernels 1-3 (2 x 32 x its
+   batch groups, 32 x its batch groups twice), its distinct state bytes
+   against the planner's per-rank figure, and the dp replicas bit-equal
+   across ranks after the steps. Prints per rank its step ms, one
+   profiled step's device time and idle share, and its peak memory. A
+   rank that raises, hangs past its bound or exits non-zero fails the
+   run; nothing falls back to gloo or the CPU.
+18. moe: one MoE layer at Mixtral-8x7B's published widths (d_model 4096,
    d_ff 14336, 8 experts, top 2; capacity_factor 1.25, MoEConfig's
    default), bf16 on x of (4, 2048, 4096) from a seed, f32 params as
    JAX's init makes them (5.64 GB of experts): the forward and the
@@ -260,12 +287,17 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import itertools
 import json
 import math
+import multiprocessing
 import os
+import queue
+import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -274,6 +306,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from ray_tpu_torch import collective
 from ray_tpu_torch._private import deadlines, flight_recorder
 from ray_tpu_torch.exceptions import (DeadlineExceededError, KVGatherError,
                                       OverloadedError, StreamBrokenError)
@@ -291,7 +324,9 @@ from ray_tpu_torch.ops import _build
 from ray_tpu_torch.parallel import (MeshSpec, build_mesh, plan_train_memory,
                                     shard_params, tree_specs)
 from ray_tpu_torch.parallel.mesh import Mesh
-from ray_tpu_torch.parallel.sharding import gather_tensor, shard_slices
+from ray_tpu_torch.parallel.sharding import (all_gather_parts, gather_tensor,
+                                             shard_slices)
+from ray_tpu_torch.train.backend import TorchConfig, _TorchBackend
 from ray_tpu_torch.ops.flash_attention import (
     attention_bwd_delta, flash_attention, flash_attention_bwd,
     flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
@@ -516,6 +551,18 @@ TRAIN_PP_RANGES = dict(TRAIN_MESH_RANGES, stage_send="pp:send")
 # train phase measured those limits on (PERF.md).
 TRAIN_SP = dict(dp=2, sp=2, tp=2)
 TRAIN_SP_STEPS = 3
+# collective: a 256 MiB bf16 all-reduce timed where world >= 2 (NCCL's
+# bus bandwidth: algbw x 2(n - 1)/n); every wait of the spawned ranks is
+# bounded.
+COLLECTIVE_BYTES = 256 << 20
+COLLECTIVE_ITERS = 5
+COLLECTIVE_TIMEOUT_S = 120
+# train_ranks: the reference's dp x fsdp layout across processes
+# (tests/test_models.py:80-122 without its tp axis, which stays inside a
+# process), train_mesh's batch and seeded params, one rank a card.
+TRAIN_RANKS = dict(dp=2, fsdp=2)
+TRAIN_RANKS_STEPS = 3
+TRAIN_RANKS_TIMEOUT_S = 300
 # moe: one MoE layer at Mixtral-8x7B's published widths
 # (mistralai/Mixtral-8x7B-v0.1 config.json: hidden_size 4096,
 # intermediate_size 14336, num_local_experts 8, num_experts_per_tok 2),
@@ -3415,7 +3462,8 @@ def unsharded_reference(cfg, batch) -> tuple:
     loss, grads = value_and_grad(params, batch, cfg, device="cuda")
     ref = dict(loss=float(loss), grad_norm=float(global_norm(grads)),
                grads={path: _sample(grads, path)
-                      for path in TRAIN_MESH_SAMPLE})
+                      for path in TRAIN_MESH_SAMPLE},
+               wk_sha256=_leaf_sha256(params["layers"]["attn"]["wk"]))
     del params, grads, loss
     gc.collect()
     torch.cuda.empty_cache()
@@ -3618,6 +3666,410 @@ def train_sp_phase(card: str, failures: list, train: dict,
             steady_step_ms=train_mesh["runs"][0]["steady_step_ms"],
             tokens_per_s=train_mesh["runs"][0]["tokens_per_s"]),
         train=dict(steady_step_ms=train["steady_step_ms"]),
+        loss_rel_tol=TRAIN_LOSS_REL_TOL,
+        grad_norm_rel_tol=TRAIN_GNORM_REL_TOL,
+        sampled_grad_rel_tol=TRAIN_MESH_GRAD_REL_TOL,
+        seconds=time.perf_counter() - t_phase, card=card)
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# One process per GPU: the collective group and the per-rank train step
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    """A free TCP port on localhost for the ranks' rendezvous."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_start(rank: int, world: int, port: int):
+    """A spawned rank's start: it must not have imported JAX or the JAX
+    package, then it pins cuda:rank and joins the NCCL world through the
+    Train backend."""
+    bad = [m for m in ("jax", "ray_tpu") if m in sys.modules]
+    if bad:
+        raise RuntimeError(f"rank {rank} imported {bad}")
+    backend = _TorchBackend(TorchConfig("nccl"))
+    backend.on_start(dict(world_rank=rank, world_size=world,
+                          local_rank=rank, master_addr="localhost",
+                          master_port=port))
+    return backend
+
+
+def _rank_main(target, rank: int, world: int, port: int, args, results):
+    """A spawned rank: ``target(rank, world, *args)`` inside the backend's
+    world; its result, or its traceback, goes to ``results``. A rank that
+    raises also exits non-zero, its traceback on stderr."""
+    import traceback
+    backend = None
+    try:
+        backend = _rank_start(rank, world, port)
+        results.put((rank, "ok", target(rank, world, *args)))
+    except BaseException:
+        tb = traceback.format_exc()
+        print(f"rank {rank}:\n{tb}", file=sys.stderr, flush=True)
+        results.put((rank, "error", tb))
+        raise
+    finally:
+        if backend is not None:
+            backend.on_shutdown()
+
+
+def run_ranks(name: str, target, args, failures: list,
+              timeout_s: float) -> list:
+    """``target`` in ``torch.cuda.device_count()`` spawned ranks, one a
+    card (NCCL refuses two ranks on one GPU), each bounded by
+    ``timeout_s``: their results in rank order, or None for a rank that
+    raised, hung or exited non-zero (a failure each; the others are then
+    killed). The parent frees its cached CUDA memory first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_main, name=f"{name}-rank{r}",
+                         args=(target, r, world, port, args, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out = [None] * world
+    deadline = time.monotonic() + timeout_s
+    try:
+        for _ in range(world):
+            try:
+                rank, status, value = results.get(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                missing = [r for r in range(world) if out[r] is None]
+                failures.append(f"{name}: no result from ranks {missing} "
+                                f"within {timeout_s} s")
+                break
+            if status == "ok":
+                out[rank] = value
+            else:
+                failures.append(f"{name}: rank {rank} raised:\n{value}")
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                failures.append(f"{name}: {p.name} still running, killed")
+                p.kill()
+                p.join(timeout=10)
+            elif p.exitcode != 0:
+                failures.append(f"{name}: {p.name} exited {p.exitcode}")
+    return out
+
+
+def _collective_rank(rank: int, world: int) -> dict:
+    """Every op of an NCCL TorchCollectiveGroup on CUDA tensors against
+    numpy: all four allreduce ops, allgather, broadcast, barrier,
+    reducescatter at an even and an uneven length, reduce, and send/recv
+    where world >= 2; then, where world >= 2, the bus bandwidth of a
+    256 MiB bf16 all-reduce."""
+    g = collective.init_collective_group(world, rank, backend="nccl",
+                                         group_name="chip_smoke")
+    mine = [np.arange(6, dtype=np.float32) + 1.5 * r + 1
+            for r in range(world)]
+    checks = {}
+
+    def check(what, got, want):
+        got = got.cpu().numpy() if torch.is_tensor(got) else got
+        checks[what] = bool(np.array_equal(got, want))
+    for op, fn in (("sum", np.sum), ("product", np.prod), ("min", np.min),
+                   ("max", np.max)):
+        got = g.allreduce(mine[rank], op)
+        checks[f"allreduce_{op}_on_card"] = got.device.type == "cuda"
+        check(f"allreduce_{op}", got, fn(np.stack(mine), axis=0))
+    check("allgather", g.allgather(mine[rank]), np.stack(mine))
+    check("broadcast", g.broadcast(mine[rank], src_rank=world - 1),
+          mine[world - 1])
+    g.barrier()
+    for n in (3 * world, 3 * world + 1):
+        parts = [np.arange(n, dtype=np.float32) * (r + 1)
+                 for r in range(world)]
+        check(f"reducescatter_{n}", g.reducescatter(parts[rank]),
+              np.array_split(np.sum(parts, axis=0), world)[rank])
+    got = g.reduce(mine[rank], dst_rank=0)
+    check("reduce", got, np.sum(mine, axis=0) if rank == 0 else mine[rank])
+    p2p = "not run: one rank"
+    if world >= 2:
+        if rank == 0:
+            g.send(torch.full((3,), 42.0), dst_rank=1)
+        elif rank == 1:
+            check("send_recv", g.recv(src_rank=0),
+                  np.full((3,), 42.0, np.float32))
+        p2p = "run"
+    bus = "not run: one rank"
+    if world >= 2:
+        x = torch.ones(COLLECTIVE_BYTES // 2, dtype=torch.bfloat16,
+                       device="cuda")
+        for _ in range(2):
+            torch.distributed.all_reduce(x)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(COLLECTIVE_ITERS):
+            torch.distributed.all_reduce(x)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / COLLECTIVE_ITERS
+        algbw = COLLECTIVE_BYTES / (ms / 1e3) / 1e9
+        bus = dict(ms=ms, algbw_gb_s=algbw,
+                   busbw_gb_s=algbw * 2 * (world - 1) / world)
+    collective.destroy_collective_group("chip_smoke")
+    return dict(rank=rank, checks=checks, send_recv=p2p,
+                all_reduce_256mib_bf16=bus,
+                device=str(torch.device("cuda", torch.cuda.current_device())))
+
+
+def collective_phase(card: str, failures: list) -> dict:
+    """The NCCL TorchCollectiveGroup in one spawned rank per card (see the
+    module docstring)."""
+    t0 = time.perf_counter()
+    ranks = run_ranks("collective", _collective_rank, (), failures,
+                      COLLECTIVE_TIMEOUT_S)
+    for r in ranks:
+        if r is not None:
+            bad = [k for k, ok in r["checks"].items() if not ok]
+            if bad:
+                failures.append(f"collective: rank {r['rank']} {bad}")
+    res = dict(phase="collective", world=len(ranks), backend="nccl",
+               ranks=ranks, seconds=time.perf_counter() - t0, card=card)
+    emit(res)
+    return res
+
+
+def _held_bytes(trees) -> int:
+    """The bytes of the distinct tensors of per-position trees (None at
+    other ranks' positions)."""
+    return sum({id(t): t.nbytes for tree in trees if tree is not None
+                for t in _dict_leaves(tree).values()}.values())
+
+
+def _gathered_sample(grads, path, specs, mesh, device):
+    """A sampled gradient of a rank's per-position grads, whole, on every
+    rank (a collective): a top-level leaf, or one layer's."""
+    spec = _sample(specs, [k for k in path if not isinstance(k, int)])
+    if len(path) > 1:
+        spec = spec[1:]
+    parts = [None if g is None else _sample(g, path) for g in grads]
+    return gather_tensor(all_gather_parts(parts, mesh), spec, mesh,
+                         device=device)
+
+
+def _replicas_bit_equal(trees, specs, mesh, cfg) -> dict:
+    """For each leaf whose slice other ranks also hold (dp replicas), this
+    rank's tensor against theirs, bit for bit: the elementwise max and
+    min of the bf16 pairs' int32 views over the replicas' ranks equal
+    the tensor itself. {leaf: equal} (empty on one rank)."""
+    shapes = _dict_leaves(transformer.param_shapes(cfg))
+    specs = _dict_leaves(specs)
+    first = mesh.local_positions()[0]
+    mine = _dict_leaves(trees[first])
+    out = {}
+    for name in sorted(mine):
+        sl = shard_slices(specs[name], shapes[name][0], mesh,
+                          mesh.coords()[first])
+        holders = [i for i, c in enumerate(mesh.coords())
+                   if shard_slices(specs[name], shapes[name][0], mesh,
+                                   c) == sl]
+        group = mesh.group(mesh.ranks(holders))
+        if group is None:
+            continue
+        bits = mine[name].view(torch.int32)
+        hi, lo = bits.clone(), bits.clone()
+        torch.distributed.all_reduce(hi, torch.distributed.ReduceOp.MAX,
+                                     group=group)
+        torch.distributed.all_reduce(lo, torch.distributed.ReduceOp.MIN,
+                                     group=group)
+        out[name] = bool(torch.equal(hi, bits) and torch.equal(lo, bits))
+    return out
+
+
+def _train_rank(rank: int, world: int, tokens, ref_path: str,
+                ref_scalars: dict) -> dict:
+    """One rank of the train_ranks phase (see the module docstring)."""
+    cfg = dataclasses.replace(PRESETS["8b-gqa"], remat=True,
+                              attention_impl="flash")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    fails = []
+    mesh = build_mesh(MeshSpec(**TRAIN_RANKS))
+    bundle = make_train_step(cfg, mesh,
+                             optimizer=make_optimizer(warmup_steps=1),
+                             device=dev)
+    specs = bundle.state_specs["params"]
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    wk_sha = _leaf_sha256(params["layers"]["attn"]["wk"])
+    if wk_sha != ref_scalars["wk_sha256"]:
+        fails.append("the seed-0 params differ from the unsharded pass's "
+                     "(layers.attn.wk's hash)")
+    shards = shard_params(params, mesh, bundle.rules)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(shards, batch, cfg, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    vg_s = time.perf_counter() - t0
+    ref_grads = (torch.load(ref_path, map_location="cpu")
+                 if rank == 0 else None)
+    sample_errs = {}
+    for path in TRAIN_MESH_SAMPLE:
+        got = _gathered_sample(grads, path, specs, mesh, dev)
+        if rank == 0:
+            want = ref_grads[path].to(dev)
+            sample_errs[".".join(map(str, path))] = _rel(got, want)
+            del want
+        del got
+    del grads, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    if sample_errs:
+        worst = max(sample_errs, key=sample_errs.get)
+        if not sample_errs[worst] <= TRAIN_MESH_GRAD_REL_TOL:
+            fails.append(f"sampled gradient {worst} against the unsharded "
+                         f"pass: {sample_errs[worst]}")
+    state = {"params": shards,
+             "opt_state": bundle.optimizer.init(shards), "step": 0}
+    del shards
+    plan = plan_train_memory(cfg, MeshSpec(**TRAIN_RANKS),
+                             global_batch=TRAIN_MESH_BATCH,
+                             seq_len=TRAIN_SEQ, world=world)
+    opt = state["opt_state"]
+    held = dict(params=_held_bytes(state["params"]),
+                opt=_held_bytes(opt["mu"]) + _held_bytes(opt["nu"]))
+    planned = dict(params=plan.rank_params_bytes, opt=plan.rank_opt_bytes)
+    if held != planned:
+        fails.append(f"distinct state bytes {held}, the planner's per-rank "
+                     f"figure {planned}")
+
+    # Per layer and local batch group: kernel 1 in the forward and in the
+    # recompute, dQ and dK/dV once (no tp: one position a group).
+    groups = len(mesh.batch_groups()) // world
+    per = cfg.num_layers * groups * mesh.shape["tp"]
+    want = (2 * per, per, per)
+    flash_attention_fwd.launches = 0
+    flash_attention_dq.launches = 0
+    flash_attention_dkv.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAIN_RANKS_STEPS):
+        last = i == TRAIN_RANKS_STEPS - 1
+        prof = (profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) if last
+                else contextlib.nullcontext())
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        with prof:
+            t0 = time.perf_counter()
+            state, metrics = bundle.step(state, batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        launches = tuple(a - b for a, b in zip(_launch_counts(), before))
+        steps.append(dict(metrics, step_ms=step_s * 1e3,
+                          launches=dict(zip(("fwd", "dq", "dkv"),
+                                            launches))))
+        if launches != want:
+            fails.append(f"step {metrics['step']} launched (fwd, dq, dkv) "
+                         f"{launches}, expected {want}")
+        if not (np.isfinite(metrics["loss"])
+                and np.isfinite(metrics["grad_norm"])):
+            fails.append(f"step not finite: {metrics}")
+    totals = dict(zip(("fwd", "dq", "dkv"), _launch_counts()))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split, top = device_time_split(prof)
+    busy = sum(split.values())
+    first, last = steps[0], steps[-1]
+    loss_rel = abs(first["loss"] - ref_scalars["loss"]) / abs(
+        ref_scalars["loss"])
+    gnorm_rel = (abs(first["grad_norm"] - ref_scalars["grad_norm"])
+                 / ref_scalars["grad_norm"])
+    if not last["loss"] < first["loss"]:
+        fails.append(f"loss did not fall: {first['loss']} -> "
+                     f"{last['loss']}")
+    if not (loss_rel <= TRAIN_LOSS_REL_TOL
+            and gnorm_rel <= TRAIN_GNORM_REL_TOL):
+        fails.append(f"step 1 against the unsharded pass: loss rel "
+                     f"{loss_rel}, grad_norm rel {gnorm_rel}")
+    replicas = {}
+    for kind, trees in (("params", state["params"]), ("mu", opt["mu"]),
+                        ("nu", opt["nu"])):
+        for name, ok in _replicas_bit_equal(trees, specs, mesh,
+                                            cfg).items():
+            replicas[f"{kind}.{name}"] = ok
+    if not all(replicas.values()):
+        fails.append(f"replicas differ across ranks: "
+                     f"{[k for k, ok in replicas.items() if not ok][:5]}")
+    # The steps after the first, but the profiled last one.
+    steady_ms = np.mean([st["step_ms"] for st in steps[1:-1]])
+    return dict(
+        rank=rank, device=str(dev), positions=mesh.local_positions(),
+        batch_groups=groups, shard_s=shard_s, value_and_grad_s=vg_s,
+        value_and_grad_loss=float(loss),
+        sampled_grad_rel_err=sample_errs or "on rank 0",
+        held_state_bytes=held, planned_state_bytes=planned,
+        steps=steps, launches=totals,
+        expected_launches_per_step=dict(zip(("fwd", "dq", "dkv"), want)),
+        loss_rel_err=loss_rel, grad_norm_rel_err=gnorm_rel,
+        steady_step_ms=steady_ms,
+        tokens_per_s=TRAIN_MESH_BATCH * TRAIN_SEQ / (steady_ms / 1e3),
+        profiled_step=dict(
+            step=last["step"], wall_ms=last["step_ms"],
+            device_ms=split if busy else "not measured",
+            idle_share=(1 - busy / last["step_ms"] if busy
+                        else "not measured"),
+            top_kernels=top[:5]),
+        peak_memory_gb=peak_gb,
+        replicas_bit_equal=(dict(checked=len(replicas),
+                                 equal=sum(replicas.values()))
+                            if replicas else "not run: one rank"),
+        failures=fails)
+
+
+def _leaf_sha256(t: torch.Tensor) -> str:
+    """The sha256 of a bf16 tensor's bytes."""
+    return hashlib.sha256(t.view(torch.int16).cpu().numpy()).hexdigest()
+
+
+def train_ranks_phase(card: str, failures: list, train_mesh: dict,
+                      ref: dict) -> dict:
+    """Training with one process per card on dp x fsdp (see the module
+    docstring), held against train_mesh's unsharded pass ``ref``."""
+    t_phase = time.perf_counter()
+    tokens = np.random.default_rng(5).integers(
+        1, PRESETS["8b-gqa"].vocab_size, (TRAIN_MESH_BATCH, TRAIN_SEQ + 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "ref_grads.pt")
+        torch.save(ref["grads"], ref_path)
+        scalars = dict(loss=ref["loss"], grad_norm=ref["grad_norm"],
+                       wk_sha256=ref["wk_sha256"])
+        ranks = run_ranks("train_ranks", _train_rank,
+                          (tokens, ref_path, scalars), failures,
+                          TRAIN_RANKS_TIMEOUT_S)
+    for r in ranks:
+        if r is not None:
+            failures += [f"train_ranks rank {r['rank']}: {f}"
+                         for f in r["failures"]]
+    done = [r for r in ranks if r is not None]
+    launches = {k: sum(r["launches"][k] for r in done)
+                for k in ("fwd", "dq", "dkv")}
+    res = dict(
+        phase="train_ranks", preset="8b-gqa", mesh=TRAIN_RANKS,
+        world=len(ranks), batch=TRAIN_MESH_BATCH, seq_len=TRAIN_SEQ,
+        steps=TRAIN_RANKS_STEPS, ranks=ranks, launches=launches,
+        train_mesh=dict(
+            steady_step_ms=train_mesh["runs"][0]["steady_step_ms"],
+            tokens_per_s=train_mesh["runs"][0]["tokens_per_s"]),
         loss_rel_tol=TRAIN_LOSS_REL_TOL,
         grad_norm_rel_tol=TRAIN_GNORM_REL_TOL,
         sampled_grad_rel_tol=TRAIN_MESH_GRAD_REL_TOL,
@@ -3841,6 +4293,8 @@ def main() -> int:
     train_mesh, ref = train_mesh_phase(card, failures, train)
     train_pp = train_pp_phase(card, failures, train, train_mesh, ref)
     train_sp = train_sp_phase(card, failures, train, train_mesh, ref)
+    collective_phase(card, failures)
+    train_ranks = train_ranks_phase(card, failures, train_mesh, ref)
     del ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -3875,7 +4329,8 @@ def main() -> int:
                        + train["launches"]["fwd"]
                        + train_mesh["launches"]["fwd"]
                        + train_pp["launches"]["fwd"]
-                       + train_sp["launches"]["fwd"]),
+                       + train_sp["launches"]["fwd"]
+                       + train_ranks["launches"]["fwd"]),
              launches_by_path=dict(
                  serve=serve["flash_launches"],
                  serve_cache=serve_cache["flash_launches"],
@@ -3887,7 +4342,8 @@ def main() -> int:
                  train=train["launches"]["fwd"],
                  train_mesh=train_mesh["launches"]["fwd"],
                  train_pp=train_pp["launches"]["fwd"],
-                 train_sp=train_sp["launches"]["fwd"]),
+                 train_sp=train_sp["launches"]["fwd"],
+                 train_ranks=train_ranks["launches"]["fwd"]),
              max_abs_err=max(r["max_abs_err_o"]
                              for r in engine_rows + tp_rows),
              ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
@@ -3901,11 +4357,13 @@ def main() -> int:
              launches=(train["launches"]["dq"]
                        + train_mesh["launches"]["dq"]
                        + train_pp["launches"]["dq"]
-                       + train_sp["launches"]["dq"]),
+                       + train_sp["launches"]["dq"]
+                       + train_ranks["launches"]["dq"]),
              launches_by_path=dict(train=train["launches"]["dq"],
                                    train_mesh=train_mesh["launches"]["dq"],
                                    train_pp=train_pp["launches"]["dq"],
-                                   train_sp=train_sp["launches"]["dq"]),
+                                   train_sp=train_sp["launches"]["dq"],
+                                   train_ranks=train_ranks["launches"]["dq"]),
              max_abs_err=max(r["max_abs_err_dq"] for r in train_rows),
              ms=bat["dq_ms"], plain_ms=bat["plain_dq_ms"],
              bound_ms=bat["dq_bound_ms"], bound_by=bat["dq_bound_by"],
@@ -3917,11 +4375,13 @@ def main() -> int:
              launches=(train["launches"]["dkv"]
                        + train_mesh["launches"]["dkv"]
                        + train_pp["launches"]["dkv"]
-                       + train_sp["launches"]["dkv"]),
+                       + train_sp["launches"]["dkv"]
+                       + train_ranks["launches"]["dkv"]),
              launches_by_path=dict(train=train["launches"]["dkv"],
                                    train_mesh=train_mesh["launches"]["dkv"],
                                    train_pp=train_pp["launches"]["dkv"],
-                                   train_sp=train_sp["launches"]["dkv"]),
+                                   train_sp=train_sp["launches"]["dkv"],
+                                   train_ranks=train_ranks["launches"]["dkv"]),
              max_abs_err=max(max(r["max_abs_err_dk"], r["max_abs_err_dv"])
                              for r in train_rows),
              ms=bat["dkv_ms"], plain_ms=bat["plain_dkv_ms"],

@@ -248,6 +248,7 @@ def moe_layer_routed(params, x: torch.Tensor, cfg: MoEConfig, mesh=None,
                       cfg.dtype)
         y = torch.einsum("ecd,nec->nd", ye.float(), comb)
     else:
+        mesh.check_one_process("the expert-parallel MoE layer")
         rules = rules or LogicalAxisRules.default()
         trees = (params if isinstance(params, (list, tuple))
                  else shard_params(params, mesh, rules, moe_logical_axes()))

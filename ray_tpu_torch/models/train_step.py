@@ -45,6 +45,19 @@ across the stages: stage 0 takes the embedding's gradient and the last
 stage ``ln_f``'s and ``lm_head``'s, and the replicas that took none get
 the sum like any other replica. As in the JAX package,
 ``num_microbatches`` is ignored without a pp axis.
+
+On a mesh over several processes (one per GPU; dp and fsdp across ranks,
+``parallel.mesh``) each rank calls the same step with the whole batch and
+holds only its own positions' shards (None at the others'). It runs its
+own batch groups; a weight's fsdp slices on other ranks come through the
+model's all-gather, whose backward reduce-scatters their gradients. A
+replica class (one slice) that other ranks also hold is summed locally
+first, then all-reduced over the process group of the ranks that hold
+it. The global norm counts each slice once, on the lowest rank that holds
+it, its squares summed over the world; the loss is summed over the world,
+so every rank reports the same loss and grad norm. Each rank updates its
+own shards: replicas on other ranks take identical updates from identical
+gradients.
 """
 
 from __future__ import annotations
@@ -55,13 +68,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..parallel.sharding import (LogicalAxisRules, PartitionSpec,
                                  shard_params, shard_slices, tree_specs)
 from .transformer import (TransformerConfig, from_jax_params, init_params,
                           loss_fn, mesh_group_losses, mesh_rules,
-                          param_logical_axes, param_shapes)
+                          param_logical_axes, param_shapes, world_sum)
 
 _TOP = ("embed", "ln_f", "lm_head")
 # optax.adamw's default eps, which the reference's make_optimizer keeps (its
@@ -120,15 +134,23 @@ def _leaves(tree):
         yield tree
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, group=None, device=None) -> torch.Tensor:
     """optax.global_norm: the square root of the sum of squares of every
     element of every tensor in ``tree`` (nested dicts and lists), an f32
     0-d tensor on the first tensor's device (the tensors may lie on
-    several)."""
+    several). ``group``: ``tree`` is this rank's share of the tensors
+    (maybe none, then on ``device``), and the squares are summed over the
+    ranks of ``group``."""
     norms = [torch.linalg.vector_norm(t, dtype=torch.float32)
              for t in _leaves(tree)]
-    return torch.linalg.vector_norm(torch.stack(
-        [n.to(norms[0].device) for n in norms]))
+    total = (torch.linalg.vector_norm(torch.stack(
+        [n.to(norms[0].device) for n in norms])) if norms
+        else torch.zeros((), device=device))
+    if group is None:
+        return total
+    square = total.square()
+    dist.all_reduce(square, group=group)
+    return square.sqrt()
 
 
 def _backward(params, batch, cfg: TransformerConfig, device):
@@ -147,23 +169,31 @@ class _MeshLayout:
     tensor of the params (``_paths``), its replica classes, one per
     distinct slice, each the positions that hold that slice on distinct
     devices, the first of each device in position order (positions that
-    share a device share the tensor)."""
+    share a device share the tensor), and the ranks that hold the slice.
+    Over several processes only the classes this rank holds, with its
+    own positions, in the same order on every rank."""
 
     def __init__(self, cfg: TransformerConfig, mesh, rules):
         self.mesh, self.rules = mesh, rules
         self.specs = tree_specs(param_logical_axes(cfg), mesh, rules)
         shapes = param_shapes(cfg)
-        self.classes: List[Tuple[Tuple[str, ...], List[int]]] = []
+        self.classes: List[Tuple[Tuple[str, ...], List[int],
+                                 Tuple[int, ...]]] = []
         for path in _paths(shapes):
             spec, (shape, _) = _get(self.specs, path), _get(shapes, path)
-            by_slice: Dict[Any, Dict[Any, int]] = {}
-            for i, (coord, dev) in enumerate(zip(mesh.coords(),
-                                                 mesh.devices.flat)):
+            by_slice: Dict[Any, List[int]] = {}
+            for i, coord in enumerate(mesh.coords()):
                 key = tuple((s.start, s.stop) for s in
                             shard_slices(spec, shape, mesh, coord))
-                by_slice.setdefault(key, {}).setdefault(dev, i)
-            self.classes += [(path, list(devs.values()))
-                             for devs in by_slice.values()]
+                by_slice.setdefault(key, []).append(i)
+            for held in by_slice.values():
+                devs: Dict[Any, int] = {}
+                for i in held:
+                    if mesh.is_local(i):
+                        devs.setdefault(mesh.devices.flat[i], i)
+                if devs:
+                    self.classes.append((path, list(devs.values()),
+                                         mesh.ranks(held)))
 
 
 def _paths(tree) -> List[Tuple[str, ...]]:
@@ -189,6 +219,9 @@ def _mesh_leaves(trees):
     made: Dict[int, List[torch.Tensor]] = {}
     out = []
     for tree in trees:
+        if tree is None:
+            out.append(None)
+            continue
         per_path = {}
         for path in _paths(tree):
             t = _get(tree, path)
@@ -208,20 +241,27 @@ def _mesh_leaves(trees):
 def _all_reduce_replicas(lay: _MeshLayout, trees, made) -> None:
     """Sum each shard's gradient over its replicas on distinct devices
     (dp replicas and sp positions alike), in position order, in the
-    gradient's dtype, on the first replica's device, and give every
-    replica the sum. A replica that took no gradient (a tensor its
-    position did not use) adds nothing."""
-    for path, reps in lay.classes:
-        if len(reps) == 1:
+    gradient's dtype, on the first replica's device, then over the
+    other ranks that hold the shard (an all-reduce over their process
+    group), and give every replica the sum. A replica that took no
+    gradient (a tensor its position did not use) adds nothing."""
+    for path, reps, ranks in lay.classes:
+        group = lay.mesh.group(ranks)
+        if len(reps) == 1 and group is None:
             continue
         leaves = [made[id(_get(trees[i], path))] for i in reps]
         for per_layer in zip(*leaves):
             grads = [leaf.grad for leaf in per_layer if leaf.grad is not None]
-            if not grads:
+            if not grads and group is None:
                 continue
-            total = grads[0].clone()
+            # The other ranks issue this all-reduce whether or not this
+            # rank's replicas took a gradient.
+            total = (grads[0].clone() if grads
+                     else torch.zeros_like(per_layer[0]))
             for g in grads[1:]:
                 total += g.to(total.device)
+            if group is not None:
+                dist.all_reduce(total, group=group)
             for leaf in per_layer:
                 leaf.grad = (total if leaf.device == total.device
                              else total.to(leaf.device))
@@ -240,19 +280,19 @@ def _mesh_backward(trees, batch, cfg: TransformerConfig, lay: _MeshLayout,
         part = part.detach().to(device)
         loss = part if loss is None else loss + part
     _all_reduce_replicas(lay, trees, made)
-    return loss, fwd_trees, made
+    return world_sum(loss, lay.mesh), fwd_trees, made
 
 
 def _canonical(lay: _MeshLayout, trees):
     """Per replica class and layer, the first replica's tensor of
     ``trees`` (params, mu or nu), in a fixed order."""
-    return [v for path, reps in lay.classes
+    return [v for path, reps, _ in lay.classes
             for v in _views(_get(trees[reps[0]], path), path)]
 
 
 def _replicas(lay: _MeshLayout, trees):
     """(first replica's tensor, another replica's) pairs of ``trees``."""
-    return [(v0, v) for path, reps in lay.classes for i in reps[1:]
+    return [(v0, v) for path, reps, _ in lay.classes for i in reps[1:]
             for v0, v in zip(_views(_get(trees[reps[0]], path), path),
                              _views(_get(trees[i], path), path))]
 
@@ -311,11 +351,14 @@ class AdamW:
     @torch.no_grad()
     def update_(self, params: List[torch.Tensor], grads: List[torch.Tensor],
                 mu: List[torch.Tensor], nu: List[torch.Tensor],
-                opt_state: Dict[str, Any]) -> Tuple[Dict[str, Any], float]:
+                opt_state: Dict[str, Any], gnorm: Optional[float] = None
+                ) -> Tuple[Dict[str, Any], float]:
         """Apply one update to ``params``, ``mu`` and ``nu`` in place
         (``grads`` are clipped in place). Returns the new opt_state and the
-        global norm of the unclipped grads."""
-        gnorm = float(global_norm(grads))
+        global norm of the unclipped grads (``gnorm`` where the caller
+        took it: a rank's grads are not every distinct tensor)."""
+        if gnorm is None:
+            gnorm = float(global_norm(grads))
         clip = not gnorm < self.grad_clip      # optax's strict trigger
         count = opt_state["count"] + 1
         bc1 = 1.0 - self.b1 ** count
@@ -338,8 +381,10 @@ class AdamW:
 def _map(fn, tree, memo=None):
     """``fn`` over every tensor of nested dicts and lists, once per
     distinct tensor: a tensor that several positions share maps to one
-    result that they share."""
+    result that they share. None (another process's position) stays."""
     memo = {} if memo is None else memo
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _map(fn, v, memo) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -421,19 +466,25 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
             loss, leaves = _backward(params, batch, cfg, dev)
             grads = [leaf.grad for leaf in leaves]
             mu, nu = _pieces(opt["mu"], L), _pieces(opt["nu"], L)
+            gnorm = None
         else:
             loss, _, made = _mesh_backward(params, batch, cfg, lay, dev,
                                            num_microbatches)
-            leaves = [v for path, reps in lay.classes
-                      for v in made[id(_get(params[reps[0]], path))]]
+            leaves, owned = [], []
+            for path, reps, ranks in lay.classes:
+                views = made[id(_get(params[reps[0]], path))]
+                leaves += views
+                if ranks[0] == mesh.rank:
+                    owned += [leaf.grad for leaf in views]
             grads = [leaf.grad for leaf in leaves]
+            gnorm = float(global_norm(owned, mesh.world_group(), dev))
             mu, nu = (_canonical(lay, opt[k]) for k in ("mu", "nu"))
-            del made
+            del made, owned
         for leaf in leaves:
             leaf.grad = None
         # The leaves share the params' storage: updating them in place
         # updates state["params"].
-        new_opt, gnorm = tx.update_(leaves, grads, mu, nu, opt)
+        new_opt, gnorm = tx.update_(leaves, grads, mu, nu, opt, gnorm)
         del grads
         if mesh is not None:
             with torch.no_grad():
@@ -511,8 +562,11 @@ def from_jax_state(np_state, cfg: TransformerConfig,
         rules = mesh_rules(mesh, rules)
 
     def carry(tree):
-        full = from_jax_params(tree, cfg, device)
-        return full if mesh is None else shard_params(full, mesh, rules)
+        if mesh is None:
+            return from_jax_params(tree, cfg, device)
+        # Each position's slice goes to its device from the host: no
+        # device holds the whole tree, nor a rank another rank's shard.
+        return shard_params(from_jax_params(tree, cfg, "cpu"), mesh, rules)
     return {"params": carry(np_state["params"]),
             "opt_state": {"count": int(np.asarray(adam.count)),
                           "mu": carry(adam.mu), "nu": carry(adam.nu),

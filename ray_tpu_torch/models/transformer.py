@@ -55,6 +55,13 @@ tensor); no other caller should grow a third form.
   rows are split. The token-weighted loss is a sum over rows either way,
   so the two agree. Inside its pipeline JAX elides the ring (plain
   attention); the port runs each stage's ring, the same values.
+- a mesh over several processes (``parallel.mesh``: one process per GPU,
+  dp and fsdp across ranks): every rank is given the whole batch and
+  runs only its own batch groups. A weight's fsdp slices held by other
+  ranks come through ``fsdp_gather``'s all-gather over the process group
+  of the ranks that hold them, whose backward reduce-scatters the
+  gradient back; the loss is summed over the world (``world_sum``), and
+  ``forward`` all-gathers the logits' rows.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -72,8 +80,10 @@ from .._device import resolve_device
 from ..ops.flash_attention import flash_attention, reference_attention
 from ..ops.ring_attention import _ring_shards, ring_attention
 from ..parallel.pipeline import check_microbatches, gpipe_ticks, stage_send
-from ..parallel.sharding import (LogicalAxisRules, _tree_map, axis_dim,
-                                 shard_batch, shard_params, tree_specs)
+from ..parallel.sharding import (LogicalAxisRules, _tree_map,
+                                 all_gather_single, axis_dim,
+                                 reduce_scatter_single, shard_batch,
+                                 shard_params, tree_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -531,7 +541,11 @@ class _Layout:
     of each pipeline stage's batch group's sp shard and their devices, and
     per tp position the positions whose embed-dim slices it gathers; per
     leaf, the dim its spec splits over fsdp (of one layer's tensor for
-    layer leaves); whether the vocabulary is split over tp."""
+    layer leaves); whether the vocabulary is split over tp. Over several
+    processes: this rank's batch groups (``local_groups``), and per tp
+    position only the fsdp sources this rank holds, with the process
+    group of the ranks that hold the others (``fsdp_groups``; None where
+    this rank holds them all)."""
 
     def __init__(self, mesh, rules: LogicalAxisRules):
         self.rules = rules
@@ -552,39 +566,108 @@ class _Layout:
                            for d, f in self.groups] for s in stages]
         self.devices = [[[[mesh.devices.flat[i] for i in pos] for pos in g]
                          for g in st] for st in self.positions]
-        self.sources = [[[[mesh.fsdp_positions(d, t, s, j)
-                           for t in range(mesh.shape["tp"])]
-                          for j in shards] for d, f in self.groups]
-                        for s in stages]
+        by_fsdp = [[[[mesh.fsdp_positions(d, t, s, j)
+                      for t in range(mesh.shape["tp"])]
+                     for j in shards] for d, f in self.groups]
+                   for s in stages]
+        self.sources = [[[[[i for i in pos if mesh.is_local(i)]
+                           for pos in shard] for shard in g] for g in st]
+                        for st in by_fsdp]
+        self.fsdp_groups = [[[[mesh.group(mesh.ranks(pos)) for pos in shard]
+                              for shard in g] for g in st] for st in by_fsdp]
+        self.local_groups = [g for g in range(len(self.groups))
+                             if mesh.is_local(self.positions[0][g][0][0])]
 
 
 def _tensors(tree):
-    """Every tensor of nested dicts and lists."""
+    """Every tensor of nested dicts and lists (None, another process's
+    position, holds none)."""
     if isinstance(tree, dict):
         tree = list(tree.values())
     if isinstance(tree, (list, tuple)):
         for node in tree:
             yield from _tensors(node)
-    else:
+    elif tree is not None:
         yield tree
 
 
-def fsdp_gather(parts, dim: int, device) -> torch.Tensor:
+def fsdp_gather(parts, dim: int, device, group=None) -> torch.Tensor:
     """A weight's tp slice on ``device`` from its embed-dim slices
     ``parts``, one per fsdp position in fsdp order: a ``.to()`` of each
     and a ``cat`` along ``dim``. Autograd's backward of it returns each
     slice its own part of the gradient, on its own device (the
-    reduce-scatter)."""
-    return torch.cat([p.to(device) for p in parts], dim=dim)
+    reduce-scatter).
+
+    ``group``: ``parts`` are this process's run of the slices, and the
+    ranks of ``group`` hold the others, each an equal run in rank order;
+    the runs are all-gathered (``_FsdpGather``)."""
+    local = (parts[0].to(device) if len(parts) == 1
+             else torch.cat([p.to(device) for p in parts], dim=dim))
+    if group is None:
+        return local
+    return _FsdpGather.apply(local, dim, group)
 
 
-def _gathered(own, sources, dims, device):
+class _FsdpGather(torch.autograd.Function):
+    """The ranks' runs of a weight's fsdp slices concatenated along
+    ``dim`` in rank order: one all-gather over ``group`` in the forward
+    (again in a checkpoint's recompute, where every rank of the group
+    issues it in the same order); the gradient reduce-scattered back to
+    each rank's run in the backward, in its dtype, the ranks' sums in
+    rank order. It is the fsdp group's share of the gradient's sum; the
+    dp replicas of a slice are all-reduced by the train step."""
+
+    @staticmethod
+    def forward(ctx, piece, dim: int, group):
+        n = dist.get_world_size(group)
+        ctx.dim, ctx.group, ctx.shape = dim, group, piece.shape
+        piece = piece.contiguous()
+        out = piece.new_empty((n * piece.shape[0],) + piece.shape[1:])
+        all_gather_single(out, piece, group=group)
+        return out.view((n,) + piece.shape).movedim(0, dim).flatten(
+            dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, shape = ctx.dim, ctx.shape
+        n = grad.shape[dim] // shape[dim]
+        runs = grad.unflatten(dim, (n, shape[dim])).movedim(dim, 0)
+        runs = runs.contiguous().view((n * shape[0],) + shape[1:])
+        out = grad.new_empty(shape)
+        reduce_scatter_single(out, runs, group=ctx.group)
+        return out, None, None
+
+
+class _WorldSum(torch.autograd.Function):
+    """A 0-d tensor summed over ``group``; the gradient passes to this
+    rank's term unchanged."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def world_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` summed over the processes of ``mesh`` where it spans a formed
+    world (each rank's share of the loss), else ``t``."""
+    group = mesh.world_group()
+    return t if group is None else _WorldSum.apply(t, group)
+
+
+def _gathered(own, sources, dims, device, group=None):
     """A tree of a position's tensors: each leaf its own where ``dims``
-    says it is not split over fsdp, else gathered from ``sources``."""
+    says it is not split over fsdp, else gathered from ``sources`` (and
+    from the ranks of ``group``)."""
     if isinstance(dims, dict):
         return {k: _gathered(own[k], [s[k] for s in sources], dims[k],
-                             device) for k in dims}
-    return own if dims is None else fsdp_gather(sources, dims, device)
+                             device, group) for k in dims}
+    return own if dims is None else fsdp_gather(sources, dims, device, group)
 
 
 def _position_params(trees, lay: _Layout, s: int, g: int, j: int, t: int,
@@ -596,13 +679,15 @@ def _position_params(trees, lay: _Layout, s: int, g: int, j: int, t: int,
     own = trees[lay.positions[s][g][j][t]]
     srcs = [trees[i] for i in lay.sources[s][g][j][t]]
     dev = lay.devices[s][g][j][t]
+    group = lay.fsdp_groups[s][g][j][t]
     if isinstance(li, tuple):
         dims = {k: lay.top_dims[k] for k in li}
         return _gathered({k: own[k] for k in li},
-                         [{k: src[k] for k in li} for src in srcs], dims, dev)
+                         [{k: src[k] for k in li} for src in srcs], dims, dev,
+                         group)
     return _gathered(layer_params(own, li),
                      [layer_params(src, li) for src in srcs], lay.layer_dims,
-                     dev)
+                     dev, group)
 
 
 def _sp_attention(cfg: TransformerConfig, qs, ks, vs, devices):
@@ -849,7 +934,8 @@ def mesh_group_losses(params, batch: Dict[str, Any], cfg: TransformerConfig,
     its microbatches' shares, in microbatch order). ``loss_fn`` sums
     them; the train step runs each one's backward before the next group's
     forward, so that one group's activations (all of its microbatches')
-    are alive at a time."""
+    are alive at a time. Over several processes, this rank's groups only
+    (``batch`` is the whole batch on every rank)."""
     trees, lay = _sharded(params, mesh, rules)
     dev = resolve_device(device)
     if "targets" in batch:
@@ -863,7 +949,7 @@ def mesh_group_losses(params, batch: Dict[str, Any], cfg: TransformerConfig,
     denom = weights.sum().clamp(min=1.0)
     per_pos = shard_batch({"inputs": inputs, "targets": targets,
                            "weights": weights}, mesh, lay.rules)
-    for g in range(len(lay.groups)):
+    for g in lay.local_groups:
         b = per_pos[lay.positions[0][g][0][0]]
         logits = _group_logits(trees, lay, g, b["inputs"], cfg,
                                num_microbatches)
@@ -888,14 +974,20 @@ def _mesh_forward(params, tokens, cfg: TransformerConfig, mesh, rules, dev,
     trees, lay = _sharded(params, mesh, rules)
     per_pos = shard_batch(tokens, mesh, lay.rules)
     out = []
-    for g in range(len(lay.groups)):
+    for g in lay.local_groups:
         for per_shard in _group_logits(trees, lay, g,
                                        per_pos[lay.positions[0][g][0][0]],
                                        cfg, num_microbatches):
             out.append(torch.cat([
                 torch.cat([lg.to(dev) for lg, _ in logits], dim=-1)
                 for logits in per_shard], dim=1))
-    return torch.cat(out, dim=0)
+    out = torch.cat(out, dim=0)
+    if mesh.world > 1:
+        # Each rank's groups are an equal run of the batch's rows.
+        rows = out.new_empty((mesh.world * out.shape[0],) + out.shape[1:])
+        all_gather_single(rows, out, group=mesh.world_group())
+        out = rows
+    return out
 
 
 def forward(params, tokens, cfg: TransformerConfig, mesh=None,
@@ -908,10 +1000,12 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None,
     over whose positions the params are split by ``rules`` (see the module
     docstring); the logits are then joined on ``device``.
     ``num_microbatches`` sets the pipeline's depth under a pp axis
-    (default pp) and is ignored without one, as in the JAX package."""
+    (default pp) and is ignored without one, as in the JAX package. Over
+    several processes every rank calls it and gets every row's logits
+    (not differentiable across ranks)."""
     dev = resolve_device(device)
-    where = (params[0] if isinstance(params, (list, tuple))
-             else params)["embed"].device
+    where = (next(t for t in params if t is not None)
+             if isinstance(params, (list, tuple)) else params)["embed"].device
     if where.type != dev.type:
         raise ValueError(f"params are on {where}, forward was asked for "
                          f"{dev}")
@@ -946,14 +1040,16 @@ def loss_fn(params, batch: Dict[str, Any], cfg: TransformerConfig, mesh=None,
     or {"inputs","targets"}; ignores padding id 0 when targets provided.
     ``mesh``, ``rules`` and ``num_microbatches`` as in ``forward``; under a
     mesh that splits pp, dp, fsdp or tp the loss is the sum of
-    ``mesh_group_losses``, on ``device``."""
+    ``mesh_group_losses``, on ``device`` (over several processes, summed
+    over the ranks; its gradient reaches this rank's params only, the
+    dp replicas' sum being the train step's)."""
     dev = resolve_device(device)
     if _splits(mesh, params):
         total = None
         for part in mesh_group_losses(params, batch, cfg, mesh, rules, dev,
                                       num_microbatches):
             total = part.to(dev) if total is None else total + part.to(dev)
-        return total
+        return world_sum(total, mesh)
     if "targets" in batch:
         inputs = torch.as_tensor(batch["inputs"], device=dev).long()
         targets = torch.as_tensor(batch["targets"], device=dev).long()

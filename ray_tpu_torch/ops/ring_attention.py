@@ -179,6 +179,7 @@ def _sharded(body, q, k, v, mesh, axis_name: str, causal: bool,
     ``heads_axis``, and each piece's ``body`` run over its sp positions'
     devices; the pieces are joined back on q's device."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    mesh.check_one_process("ring and Ulysses attention")
     shape = mesh.shape
     batch_axes = tuple(a for a in batch_axes if shape.get(a, 1) > 1)
     if heads_axis is not None and shape.get(heads_axis, 1) == 1:

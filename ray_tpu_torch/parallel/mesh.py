@@ -1,4 +1,5 @@
-"""Device meshes with the canonical axis names, for one controlling process.
+"""Device meshes with the canonical axis names, driven by one process or by
+one process per GPU.
 
 Port of ray_tpu/parallel/mesh.py. ``AXES``, ``EP_AXES`` and ``MeshSpec``
 are copies. ``Mesh`` is the port's own: where JAX's ``Mesh`` is a grid of
@@ -17,9 +18,19 @@ coordinate) a dp x fsdp x sp x tp layout of its own. Serving
 (``serve_axes``) takes ``sp``, ``tp`` or both, ``pp`` alone or beside
 ``tp``, and ``dp`` or ``fsdp`` alone, where the engine replicates the
 weights and the pool once per distinct device, as the JAX engine's rules
-replicate them over those axes. It is not ``torch.distributed.DeviceMesh``:
-one process per GPU comes with the NCCL group and the Train backend
-(items 8 and 9), built from the same ``MeshSpec``.
+replicate them over those axes. It is not ``torch.distributed.DeviceMesh``.
+
+A mesh built where a ``torch.distributed`` world is formed (the Train
+backend, ``train.backend``, forms one) covers every rank's positions:
+position i belongs to rank ``i // (n / world)`` (``process_index``), the
+counterpart of JAX's global ``jax.devices()`` with their
+``process_index``. Each rank holds only its own positions
+(``local_positions``) on its own card; the grid names no device for
+another rank's positions (None). Training takes dp and fsdp across
+ranks; a tp, sp or pp group must lie inside one rank, since its
+collectives (the in-layer all-reduce, the ring, the stage hand-off) run
+between the positions of one process (ROADMAP item 4.3). Serving stays
+single-controller, as the JAX engine is.
 
 A grid may name one device more than once: a shard is a position in the
 mesh, not a device. ``build_mesh(MeshSpec(sp=4), devices=[cuda:0] * 4)``
@@ -34,11 +45,13 @@ places logical axes on a TPU's interconnect topology.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 
@@ -89,13 +102,38 @@ class Mesh:
     """An ``np.ndarray`` of ``torch.device`` shaped by ``AXES``.
 
     ``shape`` maps each axis name to its size, in ``AXES`` order, as JAX's
-    ``Mesh.shape`` does; ``devices`` is the grid."""
+    ``Mesh.shape`` does; ``devices`` is the grid. Over a formed world of
+    ``world`` processes this process is ``rank``, the grid holds None at
+    the other ranks' positions, and ``group`` gives the process group of
+    a set of ranks (every set that the positions along some axes span is
+    made when the mesh is built, in the same order on every rank, as
+    ``torch.distributed.new_group`` requires)."""
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray, world: int = 1, rank: int = 0,
+                 formed: bool = False):
         if devices.ndim != len(AXES):
             raise ValueError(f"a mesh grid has {len(AXES)} axes {AXES}, "
                              f"got shape {devices.shape}")
+        if devices.size % world:
+            raise ValueError(f"{devices.size} positions do not split over "
+                             f"{world} processes")
         self.devices = devices
+        self.world, self.rank = world, rank
+        # None: driven by one process with no world formed, so nothing
+        # runs a collective.
+        self._groups: Optional[Dict[Tuple[int, ...], object]] = None
+        if formed:
+            self._groups = {}
+            lines = set()
+            for fixed in itertools.product((False, True), repeat=len(AXES)):
+                by_key: Dict[tuple, set] = {}
+                for i, c in enumerate(np.ndindex(devices.shape)):
+                    key = tuple(x for x, f in zip(c, fixed) if f)
+                    by_key.setdefault(key, set()).add(self.process_index(i))
+                lines.update(tuple(sorted(r)) for r in by_key.values()
+                             if 1 < len(r) < world)
+            for ranks in sorted(lines):
+                self._groups[ranks] = dist.new_group(list(ranks))
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -104,6 +142,49 @@ class Mesh:
     def distinct_devices(self) -> List[torch.device]:
         """Each device of the grid once, in grid order."""
         return list(dict.fromkeys(self.devices.flat))
+
+    # -- processes --------------------------------------------------------
+
+    def process_index(self, i: int) -> int:
+        """The rank that holds position ``i``: the positions split into
+        ``world`` equal runs in grid order."""
+        return i // (self.devices.size // self.world)
+
+    def local_positions(self) -> List[int]:
+        """The flat indices of this process's positions, in grid order."""
+        per = self.devices.size // self.world
+        return list(range(self.rank * per, (self.rank + 1) * per))
+
+    def is_local(self, i: int) -> bool:
+        return self.process_index(i) == self.rank
+
+    def ranks(self, positions) -> Tuple[int, ...]:
+        """The ranks that hold ``positions``, sorted."""
+        return tuple(sorted({self.process_index(i) for i in positions}))
+
+    def group(self, ranks: Tuple[int, ...]):
+        """The process group of ``ranks`` (sorted, this rank among them):
+        None where there is nothing to reduce over (one rank, or no
+        world), the world's group where it is every rank."""
+        if self._groups is None or len(ranks) < 2:
+            return None
+        if len(ranks) == self.world:
+            return dist.group.WORLD
+        return self._groups[ranks]
+
+    def world_group(self):
+        """The world's group where the mesh spans a formed world (a world
+        of one too), else None: the group over which a step sums its loss
+        and its gradients' squares."""
+        return dist.group.WORLD if self._groups is not None else None
+
+    def check_one_process(self, what: str) -> None:
+        """Raise NotImplementedError where the mesh spans several
+        processes: ``what`` runs every position from one process."""
+        if self.world > 1:
+            raise NotImplementedError(
+                f"{what} on a mesh over {self.world} processes is not "
+                f"ported: it runs every position from one process")
 
     # Serving layouts the engine takes (the split axes of each, as sets).
     SERVE_LAYOUTS = (frozenset(), frozenset({"sp"}), frozenset({"tp"}),
@@ -117,6 +198,7 @@ class Mesh:
         other layout raises NotImplementedError: dp or fsdp beside another
         split axis, and pp beside sp, are ROADMAP Queue 1 item 13 (the JAX
         engine serves them through GSPMD)."""
+        self.check_one_process("serving")
         split = tuple(a for a, s in self.shape.items() if s > 1)
         if frozenset(split) not in self.SERVE_LAYOUTS:
             raise NotImplementedError(
@@ -130,8 +212,28 @@ class Mesh:
 
     def train_axes(self) -> Tuple[str, ...]:
         """The axes larger than 1 of a training layout, in ``AXES`` order:
-        any of pp, dp, fsdp, sp and tp."""
-        return tuple(a for a, s in self.shape.items() if s > 1)
+        any of pp, dp, fsdp, sp and tp. Over several processes dp and
+        fsdp may span ranks, and each rank must hold whole batch groups
+        (their sp x tp positions) and equal parts of each fsdp group it
+        takes part in; a tp, sp or pp group across ranks raises
+        NotImplementedError naming ROADMAP item 4.3."""
+        split = tuple(a for a, s in self.shape.items() if s > 1)
+        if self.world > 1:
+            sz = self.shape
+            per = self.devices.size // self.world
+            for axis, inner in (("pp", self.devices.size),
+                                ("tp", sz["tp"]), ("sp", sz["sp"] * sz["tp"])):
+                if sz[axis] > 1 and per % inner:
+                    raise NotImplementedError(
+                        f"a {axis} group of {sz[axis]} positions spans "
+                        f"processes ({per} positions a rank): tp, sp and "
+                        f"pp across processes are ROADMAP item 4.3")
+            groups = per // (sz["sp"] * sz["tp"])
+            if groups % sz["fsdp"] and sz["fsdp"] % groups:
+                raise ValueError(
+                    f"{groups} batch groups a rank split an fsdp group of "
+                    f"{sz['fsdp']} unevenly over ranks")
+        return split
 
     def coords(self) -> List[Tuple[int, ...]]:
         """Each position's coordinate over ``AXES``, in grid order (the
@@ -208,14 +310,46 @@ def build_mesh(spec: Optional[MeshSpec] = None, *,
     that launches each shard's work on that shard's device, so several
     positions can share one device and take turns on it: that is how the
     CPU tests run a 4-way mesh on torch's one CPU device, and how a
-    machine with one GPU runs a sequence-parallel engine."""
-    devices = [_device(d) for d in (devices if devices is not None
-                                    else _cuda_devices())]
-    spec = (spec or MeshSpec(dp=-1)).resolve(len(devices))
+    machine with one GPU runs a sequence-parallel engine.
+
+    Where a ``torch.distributed`` world is formed, the mesh spans every
+    rank (see the module docstring) and ``devices`` lists this rank's
+    positions' devices, the same count on every rank (default: this
+    rank's current CUDA device under an NCCL world, the CPU under a gloo
+    one, once per position the rank holds, and once where ``spec`` has a
+    -1 axis)."""
+    spec = spec or MeshSpec(dp=-1)
+    if not (dist.is_available() and dist.is_initialized()):
+        devices = [_device(d) for d in (devices if devices is not None
+                                        else _cuda_devices())]
+        spec = spec.resolve(len(devices))
+        return Mesh(_grid(devices, spec))
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if devices is None:
+        wild = any(s == -1 for s in spec.sizes().values())
+        per = 1 if wild else spec.n_devices // world
+        devices = [_rank_device()] * per
+    devices = [_device(d) for d in devices]
+    spec = spec.resolve(len(devices) * world)
+    per = len(devices)
+    everyone = [None] * (per * world)
+    everyone[rank * per:(rank + 1) * per] = devices
+    return Mesh(_grid(everyone, spec), world=world, rank=rank, formed=True)
+
+
+def _grid(devices, spec: MeshSpec) -> np.ndarray:
     shape = tuple(spec.sizes()[a] for a in AXES)
     grid = np.empty(len(devices), dtype=object)
     grid[:] = devices
-    return Mesh(grid.reshape(shape))
+    return grid.reshape(shape)
+
+
+def _rank_device() -> torch.device:
+    """This rank's device in a formed world: its current CUDA device
+    under NCCL, the CPU under gloo."""
+    if dist.get_backend() == "nccl":
+        return _device("cuda")
+    return torch.device("cpu")
 
 
 def single_device_mesh(device: Union[str, torch.device] = "cuda") -> Mesh:

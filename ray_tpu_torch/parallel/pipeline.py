@@ -104,6 +104,7 @@ def pipeline_spmd(apply_stage: Callable[[Any, torch.Tensor], torch.Tensor],
     ``num_microbatches``. Stage s runs on its pp position's device (the
     first position of stage s), its params moved there
     (no copy where they already are); the output is on ``x``'s device."""
+    mesh.check_one_process("pipeline_spmd")
     pp = mesh.shape[axis]
     if pp == 1:
         return apply_stage(_tree_map(lambda p: p[0], stage_params), x)

@@ -42,6 +42,11 @@ and, on the last stage, every microbatch's logits are alive at once, so
 those two terms are the group's, as without pp, while the workspace is
 one microbatch's. The plan is the last stage's, which holds the most.
 
+Per rank (``world`` processes, one per GPU, each holding an equal run of
+the positions in grid order, ``parallel.mesh``): the params and optimizer
+bytes of the distinct tensors a rank holds, each slice once however many
+of its positions hold it (they share one tensor on its card).
+
 The reference's default of 16 GiB is a TPU's memory: here the default is
 the card's.
 """
@@ -52,12 +57,32 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
-from .mesh import MeshSpec
+from .mesh import AXES, MeshSpec
 from .sharding import LogicalAxisRules
 
 GiB = float(1 << 30)
+
+
+def _spec_axes(spec) -> set:
+    """The mesh axes a spec splits some dim over."""
+    return {a for axes in spec if axes is not None
+            for a in ((axes,) if isinstance(axes, str) else axes)}
+
+
+def _rank_slices(spec, sizes: Dict[str, int], world: int) -> int:
+    """The most distinct slices of a leaf under ``spec`` that one rank's
+    positions hold: positions agree on a slice where they agree on every
+    axis the spec splits."""
+    shape = tuple(sizes[a] for a in AXES)
+    named = [k for k, a in enumerate(AXES) if a in _spec_axes(spec)]
+    coords = list(np.ndindex(shape))
+    per = len(coords) // world
+    return max(len({tuple(c[k] for k in named)
+                    for c in coords[r * per:(r + 1) * per]})
+               for r in range(world))
 
 
 def _leaf_local_bytes(shape: Sequence[int], itemsize: int,
@@ -94,6 +119,9 @@ class MemoryPlan:
     logits_bytes: int
     workspace_bytes: int
     hbm_bytes: int
+    world: int = 1
+    rank_params_bytes: int = 0
+    rank_opt_bytes: int = 0
 
     @property
     def state_bytes(self) -> int:
@@ -145,8 +173,9 @@ def plan_train_memory(cfg, spec: MeshSpec, *,
                       num_microbatches: Optional[int] = None,
                       rules: Optional[LogicalAxisRules] = None,
                       hbm_gib: Optional[float] = None,
-                      opt_slots: int = 2) -> MemoryPlan:
-    """The per-position budget for ``make_train_step(cfg)`` on ``spec``.
+                      opt_slots: int = 2, world: int = 1) -> MemoryPlan:
+    """The per-position budget for ``make_train_step(cfg)`` on ``spec``,
+    and the params and optimizer bytes one of ``world`` ranks holds.
 
     Pure arithmetic over shapes: needs no device but for the default
     ``hbm_gib``, which is the current CUDA card's memory (raising without
@@ -170,11 +199,16 @@ def plan_train_memory(cfg, spec: MeshSpec, *,
                 yield from leaves(shapes[k], axes[k])
         else:
             yield shapes, axes
-    params_b = sum(
-        _leaf_local_bytes(shape, torch.tensor([], dtype=dtype).element_size(),
-                          ax, rules, sizes)
-        for (shape, dtype), ax in leaves(param_shapes(cfg),
-                                         param_logical_axes(cfg)))
+    state = list(leaves(param_shapes(cfg), param_logical_axes(cfg)))
+    per_leaf = [_leaf_local_bytes(
+        shape, torch.tensor([], dtype=dtype).element_size(), ax, rules,
+        sizes) for (shape, dtype), ax in state]
+    params_b = sum(per_leaf)
+    if spec.n_devices % world:
+        raise ValueError(f"{spec.n_devices} positions do not split over "
+                         f"{world} ranks")
+    rank_params_b = sum(b * _rank_slices(rules.spec(ax), sizes, world)
+                        for b, (_, ax) in zip(per_leaf, state))
     grads_b = params_b                       # same shards and dtypes
     opt_b = opt_slots * params_b             # Adam: mu and nu mirror params
 
@@ -216,7 +250,8 @@ def plan_train_memory(cfg, spec: MeshSpec, *,
         cfg=cfg, spec=spec, global_batch=global_batch, seq_len=seq,
         params_bytes=params_b, grads_bytes=grads_b, opt_bytes=opt_b,
         activation_bytes=act_b, logits_bytes=logits_b, workspace_bytes=ws_b,
-        hbm_bytes=hbm)
+        hbm_bytes=hbm, world=world, rank_params_bytes=rank_params_b,
+        rank_opt_bytes=opt_slots * rank_params_b)
 
 
 def plan_7b_north_star(n_devices: int, *,

@@ -19,6 +19,11 @@ each position's share and moves the partials itself
 (``models.transformer``: the tp all-reduce, the fsdp gather, the
 vocabulary-parallel cross-entropy). ``gather_params`` is the inverse.
 
+On a mesh over several processes (``Mesh.world`` > 1, one process per GPU)
+each rank builds only its own positions' shards: the per-position lists
+hold None at other ranks' positions, and a rank never allocates another
+rank's shard. ``gather_params`` then all-gathers the full tensors.
+
 ``with_logical_constraint`` is not ported: it is a layout hint to GSPMD
 inside a jitted program, and here every tensor already lives where its
 position's work runs.
@@ -30,6 +35,7 @@ import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from .mesh import EP_AXES, Mesh
 
@@ -203,16 +209,19 @@ def shard_slices(spec: PartitionSpec, shape: Sequence[int], mesh: Mesh,
 
 
 def shard_tensor(t: torch.Tensor, spec: PartitionSpec,
-                 mesh: Mesh) -> List[torch.Tensor]:
-    """Each position's shard of ``t`` under ``spec``, in grid order. A
-    shard is held once per distinct device: positions that hold the same
-    slice on one device (dp replicas, or a dim that is not split) share
-    one tensor. A slice that is the whole tensor is ``t.to(device)``,
-    which is ``t`` itself on its own device; any other is a contiguous
-    tensor of its own."""
+                 mesh: Mesh) -> List[Optional[torch.Tensor]]:
+    """Each position's shard of ``t`` under ``spec``, in grid order (None
+    at another process's positions). A shard is held once per distinct
+    device: positions that hold the same slice on one device (dp
+    replicas, or a dim that is not split) share one tensor. A slice that
+    is the whole tensor is ``t.to(device)``, which is ``t`` itself on its
+    own device; any other is a contiguous tensor of its own."""
     held: Dict[Any, torch.Tensor] = {}
-    out = []
-    for coord, dev in zip(mesh.coords(), mesh.devices.flat):
+    out: List[Optional[torch.Tensor]] = []
+    for i, (coord, dev) in enumerate(zip(mesh.coords(), mesh.devices.flat)):
+        if not mesh.is_local(i):
+            out.append(None)
+            continue
         sl = shard_slices(spec, t.shape, mesh, coord)
         key = (tuple((s.start, s.stop) for s in sl), dev)
         if key not in held:
@@ -252,18 +261,20 @@ def _specs(mesh, rules, logical_axes):
     return tree_specs(logical_axes, mesh, rules)
 
 
-def _per_position(per_leaf, n: int) -> List[Dict[str, Any]]:
+def _per_position(per_leaf, mesh: Mesh) -> List[Optional[Dict[str, Any]]]:
     def pick(tree, i):
         if isinstance(tree, dict):
             return {k: pick(v, i) for k, v in tree.items()}
         return tree[i]
-    return [pick(per_leaf, i) for i in range(n)]
+    return [pick(per_leaf, i) if mesh.is_local(i) else None
+            for i in range(mesh.devices.size)]
 
 
 def shard_params(params: Dict[str, Any], mesh: Mesh,
                  rules: Optional[LogicalAxisRules] = None,
                  logical_axes=None) -> List[Dict[str, Any]]:
-    """Each position's params, in grid order (``mesh.coords()``).
+    """Each position's params, in grid order (``mesh.coords()``; None at
+    another process's positions).
 
     ``logical_axes`` is the params' tree of logical-axis tuples (default:
     the transformer's, ``models.transformer.param_logical_axes``), mapped
@@ -275,7 +286,7 @@ def shard_params(params: Dict[str, Any], mesh: Mesh,
     specs = _specs(mesh, rules, logical_axes)
     per_leaf = _zip_trees(params, specs,
                           lambda t, spec: shard_tensor(t, spec, mesh))
-    return _per_position(per_leaf, mesh.devices.size)
+    return _per_position(per_leaf, mesh)
 
 
 def gather_params(shards: Sequence[Dict[str, Any]], mesh: Mesh,
@@ -283,7 +294,10 @@ def gather_params(shards: Sequence[Dict[str, Any]], mesh: Mesh,
                   logical_axes=None, device=None) -> Dict[str, Any]:
     """The inverse of ``shard_params``: full tensors on ``device``
     (default: the first position's), bit for bit. For the tests and for
-    checkpoints; a trainer never builds them."""
+    checkpoints; a trainer never builds them. On a mesh over several
+    processes every rank calls it (a collective) and gets the full
+    tensors, gathered leaf by leaf: each rank's positions' parts are
+    all-gathered, every part once per position."""
     specs = _specs(mesh, rules, logical_axes)
 
     def walk(spec, path):
@@ -292,10 +306,31 @@ def gather_params(shards: Sequence[Dict[str, Any]], mesh: Mesh,
         parts = []
         for tree in shards:
             for k in path:
-                tree = tree[k]
+                tree = None if tree is None else tree[k]
             parts.append(tree)
+        if mesh.world > 1:
+            parts = all_gather_parts(parts, mesh)
         return gather_tensor(parts, spec, mesh, device)
     return walk(specs, ())
+
+
+def all_gather_parts(parts: Sequence[Optional[torch.Tensor]],
+                     mesh: Mesh) -> List[torch.Tensor]:
+    """Every position's part of one leaf, on this rank's device, from
+    each rank's own (``parts`` holds None at other ranks' positions; all
+    parts have one shape)."""
+    mine = torch.stack([parts[i] for i in mesh.local_positions()])
+    out = mine.new_empty((mesh.world * mine.shape[0],) + mine.shape[1:])
+    all_gather_single(out, mine, group=mesh.world_group())
+    return list(out.unbind(0))
+
+
+# Named ``*_single`` where torch deprecates the ``*_tensor`` names; older
+# torch has only those (the same arguments).
+all_gather_single = (getattr(dist, "all_gather_single", None)
+                     or dist.all_gather_into_tensor)
+reduce_scatter_single = (getattr(dist, "reduce_scatter_single", None)
+                         or dist.reduce_scatter_tensor)
 
 
 def shard_batch(batch, mesh: Mesh,
@@ -313,5 +348,5 @@ def shard_batch(batch, mesh: Mesh,
         return shard_tensor(t, rules.spec(axes, mesh), mesh)
     if isinstance(batch, dict):
         per_leaf = {k: split(v) for k, v in batch.items()}
-        return _per_position(per_leaf, mesh.devices.size)
+        return _per_position(per_leaf, mesh)
     return split(batch)

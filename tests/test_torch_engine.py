@@ -183,6 +183,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.parallel.planner\n"
         "import ray_tpu_torch.llm.serving, ray_tpu_torch.llm.openai_api\n"
         "import ray_tpu_torch.llm.batch, ray_tpu_torch._private.deadlines\n"
+        "import ray_tpu_torch.collective.collective\n"
+        "import ray_tpu_torch.tpu.accelerator, ray_tpu_torch.train.backend\n"
+        "import ray_tpu_torch.train.examples.transformer_example\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'optax')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'optax.'))\n"
