@@ -245,22 +245,34 @@ Phases, each printing one JSON line on stdout:
    (the line says where it was not run); where world >= 2 also the bus
    bandwidth of a 256 MiB bf16 all-reduce (algbw x 2(n - 1)/n). Each
    rank checks that it imported neither JAX nor the JAX package.
-17. train_ranks: the same model at full width and depth trained with one
-   process per card on MeshSpec(dp=2, fsdp=2) spanning the ranks (a
-   world of one holds all four positions on its card; four ranks hold
-   one each, the fsdp gathers an NCCL all-gather between cards and the
-   dp replicas an NCCL all-reduce): train_mesh's batch, each rank drawing
-   the seed-0 params on its card (their layers.attn.wk's hash against the
-   unsharded pass's), value_and_grad's sampled gradients gathered across
-   ranks against train_mesh's unsharded pass (kept in a file the ranks
-   read), then three steps: step 1's loss and grad norm against it,
-   falling losses, each rank's launches of kernels 1-3 (2 x 32 x its
-   batch groups, 32 x its batch groups twice), its distinct state bytes
-   against the planner's per-rank figure, and the dp replicas bit-equal
-   across ranks after the steps. Prints per rank its step ms, one
-   profiled step's device time and idle share, and its peak memory. A
-   rank that raises, hangs past its bound or exits non-zero fails the
-   run; nothing falls back to gloo or the CPU.
+17. train_ranks: the same model at full width and depth, train_mesh's
+   batch and default rules, trained with one process per card over each
+   layout of TRAIN_RANKS in turn: MeshSpec(dp=2, fsdp=2) (the fsdp
+   gathers an NCCL all-gather between cards, the dp replicas an NCCL
+   all-reduce), then tp, sp or pp groups split over ranks. On one card a
+   world of one holds each layout's positions on cuda:0: dp=2 x fsdp=2,
+   then tp=4 (kernels 1-3 at Hq 8 / Hkv 2). On four cards, one position a
+   rank: dp=2 x fsdp=2, tp=4 (the in-layer all-reduce over NCCL), pp=2 x
+   tp=2 with two microbatches (the stage hand-off by send/recv) and sp=2
+   x tp=2 (the sequence gathered on the first shard's rank around the
+   kernels), then sp=2 x tp=2's step 1 again under ring attention (the
+   P2P ring, no kernel). Per layout: each rank draws the seed-0 params on
+   its card (their layers.attn.wk's hash against the unsharded pass's),
+   value_and_grad's 12 sampled gradients gathered across ranks against
+   train_mesh's unsharded pass (kept in a file the ranks read), three
+   steps (step 1's loss and grad norm against it, falling losses), each
+   rank's launches of kernels 1-3 (2 x its stage's layers x microbatches
+   x its attending positions, and that count twice: 256 / 128 / 128 in
+   the world of one, 64 / 32 / 32 a rank on four, 0 on sp's second
+   shard), distinct state bytes against the planner's per-rank figure,
+   replicas (dp's and sp's copies, tp's norm scales, the stages'
+   top-level tensors) bit-equal across ranks, the current device kept.
+   Prints per rank its step ms, tokens/s, MFU, one profiled step's device
+   time by class with the fsdp:gather, tp:all_reduce, pp:send/recv and
+   sp:ring/gather/scatter ranges apart, its idle share (the union of its
+   kernels' intervals) and its peak memory. A rank that raises, hangs
+   past its bound or exits non-zero fails the run; nothing falls back to
+   gloo or the CPU.
 18. moe: one MoE layer at Mixtral-8x7B's published widths (d_model 4096,
    d_ff 14336, 8 experts, top 2; capacity_factor 1.25, MoEConfig's
    default), bf16 on x of (4, 2048, 4096) from a seed, f32 params as
@@ -321,8 +333,10 @@ from ray_tpu_torch.models import transformer
 from ray_tpu_torch.models.moe import moe_layer_routed
 from ray_tpu_torch.models.train_step import global_norm, value_and_grad
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import ring_attention as ring_ops
 from ray_tpu_torch.parallel import (MeshSpec, build_mesh, plan_train_memory,
                                     shard_params, tree_specs)
+from ray_tpu_torch.parallel import pipeline
 from ray_tpu_torch.parallel.mesh import Mesh
 from ray_tpu_torch.parallel.sharding import (all_gather_parts, gather_tensor,
                                              shard_slices)
@@ -557,12 +571,35 @@ TRAIN_SP_STEPS = 3
 COLLECTIVE_BYTES = 256 << 20
 COLLECTIVE_ITERS = 5
 COLLECTIVE_TIMEOUT_S = 120
-# train_ranks: the reference's dp x fsdp layout across processes
-# (tests/test_models.py:80-122 without its tp axis, which stays inside a
-# process), train_mesh's batch and seeded params, one rank a card.
-TRAIN_RANKS = dict(dp=2, fsdp=2)
+# train_ranks: one process per card, train_mesh's batch, seeded params
+# and default rules, the flash kernels: the reference's dp x fsdp layout
+# (tests/test_models.py:80-122 without its tp axis), then tp, sp and pp
+# groups split over ranks. A world of one (on one card) holds each
+# layout's positions on its card; four ranks (four cards) run each layout
+# one position a rank, then sp=2 x tp=2's step 1 again under ring
+# attention. (name, mesh, microbatches under pp.) The kernels line reports
+# the dp x fsdp layout's launches under train_ranks, the others' under
+# train_split_ranks.
+TRAIN_RANKS = {1: (("dp2xfsdp2", dict(dp=2, fsdp=2), None),
+                   ("tp4", dict(tp=4), None)),
+               4: (("dp2xfsdp2", dict(dp=2, fsdp=2), None),
+                   ("tp4", dict(tp=4), None),
+                   ("pp2xtp2", dict(pp=2, tp=2), 2),
+                   ("sp2xtp2", dict(sp=2, tp=2), None))}
+TRAIN_RANKS_DP = "dp2xfsdp2"
 TRAIN_RANKS_STEPS = 3
-TRAIN_RANKS_TIMEOUT_S = 300
+TRAIN_RANKS_TIMEOUT_S = 600
+# The profiled step's named ranges: the in-layer all-reduce, the stage
+# hand-off across ranks, the ring's P2P exchange and the gathered
+# sequence's join and split (each over NCCL where it spans ranks).
+TRAIN_RANKS_RANGES = (
+    ("transformer", {"all_reduce": "tp:all_reduce",
+                     "fsdp_gather": "fsdp:gather",
+                     "vocab_parallel_nll": "vocab:cross_entropy",
+                     "seq_gather": "sp:gather",
+                     "seq_scatter": "sp:scatter"}),
+    ("handoffs", {"send": "pp:send", "recv": "pp:recv"}),
+    ("ring", {"_exchange": "sp:ring"}))
 # moe: one MoE layer at Mixtral-8x7B's published widths
 # (mistralai/Mixtral-8x7B-v0.1 config.json: hidden_size 4096,
 # intermediate_size 14336, num_local_experts 8, num_experts_per_tok 2),
@@ -2287,14 +2324,15 @@ def serve_sp_phase(card: str, failures: list, params) -> dict:
 
 
 @contextlib.contextmanager
-def named_ranges(names: dict):
+def named_ranges(names: dict, owner=transformer):
     """Run every call of each ``models.transformer`` function named in
-    ``names`` inside a ``record_function`` range of the given name (the tp
-    layer calls ``transformer.all_reduce``, which becomes
-    ``tp:all_reduce``), so that a profile names their kernels apart. Only
-    the calls made on the profiled thread fall in a range: the backward's
-    kernels, which autograd launches from its own thread, do not."""
-    real = {attr: getattr(transformer, attr) for attr in names}
+    ``names`` (or of ``owner``'s) inside a ``record_function`` range of
+    the given name (the tp layer calls ``transformer.all_reduce``, which
+    becomes ``tp:all_reduce``), so that a profile names their kernels
+    apart. Only the calls made on the profiled thread fall in a range:
+    the backward's kernels, which autograd launches from its own thread,
+    do not."""
+    real = {attr: getattr(owner, attr) for attr in names}
 
     def wrap(attr):
         def named(*args, **kwargs):
@@ -2302,12 +2340,12 @@ def named_ranges(names: dict):
                 return real[attr](*args, **kwargs)
         return named
     for attr in names:
-        setattr(transformer, attr, wrap(attr))
+        setattr(owner, attr, wrap(attr))
     try:
         yield
     finally:
         for attr, fn in real.items():
-            setattr(transformer, attr, fn)
+            setattr(owner, attr, fn)
 
 
 @contextlib.contextmanager
@@ -3719,15 +3757,15 @@ def _rank_main(target, rank: int, world: int, port: int, args, results):
 
 
 def run_ranks(name: str, target, args, failures: list,
-              timeout_s: float) -> list:
-    """``target`` in ``torch.cuda.device_count()`` spawned ranks, one a
-    card (NCCL refuses two ranks on one GPU), each bounded by
-    ``timeout_s``: their results in rank order, or None for a rank that
-    raised, hung or exited non-zero (a failure each; the others are then
-    killed). The parent frees its cached CUDA memory first."""
+              timeout_s: float, world=None) -> list:
+    """``target`` in ``world`` (default ``torch.cuda.device_count()``)
+    spawned ranks, one a card (NCCL refuses two ranks on one GPU), each
+    bounded by ``timeout_s``: their results in rank order, or None for a
+    rank that raised, hung or exited non-zero (a failure each; the others
+    are then killed). The parent frees its cached CUDA memory first."""
     gc.collect()
     torch.cuda.empty_cache()
-    world = torch.cuda.device_count()
+    world = world or torch.cuda.device_count()
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
@@ -3853,17 +3891,6 @@ def _held_bytes(trees) -> int:
                 for t in _dict_leaves(tree).values()}.values())
 
 
-def _gathered_sample(grads, path, specs, mesh, device):
-    """A sampled gradient of a rank's per-position grads, whole, on every
-    rank (a collective): a top-level leaf, or one layer's."""
-    spec = _sample(specs, [k for k in path if not isinstance(k, int)])
-    if len(path) > 1:
-        spec = spec[1:]
-    parts = [None if g is None else _sample(g, path) for g in grads]
-    return gather_tensor(all_gather_parts(parts, mesh), spec, mesh,
-                         device=device)
-
-
 def _replicas_bit_equal(trees, specs, mesh, cfg) -> dict:
     """For each leaf whose slice other ranks also hold (dp replicas), this
     rank's tensor against theirs, bit for bit: the elementwise max and
@@ -3893,159 +3920,294 @@ def _replicas_bit_equal(trees, specs, mesh, cfg) -> dict:
     return out
 
 
-def _train_rank(rank: int, world: int, tokens, ref_path: str,
-                ref_scalars: dict) -> dict:
-    """One rank of the train_ranks phase (see the module docstring)."""
+def _leaf_sha256(t: torch.Tensor) -> str:
+    """The sha256 of a bf16 tensor's bytes."""
+    return hashlib.sha256(t.view(torch.int16).cpu().numpy()).hexdigest()
+
+
+def _gathered_sample(grads, path, specs, mesh, cfg, device):
+    """A sampled gradient of a rank's per-position grads, whole, on every
+    rank (a collective): a top-level leaf over the mesh, or one layer's
+    over the positions of the stage that holds it (each position gives its
+    own layer at that index; only that stage's are kept)."""
+    spec = _sample(specs, [k for k in path if not isinstance(k, int)])
+    if len(path) == 1:
+        parts = [None if g is None else _sample(g, path) for g in grads]
+        return gather_tensor(all_gather_parts(parts, mesh), spec, mesh,
+                             device=device)
+    stage, li = divmod(path[1], cfg.num_layers // mesh.shape["pp"])
+    local = ("layers", li) + tuple(path[2:])
+    parts = all_gather_parts([None if g is None else _sample(g, local)
+                              for g in grads], mesh)
+    return gather_tensor([parts[i] for i in mesh.stage_positions(stage)],
+                         spec[1:], Mesh(mesh.devices[stage:stage + 1]),
+                         device=device)
+
+
+def device_busy_ms(prof) -> float:
+    """The union of the device's kernel intervals in a profile (ms): NCCL
+    runs on streams of its own, beside the compute."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def _rank_profile():
+    """(context, profiler): a device profile with ``TRAIN_RANKS_RANGES``
+    named while the context is open."""
+    ctx = contextlib.ExitStack()
+    prof = ctx.enter_context(profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]))
+    owners = {"transformer": transformer, "handoffs": pipeline.Handoffs,
+              "ring": ring_ops}
+    for owner, names in TRAIN_RANKS_RANGES:
+        ctx.enter_context(named_ranges(names, owners[owner]))
+    return ctx, prof
+
+
+def _rank_summary(prof, step: int, wall_ms: float) -> dict:
+    """One profiled step's device time by class, the named ranges apart,
+    and the idle share of its wall time (the union of the kernels'
+    intervals)."""
+    split, top = device_time_split(prof)
+    busy = device_busy_ms(prof)
+    split_ranges(prof, split, [r for _, names in TRAIN_RANKS_RANGES
+                               for r in names.values()])
+    return dict(step=step, wall_ms=wall_ms,
+                device_ms=split if busy else "not measured",
+                busy_ms=busy if busy else "not measured",
+                idle_share=1 - busy / wall_ms if busy else "not measured",
+                top_kernels=top[:6])
+
+
+def _rank_run(name, spec, microbatches, rank, world, tokens, ref_grads,
+              ref_scalars, fails) -> dict:
+    """One layout of the train_ranks phase on this rank (see the module
+    docstring)."""
     cfg = dataclasses.replace(PRESETS["8b-gqa"], remat=True,
                               attention_impl="flash")
     dev = torch.device("cuda", torch.cuda.current_device())
-    fails = []
-    mesh = build_mesh(MeshSpec(**TRAIN_RANKS))
+
+    def fail(msg):
+        fails.append(f"{name}: {msg}")
+    mesh = build_mesh(MeshSpec(**spec))
     bundle = make_train_step(cfg, mesh,
                              optimizer=make_optimizer(warmup_steps=1),
-                             device=dev)
+                             num_microbatches=microbatches, device=dev)
     specs = bundle.state_specs["params"]
     batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+
+    def seeded_shards():
+        params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+        if _leaf_sha256(params["layers"]["attn"]["wk"]) \
+                != ref_scalars["wk_sha256"]:
+            fail("the seed-0 params differ from the unsharded pass's "
+                 "(layers.attn.wk's hash)")
+        shards = shard_params(params, mesh, bundle.rules)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return shards
+
+    def kept_device(what):
+        if torch.cuda.current_device() != dev.index:
+            fail(f"{what} left cuda:{torch.cuda.current_device()} current, "
+                 f"not {dev}")
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
-    wk_sha = _leaf_sha256(params["layers"]["attn"]["wk"])
-    if wk_sha != ref_scalars["wk_sha256"]:
-        fails.append("the seed-0 params differ from the unsharded pass's "
-                     "(layers.attn.wk's hash)")
-    shards = shard_params(params, mesh, bundle.rules)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    shards = seeded_shards()
     shard_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    loss, grads = value_and_grad(shards, batch, cfg, device=dev, mesh=mesh)
+    loss, grads = value_and_grad(shards, batch, cfg, device=dev, mesh=mesh,
+                                 num_microbatches=microbatches)
     torch.cuda.synchronize()
     vg_s = time.perf_counter() - t0
-    ref_grads = (torch.load(ref_path, map_location="cpu")
-                 if rank == 0 else None)
+    kept_device("value_and_grad")
     sample_errs = {}
     for path in TRAIN_MESH_SAMPLE:
-        got = _gathered_sample(grads, path, specs, mesh, dev)
-        if rank == 0:
-            want = ref_grads[path].to(dev)
-            sample_errs[".".join(map(str, path))] = _rel(got, want)
-            del want
+        got = _gathered_sample(grads, path, specs, mesh, cfg, dev)
+        if ref_grads is not None:
+            sample_errs[".".join(map(str, path))] = _rel(
+                got, ref_grads[path].to(dev))
         del got
-    del grads, ref_grads
+    del grads
     gc.collect()
     torch.cuda.empty_cache()
     if sample_errs:
         worst = max(sample_errs, key=sample_errs.get)
         if not sample_errs[worst] <= TRAIN_MESH_GRAD_REL_TOL:
-            fails.append(f"sampled gradient {worst} against the unsharded "
-                         f"pass: {sample_errs[worst]}")
+            fail(f"sampled gradient {worst} against the unsharded pass: "
+                 f"{sample_errs[worst]}")
     state = {"params": shards,
              "opt_state": bundle.optimizer.init(shards), "step": 0}
     del shards
-    plan = plan_train_memory(cfg, MeshSpec(**TRAIN_RANKS),
+    plan = plan_train_memory(cfg, MeshSpec(**spec),
                              global_batch=TRAIN_MESH_BATCH,
-                             seq_len=TRAIN_SEQ, world=world)
+                             seq_len=TRAIN_SEQ,
+                             num_microbatches=microbatches, world=world)
     opt = state["opt_state"]
     held = dict(params=_held_bytes(state["params"]),
                 opt=_held_bytes(opt["mu"]) + _held_bytes(opt["nu"]))
     planned = dict(params=plan.rank_params_bytes, opt=plan.rank_opt_bytes)
     if held != planned:
-        fails.append(f"distinct state bytes {held}, the planner's per-rank "
-                     f"figure {planned}")
+        fail(f"distinct state bytes {held}, the planner's per-rank figure "
+             f"{planned}")
 
-    # Per layer and local batch group: kernel 1 in the forward and in the
-    # recompute, dQ and dK/dV once (no tp: one position a group).
-    groups = len(mesh.batch_groups()) // world
-    per = cfg.num_layers * groups * mesh.shape["tp"]
+    # Per layer of its stage and microbatch, each of this rank's positions
+    # that attends (every position; under sp the first shard's, where the
+    # sequence is gathered): kernel 1 in the forward and the recompute,
+    # dQ and dK/dV once.
+    pp = mesh.shape["pp"]
+    mb = (microbatches or pp) if pp > 1 else 1
+    homes = sum(1 for i in mesh.local_positions() if mesh.coords()[i][3] == 0)
+    per = cfg.num_layers // pp * mb * homes
     want = (2 * per, per, per)
+    torch.cuda.reset_peak_memory_stats()
     flash_attention_fwd.launches = 0
     flash_attention_dq.launches = 0
     flash_attention_dkv.launches = 0
-    torch.cuda.reset_peak_memory_stats()
     steps = []
     for i in range(TRAIN_RANKS_STEPS):
         last = i == TRAIN_RANKS_STEPS - 1
-        prof = (profile(activities=[ProfilerActivity.CPU,
-                                    ProfilerActivity.CUDA]) if last
-                else contextlib.nullcontext())
+        ctx, prof = (_rank_profile() if last
+                     else (contextlib.nullcontext(), None))
         before = _launch_counts()
         torch.cuda.synchronize()
-        with prof:
+        with ctx:
             t0 = time.perf_counter()
             state, metrics = bundle.step(state, batch)
             torch.cuda.synchronize()
             step_s = time.perf_counter() - t0
+        kept_device(f"step {metrics['step']}")
         launches = tuple(a - b for a, b in zip(_launch_counts(), before))
         steps.append(dict(metrics, step_ms=step_s * 1e3,
                           launches=dict(zip(("fwd", "dq", "dkv"),
                                             launches))))
         if launches != want:
-            fails.append(f"step {metrics['step']} launched (fwd, dq, dkv) "
-                         f"{launches}, expected {want}")
+            fail(f"step {metrics['step']} launched (fwd, dq, dkv) "
+                 f"{launches}, expected {want}")
         if not (np.isfinite(metrics["loss"])
                 and np.isfinite(metrics["grad_norm"])):
-            fails.append(f"step not finite: {metrics}")
+            fail(f"step not finite: {metrics}")
     totals = dict(zip(("fwd", "dq", "dkv"), _launch_counts()))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    split, top = device_time_split(prof)
-    busy = sum(split.values())
     first, last = steps[0], steps[-1]
     loss_rel = abs(first["loss"] - ref_scalars["loss"]) / abs(
         ref_scalars["loss"])
     gnorm_rel = (abs(first["grad_norm"] - ref_scalars["grad_norm"])
                  / ref_scalars["grad_norm"])
     if not last["loss"] < first["loss"]:
-        fails.append(f"loss did not fall: {first['loss']} -> "
-                     f"{last['loss']}")
+        fail(f"loss did not fall: {first['loss']} -> {last['loss']}")
     if not (loss_rel <= TRAIN_LOSS_REL_TOL
             and gnorm_rel <= TRAIN_GNORM_REL_TOL):
-        fails.append(f"step 1 against the unsharded pass: loss rel "
-                     f"{loss_rel}, grad_norm rel {gnorm_rel}")
+        fail(f"step 1 against the unsharded pass: loss rel {loss_rel}, "
+             f"grad_norm rel {gnorm_rel}")
     replicas = {}
     for kind, trees in (("params", state["params"]), ("mu", opt["mu"]),
                         ("nu", opt["nu"])):
-        for name, ok in _replicas_bit_equal(trees, specs, mesh,
+        for leaf, ok in _replicas_bit_equal(trees, specs, mesh,
                                             cfg).items():
-            replicas[f"{kind}.{name}"] = ok
+            replicas[f"{kind}.{leaf}"] = ok
     if not all(replicas.values()):
-        fails.append(f"replicas differ across ranks: "
-                     f"{[k for k, ok in replicas.items() if not ok][:5]}")
+        fail(f"replicas differ across ranks: "
+             f"{[k for k, ok in replicas.items() if not ok][:5]}")
+    del state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
     # The steps after the first, but the profiled last one.
-    steady_ms = np.mean([st["step_ms"] for st in steps[1:-1]])
-    return dict(
-        rank=rank, device=str(dev), positions=mesh.local_positions(),
-        batch_groups=groups, shard_s=shard_s, value_and_grad_s=vg_s,
-        value_and_grad_loss=float(loss),
+    steady_ms = float(np.mean([st["step_ms"] for st in steps[1:-1]]))
+    tokens_n = TRAIN_MESH_BATCH * TRAIN_SEQ
+    out = dict(
+        layout=name, mesh=spec, num_microbatches=microbatches,
+        positions=mesh.local_positions(), shard_s=shard_s,
+        value_and_grad_s=vg_s, value_and_grad_loss=float(loss),
         sampled_grad_rel_err=sample_errs or "on rank 0",
         held_state_bytes=held, planned_state_bytes=planned,
-        steps=steps, launches=totals,
-        expected_launches_per_step=dict(zip(("fwd", "dq", "dkv"), want)),
+        steps=steps, launches=totals, expected_launches_per_step=dict(
+            zip(("fwd", "dq", "dkv"), want)),
         loss_rel_err=loss_rel, grad_norm_rel_err=gnorm_rel,
         steady_step_ms=steady_ms,
-        tokens_per_s=TRAIN_MESH_BATCH * TRAIN_SEQ / (steady_ms / 1e3),
-        profiled_step=dict(
-            step=last["step"], wall_ms=last["step_ms"],
-            device_ms=split if busy else "not measured",
-            idle_share=(1 - busy / last["step_ms"] if busy
-                        else "not measured"),
-            top_kernels=top[:5]),
+        tokens_per_s=tokens_n / (steady_ms / 1e3),
+        model_flops_utilization=(cfg.flops_per_token(TRAIN_SEQ) * tokens_n
+                                 / (steady_ms / 1e3) / world
+                                 / PEAK_FLOPS[torch.bfloat16]),
+        profiled_step=_rank_summary(prof, last["step"], last["step_ms"]),
         peak_memory_gb=peak_gb,
         replicas_bit_equal=(dict(checked=len(replicas),
                                  equal=sum(replicas.values()))
-                            if replicas else "not run: one rank"),
-        failures=fails)
+                            if replicas else "not run: one rank"))
+    if mesh.shape["sp"] > 1:
+        # Step 1 again from the seed-0 state, under ring attention: the
+        # P2P ring between the sp ranks, no kernel launched.
+        ring_cfg = dataclasses.replace(cfg, attention_impl="ring")
+        ring = make_train_step(ring_cfg, mesh,
+                               optimizer=make_optimizer(warmup_steps=1),
+                               device=dev)
+        shards = seeded_shards()
+        state = {"params": shards,
+                 "opt_state": ring.optimizer.init(shards), "step": 0}
+        del shards
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        ctx, prof = _rank_profile()
+        with ctx:
+            t0 = time.perf_counter()
+            state, metrics = ring.step(state, batch)
+            torch.cuda.synchronize()
+            ring_ms = (time.perf_counter() - t0) * 1e3
+        kept_device("the ring step")
+        launches = tuple(a - b for a, b in zip(_launch_counts(), before))
+        r_loss = abs(metrics["loss"] - ref_scalars["loss"]) / abs(
+            ref_scalars["loss"])
+        r_gnorm = (abs(metrics["grad_norm"] - ref_scalars["grad_norm"])
+                   / ref_scalars["grad_norm"])
+        if launches != (0, 0, 0):
+            fail(f"the ring step launched (fwd, dq, dkv) {launches}")
+        if not (r_loss <= TRAIN_LOSS_REL_TOL
+                and r_gnorm <= TRAIN_GNORM_REL_TOL):
+            fail(f"the ring's step 1 against the unsharded pass: loss rel "
+                 f"{r_loss}, grad_norm rel {r_gnorm}")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["ring_step"] = dict(metrics, step_ms=ring_ms,
+                                launches=dict(zip(("fwd", "dq", "dkv"),
+                                                  launches)),
+                                loss_rel_err=r_loss, grad_norm_rel_err=r_gnorm,
+                                profiled=_rank_summary(prof, 1, ring_ms))
+    return out
 
 
-def _leaf_sha256(t: torch.Tensor) -> str:
-    """The sha256 of a bf16 tensor's bytes."""
-    return hashlib.sha256(t.view(torch.int16).cpu().numpy()).hexdigest()
+def _train_rank(rank: int, world: int, tokens, ref_path: str,
+                ref_scalars: dict) -> dict:
+    """One rank of the train_ranks phase: each layout of
+    ``TRAIN_RANKS[world]`` in turn."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ref_grads = (torch.load(ref_path, map_location="cpu")
+                 if rank == 0 else None)
+    fails = []
+    runs = [_rank_run(name, spec, mb, rank, world, tokens, ref_grads,
+                       ref_scalars, fails)
+            for name, spec, mb in TRAIN_RANKS[world]]
+    return dict(rank=rank, device=str(dev), runs=runs, failures=fails)
 
 
 def train_ranks_phase(card: str, failures: list, train_mesh: dict,
                       ref: dict) -> dict:
-    """Training with one process per card on dp x fsdp (see the module
-    docstring), held against train_mesh's unsharded pass ``ref``."""
+    """Training with one process per card on dp x fsdp and with tp, sp
+    and pp groups split over ranks (see the module docstring), held
+    against train_mesh's unsharded pass ``ref``."""
     t_phase = time.perf_counter()
+    world = 4 if torch.cuda.device_count() >= 4 else 1
     tokens = np.random.default_rng(5).integers(
         1, PRESETS["8b-gqa"].vocab_size, (TRAIN_MESH_BATCH, TRAIN_SEQ + 1))
     with tempfile.TemporaryDirectory() as tmp:
@@ -4055,18 +4217,26 @@ def train_ranks_phase(card: str, failures: list, train_mesh: dict,
                        wk_sha256=ref["wk_sha256"])
         ranks = run_ranks("train_ranks", _train_rank,
                           (tokens, ref_path, scalars), failures,
-                          TRAIN_RANKS_TIMEOUT_S)
+                          TRAIN_RANKS_TIMEOUT_S, world=world)
     for r in ranks:
         if r is not None:
             failures += [f"train_ranks rank {r['rank']}: {f}"
                          for f in r["failures"]]
     done = [r for r in ranks if r is not None]
-    launches = {k: sum(r["launches"][k] for r in done)
-                for k in ("fwd", "dq", "dkv")}
+    by_layout = {n: {k: sum(run["launches"][k] for r in done
+                            for run in r["runs"] if run["layout"] == n)
+                     for k in ("fwd", "dq", "dkv")}
+                 for n, _, _ in TRAIN_RANKS[world]}
     res = dict(
-        phase="train_ranks", preset="8b-gqa", mesh=TRAIN_RANKS,
-        world=len(ranks), batch=TRAIN_MESH_BATCH, seq_len=TRAIN_SEQ,
-        steps=TRAIN_RANKS_STEPS, ranks=ranks, launches=launches,
+        phase="train_ranks", preset="8b-gqa", world=world,
+        layouts=[dict(name=n, mesh=sp, num_microbatches=mb)
+                 for n, sp, mb in TRAIN_RANKS[world]],
+        batch=TRAIN_MESH_BATCH, seq_len=TRAIN_SEQ, steps=TRAIN_RANKS_STEPS,
+        ranks=ranks, launches_by_layout=by_layout,
+        launches=by_layout[TRAIN_RANKS_DP],
+        split_launches={k: sum(v[k] for n, v in by_layout.items()
+                               if n != TRAIN_RANKS_DP)
+                        for k in ("fwd", "dq", "dkv")},
         train_mesh=dict(
             steady_step_ms=train_mesh["runs"][0]["steady_step_ms"],
             tokens_per_s=train_mesh["runs"][0]["tokens_per_s"]),
@@ -4295,6 +4465,7 @@ def main() -> int:
     train_sp = train_sp_phase(card, failures, train, train_mesh, ref)
     collective_phase(card, failures)
     train_ranks = train_ranks_phase(card, failures, train_mesh, ref)
+    train_split = train_ranks["split_launches"]
     del ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -4330,7 +4501,8 @@ def main() -> int:
                        + train_mesh["launches"]["fwd"]
                        + train_pp["launches"]["fwd"]
                        + train_sp["launches"]["fwd"]
-                       + train_ranks["launches"]["fwd"]),
+                       + train_ranks["launches"]["fwd"]
+                       + train_split["fwd"]),
              launches_by_path=dict(
                  serve=serve["flash_launches"],
                  serve_cache=serve_cache["flash_launches"],
@@ -4343,7 +4515,8 @@ def main() -> int:
                  train_mesh=train_mesh["launches"]["fwd"],
                  train_pp=train_pp["launches"]["fwd"],
                  train_sp=train_sp["launches"]["fwd"],
-                 train_ranks=train_ranks["launches"]["fwd"]),
+                 train_ranks=train_ranks["launches"]["fwd"],
+                 train_split_ranks=train_split["fwd"]),
              max_abs_err=max(r["max_abs_err_o"]
                              for r in engine_rows + tp_rows),
              ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
@@ -4358,12 +4531,14 @@ def main() -> int:
                        + train_mesh["launches"]["dq"]
                        + train_pp["launches"]["dq"]
                        + train_sp["launches"]["dq"]
-                       + train_ranks["launches"]["dq"]),
+                       + train_ranks["launches"]["dq"]
+                       + train_split["dq"]),
              launches_by_path=dict(train=train["launches"]["dq"],
                                    train_mesh=train_mesh["launches"]["dq"],
                                    train_pp=train_pp["launches"]["dq"],
                                    train_sp=train_sp["launches"]["dq"],
-                                   train_ranks=train_ranks["launches"]["dq"]),
+                                   train_ranks=train_ranks["launches"]["dq"],
+                                   train_split_ranks=train_split["dq"]),
              max_abs_err=max(r["max_abs_err_dq"] for r in train_rows),
              ms=bat["dq_ms"], plain_ms=bat["plain_dq_ms"],
              bound_ms=bat["dq_bound_ms"], bound_by=bat["dq_bound_by"],
@@ -4376,12 +4551,14 @@ def main() -> int:
                        + train_mesh["launches"]["dkv"]
                        + train_pp["launches"]["dkv"]
                        + train_sp["launches"]["dkv"]
-                       + train_ranks["launches"]["dkv"]),
+                       + train_ranks["launches"]["dkv"]
+                       + train_split["dkv"]),
              launches_by_path=dict(train=train["launches"]["dkv"],
                                    train_mesh=train_mesh["launches"]["dkv"],
                                    train_pp=train_pp["launches"]["dkv"],
                                    train_sp=train_sp["launches"]["dkv"],
-                                   train_ranks=train_ranks["launches"]["dkv"]),
+                                   train_ranks=train_ranks["launches"]["dkv"],
+                                   train_split_ranks=train_split["dkv"]),
              max_abs_err=max(max(r["max_abs_err_dk"], r["max_abs_err_dv"])
                              for r in train_rows),
              ms=bat["dkv_ms"], plain_ms=bat["plain_dkv_ms"],

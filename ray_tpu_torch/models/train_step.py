@@ -46,14 +46,17 @@ stage ``ln_f``'s and ``lm_head``'s, and the replicas that took none get
 the sum like any other replica. As in the JAX package,
 ``num_microbatches`` is ignored without a pp axis.
 
-On a mesh over several processes (one per GPU; dp and fsdp across ranks,
+On a mesh over several processes (one per GPU; any axis across ranks,
 ``parallel.mesh``) each rank calls the same step with the whole batch and
 holds only its own positions' shards (None at the others'). It runs its
-own batch groups; a weight's fsdp slices on other ranks come through the
-model's all-gather, whose backward reduce-scatters their gradients. A
-replica class (one slice) that other ranks also hold is summed locally
-first, then all-reduced over the process group of the ranks that hold
-it. The global norm counts each slice once, on the lowest rank that holds
+own positions; a weight's fsdp slices on other ranks come through the
+model's all-gather, whose backward reduce-scatters their gradients, and
+a tp, sp or pp group's exchanges run between its ranks
+(``models.transformer``). A replica class (one slice) that other ranks
+also hold is summed locally first, then all-reduced over the process
+group of the ranks that hold it: dp and sp copies, a tensor replicated
+over tp (each rank's partial gradient), the top-level tensors of the
+stages. The global norm counts each slice once, on the lowest rank that holds
 it, its squares summed over the world; the loss is summed over the world,
 so every rank reports the same loss and grad norm. Each rank updates its
 own shards: replicas on other ranks take identical updates from identical

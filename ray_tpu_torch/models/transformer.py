@@ -56,12 +56,24 @@ tensor); no other caller should grow a third form.
   so the two agree. Inside its pipeline JAX elides the ring (plain
   attention); the port runs each stage's ring, the same values.
 - a mesh over several processes (``parallel.mesh``: one process per GPU,
-  dp and fsdp across ranks): every rank is given the whole batch and
-  runs only its own batch groups. A weight's fsdp slices held by other
-  ranks come through ``fsdp_gather``'s all-gather over the process group
-  of the ranks that hold them, whose backward reduce-scatters the
-  gradient back; the loss is summed over the world (``world_sum``), and
-  ``forward`` all-gathers the logits' rows.
+  any axis across ranks): every rank is given the whole batch and runs
+  only its own positions, in the same order as every other rank. A
+  weight's fsdp slices held by other ranks come through ``fsdp_gather``'s
+  all-gather over the process group of the ranks that hold them, whose
+  backward reduce-scatters the gradient back. A tp group across ranks
+  sums its partials by ``all_reduce`` over its process group
+  (``_AllReduce``: an f32 all-reduce, rounded once; its backward sums the
+  copies' gradients, the counterpart of the ``.to()`` copies' backward),
+  the vocabulary-split embedding and cross-entropy likewise. Each rank
+  keeps its own copy of the residual stream, whose gradient is that
+  copy's share, and a tensor replicated over tp (the norm scales; under
+  ``megatron_rules()`` the embedding and head) takes a partial gradient
+  on each rank, which the train step's replica all-reduce sums. An sp
+  group across ranks rotates the ring by P2P or gathers the sequence on
+  its first shard's rank (``_sp_attention``); stages across ranks hand
+  off by send/recv (``parallel.pipeline.Handoffs``), the backward
+  ordered per microbatch. The loss is summed over the world
+  (``world_sum``), and ``forward`` sums the ranks' pieces of the logits.
 """
 
 from __future__ import annotations
@@ -78,8 +90,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.flash_attention import flash_attention, reference_attention
-from ..ops.ring_attention import _ring_shards, ring_attention
-from ..parallel.pipeline import check_microbatches, gpipe_ticks, stage_send
+from ..ops.ring_attention import (_ring_shards, ring_attention, ring_shift,
+                                  seq_gather, seq_scatter)
+from ..parallel.pipeline import (Handoffs, check_microbatches, gpipe_ticks,
+                                 stage_send)
 from ..parallel.sharding import (LogicalAxisRules, _tree_map,
                                  all_gather_single, axis_dim,
                                  reduce_scatter_single, shard_batch,
@@ -424,7 +438,8 @@ def on_each(t: torch.Tensor, devices) -> Dict[torch.device, torch.Tensor]:
     return {d: t.to(d) for d in dict.fromkeys(devices)}
 
 
-def all_reduce(parts, devices) -> Dict[torch.device, torch.Tensor]:
+def all_reduce(parts, devices, group=None
+               ) -> Dict[torch.device, torch.Tensor]:
     """The sum of one partial per tp position (``parts[i]`` on
     ``devices[i]``), on each distinct device: {device: sum}.
 
@@ -434,16 +449,44 @@ def all_reduce(parts, devices) -> Dict[torch.device, torch.Tensor]:
     unsharded product, whose one matmul accumulates every term in f32 and
     rounds once, each partial here was rounded once more: a bf16 sum is
     within a few bf16 ulps of it, an f32 one within f32 rounding. (XLA's
-    all-reduce does not fix an order.) On one device nothing is copied."""
-    if len(parts) == 1:
+    all-reduce does not fix an order.) On one device nothing is copied.
+
+    ``group``: ``parts`` are this rank's positions' partials, and the
+    other ranks of ``group`` hold the rest of the tp group's; the f32 sum
+    of this rank's is summed over the group (``_AllReduce``) before the
+    one rounding."""
+    if len(parts) == 1 and group is None:
         total = parts[0]
     else:
         home = devices[0]
         total = parts[0].to(torch.float32, copy=True)
         for p in parts[1:]:
             total += p.to(home)
+        if group is not None:
+            total = _AllReduce.apply(total, group)
         total = total.to(parts[0].dtype)
     return on_each(total, devices)
+
+
+class _AllReduce(torch.autograd.Function):
+    """A tensor summed over the ranks of ``group`` (in place, one
+    ``dist.all_reduce``). The backward is the same sum of the gradients:
+    each rank's copy of the sum took its own share of the gradient, as the
+    ``.to()`` copies of a single controller's sum do, and each partial
+    takes their total."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        ctx.mark_dirty(t)
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 def tp_layer(cfg: TransformerConfig, xs, lps, devices, attend):
@@ -464,15 +507,22 @@ def tp_layer(cfg: TransformerConfig, xs, lps, devices, attend):
                     lambda hs: [attend(hs[0])])[0]
 
 
-def sp_layer(cfg: TransformerConfig, xss, lpss, devss, attend):
+def sp_layer(cfg: TransformerConfig, xss, lpss, devss, attend, groups=None):
     """``tp_layer`` over sequence shards: shard j's input ``xss[j]``
     {device: (B, S_j, E)} runs on its tp positions ``devss[j]``, which
     hold ``lpss[j]``. ``attend(hs)`` gets every shard's normed input and
     returns ``outs[j][i]``, shard j's tp position i's attention output
     (B, S_j, H_i, D) on its device: attention is the only step that
     crosses shards. Each shard's ``wo``, all-reduces, MLP and residuals
-    are its own. Returns each shard's output {device: (B, S_j, E)}."""
+    are its own. Returns each shard's output {device: (B, S_j, E)}.
+
+    ``groups[j]``: the process group of the ranks that hold shard j's tp
+    positions where they span several (None: this rank holds them all).
+    ``devss[j]``, ``lpss[j]`` and ``xss[j]`` then hold this rank's
+    positions only, and are empty (the output ``{}``) on a rank that holds
+    none of the shard's."""
     eps, dt = cfg.rms_norm_eps, cfg.dtype
+    groups = groups or [None] * len(xss)
     firsts = []
     for devices in devss:
         first = {}
@@ -484,15 +534,19 @@ def sp_layer(cfg: TransformerConfig, xss, lpss, devss, attend):
           for xs, lps, first in zip(xss, lpss, firsts)]
     outs = attend(hs)
     result = []
-    for xs, lps, devices, first, o_j in zip(xss, lpss, devss, firsts, outs):
+    for xs, lps, devices, first, o_j, group in zip(xss, lpss, devss, firsts,
+                                                   outs, groups):
+        if not devices:
+            result.append({})
+            continue
         parts = [torch.einsum("bshd,hde->bse", o, lp["attn"]["wo"].to(dt))
                  for o, lp in zip(o_j, lps)]
-        o = all_reduce(parts, devices)
+        o = all_reduce(parts, devices, group)
         xs = {d: xs[d] + o[d] for d in first}
         h = {d: rms_norm(xs[d], lps[i]["ln_mlp"], eps)
              for d, i in first.items()}
         m = all_reduce([_mlp_down(lp, h[d], cfg)
-                        for lp, d in zip(lps, devices)], devices)
+                        for lp, d in zip(lps, devices)], devices, group)
         result.append({d: xs[d] + m[d] for d in first})
     return result
 
@@ -542,13 +596,16 @@ class _Layout:
     per tp position the positions whose embed-dim slices it gathers; per
     leaf, the dim its spec splits over fsdp (of one layer's tensor for
     layer leaves); whether the vocabulary is split over tp. Over several
-    processes: this rank's batch groups (``local_groups``), and per tp
+    processes (``devices`` None at other ranks' positions): per tp
     position only the fsdp sources this rank holds, with the process
     group of the ranks that hold the others (``fsdp_groups``; None where
-    this rank holds them all)."""
+    this rank holds them all); per [stage][group][shard] the tp indices
+    this rank holds (``local``) and the process group of the ranks that
+    hold the shard's tp positions (``tp_groups``); the batch groups where
+    this rank holds a position (``local_groups``)."""
 
     def __init__(self, mesh, rules: LogicalAxisRules):
-        self.rules = rules
+        self.mesh, self.rules = mesh, rules
         specs = tree_specs(param_logical_axes(None), mesh, rules)
         fsdp = mesh.shape["fsdp"] > 1
         self.top_dims = {k: axis_dim(specs[k], "fsdp") if fsdp else None
@@ -575,8 +632,45 @@ class _Layout:
                         for st in by_fsdp]
         self.fsdp_groups = [[[[mesh.group(mesh.ranks(pos)) for pos in shard]
                               for shard in g] for g in st] for st in by_fsdp]
+        self.local = [[[[t for t, i in enumerate(pos) if mesh.is_local(i)]
+                        for pos in g] for g in st] for st in self.positions]
+        self.tp_groups = [[[mesh.axis_group(pos[0], "tp") for pos in g]
+                           for g in st] for st in self.positions]
         self.local_groups = [g for g in range(len(self.groups))
-                             if mesh.is_local(self.positions[0][g][0][0])]
+                             if any(self.holds(s, g) for s in stages)]
+
+    def holds(self, s: int, g: int) -> bool:
+        """Whether this rank holds a position of stage ``s``'s group
+        ``g``."""
+        return any(self.local[s][g])
+
+    def first_local(self, g: int) -> int:
+        """This rank's first position of group ``g`` (any stage)."""
+        return next(pos[t] for st, loc in zip(self.positions, self.local)
+                    for pos, ts in zip(st[g], loc[g]) for t in ts)
+
+    def owns(self, g: int, j: int) -> bool:
+        """Whether this rank counts group ``g``'s shard ``j``'s loss: it
+        holds the shard's first tp position on the last stage, where a
+        single controller puts the loss."""
+        return self.mesh.is_local(self.positions[-1][g][j][0])
+
+    def sends(self, s: int, g: int, j: int):
+        """(tp index, rank) of each hand-off of group ``g``'s shard ``j``
+        from stage ``s`` that this rank sends to another rank: every rank
+        of stage s + 1 takes one copy, from the position at its first tp
+        index."""
+        pos, nxt = self.positions[s][g][j], self.positions[s + 1][g][j]
+        ranks = [self.mesh.process_index(i) for i in nxt]
+        return [(t, r) for t, r in enumerate(ranks)
+                if (t == 0 or ranks[t - 1] != r) and r != self.mesh.rank
+                and self.mesh.is_local(pos[t])]
+
+    def source(self, s: int, g: int, j: int) -> int:
+        """The rank that hands this rank group ``g``'s shard ``j`` from
+        stage ``s - 1`` (see ``sends``)."""
+        return self.mesh.process_index(
+            self.positions[s - 1][g][j][self.local[s][g][j][0]])
 
 
 def _tensors(tree):
@@ -690,67 +784,122 @@ def _position_params(trees, lay: _Layout, s: int, g: int, j: int, t: int,
                      dev, group)
 
 
-def _sp_attention(cfg: TransformerConfig, qs, ks, vs, devices):
-    """One tp position's attention over its sequence shards: qs[j] (B,
-    S_j, H, D) and ks[j], vs[j] on ``devices[j]``, shard j's output on its
-    device. Under ``attention_impl="ring"`` the shards run the ring
-    (``ops.ring_attention``); otherwise the sequence is attended whole on
-    the first shard's device and split back, GSPMD's gather around the
+def _sp_attention(cfg: TransformerConfig, lay: _Layout, s: int, g: int,
+                  qkv) -> list:
+    """Stage ``s``'s group ``g``'s attention over its sequence shards:
+    ``qkv[j]`` maps each tp index this rank holds at shard j to (q, k, v),
+    (B, S_j, H, D) on its position's device; returns ``out[j][t]``, the
+    output of the same shape, likewise. Each tp index runs over its sp
+    positions: under ``attention_impl="ring"`` the ring
+    (``ops.ring_attention``), otherwise the sequence attended whole on
+    the first shard's position and split back, GSPMD's gather around the
     reference's attention (under "flash" the kernel). One shard: the
-    attention itself."""
-    if len(devices) == 1:
-        return [_attention(cfg, qs[0], ks[0], vs[0])]
+    attention itself.
+
+    Where the sp positions span ranks (this rank holds a run of the
+    shards at each of its tp indices), the ring rotates between ranks by
+    P2P, the heads of this rank's tp indices side by side in one ring
+    (each head's merges are its own); the gathered sequence is joined on
+    the first shard's rank (``seq_gather``), attended there and split
+    back (``seq_scatter``), one exchange for all of this rank's tp
+    indices."""
+    sp, mesh = lay.sp, lay.mesh
+    out = [{} for _ in range(sp)]
+    ts = sorted({t for per in qkv for t in per})
+    if sp == 1:
+        for t, (q, k, v) in qkv[0].items():
+            out[0][t] = _attention(cfg, q, k, v)
+        return out
+    scale = 1.0 / math.sqrt(cfg.head_dim_)
+    line = mesh.sp_positions(*lay.groups[g], tp=ts[0], stage=s)
+    ranks = mesh.ranks(line)
+    if len(ranks) == 1:
+        for t in ts:
+            devices = [lay.devices[s][g][j][t] for j in range(sp)]
+            qs, ks, vs = zip(*(qkv[j][t] for j in range(sp)))
+            if cfg.attention_impl == "ring":
+                outs = _ring_shards(qs, ks, vs, devices, causal=True,
+                                    scale=scale)
+            else:
+                home = devices[0]
+                o = _attention(cfg, *(torch.cat([x.to(home) for x in xs],
+                                                dim=1)
+                                      for xs in (qs, ks, vs)))
+                cuts = np.cumsum([0] + [q.shape[1] for q in qs])
+                outs = [o[:, a:b].to(d) for a, b, d in
+                        zip(cuts[:-1], cuts[1:], devices)]
+            for j, o in enumerate(outs):
+                out[j][t] = o
+        return out
+    js = [j for j in range(sp) if qkv[j]]
     if cfg.attention_impl == "ring":
-        return _ring_shards(qs, ks, vs, devices, causal=True,
-                            scale=1.0 / math.sqrt(qs[0].shape[-1]))
-    home = devices[0]
-    o = _attention(cfg, *(torch.cat([x.to(home) for x in xs], dim=1)
-                          for xs in (qs, ks, vs)))
-    cuts = np.cumsum([0] + [q.shape[1] for q in qs])
-    return [o[:, a:b].to(d) for a, b, d in zip(cuts[:-1], cuts[1:], devices)]
+        qs, ks, vs = ([torch.cat([qkv[j][t][x] for t in ts], dim=2)
+                       for j in js] for x in range(3))
+        outs = _ring_shards(
+            qs, ks, vs, [q.device for q in qs], causal=True, scale=scale,
+            n=sp, first=js[0],
+            rotate=ring_shift(mesh.process_index(line[js[0] - 1]),
+                              mesh.process_index(line[(js[-1] + 1) % sp])))
+        heads = [qkv[js[0]][t][0].shape[2] for t in ts]
+        for j, o in zip(js, outs):
+            for t, piece in zip(ts, o.split(heads, dim=2)):
+                out[j][t] = piece
+        return out
+    runs = [torch.cat([qkv[j][t][x] for j in js], dim=1)
+            for t in ts for x in range(3)]
+    whole = seq_gather(runs, ranks)
+    if mesh.rank == ranks[0]:
+        whole = [_attention(cfg, *whole[3 * a:3 * a + 3])
+                 for a in range(len(ts))]
+    lens = [qkv[j][ts[0]][0].shape[1] for j in js]
+    for t, o in zip(ts, seq_scatter(whole, runs[0::3], ranks)):
+        for j, piece in zip(js, o.split(lens, dim=1)):
+            out[j][t] = piece
+    return out
 
 
 def _group_layer(cfg: TransformerConfig, xss, trees, lay: _Layout, s: int,
                  g: int, li: int, ropes):
-    """Stage ``s``'s layer ``li`` over group ``g``'s positions: each
-    gathers its weights across fsdp, then ``sp_layer``, whose attention
-    runs per tp position over the sp shards (``_sp_attention``)."""
-    devss = lay.devices[s][g]
-    lpss = [[_position_params(trees, lay, s, g, j, t, li)
-             for t in range(len(devices))]
-            for j, devices in enumerate(devss)]
+    """Stage ``s``'s layer ``li`` over group ``g``'s positions that this
+    rank holds: each gathers its weights across fsdp, then ``sp_layer``
+    (its all-reduces over the tp group's ranks), whose attention runs per
+    tp position over the sp shards (``_sp_attention``)."""
+    local = lay.local[s][g]
+    devss = [[lay.devices[s][g][j][t] for t in ts]
+             for j, ts in enumerate(local)]
+    lpss = [[_position_params(trees, lay, s, g, j, t, li) for t in ts]
+            for j, ts in enumerate(local)]
 
     def attend(hs):
-        qkv = []
-        for j, (lps, devices) in enumerate(zip(lpss, devss)):
-            row = []
-            for lp, d in zip(lps, devices):
+        qkv = [{} for _ in local]
+        for j, ts in enumerate(local):
+            for t, lp, d in zip(ts, lpss[j], devss[j]):
                 cos, sin = ropes[j][d]
                 q, k, v = _layer_qkv(lp, hs[j][d], cfg)
-                row.append((apply_rope(q, cos, sin), apply_rope(k, cos, sin),
-                            v))
-            qkv.append(row)
-        by_tp = [_sp_attention(cfg, *zip(*(qkv[j][t] for j in range(lay.sp))),
-                               [devss[j][t] for j in range(lay.sp)])
-                 for t in range(len(devss[0]))]
-        return [[o[j] for o in by_tp] for j in range(lay.sp)]
-    return sp_layer(cfg, xss, lpss, devss, attend)
+                qkv[j][t] = (apply_rope(q, cos, sin), apply_rope(k, cos, sin),
+                             v)
+        out = _sp_attention(cfg, lay, s, g, qkv)
+        return [[out[j][t] for t in ts] for j, ts in enumerate(local)]
+    return sp_layer(cfg, xss, lpss, devss, attend, lay.tp_groups[s][g])
 
 
 def _group_embed(trees, lay: _Layout, g: int, j: int, tokens,
                  cfg: TransformerConfig):
     """Group ``g``'s sp shard ``j``'s embedding on stage 0: {device: (B,
-    S_j, E)} on each distinct device of its tp positions. The table is
-    looked up per vocabulary slice and summed where the vocabulary is
-    split."""
-    devices = lay.devices[0][g][j]
+    S_j, E)} on each distinct device of this rank's tp positions. The
+    table is looked up per vocabulary slice and summed where the
+    vocabulary is split (over the tp group's ranks where it spans
+    several); else each rank looks up its first position's copy of the
+    table."""
+    ts = lay.local[0][g][j]
+    devices = [lay.devices[0][g][j][t] for t in ts]
     dt = cfg.dtype
-    tops = [_position_params(trees, lay, 0, g, j, t, ("embed",))
-            for t in range(len(devices) if lay.vocab_split else 1)]
+    use = ts if lay.vocab_split else ts[:1]
+    tops = [_position_params(trees, lay, 0, g, j, t, ("embed",)) for t in use]
     n_v = tops[0]["embed"].shape[0]
     parts = []
-    for t, p in enumerate(tops):
-        tok = tokens.to(devices[t])
+    for t, d, p in zip(use, devices, tops):
+        tok = tokens.to(d)
         table = p["embed"].to(dt)
         if lay.vocab_split:
             # The slice's rows; other slices' tokens read zeros, so the sum
@@ -763,7 +912,8 @@ def _group_embed(trees, lay: _Layout, g: int, j: int, tokens,
                                                  device=row.device)))
         else:
             parts.append(table[tok])
-    x = all_reduce(parts, devices[:len(parts)])[devices[0]]
+    group = lay.tp_groups[0][g][j] if lay.vocab_split else None
+    x = all_reduce(parts, devices[:len(parts)], group)[devices[0]]
     return on_each(x, devices)
 
 
@@ -811,14 +961,20 @@ def _group_head(trees, lay: _Layout, g: int, j: int, xs,
                 cfg: TransformerConfig):
     """Group ``g``'s sp shard ``j``'s logits on the last stage, split over
     the vocabulary: [(logits (B, S_j, V/tp) f32 on its position's device,
-    the slice's first id)], one per tp position where the vocabulary is
-    split, else one on the first position."""
+    the slice's first id)], one per tp position this rank holds where the
+    vocabulary is split, else one on the first tp position. A rank that
+    holds the shard but not that position (the vocabulary unsplit, tp
+    across ranks) runs no head: it gets a zero 0-d term on its hidden
+    state (``_Zeroed``), whose backward runs the layers' collectives that
+    pair with the owner's."""
     s = lay.pp - 1
-    devices = lay.devices[s][g][j]
+    ts = lay.local[s][g][j]
+    if not (lay.vocab_split or 0 in ts):
+        return _Zeroed.apply(xs[lay.devices[s][g][j][ts[0]]].sum().float())
     out = []
-    for t in range(len(devices) if lay.vocab_split else 1):
+    for t in (ts if lay.vocab_split else [0]):
         p = _position_params(trees, lay, s, g, j, t, ("ln_f", "lm_head"))
-        x = rms_norm(xs[devices[t]], p["ln_f"], cfg.rms_norm_eps)
+        x = rms_norm(xs[lay.devices[s][g][j][t]], p["ln_f"], cfg.rms_norm_eps)
         out.append((torch.einsum("bse,ev->bsv", x,
                                  p["lm_head"].to(cfg.dtype)).float(),
                     t * p["lm_head"].shape[1]))
@@ -835,16 +991,21 @@ def _seq_shards(x, sp: int) -> list:
 
 
 def _group_logits(trees, lay: _Layout, g: int, tokens,
-                  cfg: TransformerConfig, num_microbatches=None) -> list:
-    """Group ``g``'s logits per microbatch and sp shard: ``out[m][j]`` is
-    ``_group_head``'s vocabulary slices of microbatch m (one where there
-    is no pp axis) and sequence shard j (one where there is no sp axis).
-    ``tokens`` (B_g, S) is on the group's first device of stage 0; shard
-    j takes tokens [j S/sp, (j+1) S/sp) and RoPE at those positions.
-    Under pp the group's rows are split into ``num_microbatches``
-    (default pp) that run the GPipe schedule (``pipeline.gpipe_ticks``),
-    launched tick by tick; each shard of a stage's output goes to the
-    next stage's devices by ``stage_send``."""
+                  cfg: TransformerConfig, num_microbatches=None):
+    """Group ``g``'s logits per microbatch and sp shard, and its hand-offs
+    across ranks: ``out[m][j]`` is ``_group_head``'s vocabulary slices of
+    microbatch m (one where there is no pp axis) and sequence shard j
+    (one where there is no sp axis) or its zero term, [] for a shard this
+    rank holds no position of, and ``out[m]`` None on a rank without the
+    last stage.
+    ``tokens`` (B_g, S) are the group's rows; shard j takes tokens
+    [j S/sp, (j+1) S/sp) and RoPE at those positions. Under pp the
+    group's rows are split into ``num_microbatches`` (default pp) that
+    run the GPipe schedule (``pipeline.gpipe_ticks``), launched tick by
+    tick, every rank in the same order, each rank its own stages; each
+    shard of a stage's output goes to the next stage's devices by
+    ``stage_send``, or to the next stage's ranks by ``Handoffs`` (None
+    where this rank holds every stage)."""
     pp, sp = lay.pp, lay.sp
     mb = (num_microbatches or pp) if pp > 1 else 1
     if pp > 1:
@@ -857,37 +1018,66 @@ def _group_logits(trees, lay: _Layout, g: int, tokens,
     ropes = [{d: rope_angles(Sl, cfg.head_dim_, cfg.rope_theta,
                              offset=j * Sl, device=d)
               for d in dict.fromkeys(d for st in lay.devices
-                                     for d in st[g][j])}
+                                     for d in st[g][j] if d is not None)}
              for j in range(sp)]
     rows = tokens.shape[0] // mb
     xs = [[t[m * rows:(m + 1) * rows] for t in shards] for m in range(mb)]
+    held = [lay.holds(s, g) for s in range(pp)]
+    hand = None if all(held) else Handoffs(mb)
     out = [None] * mb
     for _, s, m in gpipe_ticks(mb, pp):
-        devss = lay.devices[s][g]
-        x = ([_group_embed(trees, lay, g, j, t, cfg)
-              for j, t in enumerate(xs[m])] if s == 0 else
-             [stage_send(x[lay.devices[s - 1][g][j][0]], devss[j])
-              for j, x in enumerate(xs[m])])
+        if not held[s]:
+            continue
+        devss = [[lay.devices[s][g][j][t] for t in ts]
+                 for j, ts in enumerate(lay.local[s][g])]
+        if s == 0:
+            x = [_group_embed(trees, lay, g, j, t, cfg) if devss[j] else {}
+                 for j, t in enumerate(xs[m])]
+        elif held[s - 1]:
+            x = [stage_send(x[lay.devices[s - 1][g][j][0]], devss[j])
+                 for j, x in enumerate(xs[m])]
+        else:
+            x = []
+            for j, tok in enumerate(xs[m]):
+                if not devss[j]:
+                    x.append({})
+                    continue
+                x.append(on_each(hand.recv(
+                    m, tok.shape + (cfg.hidden_size,), cfg.dtype,
+                    devss[j][0], lay.source(s, g, j)), devss[j]))
         xs[m] = _stage_layers(cfg, x, trees, lay, s, g, ropes)
         if s == pp - 1:
-            out[m] = [_group_head(trees, lay, g, j, x, cfg)
+            out[m] = [_group_head(trees, lay, g, j, x, cfg) if x else []
                       for j, x in enumerate(xs[m])]
             xs[m] = None
-    return out
+        elif not held[s + 1]:
+            for j, x in enumerate(xs[m]):
+                for t, dst in lay.sends(s, g, j):
+                    hand.send(m, x[lay.devices[s][g][j][t]], dst)
+            xs[m] = None
+    return out, hand
 
 
-def vocab_parallel_nll(logits, targets) -> torch.Tensor:
+def vocab_parallel_nll(logits, targets, group=None) -> torch.Tensor:
     """-log softmax(logits)[target] per token, (B, S) f32 on the first
     slice's device, from logits split over the vocabulary: ``logits`` is
     [(slice (B, S, V_i) f32, its first id)] in order. The max and the sum
     of exponentials are taken slice by slice and combined in f32 in slice
     order; the target's logit comes from the slice that holds it. No
-    device holds (B, S, V)."""
+    device holds (B, S, V).
+
+    ``group``: ``logits`` are this rank's slices, and the ranks of
+    ``group`` hold the others; the max (without a gradient), the sum of
+    exponentials and the target's logit are then all-reduced over it (the
+    last two in one ``_AllReduce``), and every rank of the group gets the
+    same values."""
     home = logits[0][0].device
     m = None
     for lg, _ in logits:
         mx = lg.detach().amax(dim=-1).to(home)
         m = mx if m is None else torch.maximum(m, mx)
+    if group is not None:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
     total, picked = None, None
     for lg, first in logits:
         d = lg.device
@@ -898,7 +1088,25 @@ def vocab_parallel_nll(logits, targets) -> torch.Tensor:
         tl = torch.where(inside, tl, torch.zeros((), device=d)).to(home)
         total = e if total is None else total + e
         picked = tl if picked is None else picked + tl
+    if group is not None:
+        total, picked = _AllReduce.apply(torch.stack([total, picked]),
+                                         group).unbind(0)
     return m + total.log() - picked
+
+
+class _Zeroed(torch.autograd.Function):
+    """A zero in place of a loss term that another rank of its tp group
+    counts (or of the head that it runs, ``_group_head``); the backward
+    gives the term a zero gradient, so this rank still runs the
+    backward's collectives that pair with the owner's."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return torch.zeros_like(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return torch.zeros_like(grad)
 
 
 def _sharded(params, mesh, rules):
@@ -935,7 +1143,13 @@ def mesh_group_losses(params, batch: Dict[str, Any], cfg: TransformerConfig,
     them; the train step runs each one's backward before the next group's
     forward, so that one group's activations (all of its microbatches')
     are alive at a time. Over several processes, this rank's groups only
-    (``batch`` is the whole batch on every rank)."""
+    (``batch`` is the whole batch on every rank), each its share of the
+    group's loss: a loss term counts on the rank of its shard's first tp
+    position on the last stage, and is a zero that keeps its graph on the
+    tp group's other ranks (``_Zeroed``: of the loss where the vocabulary
+    is split, else of the hidden state); under stages across ranks the
+    share is ``Handoffs.loss``'s (0 on a rank without the last stage),
+    whose backward runs the schedule's."""
     trees, lay = _sharded(params, mesh, rules)
     dev = resolve_device(device)
     if "targets" in batch:
@@ -950,43 +1164,67 @@ def mesh_group_losses(params, batch: Dict[str, Any], cfg: TransformerConfig,
     per_pos = shard_batch({"inputs": inputs, "targets": targets,
                            "weights": weights}, mesh, lay.rules)
     for g in lay.local_groups:
-        b = per_pos[lay.positions[0][g][0][0]]
-        logits = _group_logits(trees, lay, g, b["inputs"], cfg,
-                               num_microbatches)
-        total = None
+        b = per_pos[lay.first_local(g)]
+        logits, hand = _group_logits(trees, lay, g, b["inputs"], cfg,
+                                     num_microbatches)
+        rows = b["targets"].shape[0] // len(logits)
+        terms = []
         for m, per_shard in enumerate(logits):
-            for j, lg in enumerate(per_shard):
-                last = per_pos[lay.positions[-1][g][j][0]]
-                rows = last["targets"].shape[0] // len(logits)
+            term = None
+            for j, lg in enumerate(per_shard or ()):
+                if torch.is_tensor(lg):
+                    term = lg if term is None else term + lg.to(term.device)
+                    continue
+                if not lg:
+                    continue
                 r = slice(m * rows, (m + 1) * rows)
+                group = (lay.tp_groups[-1][g][j] if lay.vocab_split
+                         else None)
                 nll = vocab_parallel_nll(
-                    lg, _seq_shards(last["targets"][r], lay.sp)[j])
+                    lg, _seq_shards(b["targets"][r], lay.sp)[j], group)
                 home = nll.device
-                w = _seq_shards(last["weights"][r], lay.sp)[j].to(home)
+                w = _seq_shards(b["weights"][r], lay.sp)[j].to(home)
                 part = (nll * w).sum() / denom.to(home)
-                total = part if total is None else total + part.to(
-                    total.device)
+                if not lay.owns(g, j):
+                    part = _Zeroed.apply(part)
+                term = part if term is None else term + part.to(term.device)
+            terms.append(term)
+        if hand is not None:
+            yield hand.loss(terms, dev)
+            continue
+        total = terms[0]
+        for term in terms[1:]:
+            total = total + term.to(total.device)
         yield total
 
 
 def _mesh_forward(params, tokens, cfg: TransformerConfig, mesh, rules, dev,
                   num_microbatches=None):
+    """The sharded forward's logits (B, S, V) on ``dev``: each piece
+    written where a single controller would take it (a vocabulary slice
+    from its position; unsplit, from the first tp position), and over
+    several processes summed over the world, each piece held by one
+    rank."""
     trees, lay = _sharded(params, mesh, rules)
     per_pos = shard_batch(tokens, mesh, lay.rules)
-    out = []
+    B, S = tokens.shape
+    out = torch.zeros((B, S, cfg.vocab_size), dtype=torch.float32,
+                      device=dev)
+    Bg, Sl = B // len(lay.groups), S // lay.sp
     for g in lay.local_groups:
-        for per_shard in _group_logits(trees, lay, g,
-                                       per_pos[lay.positions[0][g][0][0]],
-                                       cfg, num_microbatches):
-            out.append(torch.cat([
-                torch.cat([lg.to(dev) for lg, _ in logits], dim=-1)
-                for logits in per_shard], dim=1))
-    out = torch.cat(out, dim=0)
+        logits, _ = _group_logits(trees, lay, g,
+                                  per_pos[lay.first_local(g)], cfg,
+                                  num_microbatches)
+        rows = Bg // len(logits)
+        for m, per_shard in enumerate(logits):
+            r = slice(g * Bg + m * rows, g * Bg + (m + 1) * rows)
+            for j, lg in enumerate(per_shard or ()):
+                for x, first in ([] if torch.is_tensor(lg) else lg):
+                    out[r, j * Sl:(j + 1) * Sl,
+                        first:first + x.shape[-1]] = x.to(dev)
     if mesh.world > 1:
-        # Each rank's groups are an equal run of the batch's rows.
-        rows = out.new_empty((mesh.world * out.shape[0],) + out.shape[1:])
-        all_gather_single(rows, out, group=mesh.world_group())
-        out = rows
+        out = out.detach()
+        dist.all_reduce(out, group=mesh.world_group())
     return out
 
 
@@ -1042,7 +1280,9 @@ def loss_fn(params, batch: Dict[str, Any], cfg: TransformerConfig, mesh=None,
     mesh that splits pp, dp, fsdp or tp the loss is the sum of
     ``mesh_group_losses``, on ``device`` (over several processes, summed
     over the ranks; its gradient reaches this rank's params only, the
-    dp replicas' sum being the train step's)."""
+    replicas' sum being the train step's; under stages across ranks its
+    ``backward()`` runs the pipeline's nested backward, which fills the
+    params' ``.grad`` and gives ``torch.autograd.grad`` nothing)."""
     dev = resolve_device(device)
     if _splits(mesh, params):
         total = None

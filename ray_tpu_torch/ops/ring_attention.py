@@ -22,6 +22,15 @@ neither spec replicates the body in the reference; here its coordinate 0
 runs it. So ``shard_map_compat`` and ``_qkv_specs``, which build the
 reference's ``shard_map`` and its PartitionSpecs, have no counterpart.
 Under autograd the gradient runs back through these plain ops.
+
+The model's sequence shards may also lie on several processes (a mesh
+over ranks, ``models.transformer``): the ring then rotates K/V between
+ranks by P2P (``ring_shift``, ``dist.batch_isend_irecv``, its backward the
+reverse rotation of the gradients), and the sequence gathered for one
+attention pass is joined on the first shard's rank and split back
+(``seq_gather``, ``seq_scatter``, each the other's backward). The
+free-standing ``ring_attention`` and ``ulysses_attention`` stay in one
+process (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..parallel.mesh import AXES
 from .flash_attention import MASK_FILL, reference_attention
@@ -93,15 +103,22 @@ def _causal(q0: int, k0: int, sq: int, sk: int, device) -> torch.Tensor:
 def _ring_shards(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
                  vs: Sequence[torch.Tensor], devices: Sequence[torch.device],
                  *, causal: bool, scale: float,
-                 states: Optional[List[State]] = None) -> List[torch.Tensor]:
+                 states: Optional[List[State]] = None, n: Optional[int] = None,
+                 first: int = 0, rotate=None) -> List[torch.Tensor]:
     """The ring over n sequence shards: qs[i] (B,Sq,Hq,D) and ks[i], vs[i]
     (B,Sk,Hkv,D) on devices[i], holding positions [i*Sq, (i+1)*Sq) and
     [i*Sk, (i+1)*Sk). At step s shard i merges the K/V block of source
     (i - s) % n, causal by absolute position; n - 1 rotate-and-merge steps,
     then a last merge with no rotation (``_ring_attention_shard``).
     ``states`` seeds each shard's (m, l, acc) (default: empty). Returns
-    each shard's output (B,Sq,Hq,D) in q's dtype, on its device."""
-    n = len(qs)
+    each shard's output (B,Sq,Hq,D) in q's dtype, on its device.
+
+    ``n``, ``first``, ``rotate``: the lists hold shards first, first + 1,
+    ... of a ring of ``n`` (default: all of them), and ``rotate(blocks)``
+    gives each listed shard the (k, v) block the shard before it held
+    (across processes, ``ring_shift``); by default the blocks move by
+    ``.to()``."""
+    n = n or len(qs)
     B, Sq, Hq, D = qs[0].shape
     Sk, Hkv = ks[0].shape[1], ks[0].shape[2]
     qgs = [_grouped(q, Hkv) for q in qs]
@@ -110,20 +127,168 @@ def _ring_shards(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
     states = list(states)
     blocks = list(zip(ks, vs))
     for s in range(n):
-        for i in range(n):
-            live = (_causal(i * Sq, ((i - s) % n) * Sk, Sq, Sk, devices[i])
+        for a in range(len(qs)):
+            i = first + a
+            live = (_causal(i * Sq, ((i - s) % n) * Sk, Sq, Sk, devices[a])
                     if causal else None)
-            states[i] = _merge(qgs[i], *blocks[i], live, *states[i], scale)
+            states[a] = _merge(qgs[a], *blocks[a], live, *states[a], scale)
         if s < n - 1:
             # Rotate: shard i takes the block shard i - 1 held.
-            blocks = [tuple(t.to(devices[i], non_blocking=True)
-                            for t in blocks[(i - 1) % n]) for i in range(n)]
+            blocks = (rotate(blocks) if rotate is not None else
+                      [tuple(t.to(devices[i], non_blocking=True)
+                             for t in blocks[(i - 1) % n]) for i in range(n)])
     outs = []
     for q, (_, l, acc) in zip(qs, states):
         o = acc / l.clamp_min(1e-30)                        # (B,Hkv,G,Sq,D)
         outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
                     .to(q.dtype))
     return outs
+
+
+def _exchange(ts, to: int, frm: int) -> tuple:
+    """``ts`` sent to rank ``to`` while tensors of their shapes arrive
+    from rank ``frm``, in one batch of P2P ops."""
+    ts = [t.contiguous() for t in ts]
+    got = [torch.empty_like(t) for t in ts]
+    ops = ([dist.P2POp(dist.isend, t, to) for t in ts]
+           + [dist.P2POp(dist.irecv, g, frm) for g in got])
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return tuple(got)
+
+
+class _RingShift(torch.autograd.Function):
+    """One rotation of a ring across processes: (k, v) go to rank
+    ``nxt`` while rank ``prev``'s arrive. The backward is the reverse
+    rotation: the arrived blocks' gradients go back to ``prev`` and this
+    rank's come from ``nxt``."""
+
+    @staticmethod
+    def forward(ctx, k, v, prev: int, nxt: int):
+        ctx.prev, ctx.nxt = prev, nxt
+        return _exchange((k, v), nxt, prev)
+
+    @staticmethod
+    def backward(ctx, gk, gv):
+        return _exchange((gk, gv), ctx.prev, ctx.nxt) + (None, None)
+
+
+def ring_shift(prev: int, nxt: int):
+    """``_ring_shards``' ``rotate`` for a rank that holds a run of a
+    ring's shards, rank ``prev`` the shard before the run and ``nxt`` the
+    one after it: the run's last block goes to ``nxt``, ``prev``'s comes
+    in as the run's first, the others move along the run."""
+    def rotate(blocks):
+        return [_RingShift.apply(*blocks[-1], prev, nxt)] + blocks[:-1]
+    return rotate
+
+
+def _meta(t: torch.Tensor) -> tuple:
+    return tuple(t.shape), t.dtype, t.device
+
+
+def _recv_all(metas, src: int) -> tuple:
+    """Tensors of ``metas`` (shape, dtype, device) received from ``src``
+    in order."""
+    out = []
+    for shape, dtype, device in metas:
+        out.append(torch.empty(shape, dtype=dtype, device=device))
+        dist.recv(out[-1], src)
+    return tuple(out)
+
+
+class _SeqGather(torch.autograd.Function):
+    """Tensors split along dim 1 (the sequence) over ``ranks`` (each an
+    equal run, in rank order) joined on ``ranks[0]``: the others send
+    theirs, it receives them and concatenates (its outputs the whole
+    tensors); another rank's output is one empty tensor that carries the
+    graph on to ``_SeqScatter``. The backward sends each rank its run of
+    the gradients."""
+
+    @staticmethod
+    def forward(ctx, ranks, *parts):
+        ctx.ranks, ctx.like = ranks, [_meta(p) for p in parts]
+        if dist.get_rank() != ranks[0]:
+            for p in parts:
+                dist.send(p.contiguous(), ranks[0])
+            return parts[0].new_empty(0)
+        whole = []
+        for p in parts:
+            pieces = [p]
+            for r in ranks[1:]:
+                pieces.append(torch.empty_like(p))
+                dist.recv(pieces[-1], r)
+            whole.append(torch.cat(pieces, dim=1))
+        return tuple(whole)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ranks, like = ctx.ranks, ctx.like
+        ctx.like = None
+        if dist.get_rank() != ranks[0]:
+            return (None, *_recv_all(like, ranks[0]))
+        out = []
+        for g, p in zip(grads, like):
+            runs = g.split(p[0][1], dim=1)
+            for r, run in zip(ranks[1:], runs[1:]):
+                dist.send(run.contiguous(), r)
+            out.append(runs[0])
+        return (None, *out)
+
+
+class _SeqScatter(torch.autograd.Function):
+    """The inverse of ``_SeqGather``: ``ranks[0]``'s whole tensors split
+    along dim 1, each rank its equal run, whose shapes and dtypes
+    ``like`` gives (another rank's input is ``_SeqGather``'s empty
+    output), as ``(shape, dtype, device)``. The backward joins the
+    gradients on ``ranks[0]``."""
+
+    @staticmethod
+    def forward(ctx, ranks, like, *xs):
+        ctx.ranks, ctx.like = ranks, like
+        ctx.empty = xs[0].shape
+        if dist.get_rank() != ranks[0]:
+            return _recv_all(like, ranks[0])
+        out = []
+        for x, p in zip(xs, like):
+            runs = x.split(p[0][1], dim=1)
+            for r, run in zip(ranks[1:], runs[1:]):
+                dist.send(run.contiguous(), r)
+            out.append(runs[0].clone())
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ranks = ctx.ranks
+        if dist.get_rank() != ranks[0]:
+            for g in grads:
+                dist.send(g.contiguous(), ranks[0])
+            return (None, None, grads[0].new_empty(ctx.empty))
+        out = []
+        for g in grads:
+            pieces = [g]
+            for r in ranks[1:]:
+                pieces.append(torch.empty_like(g))
+                dist.recv(pieces[-1], r)
+            out.append(torch.cat(pieces, dim=1))
+        return (None, None, *out)
+
+
+def seq_gather(parts, ranks) -> tuple:
+    """``parts`` (each this rank's run of a sequence, dim 1) joined on
+    ``ranks[0]``, the first of the ranks that hold the runs: the whole
+    tensors there; elsewhere one empty tensor to hand to
+    ``seq_scatter``."""
+    out = _SeqGather.apply(tuple(ranks), *parts)
+    return (out,) if torch.is_tensor(out) else out
+
+
+def seq_scatter(xs, like, ranks) -> tuple:
+    """``seq_gather``'s inverse: ``xs`` (on ``ranks[0]``, the whole
+    tensors; elsewhere ``seq_gather``'s output) split back, each rank its
+    run, shaped as ``like``'s tensors."""
+    out = _SeqScatter.apply(tuple(ranks), [_meta(p) for p in like], *xs)
+    return (out,) if torch.is_tensor(out) else out
 
 
 def _ulysses_shards(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
@@ -179,7 +344,7 @@ def _sharded(body, q, k, v, mesh, axis_name: str, causal: bool,
     ``heads_axis``, and each piece's ``body`` run over its sp positions'
     devices; the pieces are joined back on q's device."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    mesh.check_one_process("ring and Ulysses attention")
+    mesh.check_one_process("ring and Ulysses attention", "14")
     shape = mesh.shape
     batch_axes = tuple(a for a in batch_axes if shape.get(a, 1) > 1)
     if heads_axis is not None and shape.get(heads_axis, 1) == 1:

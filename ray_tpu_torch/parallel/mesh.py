@@ -26,10 +26,11 @@ position i belongs to rank ``i // (n / world)`` (``process_index``), the
 counterpart of JAX's global ``jax.devices()`` with their
 ``process_index``. Each rank holds only its own positions
 (``local_positions``) on its own card; the grid names no device for
-another rank's positions (None). Training takes dp and fsdp across
-ranks; a tp, sp or pp group must lie inside one rank, since its
-collectives (the in-layer all-reduce, the ring, the stage hand-off) run
-between the positions of one process (ROADMAP item 4.3). Serving stays
+another rank's positions (None). Training takes every axis across ranks:
+a dp or fsdp group, and a tp, sp or pp group too, whose exchanges (the
+in-layer all-reduce, the ring or the gathered sequence, the stage
+hand-off) then run over ``torch.distributed`` between the ranks that hold
+its positions (``axis_positions``, ``axis_group``). Serving stays
 single-controller, as the JAX engine is.
 
 A grid may name one device more than once: a shard is a position in the
@@ -44,6 +45,7 @@ places logical axes on a TPU's interconnect topology.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import math
@@ -178,13 +180,34 @@ class Mesh:
         and its gradients' squares."""
         return dist.group.WORLD if self._groups is not None else None
 
-    def check_one_process(self, what: str) -> None:
+    def check_one_process(self, what: str,
+                          item: Optional[str] = None) -> None:
         """Raise NotImplementedError where the mesh spans several
-        processes: ``what`` runs every position from one process."""
+        processes: ``what`` runs every position from one process; its form
+        across processes is ROADMAP Queue 1 item ``item`` where it has
+        one."""
         if self.world > 1:
+            todo = f" (ROADMAP item {item})" if item else ""
             raise NotImplementedError(
                 f"{what} on a mesh over {self.world} processes is not "
-                f"ported: it runs every position from one process")
+                f"ported: it runs every position from one process{todo}")
+
+    def axis_positions(self, i: int, axis: str) -> List[int]:
+        """The flat indices of the positions that share position ``i``'s
+        coordinate on every axis but ``axis``, in ``axis`` order: ``i``'s
+        tp, sp or stage neighbours, ``i`` among them."""
+        at = list(np.unravel_index(i, self.devices.shape))
+        k = AXES.index(axis)
+        out = []
+        for x in range(self.devices.shape[k]):
+            at[k] = x
+            out.append(int(np.ravel_multi_index(at, self.devices.shape)))
+        return out
+
+    def axis_group(self, i: int, axis: str):
+        """The process group of the ranks that hold ``i``'s neighbours
+        along ``axis`` (``group``: None where one rank holds them all)."""
+        return self.group(self.ranks(self.axis_positions(i, axis)))
 
     # Serving layouts the engine takes (the split axes of each, as sets).
     SERVE_LAYOUTS = (frozenset(), frozenset({"sp"}), frozenset({"tp"}),
@@ -198,6 +221,7 @@ class Mesh:
         other layout raises NotImplementedError: dp or fsdp beside another
         split axis, and pp beside sp, are ROADMAP Queue 1 item 13 (the JAX
         engine serves them through GSPMD)."""
+        # The JAX engine is single-controller too.
         self.check_one_process("serving")
         split = tuple(a for a, s in self.shape.items() if s > 1)
         if frozenset(split) not in self.SERVE_LAYOUTS:
@@ -212,28 +236,53 @@ class Mesh:
 
     def train_axes(self) -> Tuple[str, ...]:
         """The axes larger than 1 of a training layout, in ``AXES`` order:
-        any of pp, dp, fsdp, sp and tp. Over several processes dp and
-        fsdp may span ranks, and each rank must hold whole batch groups
-        (their sp x tp positions) and equal parts of each fsdp group it
-        takes part in; a tp, sp or pp group across ranks raises
-        NotImplementedError naming ROADMAP item 4.3."""
+        any of pp, dp, fsdp, sp and tp. Over several processes any of
+        them may span ranks, under three rules, each a ValueError:
+
+        - every rank that holds positions of a pp, fsdp, sp or tp group
+          holds as many of them as each other rank that does;
+        - a rank that holds whole batch groups (their sp x tp positions)
+          holds a whole number of fsdp groups' batch groups, or an fsdp
+          group's are a whole number of ranks' (so the ranks that gather
+          one weight run their groups in step);
+        - where a tp, sp or pp group spans ranks, a rank's positions share
+          one device (its card): the group's exchanges run between ranks,
+          one copy of each activation a rank."""
         split = tuple(a for a, s in self.shape.items() if s > 1)
         if self.world > 1:
             sz = self.shape
+            crossed = False
+            for axis in ("pp", "fsdp", "sp", "tp"):
+                for line in self._lines(axis):
+                    held = collections.Counter(self.process_index(i)
+                                               for i in line)
+                    if len(set(held.values())) > 1:
+                        raise ValueError(
+                            f"a {axis} group of {sz[axis]} positions "
+                            f"splits unevenly over ranks (positions a "
+                            f"rank: {dict(held)})")
+                    crossed |= axis != "fsdp" and len(held) > 1
             per = self.devices.size // self.world
-            for axis, inner in (("pp", self.devices.size),
-                                ("tp", sz["tp"]), ("sp", sz["sp"] * sz["tp"])):
-                if sz[axis] > 1 and per % inner:
-                    raise NotImplementedError(
-                        f"a {axis} group of {sz[axis]} positions spans "
-                        f"processes ({per} positions a rank): tp, sp and "
-                        f"pp across processes are ROADMAP item 4.3")
             groups = per // (sz["sp"] * sz["tp"])
-            if groups % sz["fsdp"] and sz["fsdp"] % groups:
+            if groups and groups % sz["fsdp"] and sz["fsdp"] % groups:
                 raise ValueError(
                     f"{groups} batch groups a rank split an fsdp group of "
                     f"{sz['fsdp']} unevenly over ranks")
+            local = {self.devices.flat[i] for i in self.local_positions()}
+            if crossed and len(local) > 1:
+                raise ValueError(
+                    f"a tp, sp or pp group spans ranks, and this rank's "
+                    f"positions lie on {len(local)} devices: a rank's "
+                    f"positions must share one")
         return split
+
+    def _lines(self, axis: str) -> List[List[int]]:
+        """Every group of positions along ``axis`` (``axis_positions`` of
+        each position at coordinate 0 there)."""
+        k = AXES.index(axis)
+        return [self.axis_positions(i, axis)
+                for i, c in enumerate(np.ndindex(self.devices.shape))
+                if c[k] == 0]
 
     def coords(self) -> List[Tuple[int, ...]]:
         """Each position's coordinate over ``AXES``, in grid order (the

@@ -43,9 +43,13 @@ those two terms are the group's, as without pp, while the workspace is
 one microbatch's. The plan is the last stage's, which holds the most.
 
 Per rank (``world`` processes, one per GPU, each holding an equal run of
-the positions in grid order, ``parallel.mesh``): the params and optimizer
-bytes of the distinct tensors a rank holds, each slice once however many
-of its positions hold it (they share one tensor on its card).
+the positions in grid order, ``parallel.mesh``, any axis across ranks):
+the params and optimizer bytes of the distinct tensors a rank holds, each
+slice once however many of its positions hold it (they share one tensor
+on its card); the activation, logits and workspace terms stay a
+position's, which is what a rank holding one position of a split tp, sp
+or pp group keeps (its own copy of each layer input, its vocabulary
+slice's logits, its stage's layers).
 
 The reference's default of 16 GiB is a TPU's memory: here the default is
 the card's.

@@ -19,10 +19,11 @@ each position's share and moves the partials itself
 (``models.transformer``: the tp all-reduce, the fsdp gather, the
 vocabulary-parallel cross-entropy). ``gather_params`` is the inverse.
 
-On a mesh over several processes (``Mesh.world`` > 1, one process per GPU)
-each rank builds only its own positions' shards: the per-position lists
-hold None at other ranks' positions, and a rank never allocates another
-rank's shard. ``gather_params`` then all-gathers the full tensors.
+On a mesh over several processes (``Mesh.world`` > 1, one process per GPU,
+any axis across ranks) each rank builds only its own positions' shards:
+the per-position lists hold None at other ranks' positions, and a rank
+never allocates another rank's shard, a tp, sp or pp group's included.
+``gather_params`` then all-gathers the full tensors.
 
 ``with_logical_constraint`` is not ported: it is a layout hint to GSPMD
 inside a jitted program, and here every tensor already lives where its

@@ -29,11 +29,13 @@ from ray_tpu_torch.train.backend import TorchConfig
 JOIN_S = 60
 
 
-def spawn_ranks(target, world: int, tmp_path, *args) -> list:
+def spawn_ranks(target, world: int, tmp_path, *args,
+                timeout: float = JOIN_S) -> list:
     """``target(rank, world, *args)`` in ``world`` spawned processes that
     form a gloo world through the port's Train backend on a FileStore
     under ``tmp_path``; their results in rank order. Every wait is
-    bounded; a rank that raises, hangs or exits non-zero fails."""
+    bounded by ``timeout`` seconds; a rank that raises, hangs or exits
+    non-zero fails."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     store = f"file://{tmp_path}/store-{target.__name__}-{world}"
@@ -45,18 +47,18 @@ def spawn_ranks(target, world: int, tmp_path, *args) -> list:
     out = [None] * world
     try:
         for _ in range(world):
-            rank, ok, value = results.get(timeout=JOIN_S)
+            rank, ok, value = results.get(timeout=timeout)
             assert ok, f"rank {rank} raised:\n{value}"
             out[rank] = value
     finally:
         for p in procs:
-            p.join(timeout=JOIN_S)
+            p.join(timeout=timeout)
         alive = [p.pid for p in procs if p.is_alive()]
         for p in procs:
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
-    assert not alive, f"ranks {alive} still running after {JOIN_S} s"
+    assert not alive, f"ranks {alive} still running after {timeout} s"
     assert [p.exitcode for p in procs] == [0] * world
     return out
 

@@ -3,7 +3,8 @@ against JAX's GSPMD step and the port's single-controller step.
 
 Each mesh spans a gloo world of spawned processes formed by the port's
 Train backend: dp=2, fsdp=2 and dp=2 x tp=2 (tp inside each rank) on two
-ranks, dp=2 x fsdp=2 on two and on four. Every rank starts from the JAX
+ranks, dp=2 x fsdp=2 on two and on four (tp, sp and pp across ranks:
+``tests/test_torch_train_split_ranks.py``). Every rank starts from the JAX
 state carried across with ``from_jax_state(..., mesh=)`` (its own shards
 only), takes three steps of ``make_train_step`` on the whole batch, and
 runs ``make_eval_step``, ``value_and_grad`` and ``forward``. JAX runs
@@ -147,21 +148,44 @@ def _ranks(rank, world, jobs, example_dir):
     out = {name: _run(build_mesh(MeshSpec(**SPECS[name])), np_state,
                       batches) for name, np_state, batches in jobs}
     if world == 2:
-        raised = {}
-        for spec in (dict(tp=2), dict(sp=2), dict(pp=2), dict(sp=2, tp=2)):
-            mesh = build_mesh(MeshSpec(**spec))
-            try:
-                make_train_step(CFG, mesh, device="cpu")
-            except NotImplementedError as e:
-                raised[str(spec)] = str(e)
-        try:
-            build_mesh(MeshSpec(dp=2)).serve_axes()
-        except NotImplementedError as e:
-            raised["serve"] = str(e)
-        out["raised"] = raised
+        out["raised"] = _raised()
         out["example"] = _example(rank, example_dir)
-    return out if rank == 0 else {k: v["held_bytes"] for k, v in out.items()
-                                  if k in SPECS}
+    return out if rank == 0 else {
+        k: {f: v[f] for f in ("held_bytes", "replicas_equal")}
+        for k, v in out.items() if k in SPECS}
+
+
+def _raised():
+    """What still raises on a mesh over two ranks: layouts that split a
+    group unevenly or put a split group's rank on two devices
+    (ValueError), serving, and the free-standing ring, pipeline and MoE
+    layer (NotImplementedError naming their ROADMAP items)."""
+    from ray_tpu_torch.models.moe import MoEConfig, moe_layer
+    from ray_tpu_torch.ops.ring_attention import ring_attention
+    from ray_tpu_torch.parallel.pipeline import pipeline_spmd
+    x = torch.zeros(2, 4, 2, 8)
+    sp2 = build_mesh(MeshSpec(sp=2))
+    calls = {
+        "sp3xtp2": lambda: make_train_step(CFG, build_mesh(
+            MeshSpec(sp=3, tp=2), devices=["cpu"] * 3), device="cpu"),
+        "tp4-two-devices": lambda: make_train_step(CFG, build_mesh(
+            MeshSpec(tp=4), devices=["cpu", "cpu:0"]), device="cpu"),
+        "serve": lambda: build_mesh(MeshSpec(dp=2)).serve_axes(),
+        "ring_attention": lambda: ring_attention(x, x, x, sp2),
+        "pipeline_spmd": lambda: pipeline_spmd(
+            None, None, x, mesh=build_mesh(MeshSpec(pp=2)),
+            num_microbatches=2),
+        "moe_layer": lambda: moe_layer(
+            None, torch.zeros(1, 2, 8), MoEConfig(d_model=8, d_ff=16),
+            build_mesh(MeshSpec(fsdp=2))),
+    }
+    raised = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except (ValueError, NotImplementedError) as e:
+            raised[name] = (type(e).__name__, str(e))
+    return raised
 
 
 def _example(rank, root):
@@ -248,7 +272,8 @@ def single(jax_side):
 
 @pytest.fixture(scope="module")
 def ranks(jax_side, tmp_path_factory):
-    """Each world's ranks: rank 0's results, the others' held bytes."""
+    """Each world's ranks: rank 0's results, the others' held bytes and
+    replica checks."""
     out = {}
     for world in (2, 4):
         jobs = [(name, jax_side[name]["np_state"], _batches())
@@ -310,20 +335,28 @@ def test_eval_value_and_grad_and_forward_per_rank(name, world, single,
 @pytest.mark.parametrize("name,world", RUNS, ids=IDS)
 def test_replicas_stay_bit_equal_and_bytes_match_the_planner(name, world,
                                                              ranks):
-    rank0 = ranks[world][0][name]
-    assert rank0["replicas_equal"]
+    assert [r[name]["replicas_equal"] for r in ranks[world]] == [True] * world
     plan = plan_train_memory(CFG, MeshSpec(**SPECS[name]), global_batch=4,
                              seq_len=16, hbm_gib=1, world=world)
-    held = [rank0["held_bytes"]] + [r[name] for r in ranks[world][1:]]
+    held = [r[name]["held_bytes"] for r in ranks[world]]
     assert held == [plan.rank_params_bytes] * world
     assert plan.rank_opt_bytes == 2 * plan.rank_params_bytes
 
 
-def test_tp_sp_and_pp_across_ranks_raise_naming_item_4_3(ranks):
+def test_uneven_splits_serving_and_free_standing_layers_across_ranks_raise(
+        ranks):
     raised = ranks[2][0]["raised"]
-    for spec in ("{'tp': 2}", "{'sp': 2}", "{'pp': 2}", "{'sp': 2, 'tp': 2}"):
-        assert "ROADMAP item 4.3" in raised[spec], spec
-    assert "2 processes" in raised["serve"]
+    assert raised["sp3xtp2"][0] == "ValueError"
+    assert "sp group of 3 positions splits unevenly" in raised["sp3xtp2"][1]
+    assert raised["tp4-two-devices"][0] == "ValueError"
+    assert "must share one" in raised["tp4-two-devices"][1]
+    assert raised["serve"][0] == "NotImplementedError"
+    assert "2 processes" in raised["serve"][1]
+    for name, item in (("ring_attention", "14"), ("pipeline_spmd", "15"),
+                       ("moe_layer", "16")):
+        kind, msg = raised[name]
+        assert kind == "NotImplementedError", name
+        assert f"ROADMAP item {item}" in msg and "2 processes" in msg, msg
 
 
 def test_example_resume_equals_an_uninterrupted_run_bit_for_bit(ranks):
