@@ -150,22 +150,28 @@ Phases, each printing one JSON line on stdout:
    (each tp position's ring or all-to-all over its two sp positions at
    Hq 16 / Hkv 4), pp=2 and pp=2 x tp=2 (each stage its 16 layers and a
    pool of them, the hidden state handed on by .to()), dp=2 and fsdp=2
-   (weights and pool once per distinct device, every step on each). The
+   (weights and pool once per distinct device, every step on each), then
+   replicas of split layouts, dp=2 x tp=2, fsdp=2 x tp=2 and dp=2 x pp=2,
+   whose second replica names the card "cuda" where the first names it
+   "cuda:0" (two names of one card: two replicas, each its own slices),
+   and pp=2 x sp=2 (each stage's SP prefill over its 16 layers, the
+   shards' hidden states handed on by .to()). The
    serve phase's four prompts in one wave: each last-token prefill
    logits against forward() with plain attention (the serve gate, the
    first token tie-aware as in serve_sp) and 16 greedy tokens equal to an
    unsharded engine's, or parting only at a tie: where the two tokens'
    logits differ, as the unsharded engine scores them, by no more than
    the two engines' logits differ at that step; kernel 1 launches per
-   full prefill, 0 under sp, 32 x tp under pp, 32 per replica under dp
-   and fsdp, none elsewhere; each replica's weights (slices plus the
-   replicated tensors) the params' bytes, the replicated ones at the
-   params' data_ptr on their card, and its pools the unsharded pool's
-   (the sp positions holding nothing of their own on one card). On the
-   sp x tp and pp engines a hit on the 1900-token prompt's 16 leading
-   pages and P/D of a fresh 1000-token prompt both ways with the
-   unsharded engine (the blob within 5e-2); on dp and fsdp each replica's
-   prefill logits bit for bit equal to the first's. Then an
+   full prefill, 0 under sp, 32 x tp per replica otherwise (128 on dp=2
+   x tp=2 and fsdp=2 x tp=2, 64 on dp=2 x pp=2), none elsewhere; each
+   replica's weights (slices plus the replicated tensors) the params'
+   bytes, the replicated ones at the params' data_ptr on their card, and
+   its pools the unsharded pool's (the sp positions holding nothing of
+   their own on one card). On every layout but dp=2 and fsdp=2 alone a
+   hit on the 1900-token prompt's 16 leading pages and P/D of a fresh
+   1000-token prompt both ways with the unsharded engine (the blob within
+   5e-2); under dp and fsdp each replica's prefill logits bit for bit
+   equal to the first's. Then an
    EngineReplica on pp=2 whose tokens equal the pp=2 engine's closed
    loop. Fails if a run leaves another card current. Prints each run's
    1900-token prefill (host ms and one profiled prefill) and decode step
@@ -270,9 +276,25 @@ Phases, each printing one JSON line on stdout:
    Prints per rank its step ms, tokens/s, MFU, one profiled step's device
    time by class with the fsdp:gather, tp:all_reduce, pp:send/recv and
    sp:ring/gather/scatter ranges apart, its idle share (the union of its
-   kernels' intervals) and its peak memory. A rank that raises, hangs
-   past its bound or exits non-zero fails the run; nothing falls back to
-   gloo or the CPU.
+   kernels' intervals) and its peak memory. Then, on four cards, the
+   free-standing layers across the ranks (FREE_LAYOUTS), each held on
+   rank 0 against the same function in one process on a mesh naming its
+   card once per position: ring and Ulysses attention at sp=4 (B 1, S
+   8192, Hq 32 / Hkv 8, D 128, bf16, causal; each rank's sequence shard
+   and its share of the gradients of sum(out * w)), pipeline_spmd at pp=4
+   (each stage 8 of 8b-gqa's seed-0 layers at full width, plain
+   attention, each layer checkpointed; 4 microbatches of one 2048-token
+   sequence; the output on the last stage's rank, the stages' first and
+   last layers' gradients, the layers' gradient norm and x's gradient)
+   and the MoE layer at Mixtral-8x7B's widths on fsdp=2 x sp=2 and
+   fsdp=2 x tp=2 (each rank its shards and its run of the tokens; the
+   routing equal, y and every gathered gradient against the unsharded
+   layer as in the moe phase); no kernel launched; per rank the host ms
+   of the first forward and backward (NCCL's first-use set-up of the
+   exchanges included) and a second, profiled, with the sp:ring,
+   sp:all_to_all, pp:send/recv and ep:all_to_all ranges apart. A rank
+   that raises, hangs past its bound or exits non-zero fails the run;
+   nothing falls back to gloo or the CPU.
 18. moe: one MoE layer at Mixtral-8x7B's published widths (d_model 4096,
    d_ff 14336, 8 experts, top 2; capacity_factor 1.25, MoEConfig's
    default), bf16 on x of (4, 2048, 4096) from a seed, f32 params as
@@ -330,6 +352,7 @@ from ray_tpu_torch.models import (PRESETS, MoEConfig, forward,
                                   make_optimizer, make_train_step,
                                   moe_logical_axes)
 from ray_tpu_torch.models import transformer
+from ray_tpu_torch.models import moe as moe_ops
 from ray_tpu_torch.models.moe import moe_layer_routed
 from ray_tpu_torch.models.train_step import global_norm, value_and_grad
 from ray_tpu_torch.ops import _build
@@ -337,7 +360,7 @@ from ray_tpu_torch.ops import ring_attention as ring_ops
 from ray_tpu_torch.parallel import (MeshSpec, build_mesh, plan_train_memory,
                                     shard_params, tree_specs)
 from ray_tpu_torch.parallel import pipeline
-from ray_tpu_torch.parallel.mesh import Mesh
+from ray_tpu_torch.parallel.mesh import AXES, Mesh
 from ray_tpu_torch.parallel.sharding import (all_gather_parts, gather_tensor,
                                              shard_slices)
 from ray_tpu_torch.train.backend import TorchConfig, _TorchBackend
@@ -477,11 +500,21 @@ TP_DEMOTE_BYTES = 8 << 30
 # a fresh 1000-token prompt both ways with the unsharded engine (prompts
 # from np.random.default_rng(6)); on pp=2 an EngineReplica held to the pp
 # engine's closed loop on two fresh prompts.
+#
+# Then replicas of split layouts, dp=2 x tp=2, fsdp=2 x tp=2 and dp=2 x
+# pp=2, whose second replica's positions name the card "cuda" where the
+# first's name it "cuda:0" (two names of one card, so the engine holds two
+# replicas, each its own slices), and pp=2 x sp=2 (each stage's SP prefill
+# over its 16 layers).
 MESH_RUNS = (("sp2tp2-ring", dict(sp=2, tp=2), "ring"),
              ("sp2tp2-ulysses", dict(sp=2, tp=2), "ulysses"),
              ("pp2", dict(pp=2), "ring"),
              ("pp2tp2", dict(pp=2, tp=2), "ring"),
-             ("dp2", dict(dp=2), "ring"), ("fsdp2", dict(fsdp=2), "ring"))
+             ("dp2", dict(dp=2), "ring"), ("fsdp2", dict(fsdp=2), "ring"),
+             ("dp2tp2", dict(dp=2, tp=2), "ring"),
+             ("fsdp2tp2", dict(fsdp=2, tp=2), "ring"),
+             ("dp2pp2", dict(dp=2, pp=2), "ring"),
+             ("pp2sp2", dict(pp=2, sp=2), "ring"))
 MESH_REPLICA_LENS = (37, 300)
 
 # Backward, per gradient. bf16, max |diff| / max |ref|: the kernels round P
@@ -571,6 +604,29 @@ TRAIN_SP_STEPS = 3
 COLLECTIVE_BYTES = 256 << 20
 COLLECTIVE_ITERS = 5
 COLLECTIVE_TIMEOUT_S = 120
+# train_ranks' free-standing layers across ranks (four cards, one
+# position a rank), each held against the same function in one process on
+# rank 0 (a mesh naming its card once per position): ring and Ulysses
+# attention at sp=4 at 8b-gqa's attention widths, bf16, causal;
+# pipeline_spmd at pp=4, each stage 8 of 8b-gqa's layers at full width
+# (plain attention, each layer checkpointed) over 4 microbatches of one
+# 2048-token sequence; the MoE layer at Mixtral-8x7B's widths (MOE, MOE_X)
+# on fsdp=2 x sp=2 and fsdp=2 x tp=2. The layer name -> which of the
+# four.
+FREE_LAYOUTS = {"ring-sp4": "ring", "ulysses-sp4": "ulysses",
+                "pipeline-pp4": "pipeline", "moe-fsdp2xsp2": "moe",
+                "moe-fsdp2xtp2": "moe"}
+FREE_ATTN = dict(B=1, S=8192, Hq=32, Hkv=8, D=128)
+FREE_PP_MICROBATCHES = 4
+FREE_PP_SEQ = 2048
+# Across ranks against one process, ||got - want|| / ||want|| of each
+# output and gradient: the same operations on the same card type in the
+# same order (the ring's merges, Ulysses' per-head attention, each stage's
+# layers), so any difference is a fault; the limit is the bf16 backward
+# kernels' (BWD_TOL), for headroom over rounding that another order of an
+# all-to-all's sums could bring. The MoE layer keeps its own limits
+# against the unsharded layer (MOE_Y_REL_TOL, MOE_GRAD_REL_TOL).
+FREE_REL_TOL = 2e-2
 # train_ranks: one process per card, train_mesh's batch, seeded params
 # and default rules, the flash kernels: the reference's dp x fsdp layout
 # (tests/test_models.py:80-122 without its tp axis), then tp, sp and pp
@@ -585,7 +641,12 @@ TRAIN_RANKS = {1: (("dp2xfsdp2", dict(dp=2, fsdp=2), None),
                4: (("dp2xfsdp2", dict(dp=2, fsdp=2), None),
                    ("tp4", dict(tp=4), None),
                    ("pp2xtp2", dict(pp=2, tp=2), 2),
-                   ("sp2xtp2", dict(sp=2, tp=2), None))}
+                   ("sp2xtp2", dict(sp=2, tp=2), None),
+                   ("ring-sp4", dict(sp=4), None),
+                   ("ulysses-sp4", dict(sp=4), None),
+                   ("pipeline-pp4", dict(pp=4), FREE_PP_MICROBATCHES),
+                   ("moe-fsdp2xsp2", dict(fsdp=2, sp=2), None),
+                   ("moe-fsdp2xtp2", dict(fsdp=2, tp=2), None))}
 TRAIN_RANKS_DP = "dp2xfsdp2"
 TRAIN_RANKS_STEPS = 3
 TRAIN_RANKS_TIMEOUT_S = 600
@@ -599,7 +660,8 @@ TRAIN_RANKS_RANGES = (
                      "seq_gather": "sp:gather",
                      "seq_scatter": "sp:scatter"}),
     ("handoffs", {"send": "pp:send", "recv": "pp:recv"}),
-    ("ring", {"_exchange": "sp:ring"}))
+    ("ring", {"_exchange": "sp:ring", "all_to_all": "sp:all_to_all"}),
+    ("moe", {"all_to_all": "ep:all_to_all"}))
 # moe: one MoE layer at Mixtral-8x7B's published widths
 # (mistralai/Mixtral-8x7B-v0.1 config.json: hidden_size 4096,
 # intermediate_size 14336, num_local_experts 8, num_experts_per_tok 2),
@@ -2712,19 +2774,13 @@ def serve_tp_phase(card: str, failures: list, params) -> dict:
 
 def mesh_memory(eng, params, flat) -> dict:
     """``tp_memory`` for each replica of a mesh engine (one, but under dp
-    or fsdp over distinct cards), each held to the params' bytes and its
-    pools to the unsharded pool; under sp x tp on one card also the sp
+    or fsdp on distinct cards or names), each held to the params' bytes
+    and its pools to the unsharded pool; under sp on one card also the sp
     positions' tensors, which must be the first sp position's (no second
     copy)."""
     mesh = eng.mesh
-    if len(eng._reps) > 1:
-        # One replica per distinct device: the first position on each.
-        first = {}
-        for i, d in enumerate(mesh.devices.flat):
-            first.setdefault(d, i)
-        positions = [[i] for i in first.values()]
-    else:
-        positions = [[i for i, c in enumerate(mesh.coords()) if c[3] == 0]]
+    positions = [[i for i, c in zip(at, sub.coords()) if c[3] == 0]
+                 for sub, at in llm_engine._replicas(mesh)]
     per = []
     for r, (rep, pos) in enumerate(zip(eng._reps, positions)):
         pk, pv = eng._rep_pools(r)
@@ -2768,12 +2824,15 @@ def mesh_tokens(eng, flat, prompt, got, want) -> dict:
 def serve_mesh_run(cfg, params, name, spec, strategy, devices, prompts,
                    hit_prompt, pd_prompt, refs, flat, flat_outs,
                    closed_prompts, failures) -> tuple:
-    """One engine on ``build_mesh(MeshSpec(**spec), devices=devices)``: the
-    wave; on sp x tp and pp the hit and P/D both ways; on dp and fsdp the
-    replicas' prefill logits bit for bit; the closed loop the replica is
-    held to; the checks and times of the module docstring."""
+    """One engine on the grid ``devices`` shaped by ``spec`` (a ``Mesh``
+    of them as given: ``build_mesh`` would give "cuda" its index): the
+    wave; on every layout but dp and fsdp alone the hit and P/D both
+    ways; under dp and fsdp the replicas' prefill logits bit for bit; the
+    closed loop the replica is held to; the checks and times of the
+    module docstring."""
     t_run = time.perf_counter()
-    ndev = len(set(devices))
+    # "cuda" without an index names the current card, cuda:0.
+    cards = len({d.index or 0 for d in devices})
     what = f"{name} on {sorted(set(map(str, devices)))}"
     L = cfg.num_layers
     sp = SamplingParams(max_tokens=MAX_TOKENS)
@@ -2788,11 +2847,13 @@ def serve_mesh_run(cfg, params, name, spec, strategy, devices, prompts,
     torch.cuda.reset_peak_memory_stats()
     current = torch.cuda.current_device()
     eng = LLMEngine(cfg, params, device="cuda", sp_strategy=strategy,
-                    mesh=build_mesh(MeshSpec(**spec), devices=devices),
+                    mesh=Mesh(np.array(devices, dtype=object).reshape(
+                        [spec.get(a, 1) for a in AXES])),
                     **TP_ENGINE)
     memory = mesh_memory(eng, params, flat)
     replicated = "dp" in spec or "fsdp" in spec
-    if not memory["ok"] or (replicated and len(eng._reps) != ndev):
+    reps = len(llm_engine._replicas(eng.mesh))
+    if not memory["ok"] or (replicated and len(eng._reps) != reps):
         fail("memory", memory)
     # Kernel 1 per full prefill: none under sp (ring or Ulysses, plain as
     # in the JAX package); every layer once per tp position (each stage
@@ -2833,7 +2894,7 @@ def serve_mesh_run(cfg, params, name, spec, strategy, devices, prompts,
                 fail("tokens", (rid, out, tokens[-1]))
 
     hit = pd = replicas = closed = None
-    if not replicated:
+    if not replicated or len(spec) > 1:
         # The prefix hit on the 1900-token prompt's 16 pages (a suffix
         # prefill: sequence-parallel under sp, stage by stage under pp).
         before = eng.prefix_cache_stats()
@@ -2868,7 +2929,7 @@ def serve_mesh_run(cfg, params, name, spec, strategy, devices, prompts,
                 and blob["k"].shape == flat_blob["k"].shape):
             fail("P/D", dict(pd, to_unsharded=to_flat, to_mesh=to_mesh))
         del flat_blob, blob
-    else:
+    if replicated:
         # Each replica's prefill logits of the 1900-token prompt, on its
         # own weights and card, against the first's: bit for bit.
         toks = np.zeros((1, eng._bucket(len(prompts[-1]))), np.int64)
@@ -2893,18 +2954,19 @@ def serve_mesh_run(cfg, params, name, spec, strategy, devices, prompts,
             lambda: eng._run_prefill(prompts[-1]), iters=1)
         timings["profiled_prefill_1900"] = prof = profiled(
             lambda: eng._run_prefill(prompts[-1]))
-    if ndev > 1:
+    if cards > 1:
         prof["idle_share"] = "not measured (several cards)"
     if torch.cuda.current_device() != current:
         fail("current device", f"cuda:{torch.cuda.current_device()} after "
              f"the run, was cuda:{current}")
     res = dict(name=name, mesh=spec, strategy=strategy,
-               devices=[str(d) for d in devices], memory=memory,
+               devices=[str(d) for d in devices], replicas=len(eng._reps),
+               launches_per_full_prefill=per_prefill, memory=memory,
                launches=launches,
                flash_launches=sum(s["got"] for s in launches.values()),
                logits=checks, tokens=tokens,
                hit=hit and {k: v for k, v in hit.items() if k != "out"},
-               pd=pd, replicas=replicas, timings=timings,
+               pd=pd, replicas_equal=replicas, timings=timings,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                seconds=time.perf_counter() - t_run)
     del eng, waves
@@ -2970,10 +3032,15 @@ def serve_mesh_phase(card: str, failures: list, params) -> dict:
     for name, spec, strategy in MESH_RUNS:
         n = MeshSpec(**spec).n_devices
         grids = [[cuda0] * n]
+        if len(spec) > 1 and ("dp" in spec or "fsdp" in spec):
+            # Two replicas on the card: the second's positions name it
+            # "cuda".
+            grids = [[torch.device("cuda") if c[1] + c[2] else cuda0
+                      for c in np.ndindex(*(spec.get(a, 1) for a in AXES))]]
         if torch.cuda.device_count() >= n:
             grids.append([torch.device("cuda", i) for i in range(n)])
         for devices in grids:
-            one_card = len(set(devices)) == 1
+            one_card = all(d.index in (None, 0) for d in devices)
             layouts.append(dict(name=name, distinct=not one_card))
             run, loop = serve_mesh_run(
                 cfg, params, name, spec, strategy, devices, prompts,
@@ -3969,7 +4036,7 @@ def _rank_profile():
     prof = ctx.enter_context(profile(activities=[ProfilerActivity.CPU,
                                                  ProfilerActivity.CUDA]))
     owners = {"transformer": transformer, "handoffs": pipeline.Handoffs,
-              "ring": ring_ops}
+              "ring": ring_ops, "moe": moe_ops}
     for owner, names in TRAIN_RANKS_RANGES:
         ctx.enter_context(named_ranges(names, owners[owner]))
     return ctx, prof
@@ -3994,6 +4061,8 @@ def _rank_run(name, spec, microbatches, rank, world, tokens, ref_grads,
               ref_scalars, fails) -> dict:
     """One layout of the train_ranks phase on this rank (see the module
     docstring)."""
+    if name in FREE_LAYOUTS:
+        return _free_run(name, spec, microbatches, rank, fails)
     cfg = dataclasses.replace(PRESETS["8b-gqa"], remat=True,
                               attention_impl="flash")
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -4185,6 +4254,285 @@ def _rank_run(name, spec, microbatches, rank, world, tokens, ref_grads,
                                 loss_rel_err=r_loss, grad_norm_rel_err=r_gnorm,
                                 profiled=_rank_summary(prof, 1, ring_ms))
     return out
+
+
+def _free_run(name, spec, microbatches, rank, fails) -> dict:
+    """A free-standing layer across the ranks (``FREE_LAYOUTS``) on this
+    rank, held on rank 0 against the same function in one process: its
+    outputs and gradients, its host ms, one profiled pass with the
+    exchanges' ranges apart, no kernel launched (the layers attend and
+    multiply in plain code, as in the JAX package)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def fail(msg):
+        fails.append(f"{name}: {msg}")
+    mesh = build_mesh(MeshSpec(**spec))
+    one = Mesh(np.array([dev] * mesh.devices.size, dtype=object).reshape(
+        mesh.devices.shape))
+    kind = FREE_LAYOUTS[name]
+    run = {"ring": _free_attention, "ulysses": _free_attention,
+           "pipeline": _free_pipeline, "moe": _free_moe}[kind]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = _launch_counts()
+    out = run(kind, mesh, one, rank, dev, fail, microbatches)
+    launches = tuple(a - b for a, b in zip(_launch_counts(), before))
+    if launches != (0, 0, 0):
+        fail(f"launched (fwd, dq, dkv) {launches}, expected none")
+    if torch.cuda.current_device() != dev.index:
+        fail(f"left cuda:{torch.cuda.current_device()} current")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(out, layout=name, mesh=spec, positions=mesh.local_positions(),
+                launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _timed_pass(fn) -> tuple:
+    """``fn()`` once on the host clock, synchronised, then once profiled
+    with the phase's named ranges: (its result, the first call's host ms,
+    which holds the exchanges' first-use set-up, the profile's summary,
+    whose ``wall_ms`` is the warm pass's)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ctx, prof = _rank_profile()
+    with ctx:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    return got, ms, _rank_summary(prof, 1, prof_ms)
+
+
+def _gate(errs: dict, tol: float, fail) -> dict:
+    if not all(e <= tol for e in errs.values()):
+        fail(f"against one process: {errs} (limit {tol})")
+    return dict(errs, limit=tol)
+
+
+def _free_attention(kind, mesh, one, rank, dev, fail, _mb) -> dict:
+    """Ring or Ulysses attention over the sp ranks: each rank's sequence
+    shard of the output and its share of the gradients of sum(out * w),
+    summed over the ranks (their boxes are disjoint) and held against
+    one process."""
+    B, S, Hq, Hkv, D = (FREE_ATTN[k] for k in ("B", "S", "Hq", "Hkv", "D"))
+    gen = torch.Generator(dev).manual_seed(7)
+    q, k, v, w = (torch.randn((B, S, h, D), generator=gen, device=dev
+                              ).to(torch.bfloat16)
+                  for h in (Hq, Hkv, Hkv, Hq))
+    fn = (ring_ops.ring_attention if kind == "ring"
+          else ring_ops.ulysses_attention)
+    n = mesh.shape["sp"]
+    j = mesh.coords()[mesh.local_positions()[0]][3]
+    seq = slice(j * S // n, (j + 1) * S // n)
+
+    def attend(on, cot):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*ts, on)
+        (o.float() * cot.float()).sum().backward()
+        return o.detach(), [t.grad for t in ts]
+    (o, grads), ms, summary = _timed_pass(lambda: attend(mesh, w[:, seq]))
+    whole = torch.zeros_like(q)
+    whole[:, seq] = o
+    for t in [whole] + grads:
+        torch.distributed.all_reduce(t)
+    res = dict(shape=dict(FREE_ATTN, dtype="bfloat16", causal=True),
+               piece=list(o.shape), first_call_ms=ms, profiled=summary)
+    if rank == 0:
+        ro, rgrads = attend(one, w)
+        res["rel_err"] = _gate(
+            {x: _rel(a, b) for x, a, b in zip(
+                ("out", "dq", "dk", "dv"), [whole] + grads, [ro] + rgrads)},
+            FREE_REL_TOL, fail)
+    return res
+
+
+def _free_pipeline(kind, mesh, one, rank, dev, fail, microbatches) -> dict:
+    """pipeline_spmd over the pp ranks, each stage its 8 layers of
+    8b-gqa's seed-0 params: the output on the last stage's rank, each
+    rank's stage gradients and (stage 0) x's gradient of sum(y * w), held
+    against one process on rank 0 (y, x's gradient, every stage's first
+    and last layer's gradients, and the global norm of the stacked
+    layers' gradients)."""
+    cfg = dataclasses.replace(PRESETS["8b-gqa"], attention_impl="xla")
+    pp = mesh.shape["pp"]
+    per = cfg.num_layers // pp
+    layers = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                         dev)["layers"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = mesh.axis_positions(mesh.local_positions()[0], "pp")
+    stage = [s for s, i in enumerate(line) if mesh.is_local(i)][0]
+    mine = pipeline._tree_map(
+        lambda t: t[stage * per:(stage + 1) * per].clone().requires_grad_(),
+        layers)
+    if rank != 0:
+        del layers
+        gc.collect()
+        torch.cuda.empty_cache()
+    gen = torch.Generator(dev).manual_seed(8)
+    shape = (microbatches, FREE_PP_SEQ, cfg.hidden_size)
+    x0 = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    w = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    cos, sin = transformer.rope_angles(FREE_PP_SEQ, cfg.head_dim_,
+                                       cfg.rope_theta, device=dev)
+
+    def apply_stage(sw, h):
+        for lj in range(per):
+            h = torch.utils.checkpoint.checkpoint(
+                transformer._layer, cfg, h,
+                transformer.layer_params({"layers": sw}, lj), cos, sin,
+                use_reentrant=False)
+        return h
+
+    def run(on, stacked):
+        x = x0.clone().requires_grad_()
+        y = pipeline.pipeline_spmd(apply_stage, stacked, x, mesh=on,
+                                   num_microbatches=microbatches)
+        # A rank without the last stage got a tensor of no size.
+        loss = (y.float() * w.float()).sum() if y.numel() else y.sum()
+        loss.backward()
+        return y.detach(), x.grad
+
+    def zero(tree):
+        for _, t in _named_leaves(tree):
+            t.grad = None
+    stacked = pipeline._tree_map(
+        lambda t: t.unsqueeze(0).expand((pp,) + tuple(t.shape)), mine)
+    (y, xg), ms, summary = _timed_pass(lambda: (zero(mine),
+                                                run(mesh, stacked))[1])
+    norm2 = torch.zeros((), device=dev)
+    for _, t in _named_leaves(mine):
+        norm2 += t.grad.float().square().sum()
+    torch.distributed.all_reduce(norm2)
+    # rank 0's reference, every rank's share of it, and each rank's errors.
+    ref = {}
+    if rank == 0:
+        full = pipeline._tree_map(lambda t: t.requires_grad_(), layers)
+        ref["y"], ref["xg"] = run(one, pipeline.split_stages(full, pp))
+        ref["norm"] = math.sqrt(sum(t.grad.float().square().sum().item()
+                                    for _, t in _named_leaves(full)))
+    errs = {}
+    last = stage == pp - 1
+    yr = ref.get("y", torch.empty(shape, dtype=cfg.dtype, device=dev))
+    torch.distributed.broadcast(yr, 0)
+    if last:
+        errs["y"] = _rel(y, yr)
+    if rank == 0:
+        errs["x_grad"] = _rel(xg, ref["xg"])
+    # Each stage's first and last layer: rank 0's gradient broadcast,
+    # held by the stage's rank against its own.
+    for s in range(pp):
+        for li in (s * per, (s + 1) * per - 1):
+            for key, t in _named_leaves(mine):
+                want = (_leaf(full, key).grad[li] if rank == 0
+                        else torch.empty_like(t[0]))
+                torch.distributed.broadcast(want, 0)
+                if s == stage:
+                    errs[f"layer{li}.{key}"] = _rel(t.grad[li - s * per],
+                                                    want)
+    got = [None] * mesh.world
+    torch.distributed.all_gather_object(got, errs)
+    res = dict(stages=pp, layers_a_stage=per, microbatches=microbatches,
+               seq=FREE_PP_SEQ, output_here=bool(y.numel()),
+               first_call_ms=ms, profiled=summary)
+    if rank == 0:
+        merged = {k: v for e in got for k, v in e.items()}
+        merged["grad_norm"] = abs(math.sqrt(norm2.item()) - ref["norm"]) \
+            / ref["norm"]
+        _gate(merged, FREE_REL_TOL, fail)
+        worst = max(merged, key=merged.get)
+        res["rel_err"] = dict(worst=worst, worst_err=merged[worst],
+                              checked=len(merged),
+                              grad_norm=merged["grad_norm"], y=merged["y"],
+                              x_grad=merged["x_grad"], limit=FREE_REL_TOL)
+    return res
+
+
+def _leaf(tree, key: str):
+    for part in key.split("."):
+        tree = tree[part]
+    return tree
+
+
+def _free_moe(kind, mesh, one, rank, dev, fail, _mb) -> dict:
+    """The expert-parallel MoE layer over the ranks: each rank its shards
+    of the seed-0 params, y of its run of the tokens and its objective
+    (sum(y), the aux losses on rank 0); the runs' y, the routing, the aux
+    losses and every parameter's gradient gathered across ranks, held on
+    rank 0 against the unsharded layer in one process."""
+    cfg = MoEConfig(**MOE)
+    params = init_moe_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    x = torch.randn(MOE_X + (cfg.d_model,), device=dev,
+                    generator=torch.Generator(dev).manual_seed(1)
+                    ).to(cfg.dtype)
+    with torch.no_grad():
+        shards = shard_params({k: v.detach() for k, v in params.items()},
+                              mesh, logical_axes=moe_logical_axes())
+    leaves = {}
+    shards = [None if t is None else {
+        k: leaves.setdefault(id(v), v.requires_grad_())
+        for k, v in t.items()} for t in shards]
+    if rank != 0:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def run():
+        for t in leaves.values():
+            t.grad = None
+        y, aux, routing = moe_layer_routed(shards, x, cfg, mesh)
+        obj = y.float().sum()
+        if rank == 0:
+            obj = obj + aux["moe_load_balance_loss"] + aux["moe_router_z_loss"]
+        obj.backward()
+        return y.detach(), {k: float(v.detach()) for k, v in aux.items()}, \
+            routing
+    (y, aux, (idx, keep)), ms, summary = _timed_pass(run)
+    ys = [torch.empty_like(y) for _ in range(mesh.world)]
+    torch.distributed.all_gather(ys, y)
+    idxs = [torch.empty_like(idx) for _ in range(mesh.world)]
+    torch.distributed.all_gather(idxs, idx)
+    keeps = [torch.empty_like(keep) for _ in range(mesh.world)]
+    torch.distributed.all_gather(keeps, keep)
+    specs = tree_specs(moe_logical_axes(), mesh)
+    res = dict(mesh=dict(mesh.shape), rows=list(moe_ops.moe_rows(
+        mesh, MOE_X[0] * MOE_X[1])), first_call_ms=ms, profiled=summary,
+        aux=aux)
+    ref = None
+    if rank == 0:
+        for v in params.values():
+            v.requires_grad_()
+        ref = moe_pass(params, x, cfg)
+    errs = {}
+    for k in ("router", "w_gate", "w_up", "w_down"):
+        parts = all_gather_parts([None if t is None else t[k].grad
+                                  for t in shards], mesh)
+        if rank == 0:
+            errs[k] = _rel(gather_tensor(parts, specs[k], mesh),
+                           params[k].grad)
+        del parts
+    if rank == 0:
+        y0, aux0, (idx0, keep0) = ref
+        routing_equal = all(torch.equal(a, idx0) for a in idxs) and all(
+            torch.equal(a, keep0) for a in keeps)
+        if not routing_equal:
+            fail("the routing differs from the unsharded layer's")
+        if aux["moe_fraction_dropped"] != aux0["moe_fraction_dropped"]:
+            fail(f"fraction dropped {aux} vs {aux0}")
+        y_err = _rel(torch.cat(ys), y0.reshape(-1, cfg.d_model))
+        if not y_err <= MOE_Y_REL_TOL:
+            fail(f"y against the unsharded layer: {y_err}")
+        if not max(errs.values()) <= MOE_GRAD_REL_TOL:
+            fail(f"gradients against the unsharded layer: {errs}")
+        res.update(routing_equal=routing_equal, y_rel_err=y_err,
+                   grad_rel_err=errs, y_rel_tol=MOE_Y_REL_TOL,
+                   grad_rel_tol=MOE_GRAD_REL_TOL, unsharded_aux=aux0)
+    return res
 
 
 def _train_rank(rank: int, world: int, tokens, ref_path: str,

@@ -79,20 +79,28 @@ The other serving meshes (``Mesh.serve_axes``):
   the flash kernel on each stage's layers. Embedding and sampling run on
   the first position, the final norm and lm_head on the last stage's;
   blobs join the stages' layers in order and split them at install.
-- dp or fsdp: the Megatron rules put no param on either axis, so JAX
-  replicates the weights and the pool over every device. Here they are
-  replicated once per distinct device of the mesh (``_reps``): n distinct
-  cards hold n times the weight bytes and do n times the work, for the
-  same tokens. Every prefill, suffix and decode step runs on each replica
-  and installs into its pool; the first samples, and a later replica's
-  greedy decode tokens that differ from the first's raise RuntimeError.
-  The paged path's streamed attention runs on the first replica, its
-  tail KV written into every replica's pool. A mesh that names one device
-  n times holds one replica.
+- dp or fsdp, alone or beside the others: the Megatron rules put no
+  param on either axis, so JAX replicates the weights and the pool over
+  them. Here a replica is the mesh's split layout at one dp x fsdp
+  coordinate (one position, a tp group, a pp x tp stack or an sp x tp
+  group), held once per distinct placement of its positions on devices
+  (``_replicas``): n distinct card sets hold n times the weight bytes and
+  do n times the work, for the same tokens. Every prefill, suffix and
+  decode step runs on each replica and installs into its pools; the first
+  samples, and a later replica's greedy decode tokens that differ from
+  the first's raise RuntimeError. The paged path's streamed attention
+  runs on the first replica, its tail KV written into every replica's
+  pools. A mesh that names one device n times holds one replica.
+- pp beside sp (and tp): full prefills, chunks and suffixes run
+  sequence-parallel stage by stage, each stage's sp shards over its
+  layers, a shard's hidden state handed to the next stage's devices by
+  ``.to()``; decode and the rest run stage by stage as under pp x tp, on
+  the pools of sp shard 0's positions.
 
-Any other mesh (dp or fsdp beside another split axis, pp beside sp;
-ROADMAP Queue 1 item 13), and rules that lay out a dim otherwise than the
-Megatron rules, raise NotImplementedError.
+Rules that lay out a dim otherwise than the Megatron rules raise
+NotImplementedError, and so does a mesh over several processes: the
+engine drives every position from one process, as the JAX engine's
+single controller does.
 """
 
 from __future__ import annotations
@@ -120,7 +128,7 @@ from ..models.transformer import (TransformerConfig, _layer_qkv,
                                   layer_params, rms_norm,
                                   rope_angles, tp_layer, tp_shards)
 from ..ops.flash_attention import flash_attention
-from ..parallel.mesh import MeshSpec, build_mesh
+from ..parallel.mesh import Mesh, MeshSpec, build_mesh
 from ..parallel.pipeline import stage_send
 from ..parallel.sharding import LogicalAxisRules
 from .sequence_parallel import (StreamAttn, _stream_block_fn,
@@ -210,6 +218,23 @@ def _onto(xs, devices) -> Dict[torch.device, torch.Tensor]:
     if all(d in xs for d in devices):
         return xs
     return stage_send(next(iter(xs.values())), devices)
+
+
+def _replicas(mesh) -> List[Tuple[Mesh, List[int]]]:
+    """The serving replicas of ``mesh``: per dp x fsdp coordinate whose
+    positions' devices (in grid order) differ from every earlier one's,
+    its pp x sp x tp mesh and the flat indices of its positions. The
+    Megatron rules place nothing on dp or fsdp, so replicas on the same
+    devices would hold the same tensors and do the same work: a mesh that
+    names one device n times holds one replica."""
+    out: Dict[tuple, Tuple[Mesh, List[int]]] = {}
+    coords = mesh.coords()
+    for d in range(mesh.shape["dp"]):
+        for f in range(mesh.shape["fsdp"]):
+            at = [i for i, c in enumerate(coords) if c[1:3] == (d, f)]
+            out.setdefault(tuple(mesh.devices.flat[i] for i in at),
+                           (Mesh(mesh.devices[:, d:d + 1, f:f + 1]), at))
+    return list(out.values())
 
 
 def _kv_buffers(shards, S: int, cfg: TransformerConfig):
@@ -762,11 +787,10 @@ def _publish_when_made(publish, part: dict,
 # --------------------------------------------------------------------------
 
 class LLMEngine:
-    """Continuous-batching engine with a paged KV pool on one device,
-    sequence-parallel prefill over an ``sp`` mesh, tensor-parallel weights
-    and pool over a ``tp`` mesh (beside sp or not), pipeline stages over a
-    ``pp`` mesh (beside tp or not), and replicas over a dp or fsdp
-    mesh."""
+    """Continuous-batching engine with a paged KV pool on one device, or
+    on any serving mesh: sequence-parallel prefill over ``sp``,
+    tensor-parallel weights and pool over ``tp``, pipeline stages over
+    ``pp``, and replicas of that layout over ``dp`` and ``fsdp``."""
 
     def __init__(self, cfg: TransformerConfig, params=None, *,
                  max_batch: int = 4, max_len: int = 256, seed: int = 0,
@@ -809,15 +833,16 @@ class LLMEngine:
         A mesh with a ``tp`` or ``pp`` axis splits the weights (under
         ``rules``, default ``megatron_rules()``, the JAX engine's) and the
         pool over its positions: tp over heads, kv heads and the MLP's
-        hidden units, pp over the layer stack; beside tp an sp axis splits
-        the prefills as well. A dp or fsdp mesh replicates them once per
-        distinct device. Only tables that lay out the dims as
+        hidden units, pp over the layer stack; beside them an sp axis
+        splits the prefills as well. Only tables that lay out the dims as
         ``megatron_rules()`` does are accepted; any other raises
         NotImplementedError (``tp_shards``).
         ``mesh=build_mesh(MeshSpec(tp=n), devices=[cuda:0] * n)`` runs n
-        positions in turn on one card. The engine's device must be of the
-        first position's type, and becomes that device. A mesh that
-        ``Mesh.serve_axes`` refuses raises NotImplementedError."""
+        positions in turn on one card. A dp or fsdp axis replicates the
+        split layout once per distinct placement of its positions. The
+        engine's device must be of the first position's type, and becomes
+        that device. A mesh over several processes raises
+        NotImplementedError (``Mesh.serve_axes``)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_batch = max_batch
@@ -864,9 +889,9 @@ class LLMEngine:
         self.mesh = mesh
         # The serving layout (Mesh.serve_axes): tp splits the weights and
         # the pool over kv heads, pp over the layer stack (Megatron rules,
-        # the JAX engine's), and dp or fsdp replicate both once per
-        # distinct device. Embedding and sampling run on the first
-        # position, the final norm and lm_head on the last stage's.
+        # the JAX engine's), and dp or fsdp replicate the split layout
+        # once per distinct placement. Embedding and sampling run on the
+        # first position, the final norm and lm_head on the last stage's.
         self.tp_degree = self.pp_degree = 1
         axes = mesh.serve_axes() if mesh is not None else ()
         if mesh is not None:
@@ -892,29 +917,29 @@ class LLMEngine:
             raise ValueError(f"params are on {params['embed'].device}, the "
                              f"engine on {self.device}")
         # Each replica's positions' params (``_walk``'s order: per stage its
-        # tp positions), one replica per distinct device under dp or fsdp
-        # (one replica otherwise). Split layouts keep only the positions'
-        # (``params`` is None): their slices and, once per distinct device,
-        # the replicated tensors. A mesh that splits nothing, or only sp,
-        # keeps the params as given; sp prefill reads ``_sp_params``.
+        # tp positions, at sp shard 0), one replica per distinct placement
+        # of the mesh's dp x fsdp coordinates (``_replicas``). Layouts that
+        # split tp or pp keep only the positions' (``params`` is None):
+        # their slices and, once per distinct device, the replicated
+        # tensors. A mesh that splits nothing, or only sp, keeps the params
+        # as given. ``_sp_reps``: per replica, its sp x tp x pp mesh and the
+        # params its SP prefills read.
         self._reps = [[params]]
         self.params = params
-        self._sp_params = None
         if set(axes) & {"tp", "pp", "dp", "fsdp"}:
             shards = tp_shards(params, mesh, rules)
-            if set(axes) & {"dp", "fsdp"}:
-                first = {}
-                for i, d in enumerate(mesh.devices.flat):
-                    first.setdefault(d, i)
-                self._reps = [[shards[i]] for i in first.values()]
-            else:
-                sp0 = [i for i, c in enumerate(mesh.coords()) if c[3] == 0]
-                self._reps = [[shards[i] for i in sp0]]
-                if self.sp_degree > 1:
-                    self._sp_params = shards
+            self._reps, self._sp_reps = [], []
+            for sub, at in _replicas(mesh):
+                self._reps.append([shards[i] for i, c in zip(
+                    at, sub.coords()) if c[3] == 0])
+                self._sp_reps.append((sub, [shards[i] for i in at]
+                                      if self.sp_degree > 1 else None))
+            if set(axes) & {"tp", "pp"}:
                 self.params = None
-        elif self.sp_degree > 1:
-            self._sp_params = replicate_params(params, mesh)
+        else:
+            self._sp_reps = [(mesh, replicate_params(params, mesh)
+                              if self.sp_degree > 1 else None)]
+        self._sp_params = self._sp_reps[0][1]
         self._shards = self._reps[0]
         n = self._n_pos = len(self._shards)
         # Per position of every replica: (its layers, its kv heads, its
@@ -1239,27 +1264,26 @@ class LLMEngine:
         toks = np.zeros((1, self._bucket(S)), np.int64)
         toks[0, :S] = prompt
         if self.sp_degree > 1:
-            logits, ks, vs = sp_prefill_fn(self._sp_params,
-                                           self._to_device(toks), S,
-                                           self.cfg, self.mesh,
-                                           self.sp_strategy)
-            return ((logits, [ks], [vs]) if isinstance(ks, torch.Tensor)
-                    else (logits, ks, vs))
-        return self._each(lambda rep, pk, pv, to: _prefill_fn(
+            return self._each(lambda r, rep, pk, pv, to: sp_prefill_fn(
+                self._sp_reps[r][1], to(toks), S, self.cfg,
+                self._sp_reps[r][0], self.sp_strategy))
+        return self._each(lambda r, rep, pk, pv, to: _prefill_fn(
             rep, to(toks), S, self.cfg))
 
     def _each(self, run):
-        """``run(rep, pool_k, pool_v, to)`` on every replica, ``to`` putting
-        a numpy array on its first device; (the first's logits, every
-        replica's ks and vs in position order)."""
+        """``run(r, rep, pool_k, pool_v, to)`` on every replica r, ``to``
+        putting a numpy array on its first device; (the first's logits,
+        every replica's ks and vs in position order; a replica's one
+        (L, Sb, KV, D) pair counts as its one position's)."""
         logits, ks, vs = None, [], []
         for r, rep in enumerate(self._reps):
             dev = _devices(rep)[0]
-            out = run(rep, *self._rep_pools(r),
+            out = run(r, rep, *self._rep_pools(r),
                       lambda a, dev=dev: torch.from_numpy(a).to(dev))
             logits = out[0] if logits is None else logits
-            ks += out[1]
-            vs += out[2]
+            one = isinstance(out[1], torch.Tensor)
+            ks += [out[1]] if one else out[1]
+            vs += [out[2]] if one else out[2]
         return logits, ks, vs
 
     def _run_suffix(self, prompt: Sequence[int], prefix_len: int, pages_row,
@@ -1274,15 +1298,10 @@ class LLMEngine:
         toks[0, :S] = suf
         row = np.asarray(pages_row, np.int64)
         if self.sp_degree > 1:
-            pk, pv = ((self._pk[0], self._pv[0]) if self.tp_degree == 1
-                      else (self._pk, self._pv))
-            logits, ks, vs = sp_suffix_prefill_fn(
-                self._sp_params, pk, pv, self._to_device(row),
-                self._to_device(toks), prefix_len, S, self.cfg, self.page,
-                self.mesh)
-            return ((logits, [ks], [vs]) if isinstance(ks, torch.Tensor)
-                    else (logits, ks, vs))
-        return self._each(lambda rep, pk, pv, to: _suffix_prefill_fn(
+            return self._each(lambda r, rep, pk, pv, to: sp_suffix_prefill_fn(
+                self._sp_reps[r][1], pk, pv, to(row), to(toks), prefix_len,
+                S, self.cfg, self.page, self._sp_reps[r][0]))
+        return self._each(lambda r, rep, pk, pv, to: _suffix_prefill_fn(
             rep, pk, pv, to(row), to(toks), prefix_len, S, self.cfg,
             self.page))
 

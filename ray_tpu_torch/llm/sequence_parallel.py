@@ -51,6 +51,7 @@ from ..models.transformer import (TransformerConfig, _layer_qkv,
 from ..ops.ring_attention import (_empty_state, _grouped, _merge,
                                   _ring_shards, _split, _ulysses_shards)
 from ..parallel.mesh import Mesh, MeshSpec, _cuda_devices, build_mesh
+from ..parallel.pipeline import stage_send
 
 __all__ = ["sp_mesh", "sp_prefill_fn", "sp_suffix_prefill_fn",
            "sp_stripe_pages", "replicate_params", "StreamAttn",
@@ -134,71 +135,88 @@ def replicate_params(params: Dict[str, Any], mesh: Mesh
 # ---------------------------------------------------------------------------
 
 def _sp_grid(params, mesh: Mesh):
-    """(params[j][t], devices[j][t]): sp shard j's tp position t's params
-    and device. ``params`` is ``replicate_params``'s {device: params} (no
-    tp axis), or the per-position list of ``models.transformer.tp_shards``
-    on an sp x tp mesh, in ``mesh.coords()`` order."""
-    cols = [mesh.sp_positions(tp=t) for t in range(mesh.shape["tp"])]
-    idx = [list(row) for row in zip(*cols)]
-    tp = len(cols)
-    devices = [[mesh.devices.flat[i] for i in row] for row in idx]
+    """(params[s][j][t], devices[s][j][t]): pipeline stage s's sp shard
+    j's tp position t's params and device. ``params`` is
+    ``replicate_params``'s {device: params} (sp alone), or the
+    per-position list of ``models.transformer.tp_shards`` on an sp mesh
+    with tp or pp, in ``mesh.coords()`` order."""
+    pp, tp = mesh.shape["pp"], mesh.shape["tp"]
+    idx = [[list(row) for row in zip(*(mesh.sp_positions(tp=t, stage=s)
+                                        for t in range(tp)))]
+           for s in range(pp)]
+    devices = [[[mesh.devices.flat[i] for i in row] for row in st]
+               for st in idx]
     if isinstance(params, dict):
-        if tp > 1:
-            raise ValueError("an sp x tp mesh takes the per-position params "
-                             "of tp_shards(params, mesh)")
-        return [[params[row[0]]] for row in devices], devices
-    return [[params[i] for i in row] for row in idx], devices
+        if tp > 1 or pp > 1:
+            raise ValueError("an sp mesh with tp or pp takes the "
+                             "per-position params of tp_shards(params, "
+                             "mesh)")
+        return [[[params[row[0]]] for row in devices[0]]], devices
+    return [[[params[i] for i in row] for row in st] for st in idx], devices
 
 
 def _run_sp(params, tokens, length: int, cfg: TransformerConfig, mesh: Mesh,
             pos0: int, attend):
     """The body both SP functions share. tokens (1, Sb) split into n
-    shards, RoPE at pos0 + absolute index; each shard runs embed, QKV and
-    RoPE on its tp positions (``models.transformer.sp_layer``), and
-    ``attend(li, t, qs, ks, vs, devices)`` gives tp position t's
-    attention output for each shard, over its heads; then each shard's
-    wo and MLP with their all-reduces over its tp positions. Returns
-    (last_logits (V,) f32 on tokens' device, ks, vs): per tp position
-    (L, Sb, KV_t, D) on its first shard's device, or, with no tp axis,
-    one (L, Sb, KV, D) pair on tokens' device."""
+    shards, RoPE at pos0 + absolute index; stage by stage, each shard runs
+    embed (the first stage), QKV and RoPE on its tp positions
+    (``models.transformer.sp_layer``), and ``attend(lj, k, qs, ks, vs,
+    devices)`` gives the attention output of tp position t of the stage's
+    local layer lj for each shard, over its heads (k = s * tp + t, the
+    position's index among the first shard's); then each shard's wo and
+    MLP with their all-reduces over its tp positions. A shard's hidden
+    state goes on to the next stage's devices by ``.to()``
+    (``pipeline.stage_send``). Returns (last_logits (V,) f32 on tokens'
+    device, ks, vs): per stage and tp position (L/pp, Sb, KV_t, D) on its
+    first shard's device, or, with neither tp nor pp, one (L, Sb, KV, D)
+    pair on tokens' device."""
     grid, devss = _sp_grid(params, mesh)
-    n, tp = len(devss), len(devss[0])
+    pp, n, tp = len(devss), len(devss[0]), len(devss[0][0])
     B, S = tokens.shape
     Sl = S // n
-    L, D = cfg.num_layers, cfg.head_dim_
+    D = cfg.head_dim_
+    L = grid[0][0][0]["layers"]["attn"]["wq"].shape[0]
     dt = cfg.dtype
     home = tokens.device
-    xs, ropes = [], []
-    for j, t in enumerate(_split(tokens, [row[0] for row in devss])):
-        xs.append(on_each(grid[j][0]["embed"].to(dt)[t], devss[j]))
-        ropes.append({d: rope_angles(Sl, D, cfg.rope_theta,
-                                     offset=pos0 + j * Sl, device=d)
-                      for d in dict.fromkeys(devss[j])})
-    where = [home] if isinstance(params, dict) else devss[0]
+    xs = [on_each(grid[0][j][0]["embed"].to(dt)[t], devss[0][j])
+          for j, t in enumerate(_split(tokens, [r[0] for r in devss[0]]))]
+    ropes = [{d: rope_angles(Sl, D, cfg.rope_theta, offset=pos0 + j * Sl,
+                             device=d)
+              for d in dict.fromkeys(d for st in devss for d in st[j])}
+             for j in range(n)]
+    where = ([home] if isinstance(params, dict)
+             else [d for st in devss for d in st[0]])
+    firsts = [p for st in grid for p in st[0]]
     ks = [torch.empty((L, S, p["layers"]["attn"]["wk"].shape[2], D),
-                      dtype=dt, device=d) for p, d in zip(grid[0], where)]
+                      dtype=dt, device=d) for p, d in zip(firsts, where)]
     vs = [torch.empty_like(k) for k in ks]
-    for li in range(L):
-        lpss = [[layer_params(p, li) for p in row] for row in grid]
+    for s in range(pp):
+        if s:
+            xs = [stage_send(next(iter(x.values())), devss[s][j])
+                  for j, x in enumerate(xs)]
+        for lj in range(L):
+            lpss = [[layer_params(p, lj) for p in row] for row in grid[s]]
 
-        def attend_all(hs):
-            qkv = [[None] * tp for _ in range(n)]
-            for j in range(n):
-                for t, (lp, d) in enumerate(zip(lpss[j], devss[j])):
-                    cos, sin = ropes[j][d]
-                    q, k, v = _layer_qkv(lp, hs[j][d], cfg)
-                    qkv[j][t] = (apply_rope(q, cos, sin),
-                                 apply_rope(k, cos, sin), v)
-                    ks[t][li, j * Sl:(j + 1) * Sl] = qkv[j][t][1][0]
-                    vs[t][li, j * Sl:(j + 1) * Sl] = v[0]
-            outs = [attend(li, t, *zip(*(qkv[j][t] for j in range(n))),
-                           [devss[j][t] for j in range(n)])
-                    for t in range(tp)]
-            return [[o[j] for o in outs] for j in range(n)]
-        xs = sp_layer(cfg, xs, lpss, devss, attend_all)
+            def attend_all(hs, s=s, lj=lj, lpss=lpss):
+                qkv = [[None] * tp for _ in range(n)]
+                for j in range(n):
+                    for t, (lp, d) in enumerate(zip(lpss[j], devss[s][j])):
+                        cos, sin = ropes[j][d]
+                        q, k, v = _layer_qkv(lp, hs[j][d], cfg)
+                        qkv[j][t] = (apply_rope(q, cos, sin),
+                                     apply_rope(k, cos, sin), v)
+                        ks[s * tp + t][lj, j * Sl:(j + 1) * Sl] = \
+                            qkv[j][t][1][0]
+                        vs[s * tp + t][lj, j * Sl:(j + 1) * Sl] = v[0]
+                outs = [attend(lj, s * tp + t,
+                               *zip(*(qkv[j][t] for j in range(n))),
+                               [devss[s][j][t] for j in range(n)])
+                        for t in range(tp)]
+                return [[o[j] for o in outs] for j in range(n)]
+            xs = sp_layer(cfg, xs, lpss, devss[s], attend_all)
     j = (length - 1) // Sl                  # the shard of the last token
-    p = grid[j][0]
-    last = rms_norm(xs[j][devss[j][0]], p["ln_f"],
+    p = grid[-1][j][0]
+    last = rms_norm(xs[j][devss[-1][j][0]], p["ln_f"],
                     cfg.rms_norm_eps)[0, length - 1 - j * Sl]
     logits = (last @ p["lm_head"].to(dt)).float().to(home)
     if isinstance(params, dict):
@@ -213,15 +231,16 @@ def sp_prefill_fn(params, tokens, length: int, cfg: TransformerConfig,
     (L, Sb, KV, D)) on tokens' device — with the attention split over the
     mesh's ``sp`` axis: shard i holds tokens [i·Sb/n, (i+1)·Sb/n). Sb
     must be divisible by the sp size (pow-2 buckets are). ``params`` is
-    ``replicate_params(params, mesh)``, or on an sp x tp mesh the
-    per-position params of ``tp_shards(params, mesh)``: then each tp
+    ``replicate_params(params, mesh)``, or on an sp mesh with tp or pp
+    the per-position params of ``tp_shards(params, mesh)``: then each tp
     position runs the ring or Ulysses over its sp positions at its heads
-    (the reference's ``heads_axis="tp"``), and ks, vs are one
-    (L, Sb, KV/tp, D) per tp position, as ``_run_sp`` says."""
+    (the reference's ``heads_axis="tp"``), each stage over its layers,
+    and ks, vs are one (L/pp, Sb, KV/tp, D) per stage and tp position, as
+    ``_run_sp`` says."""
     scale = 1.0 / math.sqrt(cfg.head_dim_)
     body = _ring_shards if strategy == "ring" else _ulysses_shards
 
-    def attend(li, t, qs, ks, vs, devices):
+    def attend(lj, k, qs, ks, vs, devices):
         return body(qs, ks, vs, devices, causal=True, scale=scale)
     return _run_sp(params, tokens, length, cfg, mesh, 0, attend)
 
@@ -238,8 +257,9 @@ def sp_suffix_prefill_fn(params, pool_k, pool_v, pages, tokens,
     the suffix KV. Always ring — Ulysses would have to split the
     resident prefix's KV heads across shards, which buys nothing for a
     memory-resident prefix. ``params`` as in ``sp_prefill_fn``; on an sp
-    x tp mesh ``pool_k``/``pool_v`` are the tp positions' pools, each
-    read by its own position, else one pool."""
+    mesh with tp or pp ``pool_k``/``pool_v`` are the pools of the stages'
+    tp positions (stage-major), each read by its own position, else one
+    pool."""
     if isinstance(pool_k, torch.Tensor):
         pool_k, pool_v = [pool_k], [pool_v]
     T = pages.shape[0] * page
@@ -247,11 +267,11 @@ def sp_suffix_prefill_fn(params, pool_k, pool_v, pages, tokens,
     scale = 1.0 / math.sqrt(D)
     pvalid = torch.arange(T, device=pages.device)[None] < prefix_len
 
-    def attend(li, t, qs, ks, vs, devices):
-        KV = pool_k[t].shape[-2]
-        pg = pages.to(pool_k[t].device)
-        ck = pool_k[t][li][pg].reshape(1, T, KV, D)
-        cv = pool_v[t][li][pg].reshape(1, T, KV, D)
+    def attend(lj, k, qs, ks, vs, devices):
+        KV = pool_k[k].shape[-2]
+        pg = pages.to(pool_k[k].device)
+        ck = pool_k[k][lj][pg].reshape(1, T, KV, D)
+        cv = pool_v[k][lj][pg].reshape(1, T, KV, D)
         on = {d: (ck.to(d), cv.to(d), pvalid.to(d))
               for d in dict.fromkeys(devices)}
         states = []

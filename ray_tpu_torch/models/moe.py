@@ -8,27 +8,34 @@ layer as XLA einsums outside any Pallas kernel, so here it stays
 
 Expert parallelism: JAX shards the expert dim over ``EP_AXES`` = fsdp x sp
 (``LogicalAxisRules.default()``'s "expert" rule) and lets XLA insert the
-all-to-alls. The port's mesh is a single controller
-(``parallel.mesh.Mesh``), so ``moe_layer(..., mesh=)`` moves the tokens
-itself:
+all-to-alls. ``moe_layer(..., mesh=)`` moves the tokens itself. Routing
+runs over all N tokens, as in the unsharded layer: the capacity slot of a
+choice is a cumsum over all N*K choices in token order, global by nature.
+The router is gathered across the positions that split it (fsdp, on its
+embed dim), not summed from partial products, so ``expert_idx`` and
+``keep`` are bit-equal to the unsharded layer's on the same device and a
+near-tie cannot flip a token's expert. Each position computes its experts
+over its slice of the MLP units (tp), and the w_down partials of one
+expert group are summed in f32 and rounded once, as
+``transformer.all_reduce`` does.
 
-- routing runs once, over all N tokens, on ``x``'s device, as in the
-  unsharded layer. The capacity slot of a choice is a cumsum over all N*K
-  choices, global by nature. The router is gathered across the positions
-  that split it (fsdp, on its embed dim), not summed from partial
-  products, so ``expert_idx`` and ``keep`` are bit-equal to the unsharded
-  layer's on the same device and a near-tie cannot flip a token's expert;
-- each expert group's dispatched slots, (E/ep, C, D), go ``.to()`` the
-  devices of the positions that hold those experts;
-- each position computes its experts over its slice of the MLP units
-  (tp), and the w_down partials of one expert group are summed in f32 in
-  position order and rounded once, as ``transformer.all_reduce`` does;
-- the expert outputs come back to ``x``'s device for the combine: the
-  single-controller counterpart of the all-to-alls.
-
-The positions whose coordinates off the expert and MLP axes (dp, pp) are
-0 do the work; where other positions hold the same slices they are
-replicas, which a trainer would all-reduce as ``models.train_step`` does.
+- One process (``parallel.mesh.Mesh``, the single controller): each
+  expert group's dispatched slots, (E/ep, C, D), go ``.to()`` the devices
+  of the positions that hold those experts, and the outputs come back to
+  ``x``'s device for the combine. The positions whose coordinates off the
+  expert and MLP axes (dp, pp) are 0 do the work; where other positions
+  hold the same slices they are replicas, which a trainer would
+  all-reduce as ``models.train_step`` does.
+- A mesh over several processes: each rank holds its positions' expert
+  groups at their MLP slices, and every position of a (pp, dp) replica
+  takes an equal run of the N tokens (``moe_rows``). A rank routes all N
+  tokens (N x E logits, small beside the experts) and dispatches its
+  run's; one ``all_to_all_single`` over the replica's ranks takes each
+  expert group's slots to the ranks that hold it, where the sources'
+  disjoint slots are added; the tp partials are summed over the group's
+  ranks in f32 (``transformer._AllReduce``); a second all-to-all brings
+  every group's outputs to every rank, which combines its run. Both
+  exchanges have equal splits (C is static) and run back in the backward.
 """
 
 from __future__ import annotations
@@ -40,9 +47,11 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
+from ..parallel.mesh import Mesh
 from ..parallel.sharding import (LogicalAxisRules, gather_tensor,
                                  shard_params, shard_slices, tree_specs)
-from .transformer import _to_tensor
+from ..ops.ring_attention import all_to_all
+from .transformer import _AllReduce, _to_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,10 +112,12 @@ def moe_logical_axes() -> Dict[str, tuple]:
     }
 
 
-def route(router: torch.Tensor, xf: torch.Tensor, cfg: MoEConfig):
+def route(router: torch.Tensor, xf: torch.Tensor, cfg: MoEConfig,
+          rows: slice = slice(None)):
     """The routing of (N, D) tokens ``xf``: (router logits (N, E) f32,
-    probs, expert_idx (N, K), keep (N, K) bool, dispatch (N, E, C) in
-    ``cfg.dtype``, combine (N, E, C) f32)."""
+    probs, expert_idx (N, K), keep (N, K) bool, dispatch (n, E, C) in
+    ``cfg.dtype``, combine (n, E, C) f32), the dispatch and combine of
+    the tokens ``rows`` only (default: all N)."""
     N = xf.shape[0]
     E, K = cfg.num_experts, cfg.num_experts_per_token
     C = cfg.capacity(N)
@@ -126,12 +137,13 @@ def route(router: torch.Tensor, xf: torch.Tensor, cfg: MoEConfig):
     gate_vals = gate_vals * keep
     # Dispatch [N, E, C]: token n -> expert e at slot c. A dropped choice
     # takes the one-hot of C, which JAX's one_hot makes all zeros.
-    slot = F.one_hot(torch.where(keep, pos_in_expert, C).long(),
-                     C + 1)[..., :C]                               # [N, K, C]
+    slot = F.one_hot(torch.where(keep, pos_in_expert, C)[rows].long(),
+                     C + 1)[..., :C]                               # [n, K, C]
+    onehot = onehot[rows]
     disp = torch.einsum("nke,nkc->nec", onehot.to(cfg.dtype),
                         slot.to(cfg.dtype))
     comb = torch.einsum("nke,nkc,nk->nec", onehot.float(), slot.float(),
-                        gate_vals.float())
+                        gate_vals[rows].float())
     return router_logits, probs, expert_idx, keep, disp, comb
 
 
@@ -214,6 +226,95 @@ def _ep_forward(trees, lay: _EPLayout, mesh, xf, cfg: MoEConfig):
     return y, routing
 
 
+def moe_rows(mesh, num_tokens: int) -> Tuple[int, int]:
+    """This rank's run [a, b) of the N = B*S flattened tokens on a mesh over
+    several processes: the tokens split into equal runs, one per position
+    of a (pp, dp) replica in grid order, and a rank takes its positions'
+    runs."""
+    coords = mesh.coords()
+    loc = mesh.local_positions()
+    reps = {coords[i][:2] for i in loc}
+    if len(reps) > 1:
+        raise ValueError(f"this rank's positions lie in {len(reps)} (pp, "
+                         f"dp) replicas: the expert-parallel layer takes "
+                         f"a rank's positions from one")
+    members = [i for i, c in enumerate(coords) if c[:2] in reps]
+    if num_tokens % len(members):
+        raise ValueError(f"{num_tokens} tokens do not split over the "
+                         f"{len(members)} positions of a replica")
+    run = num_tokens // len(members)
+    k = members.index(loc[0])
+    return k * run, (k + len(loc)) * run
+
+
+def _ep_ranks(trees, specs, mesh, xf, cfg: MoEConfig):
+    """``_ep_forward`` on a mesh over several processes (see the module
+    docstring): (y of this rank's run of tokens (n, D) f32, routing)."""
+    E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
+    coords = mesh.coords()
+    loc = mesh.local_positions()
+    a, b = moe_rows(mesh, xf.shape[0])
+    members = [i for i, c in enumerate(coords) if c[:2] == coords[loc[0]][:2]]
+    ranks = mesh.ranks(members)
+    group = mesh.group(ranks)
+    rep = Mesh(mesh.devices[coords[loc[0]][0]:coords[loc[0]][0] + 1,
+                            coords[loc[0]][1]:coords[loc[0]][1] + 1])
+    # Each rank's positions' router parts (all one shape), to every rank.
+    mine = torch.stack([trees[i]["router"] for i in loc])
+    parts = [p for chunk in all_to_all([mine] * len(ranks), group)
+             for p in chunk]
+    router = gather_tensor(parts, specs["router"], rep, device=xf.device)
+    routing = route(router, xf, cfg, slice(a, b))
+    disp, comb = routing[4], routing[5]
+    xe = torch.einsum("nd,nec->ecd", xf[a:b].to(cfg.dtype), disp)  # [E,C,D]
+
+    def experts_of(i):
+        sl = shard_slices(specs["w_gate"], (E, D, Fd), mesh, coords[i])
+        return sl[0].start, sl[0].stop
+    held = {r: set() for r in ranks}
+    for i in members:
+        held[mesh.process_index(i)].add(experts_of(i))
+    spans = {r: (min(e[0] for e in g), max(e[1] for e in g))
+             for r, g in held.items()}
+    ranges = set(spans.values())
+    if (len({y - x for x, y in ranges}) > 1
+            or any(sum(y - x for x, y in held[r]) != y1 - x1
+                   for r, (x1, y1) in spans.items())
+            or any(u != w and u[0] < w[1] and w[0] < u[1]
+                   for u in ranges for w in ranges)):
+        raise ValueError(f"the ranks hold experts {held}: the "
+                         f"expert-parallel layer needs each rank one run, "
+                         f"the runs equal or apart, of one length")
+    e0, e1 = spans[mesh.rank]
+    # Dispatch: each rank's slots for each rank's experts, added up.
+    xe = torch.stack(all_to_all([xe[s0:s1] for s0, s1 in
+                                 (spans[r] for r in ranks)], group)).sum(0)
+    # This rank's experts over its MLP slices, summed in f32 over the
+    # slices here, then over the ranks that hold the others.
+    total = None
+    for i in dict.fromkeys(loc):
+        g0, g1 = experts_of(i)
+        t = trees[i]
+        part = _experts(xe[g0 - e0:g1 - e0], t["w_gate"], t["w_up"],
+                        t["w_down"], cfg.dtype).float()
+        part = F.pad(part, (0, 0, 0, 0, g0 - e0, e1 - g1))
+        total = part if total is None else total + part
+    holders = mesh.ranks([i for i in members if spans[
+        mesh.process_index(i)] == (e0, e1)])
+    if len(holders) > 1:
+        total = _AllReduce.apply(total, mesh.group(holders))
+    ye = total.to(cfg.dtype)
+    # Combine: every rank's outputs to every rank, each expert range taken
+    # from the first rank that holds it.
+    got = all_to_all([ye] * len(ranks), group)
+    first = {}
+    for r, chunk in zip(ranks, got):
+        first.setdefault(spans[r], chunk)
+    ye = torch.cat([first[k] for k in sorted(first)])
+    y = torch.einsum("ecd,nec->nd", ye.float(), comb)
+    return y, routing
+
+
 def moe_layer(params, x: torch.Tensor, cfg: MoEConfig, mesh=None,
               rules: Optional[LogicalAxisRules] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -237,9 +338,13 @@ def moe_layer_routed(params, x: torch.Tensor, cfg: MoEConfig, mesh=None,
     units over tp, the router's embed dim over fsdp); ``params`` is then
     the full tree, which is split, or the per-position list that
     ``shard_params(params, mesh, rules, moe_logical_axes())`` gives. See
-    the module docstring."""
+    the module docstring. On a mesh over several processes every rank
+    passes the whole ``x`` and gets back y of its run of the flattened
+    tokens only (``moe_rows``), as (b - a, D); the aux losses and the
+    routing are over all N tokens, on every rank."""
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
+    shape = x.shape
     if mesh is None:
         routing = route(params["router"], xf, cfg)
         disp, comb = routing[4], routing[5]
@@ -248,15 +353,18 @@ def moe_layer_routed(params, x: torch.Tensor, cfg: MoEConfig, mesh=None,
                       cfg.dtype)
         y = torch.einsum("ecd,nec->nd", ye.float(), comb)
     else:
-        mesh.check_one_process("the expert-parallel MoE layer", "16")
         rules = rules or LogicalAxisRules.default()
         trees = (params if isinstance(params, (list, tuple))
                  else shard_params(params, mesh, rules, moe_logical_axes()))
         if len(trees) != mesh.devices.size:
             raise ValueError(f"{len(trees)} position trees for a mesh of "
                              f"{mesh.devices.size} positions")
-        y, routing = _ep_forward(trees, _EPLayout(cfg, mesh, rules), mesh,
-                                 xf, cfg)
-    y = y.reshape(B, S, D).to(x.dtype)
+        lay = _EPLayout(cfg, mesh, rules)
+        if mesh.world > 1:
+            y, routing = _ep_ranks(trees, lay.specs, mesh, xf, cfg)
+            shape = y.shape                 # this rank's run of the tokens
+        else:
+            y, routing = _ep_forward(trees, lay, mesh, xf, cfg)
+    y = y.reshape(shape).to(x.dtype)
     aux = _aux(routing[0], routing[1], routing[2], routing[3], cfg)
     return y, aux, (routing[2], routing[3])

@@ -18,19 +18,22 @@ or an all-to-all is a ``.to(device)``: a no-op where two positions share a
 device. Each (batch group, tp slice) runs its own ring, or its own
 all-to-all, over the sp positions that share its coordinate
 (``Mesh.sp_positions``): only the sequence communicates. An axis named in
-neither spec replicates the body in the reference; here its coordinate 0
-runs it. So ``shard_map_compat`` and ``_qkv_specs``, which build the
+neither spec replicates the body in the reference; here, in one process,
+its coordinate 0 runs it (across processes each position runs its own).
+So ``shard_map_compat`` and ``_qkv_specs``, which build the
 reference's ``shard_map`` and its PartitionSpecs, have no counterpart.
 Under autograd the gradient runs back through these plain ops.
 
-The model's sequence shards may also lie on several processes (a mesh
-over ranks, ``models.transformer``): the ring then rotates K/V between
-ranks by P2P (``ring_shift``, ``dist.batch_isend_irecv``, its backward the
-reverse rotation of the gradients), and the sequence gathered for one
-attention pass is joined on the first shard's rank and split back
-(``seq_gather``, ``seq_scatter``, each the other's backward). The
-free-standing ``ring_attention`` and ``ulysses_attention`` stay in one
-process (ROADMAP item 14).
+A mesh may also span several processes (``parallel.mesh``): the model's
+sequence shards (``models.transformer``) and the free-standing
+``ring_attention`` and ``ulysses_attention`` then run per rank. The ring
+rotates K/V between ranks by P2P (``ring_shift``,
+``dist.batch_isend_irecv``, its backward the reverse rotation of the
+gradients); Ulysses exchanges heads for sequence with one
+``dist.all_to_all_single`` over the sp group each way (``all_to_all``, its
+backward the reverse exchange); the sequence gathered for one attention
+pass is joined on the first shard's rank and split back (``seq_gather``,
+``seq_scatter``, each the other's backward).
 """
 
 from __future__ import annotations
@@ -336,15 +339,72 @@ def _split(x, devices: Sequence[torch.device]) -> List[torch.Tensor]:
             for c, d in zip(x.split(S // n, dim=1), devices)]
 
 
-def _sharded(body, q, k, v, mesh, axis_name: str, causal: bool,
+class _AllToAll(torch.autograd.Function):
+    """A flat tensor cut into equal chunks, chunk r sent to the group's
+    rank r, and the chunks received from each rank, in group-rank order
+    (``dist.all_to_all_single``). The backward is the same exchange of
+    the gradient: chunk r of it goes back to rank r."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = torch.empty_like(grad)
+        dist.all_to_all_single(out, grad.contiguous(), group=ctx.group)
+        return out, None
+
+
+def all_to_all(chunks: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    """``chunks[r]`` to the group's rank r, in one exchange; the chunk each
+    rank sent here, in group-rank order, each shaped as this rank's
+    ``chunks`` are (every rank's chunk r has one shape and dtype).
+    Differentiable."""
+    got = _AllToAll.apply(torch.cat([c.reshape(-1) for c in chunks]), group)
+    return [g.view(c.shape) for g, c in zip(
+        got.split([c.numel() for c in chunks]), chunks)]
+
+
+def _ulysses_ranks(q, k, v, group, m: int, n: int, *, causal: bool,
+                   scale: float) -> torch.Tensor:
+    """Ulysses over an sp group of ``n`` shards held by ``m`` ranks, each
+    rank a run of n/m shards: q (B, Sr, Hq, D), k, v (B, Sr, Hkv, D) are
+    this rank's run of the sequence. Each rank takes its n/m shards' head
+    slices (the reference's, joined) of the whole sequence in one
+    all-to-all (q, k and v together), attends, and gives each rank its
+    run of the sequence back in a second: (B, Sr, Hq, D)."""
+    for x in (q, k):
+        if x.shape[2] % n:
+            raise ValueError(f"ulysses needs head counts divisible by the "
+                             f"sp size {n}, got {x.shape[2]}")
+    B, Sr, Hq, D = q.shape
+    hq, hk = Hq // m, k.shape[2] // m
+    got = all_to_all([torch.cat([q[:, :, r * hq:(r + 1) * hq].reshape(-1),
+                                 k[:, :, r * hk:(r + 1) * hk].reshape(-1),
+                                 v[:, :, r * hk:(r + 1) * hk].reshape(-1)])
+                      for r in range(m)], group)
+    sizes = [B * Sr * hq * D, B * Sr * hk * D, B * Sr * hk * D]
+    parts = [g.split(sizes) for g in got]
+    qh, kh, vh = (torch.cat([p[x].view(B, Sr, -1, D) for p in parts], dim=1)
+                  for x in range(3))
+    o = reference_attention(qh, kh, vh, causal=causal, scale=scale)
+    back = all_to_all([o[:, r * Sr:(r + 1) * Sr] for r in range(m)], group)
+    return torch.cat(back, dim=2)
+
+
+def _sharded(ring: bool, q, k, v, mesh, axis_name: str, causal: bool,
              scale: Optional[float], batch_axes: Tuple[str, ...],
              heads_axis: Optional[str]):
-    """q, k, v whole (B, S, H*, D) on one device: rows split over
-    ``batch_axes`` (row-major over them, JAX's order), heads over
-    ``heads_axis``, and each piece's ``body`` run over its sp positions'
-    devices; the pieces are joined back on q's device."""
+    """q, k, v whole (B, S, H*, D): rows split over ``batch_axes``
+    (row-major over them, JAX's order), heads over ``heads_axis``, and
+    each piece's ring or all-to-all run over its sp positions' devices.
+    In one process the pieces are joined back on q's device; over several
+    see ``_sharded_ranks``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    mesh.check_one_process("ring and Ulysses attention", "14")
     shape = mesh.shape
     batch_axes = tuple(a for a in batch_axes if shape.get(a, 1) > 1)
     if heads_axis is not None and shape.get(heads_axis, 1) == 1:
@@ -357,7 +417,12 @@ def _sharded(body, q, k, v, mesh, axis_name: str, causal: bool,
         if size % n:
             raise ValueError(f"{what} {size} does not split over {n} "
                              f"positions")
-    rows, hq, hk = B // nb, Hq // nh, Hkv // nh
+    sizes = (B // nb, Hq // nh, Hkv // nh)
+    if mesh.world > 1:
+        return _sharded_ranks(ring, q, k, v, mesh, axis_name, causal, scale,
+                              batch_axes, heads_axis, sizes)
+    body = _ring_shards if ring else _ulysses_shards
+    rows, hq, hk = sizes
     grid = np.moveaxis(mesh.devices, AXES.index(axis_name), -1)
     out = []
     for b, at in enumerate(np.ndindex(*(shape[a] for a in batch_axes))):
@@ -380,6 +445,86 @@ def _sharded(body, q, k, v, mesh, axis_name: str, causal: bool,
     return torch.cat(out, dim=0)
 
 
+def _sharded_ranks(ring: bool, q, k, v, mesh, axis_name: str, causal: bool,
+                   scale: float, batch_axes: Tuple[str, ...],
+                   heads_axis: Optional[str], sizes) -> torch.Tensor:
+    """``_sharded`` on a mesh over several processes. Every position runs
+    its piece (its batch group's rows, its sp shard of the sequence, its
+    tp slice's heads), as every device of the reference's ``shard_map``
+    does: each group of positions along ``axis_name`` (every rank walks
+    them in grid order) runs its ring or all-to-all between the ranks
+    that hold it, or in this rank where it holds them all. Returns this
+    rank's box of pieces on q's device: the rows of its batch groups, the
+    sequence of its shards and the heads of its slices, each in order (a
+    position that repeats another's piece, along an axis neither spec
+    names, adds nothing)."""
+    rows, hq, hk = sizes
+    shape, coords = mesh.shape, mesh.coords()
+    ax = AXES.index(axis_name)
+    n = shape[axis_name]
+    S = q.shape[1]
+    if S % n:
+        raise ValueError(f"sequence length {S} does not split over "
+                         f"{n} sp shards")
+    sl = S // n
+    pieces = {}
+    for i, c in enumerate(coords):
+        line = mesh.axis_positions(i, axis_name)
+        mine = [a for a, p in enumerate(line) if mesh.is_local(p)]
+        if c[ax] != 0 or not mine:
+            continue
+        at = dict(zip(AXES, c))
+        b = int(np.ravel_multi_index([at[a] for a in batch_axes],
+                                     [shape[a] for a in batch_axes])
+                ) if batch_axes else 0
+        h = at[heads_axis] if heads_axis else 0
+        first, last = mine[0], mine[-1]
+        devices = [mesh.devices.flat[line[a]] for a in mine]
+        seq = slice(first * sl, (last + 1) * sl)
+        r = slice(b * rows, (b + 1) * rows)
+        qr = q[r, seq, h * hq:(h + 1) * hq]
+        kr, vr = (t[r, seq, h * hk:(h + 1) * hk] for t in (k, v))
+        ranks = mesh.ranks(line)
+        if len(ranks) > 1 and len(set(devices)) > 1:
+            raise ValueError(f"an sp group spans ranks, and this rank's "
+                             f"shards of it lie on {len(set(devices))} "
+                             f"devices: a rank's shards must share one")
+        if ring:
+            rotate = None if len(ranks) == 1 else ring_shift(
+                mesh.process_index(line[(first - 1) % n]),
+                mesh.process_index(line[(last + 1) % n]))
+            outs = _ring_shards(_split(qr, devices), _split(kr, devices),
+                                _split(vr, devices), devices, causal=causal,
+                                scale=scale, n=n, first=first, rotate=rotate)
+        elif len(ranks) == 1:
+            outs = _ulysses_shards(_split(qr, devices), _split(kr, devices),
+                                   _split(vr, devices), devices,
+                                   causal=causal, scale=scale)
+        else:
+            outs = _ulysses_ranks(
+                *(t.to(devices[0]) for t in (qr, kr, vr)),
+                mesh.group(ranks), len(ranks), n, causal=causal,
+                scale=scale).split(sl, dim=1)
+        for a, o in zip(mine, outs):
+            pieces.setdefault((b, a, h), o.to(q.device))
+    return _box(pieces)
+
+
+def _box(pieces) -> torch.Tensor:
+    """{(batch group, sp shard, tp slice): piece} joined into one tensor
+    along rows, sequence and heads; ValueError unless the keys are every
+    combination of runs of consecutive indices."""
+    axes = [sorted({key[d] for key in pieces}) for d in range(3)]
+    if (len(pieces) != math.prod(len(x) for x in axes)
+            or any(x != list(range(x[0], x[-1] + 1)) for x in axes)):
+        raise ValueError(f"this rank's positions hold pieces {sorted(pieces)}"
+                         f", not one box of rows, sequence and heads")
+    bs, js, hs = axes
+    return torch.cat([torch.cat([torch.cat([pieces[(b, j, h)] for h in hs],
+                                           dim=2) for j in js], dim=1)
+                      for b in bs], dim=0)
+
+
 def ring_attention(q, k, v, mesh, axis_name: str = "sp",
                    causal: bool = True, scale: Optional[float] = None,
                    batch_axes: Tuple[str, ...] = ("dp", "fsdp"),
@@ -390,9 +535,16 @@ def ring_attention(q, k, v, mesh, axis_name: str = "sp",
     Batch and heads keep their ``batch_axes``/``heads_axis`` splits and
     only the sequence communicates: each (batch group, tp slice) takes its
     rows and heads of q, k and v[:, i*S/n:(i+1)*S/n] onto its i-th sp
-    position's device. The output is joined back on q's device.
-    Degenerate sp=1 is one local attention pass."""
-    return _sharded(_ring_shards, q, k, v, mesh, axis_name, causal, scale,
+    position's device. Degenerate sp=1 is one local attention pass.
+
+    In one process the output is joined back on q's device. On a mesh
+    over several processes every rank passes the whole q, k and v (as
+    ``make_train_step``'s batch) and gets back only its positions'
+    pieces, joined on q's device: the rows of its batch groups, the
+    sequence of its sp shards and the heads of its tp slices (a rank of
+    one position a ring: (B/nb, S/sp, H*/tp, D)). K/V rotate between the
+    ring's ranks by P2P, and autograd runs the rotations back."""
+    return _sharded(True, q, k, v, mesh, axis_name, causal, scale,
                     batch_axes, heads_axis)
 
 
@@ -402,6 +554,8 @@ def ulysses_attention(q, k, v, mesh, axis_name: str = "sp",
                       heads_axis: Optional[str] = "tp"):
     """All-to-all sequence parallelism: reshard seq→heads, attend locally,
     reshard back.  Requires local head count (H / tp) divisible by the sp
-    size."""
-    return _sharded(_ulysses_shards, q, k, v, mesh, axis_name, causal,
-                    scale, batch_axes, heads_axis)
+    size. Inputs and output as in ``ring_attention``; over several
+    processes the two reshards are one ``all_to_all_single`` each over
+    the sp group's ranks (q, k and v in one), differentiable."""
+    return _sharded(False, q, k, v, mesh, axis_name, causal, scale,
+                    batch_axes, heads_axis)

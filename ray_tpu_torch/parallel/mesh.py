@@ -15,10 +15,11 @@ Training splits any of ``pp``, ``dp``, ``fsdp``, ``sp`` and ``tp`` at once
 ``batch_groups``, ``group_positions``, ``fsdp_positions`` and
 ``sp_positions`` give its layout, each stage (the positions with one pp
 coordinate) a dp x fsdp x sp x tp layout of its own. Serving
-(``serve_axes``) takes ``sp``, ``tp`` or both, ``pp`` alone or beside
-``tp``, and ``dp`` or ``fsdp`` alone, where the engine replicates the
-weights and the pool once per distinct device, as the JAX engine's rules
-replicate them over those axes. It is not ``torch.distributed.DeviceMesh``.
+(``serve_axes``) takes any layout too: tp splits the weights and the pool
+over heads, pp over the layer stack, sp the prefills' sequence, and the
+engine replicates the whole split layout once per distinct placement of
+its dp x fsdp coordinates, as the JAX engine's rules replicate the weights
+over those axes. It is not ``torch.distributed.DeviceMesh``.
 
 A mesh built where a ``torch.distributed`` world is formed (the Train
 backend, ``train.backend``, forms one) covers every rank's positions:
@@ -30,8 +31,10 @@ another rank's positions (None). Training takes every axis across ranks:
 a dp or fsdp group, and a tp, sp or pp group too, whose exchanges (the
 in-layer all-reduce, the ring or the gathered sequence, the stage
 hand-off) then run over ``torch.distributed`` between the ranks that hold
-its positions (``axis_positions``, ``axis_group``). Serving stays
-single-controller, as the JAX engine is.
+its positions (``axis_positions``, ``axis_group``), as do the
+free-standing ring and Ulysses attention, ``pipeline_spmd`` and the
+expert-parallel MoE layer. Serving stays single-controller, as the JAX
+engine is.
 
 A grid may name one device more than once: a shard is a position in the
 mesh, not a device. ``build_mesh(MeshSpec(sp=4), devices=[cuda:0] * 4)``
@@ -180,18 +183,6 @@ class Mesh:
         and its gradients' squares."""
         return dist.group.WORLD if self._groups is not None else None
 
-    def check_one_process(self, what: str,
-                          item: Optional[str] = None) -> None:
-        """Raise NotImplementedError where the mesh spans several
-        processes: ``what`` runs every position from one process; its form
-        across processes is ROADMAP Queue 1 item ``item`` where it has
-        one."""
-        if self.world > 1:
-            todo = f" (ROADMAP item {item})" if item else ""
-            raise NotImplementedError(
-                f"{what} on a mesh over {self.world} processes is not "
-                f"ported: it runs every position from one process{todo}")
-
     def axis_positions(self, i: int, axis: str) -> List[int]:
         """The flat indices of the positions that share position ``i``'s
         coordinate on every axis but ``axis``, in ``axis`` order: ``i``'s
@@ -209,28 +200,17 @@ class Mesh:
         along ``axis`` (``group``: None where one rank holds them all)."""
         return self.group(self.ranks(self.axis_positions(i, axis)))
 
-    # Serving layouts the engine takes (the split axes of each, as sets).
-    SERVE_LAYOUTS = (frozenset(), frozenset({"sp"}), frozenset({"tp"}),
-                     frozenset({"sp", "tp"}), frozenset({"pp"}),
-                     frozenset({"pp", "tp"}), frozenset({"dp"}),
-                     frozenset({"fsdp"}))
-
     def serve_axes(self) -> Tuple[str, ...]:
         """The axes larger than 1 of a serving layout, in ``AXES`` order:
-        sp, tp or both; pp alone or beside tp; dp or fsdp alone. Any
-        other layout raises NotImplementedError: dp or fsdp beside another
-        split axis, and pp beside sp, are ROADMAP Queue 1 item 13 (the JAX
-        engine serves them through GSPMD)."""
-        # The JAX engine is single-controller too.
-        self.check_one_process("serving")
-        split = tuple(a for a, s in self.shape.items() if s > 1)
-        if frozenset(split) not in self.SERVE_LAYOUTS:
+        any of them (see the module docstring). A mesh over several
+        processes raises NotImplementedError: the engine runs every
+        position from one process, as the JAX engine's single controller
+        does."""
+        if self.world > 1:
             raise NotImplementedError(
-                f"serving on mesh axes {split} is not ported: the engine "
-                f"serves sp, tp, sp x tp, pp, pp x tp, dp or fsdp (dp or "
-                f"fsdp beside another split axis, and pp beside sp, are "
-                f"ROADMAP Queue 1 item 13)")
-        return split
+                f"serving on a mesh over {self.world} processes is not "
+                f"ported: it runs every position from one process")
+        return tuple(a for a, s in self.shape.items() if s > 1)
 
     # -- the training layout ---------------------------------------------
 

@@ -129,25 +129,20 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
 
 
 def test_unported_engine_options_are_absent():
-    """sp_degree, sp_strategy, sp, tp, sp x tp, pp, dp and fsdp meshes and
-    the engine's own rules are ported (tests/test_torch_sp_prefill.py,
-    tests/test_torch_tp_engine.py, tests/test_torch_mesh_engine.py); what
-    stays unported: rules that lay out a dim otherwise than the Megatron
-    rules (the reference's default table splits the vocabulary) and a
-    mesh with dp or fsdp beside another split axis, or pp beside sp (ROADMAP
-    item 13), each raising NotImplementedError."""
+    """sp_degree, sp_strategy, every serving mesh (sp, tp, pp, dp, fsdp
+    and any of them together) and the engine's own rules are ported
+    (tests/test_torch_sp_prefill.py, tests/test_torch_tp_engine.py,
+    tests/test_torch_mesh_engine.py); what stays unported: rules that lay
+    out a dim otherwise than the Megatron rules (the reference's default
+    table splits the vocabulary), raising NotImplementedError."""
     tp2 = build_mesh(MeshSpec(tp=2), devices=["cpu"] * 2)
     with pytest.raises(NotImplementedError, match="vocab"):
         LLMEngine(CFG, device="cpu", mesh=tp2,
                   rules=LogicalAxisRules.default())
     for spec in (dict(sp=2, tp=2), dict(dp=2), dict(fsdp=2, sp=2),
-                 dict(pp=2)):
+                 dict(pp=2), dict(pp=2, sp=2)):
         mesh = build_mesh(MeshSpec(**spec),
                           devices=["cpu"] * MeshSpec(**spec).n_devices)
-        if "fsdp" in spec:
-            with pytest.raises(NotImplementedError, match="item 13"):
-                LLMEngine(CFG, device="cpu", mesh=mesh)
-            continue
         eng = LLMEngine(CFG, device="cpu", mesh=mesh, max_len=64)
         assert (eng.tp_degree, eng.pp_degree, eng.sp_degree) == (
             spec.get("tp", 1), spec.get("pp", 1), spec.get("sp", 1))

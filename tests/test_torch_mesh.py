@@ -89,17 +89,13 @@ def test_repeated_devices_are_shard_positions():
 def test_other_axes_than_sp_raise_not_implemented(spec):
     """sp beside another split axis is a training layout: its batch
     groups, and each (group, tp) coordinate's sp positions in sp order.
-    For serving, sp x tp and pp are layouts of the engine; dp or fsdp
-    beside sp is not ported, and raises naming what is left (item 13)."""
+    For serving every one of these is a layout of the engine (dp or fsdp
+    beside sp: replicas of an sp group)."""
     mesh = build_mesh(MeshSpec(**spec),
                       devices=[CPU] * MeshSpec(**spec).n_devices)
     split = tuple(a for a in AXES if spec.get(a, 1) > 1)
     assert mesh.train_axes() == split
-    if "dp" in spec or "fsdp" in spec:
-        with pytest.raises(NotImplementedError, match="item 13"):
-            mesh.serve_axes()
-    else:
-        assert mesh.serve_axes() == split
+    assert mesh.serve_axes() == split
     if "pp" in spec:
         assert mesh.batch_groups() == [(0, 0)]
         assert [mesh.stage_positions(s) for s in range(2)] == [[0], [1]]
@@ -127,7 +123,8 @@ def test_a_mesh_splits_sp_or_tp_alone(spec, axis):
     """For serving, a tp mesh's positions are its devices, as an sp mesh's
     are; dp alone is a serving layout too (replicas, one per distinct
     device). dp is also a training axis: its positions are batch groups.
-    sp and tp together serve; dp beside tp does not (item 13)."""
+    sp and tp together serve, and dp beside tp (replicas of a tp
+    group)."""
     n = MeshSpec(**spec).n_devices
     mesh = build_mesh(MeshSpec(**spec), devices=[CPU] * n)
     assert mesh.serve_axes() == ((axis,) if axis else ())
@@ -140,8 +137,8 @@ def test_a_mesh_splits_sp_or_tp_alone(spec, axis):
     assert dp2.batch_groups() == [(0, 0), (1, 0)]
     assert build_mesh(MeshSpec(sp=2, tp=2),
                       devices=[CPU] * 4).serve_axes() == ("sp", "tp")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build_mesh(MeshSpec(dp=2, tp=2), devices=[CPU] * 4).serve_axes()
+    assert build_mesh(MeshSpec(dp=2, tp=2),
+                      devices=[CPU] * 4).serve_axes() == ("dp", "tp")
 
 
 @pytest.mark.parametrize("spec", [dict(dp=2, fsdp=2, tp=2), dict(fsdp=8),

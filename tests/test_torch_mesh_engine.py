@@ -1,14 +1,17 @@
 """Parity of ray_tpu_torch's engine on the serving meshes beside tp alone
 and sp alone with the JAX package's on the CPU: sp x tp (ring and
-Ulysses), pp, pp x tp, dp and fsdp.
+Ulysses), pp, pp x tp, dp and fsdp, dp or fsdp beside tp, pp or sp
+(replicas of a split layout), and pp beside sp (with tp under
+Ulysses).
 
 JAX places its engine's params and pool on a mesh of the conftest's CPU
 devices by its rules (GSPMD: layers over pp, heads over tp, replicated
 over dp and fsdp) and runs its sequence-parallel prefill with its heads
 over tp; the port runs on a mesh that names the CPU n times (a position
 is not a device), each position holding its layers, heads, kv heads and
-MLP hidden units, one replica per distinct device under dp or fsdp. The
-JAX engine's ``tiny`` params (f32) are carried across. Greedy tokens,
+MLP hidden units, one replica per distinct placement of the dp x fsdp
+coordinates (two where the second replica's positions name the CPU
+"cpu:0"). The JAX engine's ``tiny`` params (f32) are carried across. Greedy tokens,
 tick events, cache counters and page accounting are equal; logits and KV
 blobs agree within 1e-4 (f32 sums in another order).
 """
@@ -40,7 +43,15 @@ SCRIPT_TIMEOUT_S = 120.0
 LAYOUTS = {"sp2tp2-ring": (dict(sp=2, tp=2), "ring"),
            "sp2tp2-ulysses": (dict(sp=2, tp=2), "ulysses"),
            "pp2": (dict(pp=2), "ring"), "pp2tp2": (dict(pp=2, tp=2), "ring"),
-           "dp2": (dict(dp=2), "ring"), "fsdp2": (dict(fsdp=2), "ring")}
+           "dp2": (dict(dp=2), "ring"), "fsdp2": (dict(fsdp=2), "ring"),
+           # Replicas of a split layout, two on the CPU's two names.
+           "dp2tp2": (dict(dp=2, tp=2), "ring"),
+           "fsdp2tp2": (dict(fsdp=2, tp=2), "ring"),
+           "dp2pp2": (dict(dp=2, pp=2), "ring"),
+           "dp2sp2": (dict(dp=2, sp=2), "ring"),
+           # Stages beside sequence shards.
+           "pp2sp2": (dict(pp=2, sp=2), "ring"),
+           "pp2sp2tp2": (dict(pp=2, sp=2, tp=2), "ulysses")}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -61,10 +72,19 @@ def params():
 
 
 def _meshes(layout):
+    """JAX's mesh of the CPU devices, and the port's naming the CPU once
+    per position; where dp or fsdp is beside another split axis, the
+    second replica's positions name it "cpu:0", so the engine holds two
+    replicas."""
     spec, _ = LAYOUTS[layout]
     n = MeshSpec(**spec).n_devices
+    mesh = build_mesh(MeshSpec(**spec), devices=[CPU] * n)
+    devices = [CPU] * n
+    if len([a for a, s in spec.items() if s > 1]) > 1 and (
+            "dp" in spec or "fsdp" in spec):
+        devices = ["cpu:0" if c[1] + c[2] else CPU for c in mesh.coords()]
     return (jax_build_mesh(JaxMeshSpec(**spec), devices=jax.devices()[:n]),
-            build_mesh(MeshSpec(**spec), devices=[CPU] * n))
+            build_mesh(MeshSpec(**spec), devices=devices))
 
 
 def _pair(params, layout, **kw):
@@ -207,7 +227,9 @@ def test_chunked_prefill_and_cancellation_match_jax(params, layout):
     assert end["stats"]["hits"] >= 1 and not end["busy"]
 
 
-@pytest.mark.parametrize("layout", ["sp2tp2-ring", "pp2tp2"])
+@pytest.mark.parametrize("layout", ["sp2tp2-ring", "pp2tp2", "dp2tp2",
+                                    "fsdp2tp2", "dp2pp2", "dp2sp2",
+                                    "pp2sp2", "pp2sp2tp2"])
 def test_paged_requests_match_jax(params, layout):
     """prefill_paged of a 100-token context into four parts, decode_paged
     through a window of 2 (so it refetches); the parts stay full
@@ -267,6 +289,68 @@ def test_layouts_hold_their_shares(params):
     assert rep.generate(prompts, SamplingParams(max_tokens=6)) == \
         flat.generate(prompts, SamplingParams(max_tokens=6))
     assert torch.equal(rep._pk[0], rep._pk[1])
+    # Replicas of split layouts: each a tp group, a pp x tp stack or an sp
+    # group, its pools at its sp shard 0, every replica's equal.
+    for layout, n_pos in (("dp2tp2", 2), ("fsdp2tp2", 2), ("dp2pp2", 2),
+                          ("dp2sp2", 1)):
+        _, eng = _pair(params, layout, **kw)
+        assert (len(eng._reps), eng._n_pos) == (2, n_pos), layout
+        assert len(eng._pk) == 2 * n_pos and len(eng._sp_reps) == 2
+        assert [d.index for d in {p.device for p in eng._pk}] == [None]
+        assert eng.generate(prompts, SamplingParams(max_tokens=6)) == \
+            flat.generate(prompts, SamplingParams(max_tokens=6))
+        for a, b in zip(eng._pk[:n_pos], eng._pk[n_pos:]):
+            assert torch.equal(a, b)
+    # Stages beside sequence shards: a pool per stage and tp position, of
+    # its L/pp layers and kv heads; each stage's SP params its sp x tp
+    # positions'.
+    _, ppsp = _pair(params, "pp2sp2tp2", **kw)
+    assert len(ppsp._shards) == 4 and len(ppsp._sp_params) == 8
+    assert [tuple(pk.shape[:1] + pk.shape[3:4]) for pk in ppsp._pk] == \
+        [(L // 2, KV // 2)] * 4
+    assert sum(pk.nbytes for pk in ppsp._pk) == flat._pk[0].nbytes
+
+
+@pytest.mark.parametrize("layout", ["dp2tp2", "pp2sp2"])
+def test_replica_on_split_replicas_and_stages_matches_the_jax_replica(
+        params, layout):
+    """EngineReplica on dp x tp (two replicas) and pp x sp: generate's
+    tokens equal the JAX replica's on the same mesh."""
+    jmesh, mesh = _meshes(layout)
+    prompts = [_prompt(40, seed=5), _prompt(11, seed=6)]
+
+    async def run(er):
+        return [(await er.generate(p))["tokens"] for p in prompts]
+
+    def script(er):
+        return asyncio.run(asyncio.wait_for(run(er), SCRIPT_TIMEOUT_S))
+    port = EngineReplica(CFG, params[1], max_len=128, device="cpu",
+                         max_tokens=6, mesh=mesh)
+    assert len(port.engine._reps) == (2 if "dp" in layout else 1)
+    want = script(JaxReplica(JCFG, max_len=128, max_tokens=6, mesh=jmesh))
+    assert script(port) == want
+
+
+@pytest.mark.parametrize("spec,cfg", [
+    # Ulysses splits the kv heads over sp: 2 do not split over 4.
+    (dict(dp=2, sp=4), dict(num_kv_heads=2)),
+    # 2 layers do not split over 4 stages.
+    (dict(pp=4, dp=2), {}),
+    # 4 kv heads do not split over 8 tp positions.
+    (dict(tp=8), {})])
+def test_layouts_jax_refuses_the_port_refuses_alike(spec, cfg):
+    """Where the JAX engine refuses a serving layout, the port raises the
+    same exception type."""
+    import dataclasses
+    n = MeshSpec(**spec).n_devices
+    jmesh = jax_build_mesh(JaxMeshSpec(**spec), devices=jax.devices()[:n])
+    mesh = build_mesh(MeshSpec(**spec), devices=[CPU] * n)
+    kw = dict(max_batch=1, max_len=64, sp_strategy="ulysses")
+    with pytest.raises(ValueError):
+        JaxEngine(dataclasses.replace(JCFG, **cfg), mesh=jmesh, **kw)
+    with pytest.raises(ValueError):
+        LLMEngine(dataclasses.replace(CFG, **cfg), device="cpu", mesh=mesh,
+                  **kw)
 
 
 def test_replica_on_a_pp_mesh_matches_the_jax_replica(params):

@@ -650,20 +650,22 @@ def test_replica_defaults_to_cuda_and_raises_without_it():
 def test_unported_replica_options_are_absent(params):
     """mesh, sp_degree and sp_strategy reach the engine (their parity is in
     tests/test_torch_sp_prefill.py, tests/test_torch_tp_engine.py and
-    tests/test_torch_mesh_engine.py): an sp x tp mesh serves; a mesh with
-    dp beside sp still raises NotImplementedError (ROADMAP item 13), as in
-    the engine."""
+    tests/test_torch_mesh_engine.py): an sp x tp mesh serves, and a mesh
+    with dp beside sp (replicas of an sp group), as in the engine."""
     er = EngineReplica(CFG, params, device="cpu", sp_degree=2,
                        sp_strategy="ulysses")
     assert (er.engine.sp_degree, er.engine.sp_strategy) == (2, "ulysses")
     for spec in (dict(sp=2, tp=2), dict(dp=2, sp=2)):
         mesh = build_mesh(MeshSpec(**spec),
                           devices=["cpu"] * MeshSpec(**spec).n_devices)
-        if "dp" in spec:
-            with pytest.raises(NotImplementedError, match="item 13"):
-                EngineReplica(CFG, params, device="cpu", mesh=mesh)
-            continue
         er = EngineReplica(CFG, params, device="cpu", mesh=mesh)
+        if "dp" in spec:
+            # One device named four times: one replica of the sp group,
+            # holding the params as they are.
+            assert (er.engine.sp_degree, er.engine.tp_degree) == (2, 1)
+            assert len(er.engine._reps) == 1
+            assert er.engine.params is params
+            continue
         assert (er.engine.sp_degree, er.engine.tp_degree) == (2, 2)
         assert er.engine.params is None
 
