@@ -176,7 +176,28 @@ Phases, each printing one JSON line on stdout:
    loop. Fails if a run leaves another card current. Prints each run's
    1900-token prefill (host ms and one profiled prefill) and decode step
    ms beside the unsharded prefill, and peak memory.
-12. train: the same model at full width and depth, random weights, four
+12. device_plane: the same params through the port's device plane
+   (_private/device_plane.py, serialization.py, experimental/). Rung 0:
+   the whole param tree (16.06 GB of bf16) through a local-token DAG body,
+   back at the same data_ptr with no byte staged. Rung 1: the 1900-token
+   prompt's P/D blob from prefill_only (32 kernel 1 launches; 249,036,800
+   bytes of k and v) serialized, written into one host buffer and
+   deserialized onto the card, three rounds (the first cold): bit-equal,
+   device->host and host->device each exactly the blob's bytes (all of them
+   fallback bytes: a CUDA tensor has no host-addressable buffer), no part
+   copied, GB/s each way. P/D: a second engine's decode_from of the rebuilt
+   blob gives the tokens of the in-process handoff and of the first
+   engine's own generation (32 more launches). prefill_paged(host_staged=
+   True) against the device-resident prefill on the serve_paged engine's
+   shape: the same first token, the same parts bit for bit, device->host
+   exactly the parts' bytes. A spawned process rebuilds the serialized
+   blob on its card (cuda:1 where there are several) and returns its
+   hashes and its own audit. Device objects: device_put of k and v stacked
+   on an owner store, device_get from a second store whose fetch calls the
+   owner's serve_fetch (four 64 MiB chunks), bit-equal, then device_free
+   and a get that raises KeyError. Prints every time (host clock,
+   synchronised) and every audit delta.
+13. train: the same model at full width and depth, random weights, four
    steps of make_train_step on one fixed 2048-token batch with per-layer
    checkpointing; checks finite metrics, a falling loss, each kernel's
    launches per step, step 1's loss and grad norm against a pass with
@@ -184,7 +205,7 @@ Phases, each printing one JSON line on stdout:
    gradient (wq, wk, wv, wo of every layer) from a flash pass against the
    plain pass's, beside a control: the plain pass again on the same model
    with its MLP hidden units relabelled, which changes only the rounding.
-13. train_mesh: the same model at full width and depth trained on
+14. train_mesh: the same model at full width and depth trained on
    build_mesh(MeshSpec(dp=2, fsdp=2, tp=2), devices=[cuda:0] * 8), the
    reference's own test mesh: four batch groups of one 2048-token sequence
    (one fixed batch of 4 from np.random.default_rng(5)), each tp position
@@ -210,7 +231,7 @@ Phases, each printing one JSON line on stdout:
    planner's figure. Where torch.cuda.device_count() >= 2 the same mesh
    also runs over the visible cards (the grid in order, each card named
    8/n times), and the phase prints which ran.
-14. train_pp: the same model at full width and depth trained on
+15. train_pp: the same model at full width and depth trained on
    build_mesh(MeshSpec(pp=2, dp=2, tp=2), devices=[cuda:0] * 8), the
    reference's own pp training mesh, with two microbatches per batch
    group: train_mesh's batch and seeded params (drawn again after
@@ -226,7 +247,7 @@ Phases, each printing one JSON line on stdout:
    range pp:send, and the train and train_mesh phases' step ms beside
    its own. Where torch.cuda.device_count() >= 2 the same mesh also runs
    over the visible cards, the stage boundary between cards.
-15. train_sp: the same model trained on build_mesh(MeshSpec(dp=2, sp=2,
+16. train_sp: the same model trained on build_mesh(MeshSpec(dp=2, sp=2,
    tp=2), devices=[cuda:0] * 8) with attention_impl="ring": each batch
    group's sequence split over its two sp positions, each (group, tp
    position) running the ring over them at Hq 16 / Hkv 4; train_mesh's
@@ -240,7 +261,7 @@ Phases, each printing one JSON line on stdout:
    same numbers as train_mesh and the peak beside the planner's figure.
    Where torch.cuda.device_count() >= 2 the same mesh also runs over the
    visible cards.
-16. collective: one spawned process per card (the "spawn" start method;
+17. collective: one spawned process per card (the "spawn" start method;
    torch.cuda.device_count() ranks: one on a machine with one card,
    four with four), each joining an NCCL world through the Train
    backend (train.backend.TorchConfig("nccl"): pinned to cuda:rank with
@@ -251,7 +272,7 @@ Phases, each printing one JSON line on stdout:
    (the line says where it was not run); where world >= 2 also the bus
    bandwidth of a 256 MiB bf16 all-reduce (algbw x 2(n - 1)/n). Each
    rank checks that it imported neither JAX nor the JAX package.
-17. train_ranks: the same model at full width and depth, train_mesh's
+18. train_ranks: the same model at full width and depth, train_mesh's
    batch and default rules, trained with one process per card over each
    layout of TRAIN_RANKS in turn: MeshSpec(dp=2, fsdp=2) (the fsdp
    gathers an NCCL all-gather between cards, the dp replicas an NCCL
@@ -295,7 +316,7 @@ Phases, each printing one JSON line on stdout:
    sp:all_to_all, pp:send/recv and ep:all_to_all ranges apart. A rank
    that raises, hangs past its bound or exits non-zero fails the run;
    nothing falls back to gloo or the CPU.
-18. moe: one MoE layer at Mixtral-8x7B's published widths (d_model 4096,
+19. moe: one MoE layer at Mixtral-8x7B's published widths (d_model 4096,
    d_ff 14336, 8 experts, top 2; capacity_factor 1.25, MoEConfig's
    default), bf16 on x of (4, 2048, 4096) from a seed, f32 params as
    JAX's init makes them (5.64 GB of experts): the forward and the
@@ -340,8 +361,9 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from ray_tpu_torch import collective
-from ray_tpu_torch._private import deadlines, flight_recorder
+from ray_tpu_torch import collective, experimental
+from ray_tpu_torch._private import (deadlines, device_plane,
+                                    flight_recorder, serialization)
 from ray_tpu_torch.exceptions import (DeadlineExceededError, KVGatherError,
                                       OverloadedError, StreamBrokenError)
 from ray_tpu_torch.llm import (EngineReplica, LLMEngine, SamplingParams,
@@ -680,6 +702,12 @@ MOE_MESH = dict(fsdp=2, sp=2, tp=2)
 # changes only the order of w_down's sums.
 MOE_Y_REL_TOL = 2e-2
 MOE_GRAD_REL_TOL = 5e-2
+# The device_plane phase: the serve phase's longest prompt, whose P/D blob
+# is 32 layers x 1900 tokens x 8 kv heads x 128 x 2 bytes, for k and v.
+DEVICE_PLANE_LEN = PROMPT_LENS[-1]
+DEVICE_PLANE_BYTES = 32 * 1900 * 8 * 128 * 2 * 2      # 249,036,800
+DEVICE_PLANE_ROUNDS = 3       # serialize/deserialize rounds, cold first
+DEVICE_PLANE_CHILD_S = 300    # bound on the spawned process
 
 
 def emit(obj) -> None:
@@ -3003,8 +3031,10 @@ def serve_mesh_replica(cfg, params, prompts, closed, failures) -> dict:
 
 
 def serve_mesh_phase(card: str, failures: list, params) -> dict:
-    """Serving on sp x tp, pp, pp x tp, dp and fsdp meshes on the serve
-    phase's params (see the module docstring)."""
+    """Serving on sp x tp (ring and Ulysses), pp, pp x tp, dp and fsdp
+    meshes, then on the replicated split layouts dp x tp, fsdp x tp and
+    dp x pp, and on pp x sp, on the serve phase's params (see the module
+    docstring)."""
     cfg = PRESETS["8b-gqa"]
     t_phase = time.perf_counter()
     rng = np.random.default_rng(0)              # the serve phase's prompts
@@ -3063,6 +3093,310 @@ def serve_mesh_phase(card: str, failures: list, params) -> dict:
                unsharded=dict(prefill_1900_ms=flat_prefill_ms),
                runs=runs, replica=replica, logits_rel_tol=LOGITS_REL_TOL,
                seconds=time.perf_counter() - t_phase, card=card)
+    emit(res)
+    return res
+
+
+# --------------------------------------------------------- device plane ---
+
+def _dp_bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits, for bit-for-bit comparison (bf16 as int16)."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _dp_sha256(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes, read by a plain copy that the copy
+    audit does not see."""
+    return hashlib.sha256(
+        _dp_bits(t.detach()).cpu().contiguous().numpy().tobytes()
+    ).hexdigest()
+
+
+def _dp_delta(before: dict) -> dict:
+    after = device_plane.device_copy_stats()
+    return {k: after[k] - before[k] for k in after}
+
+
+def _device_plane_child(path: str, index: int, results) -> None:
+    """A spawned process: the serialized P/D blob in ``path`` rebuilt on
+    cuda:index; its k and v hashes and its own copy audit go to
+    ``results``, or its traceback."""
+    import traceback
+    try:
+        bad = [m for m in ("jax", "ray_tpu") if m in sys.modules]
+        if bad:
+            raise RuntimeError(f"device_plane child imported {bad}")
+        torch.cuda.set_device(index)
+        device_plane.set_landing_device(f"cuda:{index}")
+        arena = np.fromfile(path, np.uint8)
+        t0 = time.perf_counter()
+        blob = serialization.get_context().deserialize(memoryview(arena))
+        torch.cuda.synchronize(index)
+        upload_s = time.perf_counter() - t0
+        results.put(("ok", dict(
+            device=str(blob["k"].device), len=blob["len"],
+            sha256={n: _dp_sha256(blob[n]) for n in ("k", "v")},
+            audit=device_plane.device_copy_stats(), upload_s=upload_s)))
+    except BaseException:
+        results.put(("error", traceback.format_exc()))
+        raise
+
+
+def device_plane_phase(card: str, failures: list, params) -> dict:
+    """The device plane on the serve phase's params (see the module
+    docstring)."""
+    cfg = PRESETS["8b-gqa"]
+    t_phase = time.perf_counter()
+    ctx = serialization.get_context()
+    device_plane.set_landing_device("cuda")
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, DEVICE_PLANE_LEN).tolist()
+    a = LLMEngine(cfg, params, device="cuda", **SERVE_ENGINE)
+    b = LLMEngine(cfg, params, device="cuda", **SERVE_ENGINE)
+    res = dict(phase="device_plane", preset="8b-gqa", engine=SERVE_ENGINE,
+               prompt_len=DEVICE_PLANE_LEN, blob_bytes=DEVICE_PLANE_BYTES)
+
+    def check(ok: bool, what: str, detail) -> None:
+        if not ok:
+            failures.append(f"device_plane {what}: {detail}")
+
+    torch.cuda.synchronize()
+    flash_attention_fwd.launches = 0
+
+    # 1. Rung 0: the whole param tree through a local-token body.
+    before = device_plane.device_copy_stats()
+    t0 = time.perf_counter()
+    parts, token = device_plane.dag_encode_body(ctx, b"\x00", params,
+                                                True, 1)
+    body = b"".join(bytes(p) for p in parts)
+    back = device_plane.dag_decode_body(ctx, body)
+    rung0_ms = (time.perf_counter() - t0) * 1e3
+    _, leaves, specs = device_plane.split_device_leaves(params)
+    _, got, _ = device_plane.split_device_leaves(back)
+    delta = _dp_delta(before)
+    same = [x.data_ptr() for x in got] == [x.data_ptr() for x in leaves]
+    res["rung0"] = dict(leaves=len(leaves),
+                        bytes=sum(s.nbytes for s in specs),
+                        body_bytes=len(body), ms=rung0_ms, same_data_ptr=same,
+                        audit=delta, registered=device_plane
+                        .local_is_registered(token))
+    check(parts[1] == device_plane.MAGIC_LOCAL and same
+          and delta["device_to_host_bytes"] == 0
+          and delta["host_to_device_bytes"] == 0
+          and delta["device_arrays_local"] == len(leaves)
+          and not res["rung0"]["registered"], "rung 0", res["rung0"])
+    del back, got
+
+    # 2 and 3. The 1900-token prompt's P/D blob (kernel 1, 32 launches)
+    # through serialize -> one host buffer -> deserialize onto the card.
+    t0 = time.perf_counter()
+    blob, first = a.prefill_only(prompt, sp)
+    torch.cuda.synchronize()
+    prefill_only_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = blob["k"].nbytes + blob["v"].nbytes
+    check(nbytes == DEVICE_PLANE_BYTES, "blob bytes", nbytes)
+    runs, arena = [], None
+    for _ in range(DEVICE_PLANE_ROUNDS):
+        before = device_plane.device_copy_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts = ctx.serialize(blob)
+        t1 = time.perf_counter()
+        if arena is None:
+            # The destination stands for an arena: mapped once, its pages
+            # touched (untimed), reused by every round.
+            arena = np.empty(ctx.total_size(parts), np.uint8)
+            arena.fill(0)
+        t2 = time.perf_counter()
+        serialization.write_parts_into(parts, memoryview(arena))
+        t3 = time.perf_counter()
+        rebuilt = ctx.deserialize(memoryview(arena))
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        d2h_s = (t1 - t0) + (t3 - t2)
+        delta = _dp_delta(before)
+        equal = all(torch.equal(_dp_bits(rebuilt[n]), _dp_bits(blob[n]))
+                    for n in ("k", "v"))
+        runs.append(dict(
+            serialize_ms=(t1 - t0) * 1e3, write_ms=(t3 - t2) * 1e3,
+            deserialize_ms=(t4 - t3) * 1e3,
+            d2h_gb_s=nbytes / d2h_s / 1e9, h2d_gb_s=nbytes / (t4 - t3) / 1e9,
+            copied_part_bytes=serialization.copied_part_bytes(parts),
+            audit=delta, bit_equal=equal,
+            device=str(rebuilt["k"].device)))
+        check(equal and delta["device_to_host_bytes"] == nbytes
+              and delta["host_to_device_bytes"] == nbytes
+              and delta["device_fallback_bytes"] == nbytes
+              and delta["device_arrays_staged"] == 2
+              and runs[-1]["copied_part_bytes"] == 0
+              and rebuilt["k"].is_cuda, "rung 1", runs[-1])
+        del parts
+    res["rung1"] = runs
+
+    # 3. P/D through the serializer against the in-process handoff and A's
+    # own generation, after one decode_from that warms engine B.
+    b.decode_from(blob, first, sp)
+    decode_s = {}
+    for name, shipped in (("serializer", rebuilt), ("in_process", blob)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = b.decode_from(shipped, first, sp)
+        decode_s[name] = time.perf_counter() - t0
+        if name == "serializer":
+            via_bytes = out
+        else:
+            in_process = out
+    own = a.generate([prompt], sp)[0]
+    res["pd"] = dict(prefill_only_ms=prefill_only_ms,
+                     serializer_handoff_ms=runs[-1]["serialize_ms"]
+                     + runs[-1]["write_ms"] + runs[-1]["deserialize_ms"],
+                     decode_from_s=decode_s,
+                     first=first, tokens=via_bytes,
+                     equal_in_process=via_bytes == in_process,
+                     equal_own=via_bytes == own)
+    check(via_bytes == in_process == own and len(via_bytes) == MAX_TOKENS
+          and via_bytes[0] == first
+          and all(0 <= t < cfg.vocab_size for t in via_bytes), "P/D",
+          dict(res["pd"], in_process=in_process, own=own))
+    del rebuilt, arena
+    launches = flash_attention_fwd.launches
+    want_launches = 2 * cfg.num_layers
+    res.update(flash_launches=launches, expected_launches=want_launches)
+    check(launches == want_launches, "kernel 1 launches", launches)
+
+    # 4. prefill_paged with host_staged on the serve_paged engine's shape.
+    pre = LLMEngine(cfg, params, device="cuda", max_batch=1, kv_pages=1,
+                    kv_gather_window=PAGED_WINDOW, **PAGED_ENGINE)
+    paged_prompt = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, PAGED_LEN).tolist()
+    staged_runs = {}
+    for staged in (False, True):
+        before = device_plane.device_copy_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handoff = pre.prefill_paged(paged_prompt, sp, span=PAGED_SPAN,
+                                    host_staged=staged)
+        torch.cuda.synchronize()
+        staged_runs[staged] = (handoff, (time.perf_counter() - t0) * 1e3,
+                               _dp_delta(before))
+    (dev, dev_ms, dev_audit), (host, host_ms_, host_audit) = (
+        staged_runs[False], staged_runs[True])
+    part_bytes = sum(p["handle"][n].nbytes for p in dev["parts"]
+                     for n in ("k", "v"))
+    same_parts = all(
+        torch.equal(_dp_bits(device_plane.from_host_array(
+            h["handle"][n], h["handle"].get("dtype"), "cuda")),
+            _dp_bits(d["handle"][n]))
+        for h, d in zip(host["parts"], dev["parts"]) for n in ("k", "v"))
+    res["host_staged"] = dict(
+        parts=len(dev["parts"]), part_bytes=part_bytes,
+        device_ms=dev_ms, staged_ms=host_ms_, first=(dev["first"],
+                                                     host["first"]),
+        same_parts=same_parts, device_audit=dev_audit,
+        staged_audit=host_audit)
+    # Each chunk uploads the part before it once: all parts but the last.
+    n_parts = len(dev["parts"])
+    check(dev["first"] == host["first"] and same_parts
+          and host_audit["device_to_host_bytes"] == part_bytes
+          and host_audit["host_to_device_bytes"]
+          == part_bytes // n_parts * (n_parts - 1)
+          and dev_audit["device_to_host_bytes"] == 0
+          and dev_audit["host_to_device_bytes"] == 0
+          and all(p["handle"]["dtype"] == "bfloat16"
+                  for p in host["parts"]), "host_staged",
+          res["host_staged"])
+    del pre, dev, host, staged_runs
+    gc.collect()
+
+    # 5. Another process rebuilds the serialized blob on its own card.
+    index = 1 if torch.cuda.device_count() >= 2 else 0
+    want_sha = {n: _dp_sha256(blob[n]) for n in ("k", "v")}
+    mp = multiprocessing.get_context("spawn")
+    results = mp.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "blob.bin")
+        parts = ctx.serialize(blob)
+        with open(path, "wb") as f:
+            for p in parts:
+                f.write(p)
+        del parts
+        t0 = time.perf_counter()
+        proc = mp.Process(target=_device_plane_child, name="device_plane",
+                          args=(path, index, results))
+        proc.start()
+        try:
+            status, value = results.get(timeout=DEVICE_PLANE_CHILD_S)
+        except queue.Empty:
+            status, value = "error", f"no result in {DEVICE_PLANE_CHILD_S} s"
+        child_s = time.perf_counter() - t0
+        proc.join(timeout=30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=10)
+            value = f"{value}; still running, killed"
+            status = "error"
+        elif proc.exitcode != 0:
+            status, value = "error", f"{value}; exited {proc.exitcode}"
+    if status == "ok":
+        res["child"] = dict(value, seconds=child_s,
+                            upload_gb_s=nbytes / value["upload_s"] / 1e9)
+        check(value["sha256"] == want_sha
+              and value["audit"]["host_to_device_bytes"] == nbytes
+              and value["device"] == f"cuda:{index}", "child", value)
+    else:
+        res["child"] = dict(error=value, seconds=child_s)
+        check(False, "child", value)
+
+    # 6. Device objects: put on an owner store, get from a second store
+    # whose fetch calls the owner's serve_fetch, free.
+    owner = experimental.DeviceObjectStore(("owner", 1), device="cuda")
+    fetches = []
+
+    def fetch(addr, oid, offset):
+        fetches.append(offset)
+        return experimental.serve_fetch(owner, oid, offset)
+    consumer = experimental.DeviceObjectStore(
+        ("consumer", 2), device="cuda", fetch=fetch,
+        free=lambda addr, oid: experimental.serve_free(owner, oid))
+    payload = torch.stack([blob["k"], blob["v"]])
+    stats0 = experimental.device_transport_stats()
+    before = device_plane.device_copy_stats()
+    ref = experimental.device_put(payload, owner)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = experimental.device_get(ref, consumer)
+    torch.cuda.synchronize()
+    get_s = time.perf_counter() - t0
+    chunks = len(fetches)
+    stats1 = experimental.device_transport_stats()
+    delta = _dp_delta(before)
+    equal = torch.equal(_dp_bits(got), _dp_bits(payload))
+    experimental.device_free(ref, consumer)
+    try:
+        experimental.device_get(ref, consumer)
+        freed = False
+    except KeyError:
+        freed = True
+    objs = dict(
+        bytes=payload.nbytes, chunks=chunks, get_ms=get_s * 1e3,
+        gb_s=payload.nbytes / get_s / 1e9, bit_equal=equal, audit=delta,
+        gets_remote=stats1["gets_remote"] - stats0["gets_remote"],
+        bytes_staged=stats1["bytes_staged"] - stats0["bytes_staged"],
+        staged_gib_s=stats1["staged_gib_s"], freed=freed,
+        owner_objects=len(owner.device_objects))
+    res["device_objects"] = objs
+    want_chunks = -(-nbytes // experimental.DEVICE_CHUNK)
+    check(equal and objs["gets_remote"] == 1
+          and objs["bytes_staged"] == nbytes
+          and chunks == want_chunks
+          and delta["device_to_host_bytes"] == nbytes
+          and delta["host_to_device_bytes"] == nbytes
+          and freed and not owner.device_objects, "device objects", objs)
+    del payload, got, blob, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update(seconds=time.perf_counter() - t_phase, card=card)
     emit(res)
     return res
 
@@ -4804,6 +5138,7 @@ def main() -> int:
     serve_sp = serve_sp_phase(card, failures, params)
     serve_tp = serve_tp_phase(card, failures, params)
     serve_mesh = serve_mesh_phase(card, failures, params)
+    dplane = device_plane_phase(card, failures, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4845,6 +5180,7 @@ def main() -> int:
                        + serve_sp["flash_launches"]
                        + serve_tp["flash_launches"]
                        + serve_mesh["flash_launches"]
+                       + dplane["flash_launches"]
                        + train["launches"]["fwd"]
                        + train_mesh["launches"]["fwd"]
                        + train_pp["launches"]["fwd"]
@@ -4859,6 +5195,7 @@ def main() -> int:
                  serve_sp=serve_sp["flash_launches"],
                  serve_tp=serve_tp["flash_launches"],
                  serve_mesh=serve_mesh["flash_launches"],
+                 device_plane=dplane["flash_launches"],
                  train=train["launches"]["fwd"],
                  train_mesh=train_mesh["launches"]["fwd"],
                  train_pp=train_pp["launches"]["fwd"],

@@ -69,3 +69,12 @@ class StreamBrokenError(RayError):
                  tokens_emitted: int = 0):
         super().__init__(message)
         self.tokens_emitted = int(tokens_emitted)
+
+
+class DeviceSpecMismatchError(RayError):
+    """A device tensor violates its declared payload spec.
+
+    Raised by ``_private.device_plane.validate_against_spec`` when a leaf
+    of a value has another shape or dtype than the (shape, dtype) spec
+    declared for it (the reference raises the same class when two stages
+    of a compiled DAG declare specs that disagree, at compile time)."""

@@ -29,10 +29,18 @@ The engine writes the reference's flight-recorder spans in the
 ``request`` category (``prefill``, ``sample_sync``, ``decode``,
 ``sp:gather``; see _private/flight_recorder.py). Not copied:
 ``_report_pool_pressure``, which feeds the reference runtime's memory
-monitor; the device plane's copy counters that ``_part_layer`` feeds in the
-reference (they come with the port of the device plane); and
-``prefill_paged``'s ``host_staged=`` option, which only the reference's
-staged A/B bench helper passes.
+monitor.
+
+Copy audit (_private/device_plane.py), at the reference's seams: a paged
+part that arrives on the host (a numpy array, or a CPU tensor on a CUDA
+engine) counts ``record_h2d`` when ``_part_layer`` uploads it, and
+``prefill_paged(host_staged=True)`` copies each part to host numpy (bf16 as
+its int16 bits, with "dtype": "bfloat16" in the part) and counts
+``record_d2h``. ``prefill_only``'s blob is one contiguous (L, S, KV, D)
+tensor per k and v on the engine's device, joined there from a sharded
+engine's positions, so shipping it through the port's serializer
+(_private/serialization.py) stages each exactly once; ``decode_from``
+takes the rebuilt tensors.
 
 Sequence parallelism (``sp_degree``, ``sp_strategy``, ``mesh``): full
 prefills, chunks and prefix-hit suffixes split their sequence over the
@@ -121,10 +129,10 @@ import torch.nn.functional as F
 
 from .. import _config
 from .._device import resolve_device
-from .._private import flight_recorder
+from .._private import device_plane, flight_recorder
 from ..exceptions import KVGatherError
 from ..models.transformer import (TransformerConfig, _layer_qkv,
-                                  _to_tensor, apply_rope, init_params,
+                                  apply_rope, init_params,
                                   layer_params, rms_norm,
                                   rope_angles, tp_layer, tp_shards)
 from ..ops.flash_attention import flash_attention
@@ -773,6 +781,19 @@ def _default_kv_fetch(handle):
         f"callback")
 
 
+def _host_part(part: dict) -> dict:
+    """A KV part copied to host numpy (the host-staged downgrade), its
+    copies counted by the device plane's ``record_d2h``; a bf16 part's
+    arrays hold its int16 bits and the part says "dtype": "bfloat16"."""
+    hk, name = device_plane.host_array(part["k"])
+    hv, _ = device_plane.host_array(part["v"])
+    device_plane.record_d2h(hk.nbytes + hv.nbytes)
+    out = {"k": hk, "v": hv, "len": part["len"]}
+    if name == "bfloat16":
+        out["dtype"] = name
+    return out
+
+
 def _publish_when_made(publish, part: dict,
                        made: Optional[torch.cuda.Event]):
     """``publish(part)`` on the publish thread, once the stream that
@@ -1118,9 +1139,11 @@ class LLMEngine:
             if isinstance(a, torch.Tensor):
                 floating = a.is_floating_point()
             else:
-                dt = np.dtype(dt) if dt is not None else np.asarray(a).dtype
-                floating = (np.issubdtype(dt, np.floating)
-                            or dt.name == "bfloat16")
+                dt = kv_blob.get("dtype") or (
+                    np.dtype(dt) if dt is not None
+                    else np.asarray(a).dtype).name
+                floating = (dt == "bfloat16"
+                            or np.issubdtype(np.dtype(dt), np.floating))
             if not floating:
                 raise ValueError(f"kv blob's {name!r} has dtype {dt}, "
                                  f"want a floating type")
@@ -1456,19 +1479,30 @@ class LLMEngine:
         are resident and never written)."""
         self._install_pages(req.pages, ks, vs)
 
-    def _blob_tensor(self, a) -> torch.Tensor:
+    def _blob_tensor(self, a, dtype: Optional[str] = None) -> torch.Tensor:
         """A blob's k or v on the engine's device, in its dtype: a tensor
-        as it is, a numpy array (ml_dtypes bf16 included) bit-exactly."""
+        as it is, a numpy array bit-exactly (ml_dtypes bf16, or the int16
+        bits of bf16 with ``dtype`` "bfloat16", as host_staged parts
+        carry them)."""
         if not isinstance(a, torch.Tensor):
-            a = _to_tensor(np.asarray(a), self.device)
+            a = device_plane.from_host_array(a, dtype, self.device)
         return a.to(self.device, self.cfg.dtype)
+
+    def _on_host(self, a) -> bool:
+        """Whether a blob's k or v lies in host memory apart from the
+        engine's devices: a numpy array, or a CPU tensor on a CUDA
+        engine."""
+        if isinstance(a, torch.Tensor):
+            return a.device.type == "cpu" and self.device.type != "cpu"
+        return True
 
     def _install_external(self, req: _Request):
         """Install a shipped KV blob, each tp position its kv heads; on a
         prefix-cache hit only the suffix pages are written (the shared span
         is already resident)."""
-        ks = self._head_slices(self._blob_tensor(req.kv_blob["k"]))
-        vs = self._head_slices(self._blob_tensor(req.kv_blob["v"]))
+        name = req.kv_blob.get("dtype")
+        ks = self._head_slices(self._blob_tensor(req.kv_blob["k"], name))
+        vs = self._head_slices(self._blob_tensor(req.kv_blob["v"], name))
         if req.prefix_len:
             self._install_new_pages(req, [k[:, req.prefix_len:] for k in ks],
                                     [v[:, req.prefix_len:] for v in vs])
@@ -1735,7 +1769,13 @@ class LLMEngine:
         data = self._kv_window.get(part["key"], part["handle"])
         on = data.get("_on")
         if on is None:
-            kd, vd = self._blob_tensor(data["k"]), self._blob_tensor(data["v"])
+            name = data.get("dtype")
+            kd = self._blob_tensor(data["k"], name)
+            vd = self._blob_tensor(data["v"], name)
+            if self._on_host(data["k"]):
+                # A host-resident part: this upload is a transfer seam
+                # (a part already on the device skips it).
+                device_plane.record_h2d(kd.nbytes + vd.nbytes)
             on = data["_on"] = {d: (kd.to(d), vd.to(d)) for d in
                                 dict.fromkeys(_devices(self._shards))}
         at = [self._pos[i] for i in idx]
@@ -1879,8 +1919,8 @@ class LLMEngine:
     @torch.no_grad()
     def prefill_paged(self, prompt_tokens: Sequence[int],
                       params: Optional[SamplingParams] = None, *,
-                      span: int = 64, publish=None, pipeline: bool = True
-                      ) -> dict:
+                      span: int = 64, publish=None, pipeline: bool = True,
+                      host_staged: bool = False) -> dict:
         """Streamed chunked prefill of a context of any length with a
         bounded device working set: chunk c attends to the c parts before
         it, then becomes part c. ``publish(part) -> handle`` puts each part
@@ -1902,7 +1942,14 @@ class LLMEngine:
         ``publish``, so the part is complete whatever stream the engine runs
         on. A publish that copies a part to the host must use a synchronous
         copy (``.cpu()``, or ``copy_`` without ``non_blocking``), so that a
-        handle it returns is never read before its bytes exist."""
+        handle it returns is never read before its bytes exist.
+
+        host_staged=True forces the reference's host-staged downgrade, for
+        the device-vs-staged A/B: every part is copied to host numpy
+        (``device_plane.host_array``: bf16 as its int16 bits, the part
+        then carrying "dtype": "bfloat16") before it is kept or published,
+        each copy counted by ``record_d2h``; the next chunk uploads it
+        again (``record_h2d``, in ``_part_layer``)."""
         params = params or SamplingParams()
         prompt = list(prompt_tokens)
         S = len(prompt)
@@ -1918,6 +1965,8 @@ class LLMEngine:
                 part, logits = self.prefill_paged_chunk(
                     chunk, s0, parts_meta, span=span,
                     is_last=(c == n_chunks - 1))
+                if host_staged:
+                    part = _host_part(part)
                 key = f"pp{id(self) & 0xffff}:{self._part_seq}"
                 self._part_seq += 1
                 # Keep our own fresh part hot for chunk c + 1.
@@ -2032,7 +2081,8 @@ class LLMEngine:
         rec.end("request", "prefill", t0, tokens=S, cached_tokens=c,
                 external=True)
         first = self._sample_host(logits, params)
-        return {"k": k_full, "v": v_full, "len": S}, first
+        return {"k": k_full.contiguous(), "v": v_full.contiguous(),
+                "len": S}, first
 
     def decode_from(self, kv_blob: dict, first_token: int,
                     params: Optional[SamplingParams] = None, *,

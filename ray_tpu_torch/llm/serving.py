@@ -97,9 +97,9 @@ class EngineReplica:
     The boundary callbacks are described in the module docstring.
 
     ``mesh``, ``sp_degree`` and ``sp_strategy`` go to the engine, which
-    serves on sp, tp, sp x tp, pp, pp x tp, dp and fsdp meshes and raises
-    NotImplementedError on any other (see ``LLMEngine``). Left on the
-    runtime side: ``_flush_gauges`` (the runtime's metrics export) and
+    serves any mesh of one process: sp, tp and pp alone or together, and
+    replicas of such a layout over dp and fsdp (see ``LLMEngine``). Left on
+    the runtime side: ``_flush_gauges`` (the runtime's metrics export) and
     ``_silence_watch`` (the diagnosis plane's anomaly detector).
 
     Diverges from the reference on a failed decode tick: the reference

@@ -163,7 +163,8 @@ def test_request_validation():
 
 def test_port_imports_neither_jax_nor_ray_tpu():
     """The port and chip_smoke.py import no jax, no optax and no ray_tpu
-    module. A subprocess: this test process already holds jax (conftest)."""
+    module, and neither cloudpickle nor ml_dtypes, which the card's machine
+    lacks. A subprocess: this test process already holds jax (conftest)."""
     code = (
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.llm.engine\n"
@@ -181,10 +182,14 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.collective.collective\n"
         "import ray_tpu_torch.tpu.accelerator, ray_tpu_torch.train.backend\n"
         "import ray_tpu_torch.train.examples.transformer_example\n"
+        "import ray_tpu_torch._private.device_plane\n"
+        "import ray_tpu_torch._private.serialization\n"
+        "import ray_tpu_torch.experimental\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'optax')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'optax.'))\n"
-        "             or m == 'ray_tpu' or m.startswith('ray_tpu.'))\n"
+        "             or m == 'ray_tpu' or m.startswith('ray_tpu.')\n"
+        "             or m.split('.')[0] in ('cloudpickle', 'ml_dtypes'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

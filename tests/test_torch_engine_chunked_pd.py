@@ -4,8 +4,16 @@ prefill/decode disaggregation with the JAX engine on the CPU.
 The JAX engine's ``tiny`` params (f32) are carried across; inputs come from
 a numpy seed. Greedy tokens, tick events and page accounting must be
 identical to the JAX engine's after the same calls (the port of
-tests/test_long_context.py:148-196 among them).
+tests/test_long_context.py:148-196 among them). A P/D blob shipped through
+each package's serializer must give the same tokens, with copy-audit
+counters equal to each other and to the blob's bytes.
 """
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -13,12 +21,19 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu._private import device_plane as jdp
+from ray_tpu._private import serialization as jser
 from ray_tpu.llm import LLMEngine as JaxEngine
 from ray_tpu.llm import SamplingParams as JaxSP
 from ray_tpu.models import PRESETS as JAX_PRESETS
+from ray_tpu_torch._private import device_plane as tdp
+from ray_tpu_torch._private import serialization as tser
 from ray_tpu_torch.llm import LLMEngine, SamplingParams
 from ray_tpu_torch.llm import engine as torch_engine
 from ray_tpu_torch.models import PRESETS, from_jax_params
+from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CFG, JCFG = PRESETS["tiny"], JAX_PRESETS["tiny"]
 
@@ -281,3 +296,121 @@ def test_sample_first_matches_jax():
     got = teng.sample_first(torch.from_numpy(logits))
     assert got == jeng.sample_first(jnp.asarray(logits)) \
         == int(logits.argmax())
+
+
+# -------------------------------------------- P/D through the serializer ---
+
+def _ship(ctx, blob) -> bytearray:
+    """The blob as the arena would hold it: serialized, then written into
+    one destination buffer with no part copied on the way."""
+    parts = ctx.serialize(blob)
+    assert tser.copied_part_bytes(parts) == 0
+    arena = bytearray(ctx.total_size(parts))
+    tser.write_parts_into(parts, memoryview(arena))
+    return arena
+
+
+def _blob_bytes(blob) -> int:
+    return sum(np.asarray(blob[n]).nbytes for n in ("k", "v"))
+
+
+def test_pd_blob_through_the_serializer_matches_jax():
+    """prefill_only's blob shipped as bytes and decoded: the tokens equal
+    the in-process handoff's and the JAX engine's (exact, greedy); each
+    side stages the blob exactly once each way (d2h == h2d == the blob's
+    bytes, no fallback), the two audits equal."""
+    prompt = _prompt(40, seed=7)
+    sp = dict(max_tokens=6)
+    jpre, tpre = _pair(max_batch=1, max_len=64, seed=0, page_size=8)
+    jdec, tdec = _pair(max_batch=2, max_len=64, seed=0, page_size=8)
+    jblob, jfirst = jpre.prefill_only(prompt, JaxSP(**sp))
+    tblob, tfirst = tpre.prefill_only(prompt, SamplingParams(**sp))
+    in_process = tdec.decode_from(tblob, tfirst, SamplingParams(**sp))
+    want = jdec.decode_from(jblob, jfirst, JaxSP(**sp))
+    nbytes = _blob_bytes(tblob)
+    assert nbytes == _blob_bytes(jblob) == 2 * 2 * 40 * 4 * 16 * 4
+    assert all(tblob[n].is_contiguous() for n in ("k", "v"))
+
+    jdp._reset_copy_stats()
+    tdp._reset_copy_stats()
+    tdp.set_landing_device("cpu")
+    try:
+        t_arena = _ship(tser.get_context(), tblob)
+        j_arena = _ship(jser.get_context(), jblob)
+        tgot = tser.get_context().deserialize(memoryview(t_arena))
+        jgot = jser.get_context().deserialize(memoryview(j_arena))
+    finally:
+        tdp._tls.__dict__.pop("landing", None)
+    t_arena[:] = bytes(len(t_arena))        # nothing may alias the arena
+    assert tgot["len"] == 40 and isinstance(tgot["k"], torch.Tensor)
+    for n in ("k", "v"):
+        assert torch.equal(tgot[n], tblob[n])
+    assert tdp.device_copy_stats() == jdp.device_copy_stats() == dict(
+        device_to_host_bytes=nbytes, host_to_device_bytes=nbytes,
+        device_fallback_bytes=0, device_arrays_staged=2,
+        device_arrays_local=0)
+    got = tdec.decode_from(tgot, tfirst, SamplingParams(**sp))
+    assert got == in_process == want == jdec.decode_from(jgot, jfirst,
+                                                         JaxSP(**sp))
+    assert tdec.kv_pages_free() == tdec.kv_pages_total
+
+
+def test_tp_blob_joined_at_export_stages_once():
+    """A tp=2 engine's blob is joined onto its device at export: it ships
+    like an unsharded engine's, each of k and v staged once and no byte of
+    fallback, and an unsharded engine decodes it to the tokens of its own
+    generation."""
+    prompt = _prompt(30, seed=8)
+    sp = SamplingParams(max_tokens=5)
+    jref, flat = _pair(max_batch=2, max_len=64, seed=0, page_size=8)
+    tp = LLMEngine(CFG, flat.params, device="cpu", max_batch=1,
+                   max_len=64, page_size=8,
+                   mesh=build_mesh(MeshSpec(tp=2), devices=["cpu"] * 2))
+    blob, first = tp.prefill_only(prompt, sp)
+    tdp._reset_copy_stats()
+    tdp.set_landing_device("cpu")
+    try:
+        got = tser.get_context().deserialize(
+            memoryview(_ship(tser.get_context(), blob)))
+    finally:
+        tdp._tls.__dict__.pop("landing", None)
+    st = tdp.device_copy_stats()
+    assert st["device_to_host_bytes"] == st["host_to_device_bytes"] \
+        == _blob_bytes(blob) and st["device_fallback_bytes"] == 0
+    assert st["device_arrays_staged"] == 2
+    assert flat.decode_from(got, first, sp) == flat.generate([prompt], sp)[0] \
+        == jref.generate([prompt], JaxSP(max_tokens=5))[0]
+
+
+_CHILD = """
+import hashlib, json, sys
+from ray_tpu_torch._private import device_plane, serialization
+device_plane.set_landing_device("cpu")
+data = open(sys.argv[1], "rb").read()
+blob = serialization.get_context().deserialize(memoryview(data))
+print(json.dumps({
+    "sha256": {n: hashlib.sha256(blob[n].numpy().tobytes()).hexdigest()
+               for n in ("k", "v")},
+    "len": blob["len"], "dtype": str(blob["k"].dtype),
+    "h2d": device_plane.device_copy_stats()["host_to_device_bytes"]}))
+"""
+
+
+def test_pd_blob_rebuilds_in_another_process(tmp_path):
+    """The serialized blob rebuilt by a second Python process (landing on
+    the CPU, as it asks): the same bytes, and its own audit counts the
+    upload of exactly the blob's bytes. The only subprocess of the file."""
+    prompt = _prompt(33, seed=9)
+    _, tpre = _pair(max_batch=1, max_len=64, seed=0, page_size=8)
+    blob, _ = tpre.prefill_only(prompt, SamplingParams(max_tokens=2))
+    path = tmp_path / "blob.bin"
+    path.write_bytes(_ship(tser.get_context(), blob))
+    res = subprocess.run([sys.executable, "-c", _CHILD, str(path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {
+        "sha256": {n: hashlib.sha256(blob[n].numpy().tobytes()).hexdigest()
+                   for n in ("k", "v")},
+        "len": 33, "dtype": "torch.float32", "h2d": _blob_bytes(blob)}

@@ -6,19 +6,24 @@ the JAX engine's ``tiny`` params (f32) are carried across, and tokens, tick
 events, page accounting and ``kv_gather_stats()`` (less the wall-clock
 ``wait_s``) must be identical after the same calls. Beside them: the
 handoff of ``prefill_paged`` against JAX's, the shared ValueError messages,
-and a paged request cancelled mid-decode.
+a paged request cancelled mid-decode, and the host-staged downgrade
+(``host_staged=True``) with the copy audit it feeds, against JAX's.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from ray_tpu._private import device_plane as jdp
 from ray_tpu.exceptions import KVGatherError as JaxKVGatherError
 from ray_tpu.llm import LLMEngine as JaxEngine
 from ray_tpu.llm import SamplingParams as JaxSP
 from ray_tpu.llm.engine import _KVWindow as JaxKVWindow
 from ray_tpu.models import PRESETS as JAX_PRESETS
+from ray_tpu_torch._private import device_plane as tdp
 from ray_tpu_torch.exceptions import KVGatherError
 from ray_tpu_torch.llm import LLMEngine, SamplingParams
 from ray_tpu_torch.llm.engine import _KVWindow
@@ -348,3 +353,112 @@ def test_cancel_paged_request_mid_decode_frees_pages_and_window(params):
     assert len(events) == 4 and mid == (3, 3)
     assert after[0] == 4 and after[1]["resident"] == 0 and not after[2]
     assert len(out) == 3 and free == 4 and st["resident"] == 0
+
+
+# ---------------------------------------------- host-staged parts, audit ---
+
+def _audits():
+    """(the port's, JAX's) copy-audit counters."""
+    return tdp.device_copy_stats(), jdp.device_copy_stats()
+
+
+def _reset_audits():
+    tdp._reset_copy_stats()
+    jdp._reset_copy_stats()
+
+
+def test_host_staged_prefill_matches_device_and_jax(params):
+    """prefill_paged(host_staged=True): every part goes to host numpy
+    (record_d2h) and the next chunk uploads it again (record_h2d); the
+    first token and the parts bit for bit equal the device-resident
+    prefill's, the first token equals JAX's host-staged one (parts within
+    1e-5), and both audits move by the same bytes."""
+    prompt = _prompt(90, seed=13)
+    sp = dict(max_tokens=4)
+    jeng = JaxEngine(JCFG, **PAGED)
+    teng = LLMEngine(CFG, params, device="cpu", **PAGED)
+    dev = teng.prefill_paged(prompt, SamplingParams(**sp), span=32)
+    _reset_audits()
+    staged = teng.prefill_paged(prompt, SamplingParams(**sp), span=32,
+                                host_staged=True)
+    want = jeng.prefill_paged(prompt, JaxSP(**sp), span=32,
+                              host_staged=True)
+    mine, theirs = _audits()
+    assert staged["first"] == dev["first"] == want["first"]
+    part_bytes = 0
+    for s_, d, w in zip(staged["parts"], dev["parts"], want["parts"]):
+        assert s_["span"] == d["span"] == w["span"]
+        for name in ("k", "v"):
+            host = s_["handle"][name]
+            assert isinstance(host, np.ndarray) and host.dtype == np.float32
+            assert torch.equal(torch.from_numpy(host), d["handle"][name])
+            np.testing.assert_allclose(host, np.asarray(w["handle"][name]),
+                                       rtol=1e-5, atol=1e-5)
+            part_bytes += host.nbytes
+    assert mine == theirs
+    assert mine["device_to_host_bytes"] == part_bytes == 3 * 2 * (
+        CFG.num_layers * 32 * CFG.num_kv_heads * CFG.head_dim_ * 4)
+    # Chunk 1 uploads part 0 and chunk 2 part 1 as they first read them
+    # (the window keeps each upload while it holds the part).
+    assert mine["host_to_device_bytes"] == part_bytes // 3 * 2
+    assert mine["device_fallback_bytes"] == 0
+
+
+def test_paged_part_upload_counts_h2d_as_jax_does(params):
+    """decode_paged over host-resident (numpy) parts counts each upload
+    (window 2 under 4 parts: refetches upload again) exactly as JAX's does,
+    and decodes JAX's tokens; device-resident parts count nothing. The
+    parts are published to a store and fetched by key, each fetch a fresh
+    dict, as from an arena (a by-value handle would keep JAX's upload in
+    the handle itself across refetches, where the port's window drops it
+    with the entry)."""
+    prompt = _prompt(100, seed=14)
+    counted = []
+    for cls in (JaxEngine, LLMEngine):
+        kw = {} if cls is JaxEngine else dict(params=params, device="cpu")
+        cfg = JCFG if cls is JaxEngine else CFG
+        store = {}
+
+        def publish(part):
+            store[len(store)] = part
+            return len(store) - 1
+        pre = cls(cfg, **PAGED, **kw)
+        sp = _sp(pre, max_tokens=5)
+        handoffs = [pre.prefill_paged(prompt, sp, span=32, host_staged=h,
+                                      publish=publish, pipeline=False)
+                    for h in (True, False)]
+        outs = []
+        for handoff in handoffs:
+            dec = cls(cfg, kv_gather_window=2,
+                      kv_fetch=lambda h: dict(store[h]), **PAGED, **kw)
+            _reset_audits()
+            outs.append(dec.decode_paged(handoff, sp))
+            counted.append(_audits()[0 if cls is LLMEngine else 1][
+                "host_to_device_bytes"])
+        assert outs[0] == outs[1]
+        counted.append(outs[0])
+    jax_h2d, jax_dev_h2d, jax_out, h2d, dev_h2d, out = counted
+    assert out == jax_out
+    assert h2d == jax_h2d > 0 and dev_h2d == jax_dev_h2d == 0
+
+
+def test_bf16_host_staged_parts_carry_their_dtype(params):
+    """A bf16 engine's host-staged parts are the int16 bits of its parts,
+    tagged "dtype": "bfloat16" (numpy has no bf16 of its own), and they
+    decode to the device-resident handoff's tokens."""
+    cfg = dataclasses.replace(CFG, dtype=torch.bfloat16)
+    bf16 = jax.tree.map(lambda t: t.to(torch.bfloat16), params)
+    pre = LLMEngine(cfg, bf16, device="cpu", **PAGED)
+    prompt = _prompt(70, seed=15)
+    sp = SamplingParams(max_tokens=4)
+    dev = pre.prefill_paged(prompt, sp, span=32)
+    staged = pre.prefill_paged(prompt, sp, span=32, host_staged=True)
+    assert staged["first"] == dev["first"]
+    for s_, d in zip(staged["parts"], dev["parts"]):
+        h = s_["handle"]
+        assert h["dtype"] == "bfloat16" and h["k"].dtype == np.int16
+        assert torch.equal(torch.from_numpy(h["k"]),
+                           d["handle"]["k"].view(torch.int16))
+    outs = [LLMEngine(cfg, bf16, device="cpu", **PAGED).decode_paged(h, sp)
+            for h in (staged, dev)]
+    assert outs[0] == outs[1]
