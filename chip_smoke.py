@@ -329,6 +329,24 @@ Phases, each printing one JSON line on stdout:
    relabelled), each position's shard shapes, the shards on the card
    holding exactly the params' bytes. Prints forward and backward ms
    (host and device) of both and the peak memory.
+20. rllib: the port's rllib (ray_tpu_torch/rllib) on the card, at the JAX
+   package's defaults (hiddens (64, 64)) on the port's own CartPole-v1
+   (4 observations, 2 actions). Each learner (PPO, IMPALA, APPO, DQN,
+   SAC, each with its config's lr and grad_clip) built on the card and on
+   the CPU from one state runs one update on one seeded batch (PPO two
+   runners' 64 x 8 rollouts, 24 Adam steps; IMPALA and APPO their 64 x
+   16 aggregate; DQN and SAC a replay batch of 64): params and targets
+   within 1e-4 of the CPU's (max |diff| / max |ref|), metrics too, and the
+   update's ms on the card (CUDA events, warm). Then PPO through
+   LocalRuntime with the learner and both runners on the card, the JAX
+   package's learning gate (2 runners x 8 envs x 64 steps, lr 3e-4,
+   entropy 0.01, seed 0): a mean episode return of 120 within 35
+   iterations; per iteration the wall, sample and learn seconds, env
+   steps/s, and one profiled iteration (device time by class, idle
+   share). IMPALA, APPO, DQN and SAC (learning_starts one iteration's
+   steps) take 3 iterations each: at least one update, finite losses.
+   Every learner's and runner's params on the card; no kernel of
+   ops/csrc launched (none lies on this path); the phase under 90 s.
 
 Then the kernels line, the card line and, last, the ok line. Any failure
 exits non-zero without the ok line, as does a machine without CUDA.
@@ -339,6 +357,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
@@ -385,6 +404,9 @@ from ray_tpu_torch.parallel import pipeline
 from ray_tpu_torch.parallel.mesh import AXES, Mesh
 from ray_tpu_torch.parallel.sharding import (all_gather_parts, gather_tensor,
                                              shard_slices)
+from ray_tpu_torch.rllib import (APPOConfig, AppoLearner, DQNConfig,
+                                 DQNLearner, IMPALAConfig, ImpalaLearner,
+                                 Learner, PPOConfig, SACConfig, SACLearner)
 from ray_tpu_torch.train.backend import TorchConfig, _TorchBackend
 from ray_tpu_torch.ops.flash_attention import (
     attention_bwd_delta, flash_attention, flash_attention_bwd,
@@ -708,6 +730,26 @@ DEVICE_PLANE_LEN = PROMPT_LENS[-1]
 DEVICE_PLANE_BYTES = 32 * 1900 * 8 * 128 * 2 * 2      # 249,036,800
 DEVICE_PLANE_ROUNDS = 3       # serialize/deserialize rounds, cold first
 DEVICE_PLANE_CHILD_S = 300    # bound on the spawned process
+
+# rllib: the JAX package's defaults (hiddens (64, 64)) at CartPole's widths
+# (4 observations, 2 actions), each algorithm's own config (lr, grad_clip).
+RLLIB_SPEC = dict(obs_dim=4, num_actions=2, hiddens=(64, 64))
+# One update on the card against the same update on the CPU, f32 with TF32
+# off: max |diff| / max |ref| per tensor (params, targets), and
+# |diff| / max(|ref|, 1) per metric. PPO's update is 24 Adam steps, whose
+# unit-size moves amplify a last-bit difference in a gradient element that
+# is noise; the CPU tests hold the port to JAX at 1e-5 absolute.
+RLLIB_REL_TOL = 1e-4
+RLLIB_UPDATE_ITERS = 5        # timed updates on the card, after two warm
+# PPO's learning gate, tests/test_rllib.py:48-69: 2 runners x 8 envs x 64
+# steps, lr 3e-4, entropy 0.01, seed 0; a mean return of 120 in 35.
+RLLIB_PPO_RUNNERS = dict(num_env_runners=2, num_envs_per_env_runner=8,
+                         rollout_fragment_length=64)
+RLLIB_PPO_RETURN = 120.0
+RLLIB_PPO_ITERS = 35
+RLLIB_OTHER_ITERS = 3
+RLLIB_PHASE_S = 90.0
+RLLIB_ON_CARD = dict(learner=["cuda:0"], runners=["cuda:0"])
 
 
 def emit(obj) -> None:
@@ -5099,6 +5141,210 @@ def moe_phase(card: str, failures: list) -> dict:
     return res
 
 
+def rllib_batches(rng) -> dict:
+    """One seeded batch per learner family at the shapes one iteration of
+    each default config gives: PPO two runners' [64, 8] rollouts, IMPALA
+    and APPO their aggregate [64, 16], DQN (prioritized weights) and SAC a
+    replay batch of 64."""
+    def obs(*shape):
+        return rng.normal(size=shape + (4,)).astype(np.float32)
+
+    def acts(*shape):
+        return rng.integers(0, 2, shape).astype(np.int32)
+
+    def logp(*shape):
+        return (np.log(0.5) + 0.1 * rng.normal(size=shape)).astype(
+            np.float32)
+
+    ppo = [dict(obs=obs(64, 8), actions=acts(64, 8), logp=logp(64, 8),
+                vf=rng.normal(size=(64, 8)).astype(np.float32),
+                rewards=np.ones((64, 8), np.float32),
+                trunc_bonus=np.zeros((64, 8), np.float32),
+                dones=rng.random((64, 8)) < 0.05,
+                bootstrap_value=rng.normal(size=8).astype(np.float32))
+           for _ in range(2)]
+    impala = dict(obs=obs(64, 16), actions=acts(64, 16), logp=logp(64, 16),
+                  rewards=np.ones((64, 16), np.float32),
+                  trunc_bonus=np.zeros((64, 16), np.float32),
+                  dones=rng.random((64, 16)) < 0.05, final_obs=obs(16),
+                  episode_returns=[20.0])
+
+    def replay(weights):
+        b = dict(obs=obs(64), next_obs=obs(64), actions=acts(64),
+                 rewards=np.ones(64, np.float32),
+                 dones=rng.random(64) < 0.05,
+                 discounts=np.full(64, 0.99 ** 3, np.float32))
+        if weights:
+            b["weights"] = rng.uniform(0.3, 1.0, 64).astype(np.float32)
+        return b
+    return dict(ppo=ppo, impala=impala, appo=impala, dqn=replay(True),
+                sac=replay(False))
+
+
+RLLIB_LEARNERS = {"ppo": (Learner, PPOConfig),
+                  "impala": (ImpalaLearner, IMPALAConfig),
+                  "appo": (AppoLearner, APPOConfig),
+                  "dqn": (DQNLearner, DQNConfig),
+                  "sac": (SACLearner, SACConfig)}
+
+
+def _state_rel_err(got: dict, want: dict) -> float:
+    """max over the state's tensors (params and targets) of
+    max |got - want| / max |want|."""
+    worst = 0.0
+    for key in ("params", "target_params", "target"):
+        for k, w in want.get(key, {}).items():
+            g = got[key][k].detach().cpu()
+            scale = max(w.abs().max().item(), 1e-30)
+            worst = max(worst, (g - w).abs().max().item() / scale)
+    return worst
+
+
+def rllib_learner_check(name: str, failures: list) -> dict:
+    """One update of learner ``name`` on the card and on the CPU from one
+    state on one batch: the state's and the metrics' errors, and the
+    card's update ms (CUDA events over warm updates)."""
+    cls, config = RLLIB_LEARNERS[name]
+    cfg = config().learner_config_dict()
+    batch = rllib_batches(np.random.default_rng(1))[name]
+    cpu = cls(RLLIB_SPEC, cfg, 0, "cpu")
+    card = cls(RLLIB_SPEC, cfg, 0, "cuda")
+    card.set_state(cpu.get_state())
+    want_m = cpu.update(copy.deepcopy(batch))
+    got_m = card.update(copy.deepcopy(batch))
+    adam_steps = card.opt_state["count"]
+    got = card.get_state()
+    state_err = _state_rel_err(got, cpu.get_state())
+    metric_err = {}
+    for k, w in want_m.items():
+        if isinstance(w, (float, np.ndarray)):
+            diff = np.abs(np.asarray(got_m[k]) - np.asarray(w)).max()
+            metric_err[k] = float(diff / max(np.abs(w).max(), 1.0))
+    on_card = all(t.device.type == "cuda" for t in got["params"].values())
+    ms = time_ms(lambda: card.update(copy.deepcopy(batch)),
+                 RLLIB_UPDATE_ITERS) if on_card else None
+    if not (state_err <= RLLIB_REL_TOL
+            and max(metric_err.values()) <= RLLIB_REL_TOL and on_card):
+        failures.append(f"rllib: {name} learner on the card against the "
+                        f"CPU: state {state_err}, metrics {metric_err}, "
+                        f"on card {on_card}")
+    return dict(learner=cls.__name__, lr=cfg["lr"],
+                grad_clip=cfg["grad_clip"],
+                adam_steps=adam_steps,
+                state_max_rel_err=state_err,
+                metric_max_err=max(metric_err.values()),
+                metric_err=metric_err, update_ms=ms, on_card=on_card)
+
+
+def _rllib_devices(algo) -> dict:
+    learner = algo.learner_group.learner
+    return dict(
+        learner=sorted({str(p.device) for p in learner.net.parameters()}),
+        runners=sorted({str(p.device) for r in algo.env_runner_group.runners
+                        for p in r.instance.module.parameters()}))
+
+
+def rllib_train(config, iters: int, stop_at=None):
+    """Train ``config`` on the card for up to ``iters`` iterations (until
+    a mean return of ``stop_at``): (per-iteration rows, the last metrics,
+    the learner's and runners' parameter devices, the algorithm). The
+    caller stops the algorithm."""
+    algo = config.resources(device="cuda").build_algo()
+    steps = (config.num_env_runners * config.num_envs_per_env_runner
+             * config.rollout_fragment_length)
+    rows = []
+    for i in range(iters):
+        t0 = time.perf_counter()
+        m = algo.train()
+        torch.cuda.synchronize()
+        rows.append(dict(
+            iteration=i + 1, wall_s=time.perf_counter() - t0,
+            env_steps=steps, sample_time_s=m.get("sample_time_s"),
+            learn_time_s=m.get("learn_time_s"),
+            episode_return_mean=m["episode_return_mean"],
+            losses={k: v for k, v in m.items() if k.endswith("_loss")},
+            num_updates=m.get("num_updates"),
+            num_samples=m.get("num_samples")))
+        if stop_at is not None and m["episode_return_mean"] >= stop_at:
+            break
+    return rows, m, _rllib_devices(algo), algo
+
+
+def rllib_phase(card: str, failures: list) -> dict:
+    """The rllib port on the card: each learner against itself on the CPU,
+    PPO learning CartPole, IMPALA, APPO, DQN and SAC training. No kernel
+    of ops/csrc lies on this path: it must launch none."""
+    t_phase = time.perf_counter()
+    learners = {name: rllib_learner_check(name, failures)
+                for name in RLLIB_LEARNERS}
+
+    before = _launch_counts()
+    ppo_cfg = (PPOConfig().environment("CartPole-v1")
+               .env_runners(**RLLIB_PPO_RUNNERS)
+               .training(lr=3e-4, entropy_coeff=0.01).debugging(seed=0))
+    rows, m, devices, algo = rllib_train(ppo_cfg, RLLIB_PPO_ITERS,
+                                         RLLIB_PPO_RETURN)
+    try:
+        prof = profiled(algo.train)
+    finally:
+        algo.stop()
+    reached = m["episode_return_mean"] >= RLLIB_PPO_RETURN
+    ppo = dict(config=dict(RLLIB_PPO_RUNNERS, lr=3e-4, entropy_coeff=0.01,
+                           seed=0),
+               iterations=len(rows), reached=reached,
+               episode_return_mean=m["episode_return_mean"],
+               env_steps_per_s=(sum(r["env_steps"] for r in rows)
+                                / sum(r["wall_s"] for r in rows)),
+               devices=devices, per_iteration=rows,
+               profiled_iteration=prof)
+    if not reached:
+        failures.append(f"rllib: PPO's mean return "
+                        f"{m['episode_return_mean']} < {RLLIB_PPO_RETURN} "
+                        f"after {len(rows)} iterations")
+
+    others = {}
+    for name, config in (
+            ("impala", IMPALAConfig().training(lr=6e-4,
+                                               entropy_coeff=0.01)),
+            ("appo", APPOConfig().training(lr=6e-4, entropy_coeff=0.01)),
+            # learning_starts: one iteration's 2 x 8 x 16 steps.
+            ("dqn", DQNConfig().training(learning_starts=256)),
+            ("sac", SACConfig().training(learning_starts=256))):
+        config = config.environment("CartPole-v1").debugging(seed=0)
+        if name in ("impala", "appo"):
+            config = config.env_runners(**RLLIB_PPO_RUNNERS)
+        rows_o, m_o, dev_o, algo_o = rllib_train(config, RLLIB_OTHER_ITERS)
+        algo_o.stop()
+        updated = (m_o.get("num_updates", 0) >= 1
+                   if name in ("dqn", "sac") else
+                   all(r["num_samples"] for r in rows_o))
+        finite = all(math.isfinite(v) for r in rows_o
+                     for v in r["losses"].values())
+        has_losses = any(r["losses"] for r in rows_o)
+        others[name] = dict(per_iteration=rows_o, devices=dev_o,
+                            updated=updated)
+        if not (updated and finite and has_losses
+                and dev_o == RLLIB_ON_CARD):
+            failures.append(f"rllib: {name} updated {updated}, losses "
+                            f"finite {finite} ({has_losses}), params on "
+                            f"{dev_o}")
+    launches = tuple(a - b for a, b in zip(_launch_counts(), before))
+    if devices != RLLIB_ON_CARD:
+        failures.append(f"rllib: PPO's params on {devices}")
+    if any(launches):
+        failures.append(f"rllib: the path launched kernels {launches}")
+    seconds = time.perf_counter() - t_phase
+    if seconds > RLLIB_PHASE_S:
+        failures.append(f"rllib: the phase took {seconds} s "
+                        f"(limit {RLLIB_PHASE_S})")
+    res = dict(phase="rllib", spec=RLLIB_SPEC, rel_tol=RLLIB_REL_TOL,
+               learners=learners, ppo=ppo, others=others,
+               flash_launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+               seconds=seconds, card=card)
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5153,6 +5399,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe_phase(card, failures)
+    rllib_phase(card, failures)
 
     def main_shape(rs, heads):
         mine = [r for r in rs if r["dtype"] == "bfloat16"

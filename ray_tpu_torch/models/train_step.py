@@ -381,6 +381,50 @@ class AdamW:
                 "schedule_count": opt_state["schedule_count"] + 1}, gnorm
 
 
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    """The optax chain ``clip_by_global_norm(grad_clip)`` then
+    ``adam(learning_rate, b1, b2)`` (eps 1e-8, eps_root 0) over a dict of
+    named tensors, updating in place. The clip is decided on the device,
+    so a step needs no host sync. A gradient of None (a tensor the loss
+    does not reach) counts as zeros, as JAX's gradient of such a leaf is:
+    it still enters the norm and decays the moments."""
+    learning_rate: float = 3e-4
+    grad_clip: float = 0.5
+    b1: float = 0.9
+    b2: float = 0.999
+
+    def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        return {"count": 0,
+                "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+                "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update_(self, params: Dict[str, torch.Tensor],
+                grads: Dict[str, Optional[torch.Tensor]],
+                opt_state: Dict[str, Any]
+                ) -> Tuple[Dict[str, Any], torch.Tensor]:
+        """Apply one update to ``params`` and the moments in place.
+        Returns the new opt_state and the global norm of the unclipped
+        grads (a 0-d tensor on the params' device)."""
+        grads = {k: torch.zeros_like(p) if grads.get(k) is None
+                 else grads[k] for k, p in params.items()}
+        gnorm = global_norm(list(grads.values()))
+        keep = gnorm < self.grad_clip          # optax's strict trigger
+        count = opt_state["count"] + 1
+        bc1 = 1.0 - self.b1 ** count
+        bc2 = 1.0 - self.b2 ** count
+        for k, p in params.items():
+            g = torch.where(keep, grads[k], grads[k] / gnorm * self.grad_clip)
+            m, v = opt_state["mu"][k], opt_state["nu"][k]
+            m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            v.mul_(self.b2).add_(g.square(), alpha=1.0 - self.b2)
+            den = (v / bc2).sqrt_().add_(_EPS)
+            p.add_((m / bc1).div_(den).mul_(-self.learning_rate))
+        return {"count": count, "mu": opt_state["mu"],
+                "nu": opt_state["nu"]}, gnorm
+
+
 def _map(fn, tree, memo=None):
     """``fn`` over every tensor of nested dicts and lists, once per
     distinct tensor: a tensor that several positions share maps to one
