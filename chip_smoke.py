@@ -347,6 +347,29 @@ Phases, each printing one JSON line on stdout:
    steps) take 3 iterations each: at least one update, finite losses.
    Every learner's and runner's params on the card; no kernel of
    ops/csrc launched (none lies on this path); the phase under 90 s.
+21. rllib_offline: rllib's offline and multi-agent half on the card, at
+   the same widths. BC, MARWIL (beta 2.0), CQL and IQL (their configs'
+   lr, grad_clip 0.5 or 40) built on the card and on the CPU from one
+   state run one update on one seeded corpus (BC and MARWIL one
+   update_offline over 2048 rows, 8 Adam steps; CQL and IQL run_updates
+   of 8 over 4096 transitions): params and targets within 1e-4 of the
+   CPU's, metrics too, and the update's ms on the card (CUDA events,
+   warm). Then the JAX tests' learning gates on corpora recorded with
+   their recorders on the port's CartPole, learners and evaluation on the
+   card: BC (15 iterations, lr 2e-3, 4 epochs, minibatch 256) at a greedy
+   return of 100 over 5 episodes, MARWIL (25 scripted + 25 random
+   episodes, beta 2.0) at 80, CQL (8 x 100 updates, lr 1e-3) and IQL
+   (seed 7, expectile 0.8) at the behaviour's mean + 20; wall seconds per
+   iteration, the greedy returns, and one more BC iteration profiled
+   (device time by class, idle share). Then a two-CartPole
+   MultiAgentEnv: MultiAgentEnvRunner.sample on the card against itself
+   on the CPU under decisive weights and a 9-step time limit (obs,
+   actions, rewards, dones, returns equal; logp, vf, trunc_bonus and
+   bootstrap_value within 1e-4), and PPO with independent p0/p1 and with
+   one shared policy, 3 iterations each: both policies move, losses
+   finite, every learner's and runner's params on the card, a save/restore
+   round trip bit-equal. No kernel of ops/csrc launched; the phase under
+   120 s.
 
 Then the kernels line, the card line and, last, the ok line. Any failure
 exits non-zero without the ok line, as does a machine without CUDA.
@@ -404,9 +427,16 @@ from ray_tpu_torch.parallel import pipeline
 from ray_tpu_torch.parallel.mesh import AXES, Mesh
 from ray_tpu_torch.parallel.sharding import (all_gather_parts, gather_tensor,
                                              shard_slices)
-from ray_tpu_torch.rllib import (APPOConfig, AppoLearner, DQNConfig,
-                                 DQNLearner, IMPALAConfig, ImpalaLearner,
-                                 Learner, PPOConfig, SACConfig, SACLearner)
+from ray_tpu_torch.rllib import (APPOConfig, AppoLearner, BCConfig,
+                                 BCLearner, CQLConfig, DQNConfig,
+                                 DQNLearner, IMPALAConfig, IQLConfig,
+                                 ImpalaLearner, Learner, MARWILConfig,
+                                 MultiAgentEnv, MultiAgentEnvRunner,
+                                 PPOConfig, SACConfig, SACLearner, envs,
+                                 episodes_to_batch)
+from ray_tpu_torch.rllib.cql import CQLLearner
+from ray_tpu_torch.rllib.iql import IQLLearner
+from ray_tpu_torch.rllib.rl_module import RLModule, RLModuleSpec
 from ray_tpu_torch.train.backend import TorchConfig, _TorchBackend
 from ray_tpu_torch.ops.flash_attention import (
     attention_bwd_delta, flash_attention, flash_attention_bwd,
@@ -750,6 +780,30 @@ RLLIB_PPO_ITERS = 35
 RLLIB_OTHER_ITERS = 3
 RLLIB_PHASE_S = 90.0
 RLLIB_ON_CARD = dict(learner=["cuda:0"], runners=["cuda:0"])
+# rllib_offline: the JAX tests' learning gates (tests/test_rllib_sac_offline
+# .py:188-247, tests/test_rllib_cql_iql.py:66-109) on the card, greedy
+# returns over 5 evaluation episodes: (config, training, iterations, the
+# corpus's recorder, gate; a gate of None is the behaviour's mean + 20).
+RLLIB_OFFLINE_GATES = {
+    "bc": (BCConfig, dict(lr=2e-3, num_epochs=4, minibatch_size=256), 15,
+           "scripted", 100.0),
+    "marwil": (MARWILConfig, dict(lr=2e-3, num_epochs=4, minibatch_size=256,
+                                  beta=2.0), 15, "scripted+random", 80.0),
+    "cql": (CQLConfig, dict(lr=1e-3, cql_alpha=1.0,
+                            num_updates_per_iteration=100), 8, "mixed", None),
+    "iql": (IQLConfig, dict(lr=1e-3, expectile=0.8, beta=3.0,
+                            num_updates_per_iteration=100), 8, "mixed-7",
+            None),
+}
+RLLIB_OFFLINE_MARGIN = 20.0
+RLLIB_OFFLINE_EVAL_EPISODES = 5
+RLLIB_OFFLINE_UPDATES = 8      # run_updates of CQL and IQL in the check
+# Multi-agent: the reference's PPO config (tests/test_rllib_multi_agent.py
+# :59-66) for 3 iterations; the runner check's time limit and length.
+RLLIB_MA_ITERS = 3
+RLLIB_MA_TIME_LIMIT = 9
+RLLIB_MA_SAMPLE_LEN = 25
+RLLIB_OFFLINE_PHASE_S = 120.0
 
 
 def emit(obj) -> None:
@@ -5345,6 +5399,384 @@ def rllib_phase(card: str, failures: list) -> dict:
     return res
 
 
+# ---------------------------------------------------------- rllib_offline --
+# The JAX tests' recorders (tests/test_rllib_sac_offline.py:156-178 and
+# :213-231, tests/test_rllib_cql_iql.py:14-42), over the port's CartPole.
+def scripted_cartpole_episodes(n_episodes=40, seed=0):
+    env = envs.make("CartPole-v1")
+    episodes = []
+    for ep in range(n_episodes):
+        obs, _ = env.reset(seed=seed + ep)
+        rows_o, rows_a, rows_r = [], [], []
+        done = False
+        while not done and len(rows_a) < 200:
+            a = int(obs[2] + 0.3 * obs[3] > 0)
+            rows_o.append(obs.astype(np.float32))
+            rows_a.append(a)
+            obs, r, term, trunc, _ = env.step(a)
+            rows_r.append(float(r))
+            done = term or trunc
+        episodes.append({"obs": np.stack(rows_o),
+                         "actions": np.asarray(rows_a, np.int64),
+                         "rewards": np.asarray(rows_r, np.float32)})
+    env.close()
+    return episodes
+
+
+def random_cartpole_episodes(n_episodes=25, seed=500):
+    rng = np.random.default_rng(0)
+    env = envs.make("CartPole-v1")
+    bad = []
+    for ep in range(n_episodes):
+        obs, _ = env.reset(seed=seed + ep)
+        rows_o, rows_a, rows_r = [], [], []
+        done = False
+        while not done:
+            a = int(rng.integers(0, 2))
+            rows_o.append(obs.astype(np.float32))
+            rows_a.append(a)
+            obs, r, term, trunc, _ = env.step(a)
+            rows_r.append(float(r))
+            done = term or trunc
+        bad.append({"obs": np.stack(rows_o),
+                    "actions": np.asarray(rows_a, np.int64),
+                    "rewards": np.asarray(rows_r, np.float32)})
+    env.close()
+    return bad
+
+
+def record_cartpole(n_episodes=30, p_random=0.3, seed=0, horizon=200):
+    rng = np.random.default_rng(seed)
+    env = envs.make("CartPole-v1")
+    episodes, returns = [], []
+    for ep in range(n_episodes):
+        obs, _ = env.reset(seed=seed + ep)
+        rows_o, rows_a, rows_r = [], [], []
+        done = term = False
+        while not done and len(rows_a) < horizon:
+            if rng.random() < p_random:
+                a = int(rng.integers(2))
+            else:
+                a = int(obs[2] + 0.3 * obs[3] > 0)
+            rows_o.append(obs.astype(np.float32))
+            rows_a.append(a)
+            obs, r, term, trunc, _ = env.step(a)
+            rows_r.append(float(r))
+            done = term or trunc
+        episodes.append({"obs": np.stack(rows_o),
+                         "actions": np.asarray(rows_a, np.int64),
+                         "rewards": np.asarray(rows_r, np.float32),
+                         "terminated": bool(term)})
+        returns.append(float(np.sum(rows_r)))
+    env.close()
+    return episodes, float(np.mean(returns))
+
+
+def offline_corpus(name: str):
+    """(episodes, the behaviour's mean return or None) of a gate."""
+    if name == "scripted":
+        return scripted_cartpole_episodes(), None
+    if name == "scripted+random":
+        return (scripted_cartpole_episodes(n_episodes=25)
+                + random_cartpole_episodes()), None
+    return record_cartpole(seed=7 if name == "mixed-7" else 0)
+
+
+class TwoCartPoles(MultiAgentEnv):
+    """Two independent CartPole instances as one multi-agent env
+    (tests/test_rllib_multi_agent.py:22-56 over the port's CartPole): the
+    episode ends ('__all__') when either pole falls or time truncates."""
+
+    agents = ["a0", "a1"]
+
+    def __init__(self, time_limit=None):
+        self._envs = {a: envs.make("CartPole-v1") for a in self.agents}
+        for e in self._envs.values():
+            if time_limit:
+                e.max_episode_steps = time_limit
+        self.observation_spaces = {
+            a: e.observation_space for a, e in self._envs.items()}
+        self.action_spaces = {
+            a: e.action_space for a, e in self._envs.items()}
+
+    def reset(self, seed=None):
+        obs = {}
+        for i, (a, e) in enumerate(self._envs.items()):
+            obs[a], _ = e.reset(seed=None if seed is None else seed + i)
+        return obs, {}
+
+    def step(self, action_dict):
+        obs, rew, term, trunc = {}, {}, {}, {}
+        any_term, any_trunc = False, False
+        for a, e in self._envs.items():
+            obs[a], rew[a], t, tr, _ = e.step(action_dict[a])
+            term[a], trunc[a] = t, tr
+            any_term |= t
+            any_trunc |= tr
+        term["__all__"] = any_term
+        trunc["__all__"] = any_trunc and not any_term
+        return obs, rew, term, trunc, {}
+
+
+def _max_err(got, want) -> float:
+    """max |got - want| / max(max |want|, 1)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if not want.size:
+        return 0.0
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1.0))
+
+
+def rllib_offline_batches(rng) -> dict:
+    """One seeded corpus per learner: 2048 recorded rows for BC and
+    MARWIL (8 minibatches of 256 a pass), 4096 transitions for CQL and
+    IQL (8 updates of 256)."""
+    eps = [{"obs": rng.normal(size=(256, 4)).astype(np.float32),
+            "actions": rng.integers(0, 2, 256),
+            "rewards": rng.uniform(0, 1, 256).astype(np.float32)}
+           for _ in range(8)]
+    bc = episodes_to_batch(eps, 0.99)
+    n = 4096
+    tr = {"obs": rng.normal(size=(n, 4)).astype(np.float32),
+          "actions": rng.integers(0, 2, n),
+          "rewards": rng.normal(size=n).astype(np.float32),
+          "next_obs": rng.normal(size=(n, 4)).astype(np.float32),
+          "dones": (rng.random(n) < 0.05).astype(np.float32)}
+    return dict(bc=bc, marwil=bc, cql=tr, iql=tr)
+
+
+RLLIB_OFFLINE_LEARNERS = {
+    "bc": (BCLearner, BCConfig()),
+    "marwil": (BCLearner, MARWILConfig().training(beta=2.0)),
+    "cql": (CQLLearner, CQLConfig()),
+    "iql": (IQLLearner, IQLConfig()),
+}
+
+
+def rllib_offline_learner_check(name: str, failures: list) -> dict:
+    """One update_offline (BC, MARWIL) or run_updates of 8 (CQL, IQL) on
+    the card and on the CPU from one state on one corpus: the state's and
+    the metrics' errors, and the card's update ms (CUDA events, warm)."""
+    cls, config = RLLIB_OFFLINE_LEARNERS[name]
+    cfg = config.learner_config_dict()
+    data = rllib_offline_batches(np.random.default_rng(2))[name]
+    cpu = cls(RLLIB_SPEC, cfg, 0, "cpu")
+    card = cls(RLLIB_SPEC, cfg, 0, "cuda")
+    card.set_state(cpu.get_state())
+
+    def update(learner):
+        if cls is BCLearner:
+            return learner.update_offline(data)
+        return learner.run_updates(data, RLLIB_OFFLINE_UPDATES, 256)
+    want_m = update(cpu)
+    got_m = update(card)
+    adam_steps = card.opt_state["count"]
+    got = card.get_state()
+    state_err = _state_rel_err(got, cpu.get_state())
+    metric_err = {k: _max_err(got_m[k], w) for k, w in want_m.items()}
+    on_card = all(t.is_cuda for key in ("params", "target") if key in got
+                  for t in got[key].values())
+    ms = time_ms(lambda: update(card), RLLIB_UPDATE_ITERS)
+    if not (state_err <= RLLIB_REL_TOL
+            and max(metric_err.values()) <= RLLIB_REL_TOL and on_card):
+        failures.append(f"rllib_offline: {name} learner on the card "
+                        f"against the CPU: state {state_err}, metrics "
+                        f"{metric_err}, on card {on_card}")
+    return dict(learner=cls.__name__, lr=cfg["lr"],
+                beta=cfg.get("beta"), adam_steps=adam_steps,
+                rows=len(data["actions"]), state_max_rel_err=state_err,
+                metric_max_err=max(metric_err.values()),
+                metric_err=metric_err, update_ms=ms, on_card=on_card)
+
+
+def rllib_offline_gate(name: str, failures: list) -> dict:
+    """Train ``name`` on the card as its JAX test does, then its greedy
+    returns over 5 episodes against the gate; BC's last iteration is
+    profiled once more."""
+    config, training, iters, corpus, gate = RLLIB_OFFLINE_GATES[name]
+    episodes, behavior = offline_corpus(corpus)
+    if gate is None:
+        gate = behavior + RLLIB_OFFLINE_MARGIN
+    algo = (config().environment("CartPole-v1").offline(episodes)
+            .training(**training).resources(device="cuda")
+            .debugging(seed=0).build_algo())
+    try:
+        rows = []
+        for i in range(iters):
+            t0 = time.perf_counter()
+            m = algo.train()
+            torch.cuda.synchronize()
+            rows.append(dict(iteration=i + 1,
+                             wall_s=time.perf_counter() - t0,
+                             losses={k: v for k, v in m.items()
+                                     if k.endswith("_loss")}))
+        t0 = time.perf_counter()
+        ev = algo.evaluate(num_episodes=RLLIB_OFFLINE_EVAL_EPISODES)
+        eval_s = time.perf_counter() - t0
+        learner = algo.learner_group.learner
+        devices = sorted({str(p.device) for p in learner.net.parameters()})
+        prof = profiled(algo.train) if name == "bc" else None
+    finally:
+        algo.stop()
+    finite = all(math.isfinite(v) for r in rows for v in r["losses"].values())
+    passed = ev["episode_return_mean"] >= gate
+    if not (passed and finite and devices == RLLIB_ON_CARD["learner"]):
+        failures.append(f"rllib_offline: {name} greedy return "
+                        f"{ev['episode_return_mean']} (gate {gate}), losses "
+                        f"finite {finite}, params on {devices}")
+    return dict(training=training, iterations=iters,
+                rows=sum(len(ep["actions"]) for ep in episodes),
+                episodes=len(episodes), behavior_return=behavior,
+                gate=gate, greedy_return_mean=ev["episode_return_mean"],
+                passed=passed, eval_s=eval_s,
+                wall_s_per_iteration=[r["wall_s"] for r in rows],
+                last_losses=rows[-1]["losses"], devices=devices,
+                profiled_iteration=prof)
+
+
+def decisive_weights(seed: int) -> dict:
+    """A policy's state dict (on the host) whose logits lie ~1e6 apart,
+    so that no Gumbel draw flips the argmax on any device (the CPU
+    tests' decisive weights)."""
+    weights = RLModule(RLModuleSpec(**RLLIB_SPEC), seed, "cpu").state_dict()
+    last = len(RLLIB_SPEC["hiddens"])
+    weights[f"pi.{last}.weight"] = weights[f"pi.{last}.weight"] * 1e6
+    return weights
+
+
+def rllib_ma_sample_check(failures: list) -> dict:
+    """MultiAgentEnvRunner.sample on the card against itself on the CPU,
+    independent policies p0/p1, decisive weights, a 9-step time limit, two
+    calls: obs, actions, rewards, dones, final obs and returns equal;
+    logp, vf, trunc_bonus and bootstrap_value within RLLIB_REL_TOL."""
+    mapping = {"a0": "p0", "a1": "p1"}
+    specs = {p: dict(RLLIB_SPEC) for p in ("p0", "p1")}
+    weights = {"p0": decisive_weights(1), "p1": decisive_weights(2)}
+    maker = functools.partial(TwoCartPoles, time_limit=RLLIB_MA_TIME_LIMIT)
+    cpu = MultiAgentEnvRunner(maker, specs, mapping, 4, 11, device="cpu")
+    card = MultiAgentEnvRunner(maker, specs, mapping, 4, 11, device="cuda")
+    card_w = {p: {k: v.to(card.device) for k, v in w.items()}
+              for p, w in weights.items()}
+    exact, errs, truncs = True, {}, 0
+    for _ in range(2):
+        want = cpu.sample(weights, RLLIB_MA_SAMPLE_LEN)
+        got = card.sample(card_w, RLLIB_MA_SAMPLE_LEN)
+        exact &= got["episode_returns"] == want["episode_returns"]
+        for p in ("p0", "p1"):
+            for k, w in want[p].items():
+                if k in ("logp", "vf", "trunc_bonus", "bootstrap_value"):
+                    errs[k] = max(errs.get(k, 0.0), _max_err(got[p][k], w))
+                else:
+                    exact &= (got[p][k].dtype == w.dtype
+                              and np.array_equal(got[p][k], w))
+            truncs += int(np.count_nonzero(want[p]["trunc_bonus"]))
+    if not (exact and max(errs.values()) <= RLLIB_REL_TOL and truncs):
+        failures.append(f"rllib_offline: multi-agent sample on the card "
+                        f"against the CPU: exact {exact}, errors {errs}, "
+                        f"truncation bonuses {truncs}")
+    return dict(exact=exact, max_err=errs, truncation_bonuses=truncs,
+                columns=int(want["p0"]["obs"].shape[1]))
+
+
+def _ma_state_equal(a: dict, b: dict) -> bool:
+    return (a["opt_state"]["count"] == b["opt_state"]["count"]
+            and all(torch.equal(a[key][k], b[key][k])
+                    for key in ("params",) for k in a[key])
+            and all(torch.equal(a["opt_state"][m][k], b["opt_state"][m][k])
+                    for m in ("mu", "nu") for k in a["opt_state"][m]))
+
+
+def rllib_ma_train(name: str, mapping: dict, failures: list) -> dict:
+    """PPO over TwoCartPoles as tests/test_rllib_multi_agent.py configures
+    it, 3 iterations on the card, then a save/restore round trip."""
+    policies = sorted(set(mapping.values()))
+    config = (PPOConfig().environment(TwoCartPoles)
+              .multi_agent(policies=policies,
+                           policy_mapping_fn=mapping.__getitem__)
+              .env_runners(num_env_runners=1, num_envs_per_env_runner=4,
+                           rollout_fragment_length=32)
+              .training(lr=5e-3, minibatch_size=64, num_epochs=2)
+              .resources(device="cuda").debugging(seed=7))
+    algo = config.build_algo()
+    try:
+        w0 = {p: lg.get_weights() for p, lg in algo.learner_groups.items()}
+        rows = []
+        for i in range(RLLIB_MA_ITERS):
+            t0 = time.perf_counter()
+            m = algo.train()
+            torch.cuda.synchronize()
+            rows.append(dict(iteration=i + 1,
+                             wall_s=time.perf_counter() - t0,
+                             sample_time_s=m["sample_time_s"],
+                             learn_time_s=m["learn_time_s"],
+                             losses={k: v for k, v in m.items()
+                                     if k.endswith("total_loss")}))
+        moved = {p: any(not torch.equal(lg.get_weights()[k], v)
+                        for k, v in w0[p].items())
+                 for p, lg in algo.learner_groups.items()}
+        devices = sorted(
+            {str(t.device) for lg in algo.learner_groups.values()
+             for t in lg.learner.net.parameters()}
+            | {str(t.device) for r in algo.env_runner_group.runners
+               for mod in r.instance.modules.values()
+               for t in mod.parameters()})
+        with tempfile.TemporaryDirectory() as tmp:
+            algo.save(tmp)
+            algo2 = config.build_algo()
+            try:
+                algo2.restore(tmp)
+                round_trip = algo2.iteration == algo.iteration and all(
+                    _ma_state_equal(algo2.learner_groups[p].get_state(),
+                                    lg.get_state())
+                    for p, lg in algo.learner_groups.items())
+            finally:
+                algo2.stop()
+    finally:
+        algo.stop()
+    finite = all(math.isfinite(v) for r in rows for v in r["losses"].values())
+    if not (all(moved.values()) and finite
+            and devices == RLLIB_ON_CARD["learner"]
+            and round_trip and len(rows[-1]["losses"]) == len(policies)):
+        failures.append(f"rllib_offline: multi-agent PPO ({name}) moved "
+                        f"{moved}, losses finite {finite}, params on "
+                        f"{devices}, save/restore equal {round_trip}")
+    return dict(policies=policies, per_iteration=rows, moved=moved,
+                devices=devices, save_restore_equal=round_trip,
+                episode_return_mean=m["episode_return_mean"])
+
+
+def rllib_offline_phase(card: str, failures: list) -> dict:
+    """rllib's offline and multi-agent half on the card: each offline
+    learner against itself on the CPU, the JAX tests' four learning gates,
+    the multi-agent runner against itself on the CPU and multi-agent PPO.
+    No kernel of ops/csrc lies on this path: it must launch none."""
+    t_phase = time.perf_counter()
+    before = _launch_counts()
+    learners = {name: rllib_offline_learner_check(name, failures)
+                for name in RLLIB_OFFLINE_LEARNERS}
+    gates = {name: rllib_offline_gate(name, failures)
+             for name in RLLIB_OFFLINE_GATES}
+    multi_agent = dict(
+        sample=rllib_ma_sample_check(failures),
+        independent=rllib_ma_train("independent", {"a0": "p0", "a1": "p1"},
+                                   failures),
+        shared=rllib_ma_train("shared", {"a0": "shared", "a1": "shared"},
+                              failures))
+    launches = tuple(a - b for a, b in zip(_launch_counts(), before))
+    if any(launches):
+        failures.append(f"rllib_offline: the path launched kernels "
+                        f"{launches}")
+    seconds = time.perf_counter() - t_phase
+    if seconds > RLLIB_OFFLINE_PHASE_S:
+        failures.append(f"rllib_offline: the phase took {seconds} s "
+                        f"(limit {RLLIB_OFFLINE_PHASE_S})")
+    res = dict(phase="rllib_offline", spec=RLLIB_SPEC, rel_tol=RLLIB_REL_TOL,
+               learners=learners, gates=gates, multi_agent=multi_agent,
+               flash_launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+               seconds=seconds, card=card)
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5400,6 +5832,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_phase(card, failures)
     rllib_phase(card, failures)
+    rllib_offline_phase(card, failures)
 
     def main_shape(rs, heads):
         mine = [r for r in rs if r["dtype"] == "bfloat16"

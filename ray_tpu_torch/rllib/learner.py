@@ -53,6 +53,16 @@ def floats(metrics: Mapping[str, torch.Tensor]) -> Dict[str, float]:
     return dict(zip(metrics, values.tolist()))
 
 
+@torch.no_grad()
+def polyak_(target: torch.nn.ModuleDict, net: torch.nn.Module,
+            tau: float) -> None:
+    """target <- (1 - tau) * target + tau * net, head by head: each of
+    ``target``'s heads against the net's head of the same name."""
+    for name, head in target.items():
+        for t, o in zip(head.parameters(), getattr(net, name).parameters()):
+            t.mul_(1 - tau).add_(o, alpha=tau)
+
+
 def state_from_jax(np_state: Mapping[str, Any]) -> Dict[str, Any]:
     """A reference learner's ``get_state()`` (numpy leaves, optax's state
     as its named tuples) in the port's layout: every param tree

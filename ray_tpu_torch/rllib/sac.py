@@ -31,7 +31,7 @@ from torch import nn
 from .._device import resolve_device
 from .algorithm import Algorithm, AlgorithmConfig
 from .dqn import fold_nstep
-from .learner import Learner, floats, to_device
+from .learner import Learner, floats, polyak_, to_device
 from .replay_buffers import PrioritizedReplayBuffer, ReplayBuffer
 from .rl_module import MLP, RLModuleSpec, init_mlp_, snapshot
 
@@ -116,14 +116,6 @@ class SACLearner(Learner):
                        "alpha": alpha,
                        "entropy": entropy.mean()}, td
 
-    @torch.no_grad()
-    def _polyak(self) -> None:
-        tau = self.cfg.get("tau", 0.005)
-        for name in ("q1", "q2"):
-            for t, o in zip(self.target[name].parameters(),
-                            getattr(self.net, name).parameters()):
-                t.mul_(1 - tau).add_(o, alpha=tau)
-
     # ----------------------------------------------------------- update ---
     def update(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         batch = self._apply_learner_connectors(batch)
@@ -139,7 +131,7 @@ class SACLearner(Learner):
         }, self.device)
         loss, metrics, td = self._losses(tb)
         self._apply(loss)
-        self._polyak()
+        polyak_(self.target, self.net, self.cfg.get("tau", 0.005))
         self._updates += 1
         out: Dict[str, Any] = floats(metrics)
         out.update({"td_errors": td.cpu().numpy(),

@@ -5,31 +5,25 @@ The JAX package's EnvRunner is an actor class; its plain class
 Action sampling draws from different streams in the two packages, so the
 runners are compared whole where the policy is deterministic: epsilon
 draws (numpy in both) around greedy actions, and policies whose logits are
-so far apart that no Gumbel draw can flip them ("decisive" weights). Then every algorithm trains through ``LocalRuntime``, PPO until
-it learns CartPole, and PPO once more with its runners as ``ray_tpu``
+so far apart that no Gumbel draw can flip them ("decisive" weights).
+Then every algorithm trains through ``LocalRuntime``, PPO until it learns
+CartPole, and PPO once more with its runners as ``ray_tpu``
 actors through an adapter of the runtime protocol (every wait bounded at
 60 s), which shows that the port's Algorithm holds only the boundary.
 """
 
 import math
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-import ray_tpu
-from ray_tpu.rllib import RLModuleSpec as JaxRLModuleSpec
+from _torch_rllib_helpers import SPEC, RayTpuRuntime, jax_params, same
 from ray_tpu.rllib.env_runner import EnvRunner as JaxEnvRunner
 from ray_tpu_torch.rllib import (APPOConfig, DQNConfig, EnvRunner,
                                  IMPALAConfig, LocalRuntime, PPOConfig,
                                  SACConfig)
 from ray_tpu_torch.rllib.rl_module import state_dict_from_jax
-
-SPEC = dict(obs_dim=4, num_actions=2, hiddens=(64, 64))
-# Values of the module (logp, value, the truncation bonus) against JAX's:
-# f32 through three layers summed in another order.
-VALUE_TOL = 1e-5
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -38,18 +32,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def _jax_params(seed, decisive=False):
-    params = jax.tree.map(np.asarray, JaxRLModuleSpec(**SPEC).build().init(
-        jax.random.key(seed)))
-    if decisive:
-        # Logit gaps of ~1e6: argmax(logits + Gumbel) is the argmax of
-        # the logits in both packages (an f32 Gumbel draw lies in
-        # [-4.5, 16.7]).
-        params["pi"][-1] = {"w": params["pi"][-1]["w"] * 1e6,
-                            "b": params["pi"][-1]["b"]}
-    return params
 
 
 def _runners(seed, time_limit=None):
@@ -63,34 +45,18 @@ def _runners(seed, time_limit=None):
     return ref, mine
 
 
-def _same(got: dict, want: dict, close=()):
-    assert got.keys() == want.keys()
-    for k, w in want.items():
-        g = got[k]
-        if isinstance(w, list):
-            assert g == w, k
-        elif k in close:
-            np.testing.assert_allclose(g, w, atol=VALUE_TOL, rtol=0,
-                                       err_msg=k)
-        else:
-            w = np.asarray(w)
-            assert g.dtype == w.dtype and g.shape == w.shape, (k, g.dtype,
-                                                               w.dtype)
-            np.testing.assert_array_equal(g, w, err_msg=k)
-
-
 @pytest.mark.parametrize("epsilon", [0.3, -1.0])
 def test_sample_transitions_equal_jax(epsilon):
     """epsilon 0.3: greedy actions and numpy epsilon draws, from the same
     weights; epsilon < 0 (SAC's sampling from pi) with decisive
     weights. Two calls, so the runner's carried state is compared too."""
-    params = _jax_params(0, decisive=epsilon < 0)
+    params = jax_params(0, decisive=epsilon < 0)
     ref, mine = _runners(3, time_limit=30)
     for _ in range(2):
         want = ref.sample_transitions(params, 40, epsilon)
         got = mine.sample_transitions(state_dict_from_jax(params), 40,
                                       epsilon)
-        _same(got, want)
+        same(got, want)
         assert want["episode_returns"]
 
 
@@ -98,13 +64,13 @@ def test_sample_equals_jax_under_a_decisive_policy():
     """The whole on-policy sample(), truncation bootstrap included (a
     time limit of 9 steps): observations, actions, rewards, dones and
     episode returns exactly; logp, values and the bonus at VALUE_TOL."""
-    params = _jax_params(1, decisive=True)
+    params = jax_params(1, decisive=True)
     ref, mine = _runners(5, time_limit=9)
     for _ in range(2):
         want = ref.sample(params, 25)
         got = mine.sample(state_dict_from_jax(params), 25)
-        _same(got, want, close=("logp", "vf", "trunc_bonus",
-                                "bootstrap_value"))
+        same(got, want, close=("logp", "vf", "trunc_bonus",
+                               "bootstrap_value"))
         assert want["trunc_bonus"].any()
 
 
@@ -148,16 +114,6 @@ def test_algorithm_trains_two_iterations_on_the_cpu(name):
         assert runner.module.device.type == "cpu"
     finally:
         algo.stop()
-
-
-def test_multi_agent_is_refused():
-    with pytest.raises(NotImplementedError, match="multi-agent"):
-        PPOConfig().multi_agent(policies=["a"],
-                                policy_mapping_fn=lambda a: "a")
-    config = _config(PPOConfig)
-    config.policies = {"a": {}}
-    with pytest.raises(NotImplementedError, match="multi-agent"):
-        config.build_algo()
 
 
 def test_dqn_save_restore_keeps_target_net(tmp_path):
@@ -207,34 +163,6 @@ def test_ppo_learns_cartpole_on_the_cpu():
         assert best >= 120, f"PPO failed to learn CartPole (best={best})"
     finally:
         algo.stop()
-
-
-class RayTpuRuntime:
-    """The runtime protocol (ray_tpu_torch/rllib/_runtime.py) over
-    ray_tpu's actors and object store; every wait bounded at 60 s."""
-
-    BOUND_S = 60.0
-
-    def _bound(self, timeout):
-        return self.BOUND_S if timeout is None else min(timeout,
-                                                        self.BOUND_S)
-
-    def remote(self, cls, num_cpus=1, resources=None):
-        return ray_tpu.remote(cls).options(num_cpus=num_cpus,
-                                           resources=resources).remote
-
-    def put(self, value):
-        return ray_tpu.put(value)
-
-    def get(self, refs, timeout=None):
-        return ray_tpu.get(refs, timeout=self._bound(timeout))
-
-    def wait(self, refs, num_returns=1, timeout=None):
-        return ray_tpu.wait(refs, num_returns=num_returns,
-                            timeout=self._bound(timeout))
-
-    def kill(self, handle):
-        ray_tpu.kill(handle)
 
 
 def test_ppo_under_the_ray_tpu_runtime(ray_start_regular):

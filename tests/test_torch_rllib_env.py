@@ -208,8 +208,8 @@ def test_rllib_imports_no_jax_optax_gymnasium_or_ray_tpu():
         "import sys\n"
         "import ray_tpu_torch.rllib\n"
         "from ray_tpu_torch.rllib import (_runtime, algorithm, appo,\n"
-        "    connectors, dqn, env_runner, envs, impala, learner, ppo,\n"
-        "    replay_buffers, rl_module, sac)\n"
+        "    connectors, cql, dqn, env_runner, envs, impala, iql, learner,\n"
+        "    multi_agent, offline, ppo, replay_buffers, rl_module, sac)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax',\n"
         "                                    'gymnasium', 'ray_tpu',\n"
