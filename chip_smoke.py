@@ -197,6 +197,20 @@ Phases, each printing one JSON line on stdout:
    owner's serve_fetch (four 64 MiB chunks), bit-equal, then device_free
    and a get that raises KeyError. Prints every time (host clock,
    synchronised) and every audit delta.
+12b. serve_rules: the same params behind LLMEngine(SERVE_ENGINE's shape,
+   prefix_cache=True) under the reference's default table,
+   LogicalAxisRules.default(), on tp=2 and on fsdp=2 x tp=2 naming the
+   card 2 and 4 times: each position stores the table's slices (its
+   vocabulary slice of embed and lm_head; on fsdp=2 its embed-dim slices,
+   gathered a layer at a time at use), the embedding and the logits
+   vocabulary-parallel. Checks each position's slice shapes, the distinct
+   tensors on the card holding exactly the params' bytes (a whole tensor
+   the params' own); the four prompts' first-token logits against
+   forward() with plain attention (serve_tp's gate) and their greedy
+   tokens against the unsharded engine's (equal, or parting at a tie);
+   32 x tp kernel 1 launches per full prefill; the longest prompt again,
+   a resident prefix hit with no launch. Prints the wave's decode step ms,
+   a 1900-token prefill's ms and the peak memory.
 13. train: the same model at full width and depth, random weights, four
    steps of make_train_step on one fixed 2048-token batch with per-layer
    checkpointing; checks finite metrics, a falling loss, each kernel's
@@ -231,6 +245,22 @@ Phases, each printing one JSON line on stdout:
    planner's figure. Where torch.cuda.device_count() >= 2 the same mesh
    also runs over the visible cards (the grid in order, each card named
    8/n times), and the phase prints which ran.
+14b. train_rules: train_mesh's mesh, batch and seeded params under other
+   rule tables (default().with_overrides(("mlp", "fsdp")): the MLP's
+   weights over fsdp on their embed dim, whole over tp; ("embed", "tp"):
+   the embed dim over tp, the heads whole), then ("batch", "dp") (batch
+   groups over dp alone, two rows each) where its planner figure beside
+   the first table's measured peak leaves 5% of the card free. Each
+   stores the params as it says and trains in the model's layout (heads,
+   kv heads and MLP units over tp), the stored slices gathered and sliced
+   at use. train_mesh's checks for each: the slices against the unsharded
+   params, the sampled gradients and step 1's loss and grad norm against
+   train_mesh's unsharded pass, the held state's bytes against the
+   planner's under the table, 32 x groups x tp launches of kernel 1 (x2:
+   the recompute) and of kernels 2 and 3 a step; three steps, the first
+   table's last step profiled (with train_mesh's named ranges, the
+   fsdp:gather range reading every build of a layer's weights from the
+   stored slices).
 15. train_pp: the same model at full width and depth trained on
    build_mesh(MeshSpec(pp=2, dp=2, tp=2), devices=[cuda:0] * 8), the
    reference's own pp training mesh, with two microbatches per batch
@@ -327,8 +357,12 @@ Phases, each printing one JSON line on stdout:
    and every parameter's gradient within a bf16 limit of the unsharded
    layer's beside a control (the unsharded layer with its MLP units
    relabelled), each position's shard shapes, the shards on the card
-   holding exactly the params' bytes. Prints forward and backward ms
-   (host and device) of both and the peak memory.
+   holding exactly the params' bytes. Then ep-sharded once more under
+   default().with_overrides(("embed", "tp")) (w_gate and w_up stored over
+   experts and the embed dim, w_down over experts and MLP units, each
+   computing position gathering its experts' weights at use): the routing
+   equal, y and the gradients within the same limits. Prints forward and
+   backward ms (host and device) of both and the peak memory.
 20. rllib: the port's rllib (ray_tpu_torch/rllib) on the card, at the JAX
    package's defaults (hiddens (64, 64)) on the port's own CartPole-v1
    (4 observations, 2 actions). Each learner (PPO, IMPALA, APPO, DQN,
@@ -421,8 +455,9 @@ from ray_tpu_torch.models.moe import moe_layer_routed
 from ray_tpu_torch.models.train_step import global_norm, value_and_grad
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import ring_attention as ring_ops
-from ray_tpu_torch.parallel import (MeshSpec, build_mesh, plan_train_memory,
-                                    shard_params, tree_specs)
+from ray_tpu_torch.parallel import (LogicalAxisRules, MeshSpec, build_mesh,
+                                    plan_train_memory, shard_params,
+                                    tree_specs)
 from ray_tpu_torch.parallel import pipeline
 from ray_tpu_torch.parallel.mesh import AXES, Mesh
 from ray_tpu_torch.parallel.sharding import (all_gather_parts, gather_tensor,
@@ -650,7 +685,7 @@ TRAIN_MESH_SAMPLE = (("embed",), ("lm_head",)) + tuple(
 # The profiled step's named ranges (the functions of models.transformer
 # that one step calls, wrapped while profiling).
 TRAIN_MESH_RANGES = {"all_reduce": "tp:all_reduce",
-                     "fsdp_gather": "fsdp:gather",
+                     "reshard": "fsdp:gather",
                      "vocab_parallel_nll": "vocab:cross_entropy"}
 # train_pp: the reference's own pp training mesh
 # (tests/test_parallel_advanced.py:158-182), train_mesh's batch, two
@@ -672,6 +707,26 @@ TRAIN_PP_RANGES = dict(TRAIN_MESH_RANGES, stage_send="pp:send")
 # train phase measured those limits on (PERF.md).
 TRAIN_SP = dict(dp=2, sp=2, tp=2)
 TRAIN_SP_STEPS = 3
+# train_rules: train_mesh's mesh, batch and seeded params under rule
+# tables other than the default: each stores the params as it says (the
+# MLP's weights over fsdp on their embed dim and whole over tp; the embed
+# dim over tp, the heads whole) and the model computes in its own layout,
+# gathering and slicing at use. Three steps (step 2 is the first with a
+# learning rate above 0, so step 3's loss is the first that can fall).
+# The batch over dp alone (its batch groups twice train_mesh's) runs only
+# where the planner's figure for it, beside the first table's measured
+# peak, leaves TRAIN_RULES_HEADROOM of the card free.
+TRAIN_RULES = (("mlp-fsdp", (("mlp", "fsdp"),)),
+               ("embed-tp", (("embed", "tp"),)))
+TRAIN_RULES_IF_IT_FITS = ("batch-dp", (("batch", "dp"),))
+TRAIN_RULES_STEPS = 3
+TRAIN_RULES_HEADROOM = 0.05
+# serve_rules: the serve phase's prompts on engines under the reference's
+# default table (the vocabulary over tp, the embed dim over fsdp), on tp=2
+# and on fsdp=2 x tp=2 naming the card 2 and 4 times; the longest prompt
+# again as a prefix hit.
+SERVE_RULES = (("tp2", dict(tp=2)), ("fsdp2xtp2", dict(fsdp=2, tp=2)))
+SERVE_RULES_ENGINE = dict(SERVE_ENGINE, prefix_cache=True)
 # collective: a 256 MiB bf16 all-reduce timed where world >= 2 (NCCL's
 # bus bandwidth: algbw x 2(n - 1)/n); every wait of the spawned ranks is
 # bounded.
@@ -754,6 +809,10 @@ MOE_MESH = dict(fsdp=2, sp=2, tp=2)
 # changes only the order of w_down's sums.
 MOE_Y_REL_TOL = 2e-2
 MOE_GRAD_REL_TOL = 5e-2
+# The moe phase's second ep-sharded run: the embed dim over tp (w_gate and
+# w_up stored over experts and the embed dim, w_down over experts and MLP
+# units, the router over its embed dim), held to the same limits.
+MOE_RULES = (("embed", "tp"),)
 # The device_plane phase: the serve phase's longest prompt, whose P/D blob
 # is 32 layers x 1900 tokens x 8 kv heads x 128 x 2 bytes, for k and v.
 DEVICE_PLANE_LEN = PROMPT_LENS[-1]
@@ -3828,14 +3887,16 @@ def gather_sample(grads, path, specs, mesh, cfg, device):
 def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
                    plan, spec=TRAIN_MESH, microbatches=None,
                    ranges=TRAIN_MESH_RANGES, name="train_mesh",
-                   steps=TRAIN_STEPS) -> dict:
+                   steps=TRAIN_STEPS, rules=None,
+                   profiled_step=True) -> dict:
     """Train on ``build_mesh(MeshSpec(**spec), devices=devices)`` with
-    ``microbatches`` per batch group under pp, from the seed-0 params
+    ``microbatches`` per batch group under pp, the params stored as
+    ``rules`` say (default: the default table), from the seed-0 params
     (drawn again on the first device, as the unsharded pass drew them):
     the sharded value_and_grad's sampled gradients against ``ref``'s, then
     ``steps`` steps (the last profiled, with ``ranges`` named) with their
     launch counts (none under ring attention), step 1 against ``ref``'s
-    loss and grad norm."""
+    loss and grad norm. ``profiled_step=False`` profiles no step."""
     what = f"{name} on {len(set(devices))} card(s)"
 
     def fail(msg):
@@ -3844,7 +3905,8 @@ def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
     mesh = build_mesh(MeshSpec(**spec), devices=devices)
     bundle = make_train_step(cfg, mesh,
                              optimizer=make_optimizer(warmup_steps=1),
-                             num_microbatches=microbatches, device="cuda")
+                             rules=rules, num_microbatches=microbatches,
+                             device="cuda")
     specs = bundle.state_specs["params"]
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(devices[0]).manual_seed(0),
@@ -3859,7 +3921,8 @@ def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
     shard_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     loss, grads = value_and_grad(shards, batch, cfg, device="cuda",
-                                 mesh=mesh, num_microbatches=microbatches)
+                                 mesh=mesh, rules=bundle.rules,
+                                 num_microbatches=microbatches)
     torch.cuda.synchronize()
     vg_s = time.perf_counter() - t0
     sample_errs = {}
@@ -3890,7 +3953,8 @@ def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
     # forward and in the recompute, dQ and dK/dV once.
     pp = mesh.shape["pp"]
     mb = (microbatches or pp) if pp > 1 else 1
-    per = cfg.num_layers * mb * len(mesh.batch_groups()) * mesh.shape["tp"]
+    per = (cfg.num_layers * mb * len(mesh.batch_groups(bundle.rules))
+           * mesh.shape["tp"])
     if cfg.attention_impl != "flash":
         per = 0
     want = (2 * per, per, per)
@@ -3901,7 +3965,7 @@ def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
         torch.cuda.reset_peak_memory_stats(i)
     n_steps, steps = steps, []
     for i in range(n_steps):
-        last = i == n_steps - 1
+        last = profiled_step and i == n_steps - 1
         prof = (profile(activities=[ProfilerActivity.CPU,
                                     ProfilerActivity.CUDA]) if last
                 else contextlib.nullcontext())
@@ -3926,9 +3990,11 @@ def train_mesh_run(cfg, devices, batch, ref, failures, one_card: bool,
     totals = dict(zip(("fwd", "dq", "dkv"), _launch_counts()))
     peak = [torch.cuda.max_memory_allocated(i) / 1e9
             for i in range(torch.cuda.device_count())]
-    split, top = device_time_split(prof)
+    split, top = (device_time_split(prof) if profiled_step
+                  else ({}, []))
     busy = sum(split.values())
-    split_ranges(prof, split, ranges.values())
+    if profiled_step:
+        split_ranges(prof, split, ranges.values())
     first, last = steps[0], steps[-1]
     loss_rel = abs(first["loss"] - ref["loss"]) / abs(ref["loss"])
     gnorm_rel = abs(first["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
@@ -4044,6 +4110,204 @@ def train_mesh_phase(card: str, failures: list, train: dict) -> tuple:
         seconds=time.perf_counter() - t_phase, card=card)
     emit(res)
     return res, ref
+
+
+def train_rules_phase(card: str, failures: list, ref: dict) -> dict:
+    """train_mesh's training under other rule tables (see the module
+    docstring): one train_mesh_run a table, held to train_mesh's
+    unsharded pass ``ref``."""
+    cfg = dataclasses.replace(PRESETS["8b-gqa"], remat=True,
+                              attention_impl="flash")
+    t_phase = time.perf_counter()
+    tokens = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (TRAIN_MESH_BATCH, TRAIN_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    cuda0 = torch.device("cuda", 0)
+    state_bytes = 4 * plan_train_memory(
+        cfg, MeshSpec(), global_batch=TRAIN_MESH_BATCH, seq_len=TRAIN_SEQ,
+        hbm_gib=0.0).params_bytes
+
+    def plan_of(over):
+        return plan_train_memory(
+            cfg, MeshSpec(**TRAIN_MESH), global_batch=TRAIN_MESH_BATCH,
+            seq_len=TRAIN_SEQ,
+            rules=LogicalAxisRules.default().with_overrides(*over))
+
+    def one_card(plan):
+        """The planner's figure for the mesh on one card: the state once
+        and one position's activations, logits and workspace."""
+        return (state_bytes + plan.activation_bytes + plan.logits_bytes
+                + plan.workspace_bytes)
+
+    def run(name, over):
+        plan = plan_of(over)
+        out = train_mesh_run(
+            cfg, [cuda0] * 8, batch, ref, failures, True, plan,
+            name=f"train_rules {name}", steps=TRAIN_RULES_STEPS,
+            rules=LogicalAxisRules.default().with_overrides(*over),
+            profiled_step=name == TRAIN_RULES[0][0])
+        out.update(table=name, overrides=[list(o) for o in over],
+                   batch_groups=len(build_mesh(
+                       MeshSpec(**TRAIN_MESH), devices=[cuda0] * 8
+                   ).batch_groups(LogicalAxisRules.default().with_overrides(
+                       *over))),
+                   plan=plan_summary(plan, [out]))
+        return out
+    runs = [run(name, over) for name, over in TRAIN_RULES]
+    name, over = TRAIN_RULES_IF_IT_FITS
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    first = TRAIN_RULES[0][1]
+    expected = (max(runs[0]["peak_memory_gb"]) * 1e9
+                + one_card(plan_of(over)) - one_card(plan_of(first)))
+    fits = expected <= (1 - TRAIN_RULES_HEADROOM) * card_bytes
+    if fits:
+        runs.append(run(name, over))
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in ("fwd", "dq", "dkv")}
+    res = dict(phase="train_rules", preset="8b-gqa", mesh=TRAIN_MESH,
+               batch=TRAIN_MESH_BATCH, seq_len=TRAIN_SEQ,
+               steps=TRAIN_RULES_STEPS,
+               if_it_fits=dict(table=name, ran=fits,
+                               expected_peak_gb=expected / 1e9,
+                               card_gb=card_bytes / 1e9,
+                               headroom=TRAIN_RULES_HEADROOM),
+               runs=runs, launches=launches,
+               loss_rel_tol=TRAIN_LOSS_REL_TOL,
+               grad_norm_rel_tol=TRAIN_GNORM_REL_TOL,
+               seconds=time.perf_counter() - t_phase, card=card)
+    emit(res)
+    return res
+
+
+def rules_memory(eng, params, rules) -> dict:
+    """Where a serving engine under ``rules`` keeps the weights: each
+    position's stored tensors (``eng._stored``) of the shapes the table's
+    specs give, on the card; the distinct tensors' bytes the params' (one
+    card: each slice once), a whole tensor the params' own (same
+    data_ptr); its pools against the unsharded pool's bytes."""
+    mesh = eng.mesh
+    whole = dict(_named_leaves(params))
+    specs = _dict_leaves(tree_specs(transformer.param_logical_axes(None),
+                                    mesh, rules))
+    distinct, bad, own = {}, [], True
+    for coord, tree in zip(mesh.coords(), eng._stored):
+        for name, t in _named_leaves(tree):
+            distinct[id(t)] = t
+            want = tuple(x.stop - x.start for x in shard_slices(
+                specs[name], whole[name].shape, mesh, coord))
+            if tuple(t.shape) != want:
+                bad.append((name, tuple(t.shape), want))
+            if t.shape == whole[name].shape:
+                own &= t.data_ptr() == whole[name].data_ptr()
+    held = sum(t.nbytes for t in distinct.values())
+    total = sum(t.nbytes for t in whole.values())
+    on_card = all(t.is_cuda for t in distinct.values())
+    return dict(ok=not bad and own and on_card and held == total,
+                shape_mismatches=bad[:5], whole_tensors_not_copied=own,
+                on_card=on_card, held_gb=held / 1e9, params_gb=total / 1e9,
+                pools_gb=sum(t.nbytes for t in eng._pk + eng._pv) / 1e9,
+                compute=[type(p).__name__ for p in eng._shards])
+
+
+def serve_rules_phase(card: str, failures: list, params) -> dict:
+    """Serving under the reference's default table (see the module
+    docstring)."""
+    cfg = PRESETS["8b-gqa"]
+    L = cfg.num_layers
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)              # the serve phase's prompts
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    sp = SamplingParams(max_tokens=MAX_TOKENS)
+    flat = LLMEngine(cfg, params, device="cuda", **SERVE_ENGINE)
+    with uncounted(), torch.no_grad():
+        refs = [(*plain_logits(params, cfg, p, flat._bucket(len(p))),
+                 flat._run_prefill(p)[0]) for p in prompts]
+        flat_outs = flat.generate(prompts, sp)
+    cuda0 = torch.device("cuda", 0)
+    rules = LogicalAxisRules.default()
+    runs = []
+    for name, spec in SERVE_RULES:
+        t_run = time.perf_counter()
+        what = f"{name} under LogicalAxisRules.default()"
+        n, tp = MeshSpec(**spec).n_devices, spec["tp"]
+
+        def fail(section, detail):
+            failures.append(f"serve_rules {what} {section}: {detail}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = LLMEngine(cfg, params, device="cuda", mesh=build_mesh(
+            MeshSpec(**spec), devices=[cuda0] * n), rules=rules,
+            **SERVE_RULES_ENGINE)
+        memory = rules_memory(eng, params, rules)
+        if not memory["ok"]:
+            fail("memory", memory)
+        waves = keep_sampled_logits(eng)
+        torch.cuda.synchronize()
+        flash_attention_fwd.launches = 0
+        ids = [eng.add_request(p, sp) for p in prompts]
+        eng.step()                  # admission, then one decode step
+        firsts = {}
+        for rid, tok, _ in eng.take_tick_events():
+            firsts.setdefault(rid, tok)
+        outs, _, step_ms = run_timed(eng)
+        launches = {"wave": dict(got=flash_attention_fwd.launches,
+                                 want=len(prompts) * L * tp)}
+        checks, tokens = [], []
+        if [len(w) for w in waves] != [len(prompts)]:
+            fail("admission waves", [len(w) for w in waves])
+        else:
+            for rid, p, logits, ref in zip(ids, prompts, waves[0], refs):
+                checks.append(dict(sp_check(logits, firsts.get(rid, -1),
+                                            *ref, what, failures,
+                                            phase="serve_rules",
+                                            base="unsharded"),
+                                   prompt_len=len(p)))
+        for rid, p, want in zip(ids, prompts, flat_outs):
+            tokens.append(mesh_tokens(eng, flat, p, outs.get(rid, []),
+                                      want))
+            if not tokens[-1]["ok"]:
+                fail("tokens", (rid, tokens[-1]))
+        # The longest prompt again: a resident prefix hit, no launch.
+        flash_attention_fwd.launches = 0
+        rid = eng.add_request(prompts[-1], sp)
+        req = eng._requests[rid]
+        hit_out = run_timed(eng)[0].get(rid, [])
+        launches["hit"] = dict(got=flash_attention_fwd.launches, want=0)
+        hit = dict(prefix_len=req.prefix_len,
+                   tokens=mesh_tokens(eng, flat, prompts[-1], hit_out,
+                                      flat_outs[-1]))
+        if not (req.prefix_len > 0 and hit["tokens"]["ok"]):
+            fail("prefix hit", hit)
+        if any(v["got"] != v["want"] for v in launches.values()):
+            fail("kernel 1 launches", launches)
+        with uncounted(), torch.no_grad():
+            prefill_ms = host_ms(lambda: eng._run_prefill(prompts[-1]),
+                                 iters=1)
+        runs.append(dict(
+            layout=name, mesh=spec, devices=[str(cuda0)] * n,
+            memory=memory, launches=launches,
+            flash_launches=sum(v["got"] for v in launches.values()),
+            logits=checks, tokens=tokens, hit=hit,
+            decode_step_ms=step_ms,
+            decode_step_ms_median=float(np.median(step_ms)),
+            prefill_1900_ms=prefill_ms,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            seconds=time.perf_counter() - t_run))
+        del eng, waves
+        gc.collect()
+        torch.cuda.empty_cache()
+    del flat, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(phase="serve_rules", preset="8b-gqa",
+               engine=SERVE_RULES_ENGINE, prompt_lens=list(PROMPT_LENS),
+               rules="LogicalAxisRules.default()", runs=runs,
+               flash_launches=sum(r["flash_launches"] for r in runs),
+               logits_rel_tol=LOGITS_REL_TOL,
+               seconds=time.perf_counter() - t_phase, card=card)
+    emit(res)
+    return res
 
 
 def train_pp_phase(card: str, failures: list, train: dict,
@@ -5031,10 +5295,10 @@ def _rel(got, want) -> float:
             / torch.linalg.vector_norm(want.float())).item()
 
 
-def moe_pass(params, x, cfg, mesh=None):
+def moe_pass(params, x, cfg, mesh=None, rules=None):
     """One MoE forward and the backward of y.float().sum() plus the two aux
     losses: (y, aux as floats, (expert_idx, keep))."""
-    y, aux, routing = moe_layer_routed(params, x, cfg, mesh)
+    y, aux, routing = moe_layer_routed(params, x, cfg, mesh, rules)
     (y.float().sum() + aux["moe_load_balance_loss"]
      + aux["moe_router_z_loss"]).backward()
     return y.detach(), {k: float(v.detach()) for k, v in aux.items()}, \
@@ -5146,8 +5410,41 @@ def moe_phase(card: str, failures: list) -> dict:
     for t in distinct.values():
         t.grad = None
     sharded = moe_timing(shards, x, cfg, mesh)
+    del shards, distinct
     routing_equal = bool(torch.equal(idx1, idx0) and torch.equal(keep1,
                                                                  keep0))
+    # Once more under MOE_RULES: each computing position gathers its
+    # experts' weights from the table's slices at use.
+    rules = LogicalAxisRules.default().with_overrides(*MOE_RULES)
+    with torch.no_grad():
+        shards = shard_params({k: v.detach() for k, v in params.items()},
+                              mesh, rules, moe_logical_axes())
+    distinct = {id(t): t for s in shards for t in s.values()}
+    for t in distinct.values():
+        t.requires_grad_()
+    rules_shapes = {k: tuple(v.shape) for k, v in shards[0].items()}
+    y2, aux2, (idx2, keep2) = moe_pass(shards, x, cfg, mesh, rules)
+    specs2 = tree_specs(moe_logical_axes(), mesh, rules)
+    under_rules = dict(
+        overrides=[list(o) for o in MOE_RULES], shard_shapes=rules_shapes,
+        shards_bytes=sum(t.nbytes for t in distinct.values()),
+        routing_equal=bool(torch.equal(idx2, idx0)
+                           and torch.equal(keep2, keep0)),
+        y_rel_err=_rel(y2, y0),
+        grad_rel_err={k: _rel(gather_tensor([s[k].grad for s in shards],
+                                            specs2[k], mesh), grads0[k])
+                      for k in params})
+    del shards, distinct, y2
+    if not (under_rules["routing_equal"]
+            and under_rules["shards_bytes"] == sum(
+                v.nbytes for v in params.values())
+            and under_rules["y_rel_err"] <= MOE_Y_REL_TOL
+            and max(under_rules["grad_rel_err"].values())
+            <= MOE_GRAD_REL_TOL
+            and aux2["moe_fraction_dropped"]
+            == aux0["moe_fraction_dropped"]):
+        failures.append(f"moe: sharded under {MOE_RULES} against "
+                        f"unsharded: {under_rules}")
     errs = dict(y_rel_err=_rel(y1, y0),
                 grad_rel_err={k: _rel(grads1[k], grads0[k])
                               for k in params})
@@ -5186,10 +5483,10 @@ def moe_phase(card: str, failures: list) -> dict:
         mesh=MOE_MESH, shard_shapes=shapes, shards_bytes=held,
         params_bytes=whole, shards_on_card=on_card,
         unsharded_timing=plain, sharded_timing=sharded,
-        peak_memory_gb=peak_gb,
+        under_rules=under_rules, peak_memory_gb=peak_gb,
         seconds=time.perf_counter() - t_phase, card=card)
     emit(res)
-    del params, shards, distinct, grads0, grads1
+    del params, grads0, grads1
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -5817,11 +6114,13 @@ def main() -> int:
     serve_tp = serve_tp_phase(card, failures, params)
     serve_mesh = serve_mesh_phase(card, failures, params)
     dplane = device_plane_phase(card, failures, params)
+    serve_rules = serve_rules_phase(card, failures, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     train = train_phase(card, failures)
     train_mesh, ref = train_mesh_phase(card, failures, train)
+    train_rules = train_rules_phase(card, failures, ref)
     train_pp = train_pp_phase(card, failures, train, train_mesh, ref)
     train_sp = train_sp_phase(card, failures, train, train_mesh, ref)
     collective_phase(card, failures)
@@ -5861,8 +6160,10 @@ def main() -> int:
                        + serve_tp["flash_launches"]
                        + serve_mesh["flash_launches"]
                        + dplane["flash_launches"]
+                       + serve_rules["flash_launches"]
                        + train["launches"]["fwd"]
                        + train_mesh["launches"]["fwd"]
+                       + train_rules["launches"]["fwd"]
                        + train_pp["launches"]["fwd"]
                        + train_sp["launches"]["fwd"]
                        + train_ranks["launches"]["fwd"]
@@ -5876,8 +6177,10 @@ def main() -> int:
                  serve_tp=serve_tp["flash_launches"],
                  serve_mesh=serve_mesh["flash_launches"],
                  device_plane=dplane["flash_launches"],
+                 serve_rules=serve_rules["flash_launches"],
                  train=train["launches"]["fwd"],
                  train_mesh=train_mesh["launches"]["fwd"],
+                 train_rules=train_rules["launches"]["fwd"],
                  train_pp=train_pp["launches"]["fwd"],
                  train_sp=train_sp["launches"]["fwd"],
                  train_ranks=train_ranks["launches"]["fwd"],
@@ -5894,12 +6197,14 @@ def main() -> int:
              delta_max_rel_err=max(r["delta_rel_err"] for r in train_rows),
              launches=(train["launches"]["dq"]
                        + train_mesh["launches"]["dq"]
+                       + train_rules["launches"]["dq"]
                        + train_pp["launches"]["dq"]
                        + train_sp["launches"]["dq"]
                        + train_ranks["launches"]["dq"]
                        + train_split["dq"]),
              launches_by_path=dict(train=train["launches"]["dq"],
                                    train_mesh=train_mesh["launches"]["dq"],
+                                   train_rules=train_rules["launches"]["dq"],
                                    train_pp=train_pp["launches"]["dq"],
                                    train_sp=train_sp["launches"]["dq"],
                                    train_ranks=train_ranks["launches"]["dq"],
@@ -5914,12 +6219,14 @@ def main() -> int:
              replaces="ray_tpu/ops/flash_attention.py:154",
              launches=(train["launches"]["dkv"]
                        + train_mesh["launches"]["dkv"]
+                       + train_rules["launches"]["dkv"]
                        + train_pp["launches"]["dkv"]
                        + train_sp["launches"]["dkv"]
                        + train_ranks["launches"]["dkv"]
                        + train_split["dkv"]),
              launches_by_path=dict(train=train["launches"]["dkv"],
                                    train_mesh=train_mesh["launches"]["dkv"],
+                                   train_rules=train_rules["launches"]["dkv"],
                                    train_pp=train_pp["launches"]["dkv"],
                                    train_sp=train_sp["launches"]["dkv"],
                                    train_ranks=train_ranks["launches"]["dkv"],

@@ -53,11 +53,12 @@ replicates the pool over the mesh and decodes on every shard: the placement
 differs, the values do not.
 
 Tensor parallelism (``mesh`` with a ``tp`` axis, ``rules``): the weights
-split over the mesh's ``tp`` positions in the Megatron layout (heads, kv
-heads and the MLP's hidden units; embedding, norms and lm_head replicated,
-the JAX engine's rules) and the pool over kv heads, one (L, N, page,
-KV/tp, D) pool per position, while page ids, tables, the free list, the
-refcounts and the prefix cache stay single, one logical pool as in JAX.
+split over the mesh's ``tp`` positions, by default in the Megatron
+layout (heads, kv heads and the MLP's hidden units; embedding, norms and
+lm_head replicated, the JAX engine's rules), and the pool over kv heads,
+one (L, N, page, KV/tp, D) pool per position, while page ids, tables,
+the free list, the refcounts and the prefix cache stay single, one
+logical pool as in JAX.
 Every layer of every prefill, suffix, decode step and streamed step runs
 each position's share and all-reduces after the attention and after the
 MLP (``models.transformer.tp_layer``); a full prefill launches the flash
@@ -89,7 +90,9 @@ The other serving meshes (``Mesh.serve_axes``):
   blobs join the stages' layers in order and split them at install.
 - dp or fsdp, alone or beside the others: the Megatron rules put no
   param on either axis, so JAX replicates the weights and the pool over
-  them. Here a replica is the mesh's split layout at one dp x fsdp
+  them (a table that stores params over them, as the default table does
+  over fsdp, leaves each replica's positions only their slices, gathered
+  at use). Here a replica is the mesh's split layout at one dp x fsdp
   coordinate (one position, a tp group, a pp x tp stack or an sp x tp
   group), held once per distinct placement of its positions on devices
   (``_replicas``): n distinct card sets hold n times the weight bytes and
@@ -105,10 +108,19 @@ The other serving meshes (``Mesh.serve_axes``):
   ``.to()``; decode and the rest run stage by stage as under pp x tp, on
   the pools of sp shard 0's positions.
 
-Rules that lay out a dim otherwise than the Megatron rules raise
-NotImplementedError, and so does a mesh over several processes: the
-engine drives every position from one process, as the JAX engine's
-single controller does.
+Any other rule table (``rules``): each position stores the slices the
+table gives it (``tp_shards``; once per distinct device) and computes in
+the layout above, building each layer's weights from the stored slices
+when it runs the layer (``models.transformer.PositionView``: under
+``LogicalAxisRules.default()`` with fsdp, a replica's positions hold
+embed-dim slices and gather them a layer at a time). Where a table
+splits the vocabulary over tp (the default table does), each tp position
+holds its vocabulary slice of embed and lm_head, and the embedding and the
+logits are vocabulary-parallel (``transformer.embed_tokens``,
+``head_logits``), the training path's: no position gathers the whole
+table. The pool stays over kv heads on tp, as JAX's does. A mesh over
+several processes raises NotImplementedError: the engine drives every
+position from one process, as the JAX engine's single controller does.
 """
 
 from __future__ import annotations
@@ -131,14 +143,16 @@ from .. import _config
 from .._device import resolve_device
 from .._private import device_plane, flight_recorder
 from ..exceptions import KVGatherError
-from ..models.transformer import (TransformerConfig, _layer_qkv,
-                                  apply_rope, init_params,
-                                  layer_params, rms_norm,
+from ..models.transformer import (TransformerConfig, _flat,
+                                  _layer_qkv, apply_rope, embed_tokens,
+                                  head_logits, init_params, layer_params,
+                                  megatron_rules, param_logical_axes,
+                                  position_views,
                                   rope_angles, tp_layer, tp_shards)
 from ..ops.flash_attention import flash_attention
 from ..parallel.mesh import Mesh, MeshSpec, build_mesh
 from ..parallel.pipeline import stage_send
-from ..parallel.sharding import LogicalAxisRules
+from ..parallel.sharding import LogicalAxisRules, _dim_axes, tree_specs
 from .sequence_parallel import (StreamAttn, _stream_block_fn,
                                 replicate_params, sp_mesh, sp_prefill_fn,
                                 sp_stripe_pages, sp_suffix_prefill_fn,
@@ -206,6 +220,15 @@ def _devices(shards) -> List[torch.device]:
     return [s["layers"]["attn"]["wq"].device for s in shards]
 
 
+def _embed(shards, tokens, cfg: TransformerConfig):
+    """The embedding of ``tokens`` {device: x} on the first stage's
+    positions (``embed_tokens``: the first position's table, or each
+    position's vocabulary slice summed)."""
+    n = shards[0]["layers"]["attn"]["wq"].shape[0]
+    first = shards[:len(shards) * n // cfg.num_layers]
+    return embed_tokens(first, _devices(first), tokens, cfg)
+
+
 def _walk(shards, cfg: TransformerConfig):
     """(li, lj, idx) for every layer li in order: ``shards`` is the
     positions' list, pipeline stage by stage (each stage its tp positions
@@ -256,12 +279,12 @@ def _kv_buffers(shards, S: int, cfg: TransformerConfig):
 
 
 def _logits(shards, xs, idx, at, home, cfg: TransformerConfig):
-    """The final norm and lm_head at index ``at`` of the last stage's first
-    position's activation (``idx`` the last stage's positions), once, on
-    its device: f32 logits, on ``home``."""
-    p = shards[idx[0]]
-    x = rms_norm(xs[_devices([p])[0]], p["ln_f"], cfg.rms_norm_eps)
-    return (x[at] @ p["lm_head"].to(cfg.dtype)).float().to(home)
+    """The final norm and lm_head at index ``at`` of the last stage's
+    activation (``idx`` the last stage's positions): f32 logits, on
+    ``home`` (``head_logits``: once on the first position, or each
+    position's vocabulary slice, joined)."""
+    ps = [shards[i] for i in idx]
+    return head_logits(ps, _devices(ps), xs, at, cfg).to(home)
 
 
 def _prefill_fn(params, tokens, length: int, cfg: TransformerConfig):
@@ -281,7 +304,7 @@ def _prefill_fn(params, tokens, length: int, cfg: TransformerConfig):
     stage's, and the logits come back to tokens' device."""
     devices = _devices(params)
     B, S = tokens.shape
-    xs = {devices[0]: params[0]["embed"].to(cfg.dtype)[tokens]}
+    xs = _embed(params, tokens, cfg)
     ropes = {d: rope_angles(S, cfg.head_dim_, cfg.rope_theta, device=d)
              for d in dict.fromkeys(devices)}
     ks, vs = _kv_buffers(params, S, cfg)
@@ -333,7 +356,7 @@ def _suffix_prefill_fn(params, pool_k, pool_v, pages, tokens, prefix_len: int,
     D = cfg.head_dim_
     groups = cfg.num_heads // cfg.num_kv_heads
     dev = tokens.device
-    xs = {devices[0]: params[0]["embed"].to(cfg.dtype)[tokens]}
+    xs = _embed(params, tokens, cfg)
     # RoPE at absolute positions prefix_len + i.
     cos, sin = rope_angles(Sb, D, cfg.rope_theta, offset=prefix_len,
                            device=dev)
@@ -412,7 +435,7 @@ def _decode_fn(params, pool_k, pool_v, tables, last_tokens, lengths, active,
     D = cfg.head_dim_
     groups = cfg.num_heads // cfg.num_kv_heads
     dev = last_tokens.device
-    xs = {devices[0]: params[0]["embed"].to(cfg.dtype)[last_tokens][:, None]}
+    xs = _embed(params, last_tokens[:, None], cfg)
     # Per-slot RoPE at each slot's own position.
     freqs = 1.0 / (cfg.rope_theta
                    ** (torch.arange(0, D, 2, dtype=torch.float32, device=dev)
@@ -851,13 +874,12 @@ class LLMEngine:
         the CPU sp_degree times. ``mesh=build_mesh(MeshSpec(sp=n),
         devices=[cuda:0] * n)`` runs n shards in turn on one card.
 
-        A mesh with a ``tp`` or ``pp`` axis splits the weights (under
-        ``rules``, default ``megatron_rules()``, the JAX engine's) and the
-        pool over its positions: tp over heads, kv heads and the MLP's
-        hidden units, pp over the layer stack; beside them an sp axis
-        splits the prefills as well. Only tables that lay out the dims as
-        ``megatron_rules()`` does are accepted; any other raises
-        NotImplementedError (``tp_shards``).
+        A mesh with a ``tp`` or ``pp`` axis splits the weights (stored
+        as ``rules`` say, default ``megatron_rules()``, the JAX engine's;
+        any table is accepted, see the module docstring) and the pool
+        over its positions: tp over heads, kv heads and the MLP's hidden
+        units, pp over the layer stack; beside them an sp axis splits the
+        prefills as well.
         ``mesh=build_mesh(MeshSpec(tp=n), devices=[cuda:0] * n)`` runs n
         positions in turn on one card. A dp or fsdp axis replicates the
         split layout once per distinct placement of its positions. The
@@ -939,23 +961,35 @@ class LLMEngine:
                              f"engine on {self.device}")
         # Each replica's positions' params (``_walk``'s order: per stage its
         # tp positions, at sp shard 0), one replica per distinct placement
-        # of the mesh's dp x fsdp coordinates (``_replicas``). Layouts that
-        # split tp or pp keep only the positions' (``params`` is None):
-        # their slices and, once per distinct device, the replicated
-        # tensors. A mesh that splits nothing, or only sp, keeps the params
-        # as given. ``_sp_reps``: per replica, its sp x tp x pp mesh and the
-        # params its SP prefills read.
+        # of the mesh's dp x fsdp coordinates (``_replicas``). The params
+        # are stored as ``rules`` say (``tp_shards``), each position's
+        # slices once per distinct device; a position computes with them
+        # as they are where they are its compute layout's (the Megatron
+        # table's, and the default table's without fsdp), else through a
+        # ``PositionView`` that gathers and slices them at use. Layouts
+        # that split the params keep only the positions' (``params`` is
+        # None). A mesh that splits nothing, or only sp without a table
+        # that stores a param over it, keeps the params as given.
+        # ``_sp_reps``: per replica, its sp x tp x pp mesh and the params
+        # its SP prefills read.
         self._reps = [[params]]
         self.params = params
-        if set(axes) & {"tp", "pp", "dp", "fsdp"}:
-            shards = tp_shards(params, mesh, rules)
+        self._stored = None
+        rules = rules or megatron_rules()
+        split = mesh is not None and any(
+            mesh.shape[a] > 1 for spec in _flat(tree_specs(
+                param_logical_axes(None), mesh, rules), tuple).values()
+            for d in range(len(spec)) for a in _dim_axes(spec, d))
+        if set(axes) & {"tp", "pp", "dp", "fsdp"} or split:
+            self._stored = tp_shards(params, mesh, rules)
+            views = position_views(self._stored, mesh, rules)
             self._reps, self._sp_reps = [], []
             for sub, at in _replicas(mesh):
-                self._reps.append([shards[i] for i, c in zip(
+                self._reps.append([views[i] for i, c in zip(
                     at, sub.coords()) if c[3] == 0])
-                self._sp_reps.append((sub, [shards[i] for i in at]
+                self._sp_reps.append((sub, [views[i] for i in at]
                                       if self.sp_degree > 1 else None))
-            if set(axes) & {"tp", "pp"}:
+            if set(axes) & {"tp", "pp"} or split:
                 self.params = None
         else:
             self._sp_reps = [(mesh, replicate_params(params, mesh)
@@ -1798,7 +1832,9 @@ class LLMEngine:
         sa = self._stream_attn
         shards = self._shards
         devices = _devices(shards)
-        xs = {devices[0]: sa.embed(shards[0], tokens)}
+        xs = _embed(shards, torch.as_tensor(np.asarray(tokens),
+                                            device=devices[0]).long(),
+                    self.cfg)
         ks_out = [[] for _ in devices]
         vs_out = [[] for _ in devices]
         for li, lj, idx in _walk(shards, self.cfg):
@@ -1823,9 +1859,12 @@ class LLMEngine:
                     vs_out[i].append(v)
                 return [sa.heads(l, acc) for _, l, acc in states]
             xs = tp_layer(self.cfg, xs, lps, devs, attend)
-        head = shards[idx[0]]
-        x = xs[devices[idx[0]]]
-        return (lambda at: sa.logits(head, x, at).to(self.device),
+        heads = [shards[i] for i in idx]
+        if heads[0]["lm_head"].shape[1] == self.cfg.vocab_size:
+            heads = heads[:1]
+        return (lambda at: torch.cat([
+                    sa.logits(p, xs[d], at).to(self.device)
+                    for p, d in zip(heads, _devices(heads))]),
                 [torch.stack(k) for k in ks_out],
                 [torch.stack(v) for v in vs_out])
 

@@ -46,8 +46,9 @@ import torch
 
 from .._device import resolve_device
 from ..models.transformer import (TransformerConfig, _layer_qkv,
-                                  apply_rope, layer_params, on_each,
-                                  rms_norm, rope_angles, sp_layer)
+                                  apply_rope, embed_tokens, head_logits,
+                                  layer_params, rms_norm, rope_angles,
+                                  sp_layer)
 from ..ops.ring_attention import (_empty_state, _grouped, _merge,
                                   _ring_shards, _split, _ulysses_shards)
 from ..parallel.mesh import Mesh, MeshSpec, _cuda_devices, build_mesh
@@ -178,7 +179,7 @@ def _run_sp(params, tokens, length: int, cfg: TransformerConfig, mesh: Mesh,
     L = grid[0][0][0]["layers"]["attn"]["wq"].shape[0]
     dt = cfg.dtype
     home = tokens.device
-    xs = [on_each(grid[0][j][0]["embed"].to(dt)[t], devss[0][j])
+    xs = [embed_tokens(grid[0][j], devss[0][j], t, cfg)
           for j, t in enumerate(_split(tokens, [r[0] for r in devss[0]]))]
     ropes = [{d: rope_angles(Sl, D, cfg.rope_theta, offset=pos0 + j * Sl,
                              device=d)
@@ -215,10 +216,8 @@ def _run_sp(params, tokens, length: int, cfg: TransformerConfig, mesh: Mesh,
                 return [[o[j] for o in outs] for j in range(n)]
             xs = sp_layer(cfg, xs, lpss, devss[s], attend_all)
     j = (length - 1) // Sl                  # the shard of the last token
-    p = grid[-1][j][0]
-    last = rms_norm(xs[j][devss[-1][j][0]], p["ln_f"],
-                    cfg.rms_norm_eps)[0, length - 1 - j * Sl]
-    logits = (last @ p["lm_head"].to(dt)).float().to(home)
+    logits = head_logits(grid[-1][j], devss[-1][j], xs[j],
+                         (0, length - 1 - j * Sl), cfg).to(home)
     if isinstance(params, dict):
         return logits, ks[0], vs[0]
     return logits, ks, vs

@@ -96,9 +96,11 @@ class EngineReplica:
     ``seed``. ``device`` defaults to ``"cuda"`` and raises without a GPU.
     The boundary callbacks are described in the module docstring.
 
-    ``mesh``, ``sp_degree`` and ``sp_strategy`` go to the engine, which
-    serves any mesh of one process: sp, tp and pp alone or together, and
-    replicas of such a layout over dp and fsdp (see ``LLMEngine``). Left on
+    ``mesh``, ``rules``, ``sp_degree`` and ``sp_strategy`` go to the
+    engine, which serves any mesh of one process under any rule table: sp,
+    tp and pp alone or together, and replicas of such a layout over dp and
+    fsdp (see ``LLMEngine``). The reference's replica takes no ``rules``
+    (its engine's default, the Megatron table, is the port's too). Left on
     the runtime side: ``_flush_gauges`` (the runtime's metrics export) and
     ``_silence_watch`` (the diagnosis plane's anomaly detector).
 
@@ -120,6 +122,7 @@ class EngineReplica:
                  prefix_cache: bool = True, max_queue: int = 64,
                  max_tokens: int = 16, temperature: float = 0.0,
                  eos_id: Optional[int] = None, seed: int = 0, mesh=None,
+                 rules=None,
                  sp_degree: Optional[int] = None, sp_strategy: str = "ring",
                  prefill_chunk: Optional[int] = None,
                  kv_gather_window: int = 4, paged_span: int = 64,
@@ -139,6 +142,7 @@ class EngineReplica:
                                 prefix_cache=prefix_cache,
                                 sp_degree=sp_degree,
                                 sp_strategy=sp_strategy, mesh=mesh,
+                                rules=rules,
                                 prefill_chunk=prefill_chunk,
                                 kv_gather_window=kv_gather_window,
                                 kv_fetch=self._kv_fetch,

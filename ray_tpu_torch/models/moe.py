@@ -19,15 +19,19 @@ over its slice of the MLP units (tp), and the w_down partials of one
 expert group are summed in f32 and rounded once, as
 ``transformer.all_reduce`` does.
 
-- One process (``parallel.mesh.Mesh``, the single controller): each
-  expert group's dispatched slots, (E/ep, C, D), go ``.to()`` the devices
-  of the positions that hold those experts, and the outputs come back to
+- One process (``parallel.mesh.Mesh``, the single controller), under
+  any rule table: each expert group's dispatched slots, (E/ep, C, D), go
+  ``.to()`` the devices of the positions that compute those experts
+  (each building its experts' weights over its MLP units from the
+  table's slices, ``_EPLayout``), and the outputs come back to
   ``x``'s device for the combine. The positions whose coordinates off the
   expert and MLP axes (dp, pp) are 0 do the work; where other positions
   hold the same slices they are replicas, which a trainer would
   all-reduce as ``models.train_step`` does.
-- A mesh over several processes: each rank holds its positions' expert
-  groups at their MLP slices, and every position of a (pp, dp) replica
+- A mesh over several processes (the default table's layout of the
+  experts; any other raises NotImplementedError, ROADMAP item 17b): each
+  rank holds its positions' expert groups at their MLP slices, and
+  every position of a (pp, dp) replica
   takes an equal run of the N tokens (``moe_rows``). A rank routes all N
   tokens (N x E logits, small beside the experts) and dispatches its
   run's; one ``all_to_all_single`` over the replica's ranks takes each
@@ -48,8 +52,10 @@ import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..parallel.mesh import Mesh
-from ..parallel.sharding import (LogicalAxisRules, gather_tensor,
-                                 shard_params, shard_slices, tree_specs)
+from ..parallel.sharding import (LogicalAxisRules, PartitionSpec,
+                                 _dim_axes, gather_tensor, reshard,
+                                 reshard_plan, shard_params, shard_slices,
+                                 tree_specs)
 from ..ops.ring_attention import all_to_all
 from .transformer import _AllReduce, _to_tensor
 
@@ -172,30 +178,70 @@ def _aux(router_logits, probs, expert_idx, keep, cfg: MoEConfig):
 class _EPLayout:
     """Who computes what on ``mesh`` under ``rules``: per expert group (a
     slice of the expert dim, in expert order), the first position of each
-    distinct MLP-unit slice, in position order; the params' specs."""
+    distinct MLP-unit slice, in position order; the params' specs.
+
+    On a mesh that one process drives the table may store the weights in
+    any layout: each computing position builds its experts' weights over
+    its MLP units (the experts split as the table splits them, the MLP
+    units over tp where tp does not split the experts, the embed dim
+    whole) from the stored slices at use
+    (``parallel.sharding.reshard``), and the gradient goes back to them.
+    Over several processes the table must split the experts and the MLP
+    units of w_gate, w_up and w_down alike and leave their embed dim whole,
+    as the default table does; any other raises NotImplementedError
+    (ROADMAP item 17b)."""
 
     def __init__(self, cfg: MoEConfig, mesh, rules: LogicalAxisRules):
+        self.mesh = mesh
         self.specs = tree_specs(moe_logical_axes(), mesh, rules)
         E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
-        shapes = {"w_gate": (E, D, Fd), "w_up": (E, D, Fd),
-                  "w_down": (E, Fd, D)}
+        self.shapes = {"w_gate": (E, D, Fd), "w_up": (E, D, Fd),
+                       "w_down": (E, Fd, D)}
+        experts = _dim_axes(self.specs["w_gate"], 0)
+        mlp = ("tp",) if "tp" not in experts else ()
+        ex = experts or None
+        mp = mlp or None
+        self.compute = {"w_gate": PartitionSpec(ex, None, mp),
+                        "w_up": PartitionSpec(ex, None, mp),
+                        "w_down": PartitionSpec(ex, mp, None)}
         groups: Dict[Tuple[int, int], Dict[Tuple[int, int], int]] = {}
+        self.plans: Dict[int, Dict[str, tuple]] = {}
         for i, coord in enumerate(mesh.coords()):
-            sl = {k: shard_slices(self.specs[k], shapes[k], mesh, coord)
-                  for k in shapes}
-            e = (sl["w_gate"][0].start, sl["w_gate"][0].stop)
-            f = (sl["w_gate"][2].start, sl["w_gate"][2].stop)
-            if (sl["w_gate"][1] != slice(0, D) or sl["w_up"] != sl["w_gate"]
+            sl = {k: shard_slices(self.specs[k], self.shapes[k], mesh, coord)
+                  for k in self.shapes}
+            if mesh.world > 1 and (
+                    sl["w_gate"][1] != slice(0, D)
+                    or sl["w_up"] != sl["w_gate"]
                     or sl["w_down"] != (sl["w_gate"][0], sl["w_gate"][2],
                                         slice(0, D))):
                 raise NotImplementedError(
                     f"rules that split the experts' embed dim, or w_gate, "
                     f"w_up and w_down otherwise than over experts and MLP "
-                    f"units alike, are not ported: {self.specs}")
-            groups.setdefault(e, {}).setdefault(f, i)
+                    f"units alike, are not ported across processes "
+                    f"(ROADMAP item 17b): {self.specs}")
+            region = shard_slices(self.compute["w_gate"],
+                                  self.shapes["w_gate"], mesh, coord)
+            e = (region[0].start, region[0].stop)
+            f = (region[2].start, region[2].stop)
+            if f not in groups.setdefault(e, {}):
+                groups[e][f] = i
+                self.plans[i] = {
+                    k: reshard_plan(self.specs[k], self.shapes[k], mesh,
+                                    shard_slices(self.compute[k],
+                                                 self.shapes[k], mesh,
+                                                 coord), coord)
+                    for k in self.shapes}
         self.groups: List[Tuple[Tuple[int, int], List[int]]] = [
             (e, list(groups[e].values())) for e in sorted(groups)]
         self.devices = list(mesh.devices.flat)
+
+    def weights(self, trees, i: int):
+        """Computing position ``i``'s w_gate, w_up and w_down over its
+        experts and MLP units, on its device (its own slices where they
+        are those)."""
+        return [reshard(lambda j, k=k: trees[j][k], self.plans[i][k],
+                        self.devices[i])
+                for k in ("w_gate", "w_up", "w_down")]
 
 
 def _ep_forward(trees, lay: _EPLayout, mesh, xf, cfg: MoEConfig):
@@ -216,9 +262,7 @@ def _ep_forward(trees, lay: _EPLayout, mesh, xf, cfg: MoEConfig):
             dev = lay.devices[i]
             if dev not in sent:
                 sent[dev] = xe[e0:e1].to(dev)
-            t = trees[i]
-            part = _experts(sent[dev], t["w_gate"], t["w_up"], t["w_down"],
-                            cfg.dtype)
+            part = _experts(sent[dev], *lay.weights(trees, i), cfg.dtype)
             total = (part.to(home, torch.float32, copy=True) if total is None
                      else total + part.to(home))
         ye.append(total.to(cfg.dtype))
@@ -335,8 +379,10 @@ def moe_layer_routed(params, x: torch.Tensor, cfg: MoEConfig, mesh=None,
 
     ``mesh``: expert parallelism over its positions under ``rules``
     (default ``LogicalAxisRules.default()``: experts over fsdp x sp, MLP
-    units over tp, the router's embed dim over fsdp); ``params`` is then
-    the full tree, which is split, or the per-position list that
+    units over tp, the router's embed dim over fsdp; on a mesh that one
+    process drives, any table, whose stored slices each computing
+    position gathers at use, see ``_EPLayout``); ``params`` is then the
+    full tree, which is split, or the per-position list that
     ``shard_params(params, mesh, rules, moe_logical_axes())`` gives. See
     the module docstring. On a mesh over several processes every rank
     passes the whole ``x`` and gets back y of its run of the flattened

@@ -24,18 +24,24 @@ inside one 80 GB card:
 
 Under a mesh (``parallel.mesh.Mesh``, any of pp, dp, fsdp, sp and tp)
 params, ``mu`` and ``nu`` are lists of per-position trees
-(``parallel.sharding.shard_params`` under ``rules``; ``state_specs`` holds
-their specs), each shard held once per distinct device. A step runs the
-batch groups' forward and backward in turn
+(``parallel.sharding.shard_params`` under ``rules``, any table on a mesh
+that one process drives; ``state_specs`` holds their specs, JAX's
+``state_shardings``), each shard held once per distinct device. A step
+runs the batch groups' forward and backward in turn
 (``transformer.mesh_group_losses``), the single-controller counterpart of
-each data-parallel rank's own backward. A shard's gradients from its
-replicas (the positions that hold the same slice: dp replicas, and the
-sp positions, each of which runs its own sequence shard with its own
-copy) meet in its one tensor, where autograd's accumulation sums them in
-batch-group and shard order, or, for replicas on distinct devices, in an
-explicit all-reduce in position order. The global norm counts each element of the logical array once,
-and the clip and AdamW run once per distinct shard, whose replicas then
-take its values.
+each data-parallel rank's own backward; each piece of work runs once, on
+the positions of its batch group and sequence shard, and reads the
+stored slices it needs from the positions that hold them (the model's
+``_ParamPlan``), so a slice's gradient comes from distinct work however
+many positions hold it. A shard's gradients from its replicas (the
+positions that hold the same slice: dp replicas, the sp positions, each
+of which runs its own sequence shard with its own copy, and under other
+tables any position whose slice another's work read) meet in its one
+tensor, where autograd's accumulation sums them in batch-group and shard
+order, or, for replicas on distinct devices, in an explicit all-reduce
+in position order. The global norm counts each element of the logical
+array once, and the clip and AdamW run once per distinct shard, whose
+replicas then take its values.
 
 Under a pp axis a position's layer tensors hold its stage's L/pp layers
 (the default rules split the layer stack over pp), and a group's forward
@@ -243,7 +249,8 @@ def _mesh_leaves(trees):
 @torch.no_grad()
 def _all_reduce_replicas(lay: _MeshLayout, trees, made) -> None:
     """Sum each shard's gradient over its replicas on distinct devices
-    (dp replicas and sp positions alike), in position order, in the
+    (dp replicas, sp positions, and any holder whose slice another
+    position's work read), in position order, in the
     gradient's dtype, on the first replica's device, then over the
     other ranks that hold the shard (an all-reduce over their process
     group), and give every replica the sum. A replica that took no
@@ -480,8 +487,9 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
     ``donate_state`` the step updates ``state``'s tensors in place (the
     port of JAX's donation); otherwise it works on a copy. ``mesh``: the
     state is sharded over its positions under ``rules`` (default
-    ``LogicalAxisRules.default()``, or ``megatron_rules()``; see the
-    module docstring); batches and metrics live on ``device``.
+    ``LogicalAxisRules.default()``; any table on a mesh that one process
+    drives, the default or ``megatron_rules()`` over several processes;
+    see the module docstring); batches and metrics live on ``device``.
     ``num_microbatches`` only matters under a pp > 1 mesh axis: it sets
     the pipeline schedule's depth (default pp)."""
     if mesh is not None:

@@ -13,7 +13,10 @@ is unchanged by it.
 stacked JAX form, one (L, ...) tensor per weight. ``layer_params`` also
 takes a list of per-layer dicts, which only ``train_step`` builds (views of
 the stacked storage, so that autograd gives each layer its own gradient
-tensor); no other caller should grow a third form.
+tensor); no other caller should grow a third form. (``PositionView``,
+the engine's view of a position's params under another rule table, is
+the stacked form to its readers: indexing a stacked leaf builds that
+layer's tensor.)
 
 ``forward`` and ``loss_fn`` take a ``mesh`` (``parallel.mesh.Mesh``):
 
@@ -22,29 +25,44 @@ tensor); no other caller should grow a third form.
   ``device``, whose values the reference's sharding constraints do not
   change.
 - any of dp, fsdp and tp, beside sp or not (training's layouts, and
-  tensor-parallel ``forward``): the params are split over the mesh's
-  positions by ``rules`` (``LogicalAxisRules.default()``: batch over dp x
-  fsdp, embed over fsdp, heads, kv heads, MLP and vocabulary over tp, no
-  param over sp; or ``megatron_rules()``; any other table raises
-  NotImplementedError), and ``params`` may be the full tree or the
-  per-position list that ``parallel.sharding.shard_params`` returns under
-  the same rules. The batch groups (one per (dp, fsdp) pair) run in turn.
-  A group's sequence is split over its sp positions, shard j holding
-  tokens [j S/sp, (j+1) S/sp) (the reference's ``seq`` constraint): each
-  shard's tp positions gather their tp slice of a layer's weights across
-  the fsdp positions (``fsdp_gather``) and the layer runs as
-  ``sp_layer``, ``tp_layer`` per shard. Attention is the one step that
-  crosses shards: per tp position, under ``attention_impl="ring"`` the
-  ring over its sp positions at its heads, under "xla" and "flash" the
-  sequence gathered on its first sp position, attended whole and split
-  back (GSPMD's gather around the reference's attention; "flash" runs
-  the kernel there). The embedding is looked up per vocabulary slice and
-  summed (``all_reduce``), the logits stay split over tp, and the
-  cross-entropy reads them slice by slice (``vocab_parallel_nll``). The
-  values are those of the unsharded model.
-- pp beside any of those (pipeline stages): the default rules split the
-  layer stack over pp, so stage s's positions hold layers [s L/pp,
-  (s+1) L/pp), and each stage is a dp x fsdp x sp x tp layout of its own.
+  tensor-parallel ``forward``): the params are stored over the mesh's
+  positions as ``rules`` say (``LogicalAxisRules.default()``: batch over
+  dp x fsdp, embed over fsdp, heads, kv heads, MLP and vocabulary over
+  tp, no param over sp; ``megatron_rules()``; or any other table), and
+  ``params`` may be the full tree or the per-position list that
+  ``parallel.sharding.shard_params`` returns under the same rules. The
+  model computes in one layout whatever the table (``compute_rules``):
+  heads, kv heads and MLP units over tp, the layer stack over pp, the
+  vocabulary over tp where the table splits it there, every other dim
+  whole. Each position builds a layer's weights in that layout from the
+  stored slices when it runs the layer (``_ParamPlan``, over
+  ``parallel.sharding.reshard``: under the default table, its tp slice
+  gathered across the fsdp positions), and autograd takes each gradient
+  back to the stored slices. The batch groups (``Mesh.batch_groups``:
+  the table's batch axes among dp and fsdp; one group per (dp, fsdp)
+  pair under the default table) run in turn; positions off the groups
+  (fsdp under ``("batch", "dp")``) compute nothing and only hold their
+  slices, so each piece of work runs once. A group's sequence is split
+  over its sp positions where the table splits the sequence over sp
+  (``Mesh.sequence_shards``), shard j holding tokens [j S/sp, (j+1)
+  S/sp) (the reference's ``seq`` constraint), and each shard's layer
+  runs as ``sp_layer``, ``tp_layer`` per shard. Attention is the one step
+  that crosses shards: per tp position, under ``attention_impl="ring"``
+  the ring over its sp positions at its heads, under "xla" and "flash"
+  the sequence gathered on its first sp position, attended whole and
+  split back (GSPMD's gather around the reference's attention; "flash"
+  runs the kernel there). Where the vocabulary is split, the embedding
+  is looked up per vocabulary slice and summed (``all_reduce``), the
+  logits stay split over tp, and the cross-entropy reads them slice by
+  slice (``vocab_parallel_nll``). The values are those of the unsharded
+  model, under every table; where the reference's GSPMD departs from its
+  own unsharded model (``("embed", ("fsdp", "tp"))`` on dp=2 x fsdp=2 x
+  tp=2, ROADMAP Queue 3), the port follows the unsharded model.
+- pp beside any of those (pipeline stages): stage s's positions compute
+  layers [s L/pp, (s+1) L/pp) (the default rules also store them there;
+  a table that stores the stack otherwise, ``("layer", None)``, gives
+  each stage its layers at use), and each stage is a dp x fsdp x sp x tp
+  layout of its own.
   A batch group's rows are split into ``num_microbatches`` (default pp)
   microbatches that run the GPipe schedule (``parallel.pipeline``): the
   embedding on stage 0, each stage's layers on its positions as above,
@@ -56,8 +74,10 @@ tensor); no other caller should grow a third form.
   so the two agree. Inside its pipeline JAX elides the ring (plain
   attention); the port runs each stage's ring, the same values.
 - a mesh over several processes (``parallel.mesh``: one process per GPU,
-  any axis across ranks): every rank is given the whole batch and runs
-  only its own positions, in the same order as every other rank. A
+  any axis across ranks; the default table or ``megatron_rules()``, any
+  other raising NotImplementedError, ROADMAP item 17b): every rank is
+  given the whole batch and runs only its own positions, in the same
+  order as every other rank. A
   weight's fsdp slices held by other ranks come through ``fsdp_gather``'s
   all-gather over the process group of the ranks that hold them, whose
   backward reduce-scatters the gradient back. A tp group across ranks
@@ -80,6 +100,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Mapping
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -94,10 +115,11 @@ from ..ops.ring_attention import (_ring_shards, ring_attention, ring_shift,
                                   seq_gather, seq_scatter)
 from ..parallel.pipeline import (Handoffs, check_microbatches, gpipe_ticks,
                                  stage_send)
-from ..parallel.sharding import (LogicalAxisRules, _tree_map,
-                                 all_gather_single, axis_dim,
-                                 reduce_scatter_single, shard_batch,
-                                 shard_params, tree_specs)
+from ..parallel.sharding import (LogicalAxisRules, PartitionSpec,
+                                 _dim_axes, _tree_map, all_gather_single,
+                                 axis_dim, reduce_scatter_single,
+                                 reshard, reshard_plan, shard_params,
+                                 shard_slices, tree_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,36 +252,14 @@ def megatron_rules() -> LogicalAxisRules:
 
 
 def tp_shards(params: Dict[str, Any], mesh, rules=None) -> list:
-    """``shard_params`` under ``rules`` (default ``megatron_rules()``) for
-    the serving layouts (``tp_layer``): each position's params, in grid
-    order. Rules that lay out any dim on the mesh otherwise than
-    ``megatron_rules()`` does (the reference's default splits the
-    vocabulary over tp, and the embedding dim over fsdp) raise
-    NotImplementedError: the port's layer runs the Megatron split, with
-    the layer stack over pp and every other axis replicated."""
-    rules = rules or megatron_rules()
-    axes = param_logical_axes(None)
-    sizes = mesh.shape
-
-    def split(r):
-        def effective(spec):
-            dims = [tuple(a for a in ((ax,) if isinstance(ax, str)
-                                      else ax or ()) if sizes[a] > 1)
-                    for ax in spec]
-            while dims and not dims[-1]:
-                dims.pop()
-            return tuple(dims)
-        return _flat(tree_specs(axes, mesh, r), effective)
-    want, got = split(megatron_rules()), split(rules)
-    if got != want:
-        names = _flat(axes, lambda a: a)
-        bad = {k: names[k] for k in got if got[k] != want[k]}
-        raise NotImplementedError(
-            f"rules that split {bad} otherwise than megatron_rules() are "
-            f"not ported: the serving layout splits heads, kv_heads and "
-            f"mlp over tp and the layer stack over pp, and replicates the "
-            f"rest")
-    return shard_params(params, mesh, rules, axes)
+    """Each position's params for the engine, in grid order: its slices
+    under ``rules`` (default ``megatron_rules()``, the JAX engine's), as
+    ``shard_params`` cuts them. Under the Megatron table a position's
+    slices are what its layer computes with (``tp_layer``: heads, kv heads
+    and MLP units over tp, the layer stack over pp); under any other table
+    the engine reads them through ``position_views``."""
+    return shard_params(params, mesh, rules or megatron_rules(),
+                        param_logical_axes(None))
 
 
 def _flat(tree, fn, prefix="") -> Dict[str, Any]:
@@ -565,47 +565,284 @@ def _layer(cfg: TransformerConfig, x, lp, cos, sin, mesh=None):
 
 def mesh_rules(mesh, rules: Optional[LogicalAxisRules] = None
                ) -> LogicalAxisRules:
-    """``rules`` (default ``LogicalAxisRules.default()``), which must split
-    the params and the batch on ``mesh`` as the default table or
-    ``megatron_rules()`` does: the sharded model knows those two layouts
-    (the vocabulary and the embed dim split or not). Any other table
-    raises NotImplementedError, as ``tp_shards`` does."""
+    """``rules`` (default ``LogicalAxisRules.default()``). On a mesh that
+    one process drives, any table: the params are stored as it says and
+    computed in the sharded model's layout (``compute_rules``). Over
+    several processes (``mesh.world`` > 1) the table must lay out the
+    params and the batch as the default table or ``megatron_rules()``
+    does; any other raises NotImplementedError (ROADMAP item 17b)."""
     rules = rules or LogicalAxisRules.default()
+    if mesh.world == 1:
+        return rules
     axes = param_logical_axes(None)
 
     def layout(r):
-        return (tree_specs(axes, mesh, r), r.spec(("batch",), mesh))
+        return (tree_specs(axes, mesh, r), r.spec(("batch",), mesh),
+                r.spec(("seq",), mesh))
     got = layout(rules)
     if got not in (layout(LogicalAxisRules.default()),
                    layout(megatron_rules())):
         default = _flat(layout(LogicalAxisRules.default())[0], tuple)
         names = _flat(axes, lambda a: a)
         bad = {k: names[k] for k, v in _flat(got[0], tuple).items()
-               if v != default[k]} or {"batch": got[1]}
+               if v != default[k]} or {"batch": got[1], "seq": got[2]}
         raise NotImplementedError(
             f"rules that lay out {bad} otherwise than "
             f"LogicalAxisRules.default() and megatron_rules() are not "
-            f"ported: the sharded model runs those two")
+            f"ported across processes (ROADMAP item 17b): on a mesh over "
+            f"{mesh.world} processes the sharded model runs those two")
     return rules
+
+
+def compute_rules(vocab_split: bool) -> LogicalAxisRules:
+    """The table of the layout the sharded model computes in, whatever
+    table stores the params: heads, kv heads and MLP units over tp
+    (``tp_layer``), the layer stack over pp, the vocabulary over tp where
+    ``vocab_split`` (the vocabulary-parallel embedding and logits), every
+    other dim whole."""
+    return LogicalAxisRules([("layer", "pp"), ("heads", "tp"),
+                             ("kv_heads", "tp"), ("mlp", "tp"),
+                             ("vocab", "tp" if vocab_split else None)])
+
+
+def _layer_tree(fn) -> Dict[str, Any]:
+    """A layer's params tree with ``fn(dotted name)`` at each leaf
+    ("layers.attn.wq", ...)."""
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}.{k}") for k, v in node.items()}
+        return fn(prefix)
+    return walk(param_logical_axes(None)["layers"], "layers")
+
+
+def _layer_leaf(tree, path, li: int) -> torch.Tensor:
+    """Layer ``li``'s tensor at ``path`` (keys under "layers") of a
+    position's params, whose "layers" is stacked or a per-layer list."""
+    layers = tree["layers"]
+    if isinstance(layers, (list, tuple)):
+        node = layers[li]
+        for k in path:
+            node = node[k]
+        return node
+    for k in path:
+        layers = layers[k]
+    return layers[li]
+
+
+def _layer_count(tree) -> int:
+    """How many layers a position's params hold."""
+    layers = tree["layers"]
+    if isinstance(layers, (list, tuple)):
+        return len(layers)
+    return layers["attn"]["wq"].shape[0]
+
+
+class _ParamPlan:
+    """How each position's params in the compute layout
+    (``compute_rules``) come from the slices the table stores, on a mesh
+    that one process drives: per leaf (dotted name) the spec the table
+    stores it under and the spec the model computes it under, and per
+    (leaf, position, layer) the ``parallel.sharding.reshard_plan`` that
+    builds the compute tensor, made once. A compute tensor that is the
+    position's own stored slice is that tensor: under
+    ``LogicalAxisRules.default()`` this gathers the embed dim across the
+    fsdp positions, as the sharded model always has; under a table that
+    stores a dim finer or coarser than the compute layout wants, it
+    gathers or slices that dim too, and the gradient goes back to the
+    stored slices."""
+
+    def __init__(self, mesh, rules: LogicalAxisRules):
+        axes = param_logical_axes(None)
+        self.mesh = mesh
+        self.stored = _flat(tree_specs(axes, mesh, rules), lambda sp: sp)
+        self.vocab_split = (mesh.shape["tp"] > 1 and "tp" in _dim_axes(
+            rules.spec(("vocab",), mesh), 0))
+        self.compute = _flat(tree_specs(axes, mesh,
+                                        compute_rules(self.vocab_split)),
+                             lambda sp: sp)
+        self._plans: Dict[tuple, tuple] = {}
+
+    def _full(self, spec, shape) -> Tuple[int, ...]:
+        sizes = self.mesh.shape
+        return tuple(n * math.prod(sizes[a] for a in _dim_axes(spec, d))
+                     for d, n in enumerate(shape))
+
+    def _make(self, own, name: str, p: int, li):
+        """(reshard plan, the stored layer index, the compute shape of
+        the position's leaf: stacked, L/pp layers, for a layer leaf)."""
+        mesh, sizes = self.mesh, self.mesh.shape
+        stored, compute = self.stored[name], self.compute[name]
+        coord = mesh.coords()[p]
+        if li is None:
+            full = self._full(stored, own[name].shape)
+            region = shard_slices(compute, full, mesh, coord)
+            return (reshard_plan(stored, full, mesh, region, coord), None,
+                    tuple(r.stop - r.start for r in region))
+        path = name.split(".")[1:]
+        n_own = _layer_count(own)
+        layer_spec = PartitionSpec(*stored[1:])
+        full = self._full(layer_spec, _layer_leaf(own, path, 0).shape)
+        L = n_own * math.prod(sizes[a] for a in _dim_axes(stored, 0))
+        stage = shard_slices(compute, (L,), mesh, coord)[0]
+        k, local = divmod(stage.start + li, n_own)
+        near = dict(zip(sizes, coord))
+        for a in reversed(_dim_axes(stored, 0)):
+            near[a], k = k % sizes[a], k // sizes[a]
+        region = shard_slices(PartitionSpec(*compute[1:]), full, mesh, coord)
+        return (reshard_plan(layer_spec, full, mesh, region,
+                             tuple(near.values())), local,
+                (stage.stop - stage.start,)
+                + tuple(r.stop - r.start for r in region))
+
+    def _get(self, trees, name: str, p: int, li):
+        key = (name, p, li)
+        if key not in self._plans:
+            self._plans[key] = self._make(trees[p], name, p, li)
+        return self._plans[key]
+
+    def tensor(self, trees, name: str, p: int, li=None) -> torch.Tensor:
+        """Position ``p``'s compute tensor of leaf ``name`` (of its compute
+        stage's layer ``li`` for a layer leaf), on its device."""
+        plan, local, _ = self._get(trees, name, p, li)
+        dev = self.mesh.devices.flat[p]
+        if li is None:
+            return reshard(lambda i: trees[i][name], plan, dev)
+        path = name.split(".")[1:]
+        return reshard(lambda i: _layer_leaf(trees[i], path, local), plan,
+                       dev)
+
+    def params(self, trees, p: int, li):
+        """Position ``p``'s compute params: the top-level tensors named in
+        the tuple ``li``, or its compute stage's layer ``li``'s tree."""
+        if isinstance(li, tuple):
+            return {k: self.tensor(trees, k, p) for k in li}
+        return _layer_tree(lambda name: self.tensor(trees, name, p, li))
+
+    def shape(self, trees, name: str, p: int) -> Tuple[int, ...]:
+        """The compute shape of position ``p``'s leaf ``name``: of its
+        stage's L/pp stacked layers for a layer leaf."""
+        return self._get(trees, name, p,
+                         0 if name.startswith("layers.") else None)[2]
+
+    def holds_its_compute(self, trees, p: int) -> bool:
+        """Whether position ``p``'s stored tensors are its compute tensors,
+        each leaf whole, its layers its compute stage's."""
+        for name in self.stored:
+            if not name.startswith("layers."):
+                if self._get(trees, name, p, None)[0][1] != [(p, None)]:
+                    return False
+                continue
+            n = self.shape(trees, name, p)[0]
+            if _layer_count(trees[p]) != n:
+                return False
+            for li in range(n):
+                plan, local, _ = self._get(trees, name, p, li)
+                if plan[1] != [(p, None)] or local != li:
+                    return False
+        return True
+
+
+class _Stack:
+    """A stacked layer leaf of a ``PositionView``: ``[lj]`` builds layer
+    lj's tensor at use; ``shape``, ``dtype`` and ``device`` are the
+    compute layout's."""
+
+    def __init__(self, view: "PositionView", name: str):
+        self._view, self._name = view, name
+        self.shape = torch.Size(view._plan.shape(view._trees, name,
+                                                 view._p))
+        self.device = view.device
+        self.dtype = _layer_leaf(view._trees[view._p],
+                                 name.split(".")[1:], 0).dtype
+
+    def __getitem__(self, lj: int) -> torch.Tensor:
+        v = self._view
+        return v._plan.tensor(v._trees, self._name, v._p, lj)
+
+
+class PositionView(Mapping):
+    """Position ``p``'s params in the compute layout, read at use from the
+    per-position stored slices ``trees`` (``shard_params`` under any
+    table): ``view["embed"]``, ``["ln_f"]`` and ``["lm_head"]`` are built
+    when read, and ``view["layers"]`` is a tree of ``_Stack`` leaves,
+    so ``layer_params(view, lj)`` builds one layer's tensors. A position
+    whose stored slices are its compute tensors needs no view
+    (``position_views``)."""
+
+    def __init__(self, plan: _ParamPlan, trees, p: int):
+        self._plan, self._trees, self._p = plan, trees, p
+        self.device = plan.mesh.devices.flat[p]
+        self._layers = _layer_tree(lambda name: _Stack(self, name))
+
+    def __getitem__(self, key: str):
+        if key == "layers":
+            return self._layers
+        if key not in ("embed", "ln_f", "lm_head"):
+            raise KeyError(key)
+        return self._plan.tensor(self._trees, key, self._p)
+
+    def __iter__(self):
+        return iter(("embed", "layers", "ln_f", "lm_head"))
+
+    def __len__(self) -> int:
+        return 4
+
+
+def position_views(trees, mesh, rules: LogicalAxisRules) -> list:
+    """Each position's params in the compute layout, in grid order: its
+    stored tree (``tp_shards``' under ``rules``) where that is already its
+    compute tree, else a ``PositionView`` that gathers and slices from
+    every position's slices at use (over the fsdp positions under
+    ``LogicalAxisRules.default()``, whose tp positions each hold a
+    vocabulary slice). The engine's serving path on a mesh driven by one
+    process."""
+    plan = _ParamPlan(mesh, rules)
+    return [tree if plan.holds_its_compute(trees, p)
+            else PositionView(plan, trees, p)
+            for p, tree in enumerate(trees)]
 
 
 class _Layout:
     """Where a sharded forward's pieces live, all indexed
     [stage][group][sequence shard]: the tp positions (flat mesh indices)
-    of each pipeline stage's batch group's sp shard and their devices, and
-    per tp position the positions whose embed-dim slices it gathers; per
-    leaf, the dim its spec splits over fsdp (of one layer's tensor for
-    layer leaves); whether the vocabulary is split over tp. Over several
-    processes (``devices`` None at other ranks' positions): per tp
-    position only the fsdp sources this rank holds, with the process
-    group of the ranks that hold the others (``fsdp_groups``; None where
-    this rank holds them all); per [stage][group][shard] the tp indices
-    this rank holds (``local``) and the process group of the ranks that
-    hold the shard's tp positions (``tp_groups``); the batch groups where
-    this rank holds a position (``local_groups``)."""
+    of each pipeline stage's batch group's sp shard and their devices; the
+    batch groups (``Mesh.batch_groups``) and the sequence shards
+    (``Mesh.sequence_shards``) that ``rules`` give, the positions off them
+    computing nothing; whether the vocabulary is split over tp. On a mesh
+    that one process drives, ``plan`` (``_ParamPlan``) builds each
+    position's compute params from the stored slices. Over several
+    processes (``devices`` None at other ranks' positions; the default
+    table or ``megatron_rules()`` only): per tp position the positions
+    whose embed-dim slices it gathers, only those this rank holds, with
+    the process group of the ranks that hold the others (``fsdp_groups``;
+    None where this rank holds them all), and per leaf the dim its spec
+    splits over fsdp (of one layer's tensor for layer leaves); per
+    [stage][group][shard] the tp indices this rank holds (``local``) and
+    the process group of the ranks that hold the shard's tp positions
+    (``tp_groups``); the batch groups where this rank holds a position
+    (``local_groups``)."""
 
     def __init__(self, mesh, rules: LogicalAxisRules):
         self.mesh, self.rules = mesh, rules
+        self.plan = _ParamPlan(mesh, rules) if mesh.world == 1 else None
+        self.vocab_split = (mesh.shape["tp"] > 1 and "tp" in _dim_axes(
+            rules.spec(("vocab",), mesh), 0))
+        self.batch_axes = mesh.batch_axes(rules)
+        self.groups = mesh.batch_groups(rules)
+        self.pp, self.sp = mesh.shape["pp"], mesh.sequence_shards(rules)
+        stages, shards = range(self.pp), range(self.sp)
+        self.positions = [[[mesh.group_positions(d, f, s, j) for j in shards]
+                           for d, f in self.groups] for s in stages]
+        self.devices = [[[[mesh.devices.flat[i] for i in pos] for pos in g]
+                         for g in st] for st in self.positions]
+        self.local = [[[[t for t, i in enumerate(pos) if mesh.is_local(i)]
+                        for pos in g] for g in st] for st in self.positions]
+        self.tp_groups = [[[mesh.axis_group(pos[0], "tp") for pos in g]
+                           for g in st] for st in self.positions]
+        self.local_groups = [g for g in range(len(self.groups))
+                             if any(self.holds(s, g) for s in stages)]
+        if self.plan is not None:
+            return
         specs = tree_specs(param_logical_axes(None), mesh, rules)
         fsdp = mesh.shape["fsdp"] > 1
         self.top_dims = {k: axis_dim(specs[k], "fsdp") if fsdp else None
@@ -614,15 +851,6 @@ class _Layout:
         self.layer_dims = _tree_map(
             lambda sp: axis_dim(sp[1:], "fsdp") if fsdp else None,
             specs["layers"])
-        self.vocab_split = (mesh.shape["tp"] > 1
-                            and axis_dim(specs["embed"], "tp") == 0)
-        self.groups = mesh.batch_groups()
-        self.pp, self.sp = mesh.shape["pp"], mesh.shape["sp"]
-        stages, shards = range(self.pp), range(self.sp)
-        self.positions = [[[mesh.group_positions(d, f, s, j) for j in shards]
-                           for d, f in self.groups] for s in stages]
-        self.devices = [[[[mesh.devices.flat[i] for i in pos] for pos in g]
-                         for g in st] for st in self.positions]
         by_fsdp = [[[[mesh.fsdp_positions(d, t, s, j)
                       for t in range(mesh.shape["tp"])]
                      for j in shards] for d, f in self.groups]
@@ -632,13 +860,17 @@ class _Layout:
                         for st in by_fsdp]
         self.fsdp_groups = [[[[mesh.group(mesh.ranks(pos)) for pos in shard]
                               for shard in g] for g in st] for st in by_fsdp]
-        self.local = [[[[t for t, i in enumerate(pos) if mesh.is_local(i)]
-                        for pos in g] for g in st] for st in self.positions]
-        self.tp_groups = [[[mesh.axis_group(pos[0], "tp") for pos in g]
-                           for g in st] for st in self.positions]
-        self.local_groups = [g for g in range(len(self.groups))
-                             if any(self.holds(s, g) for s in stages)]
 
+    def group_rows(self, x: torch.Tensor, g: int) -> torch.Tensor:
+        """Batch group ``g``'s rows of ``x`` (the whole batch's leading
+        dim), on this rank's first position of the group."""
+        n = len(self.groups)
+        if x.shape[0] % n:
+            raise ValueError(f"a dim of size {x.shape[0]} does not split "
+                             f"over {' x '.join(self.batch_axes)}={n}")
+        rows = x.shape[0] // n
+        return x[g * rows:(g + 1) * rows].to(
+            self.mesh.devices.flat[self.first_local(g)])
     def holds(self, s: int, g: int) -> bool:
         """Whether this rank holds a position of stage ``s``'s group
         ``g``."""
@@ -769,7 +1001,11 @@ def _position_params(trees, lay: _Layout, s: int, g: int, j: int, t: int,
     """Stage ``s``'s group ``g``'s sp shard ``j``'s tp position ``t``'s
     params, gathered across fsdp: the top-level tensors named in the tuple
     ``li``, or the stage's layer ``li``'s (an index into the stage's own
-    L/pp layers)."""
+    L/pp layers). On a mesh that one process drives the tensors are built
+    from the stored slices (``_ParamPlan``); over several processes they
+    are gathered across fsdp."""
+    if lay.plan is not None:
+        return lay.plan.params(trees, lay.positions[s][g][j][t], li)
     own = trees[lay.positions[s][g][j][t]]
     srcs = [trees[i] for i in lay.sources[s][g][j][t]]
     dev = lay.devices[s][g][j][t]
@@ -883,6 +1119,61 @@ def _group_layer(cfg: TransformerConfig, xss, trees, lay: _Layout, s: int,
     return sp_layer(cfg, xss, lpss, devss, attend, lay.tp_groups[s][g])
 
 
+def vocab_embed(tables, devices, tokens, dt, slots=None, group=None
+                ) -> Dict[torch.device, torch.Tensor]:
+    """The embedding of ``tokens`` in ``dt`` on each distinct device of
+    ``devices``: ``tables[i]`` on ``devices[i]`` is either one whole table
+    (``slots`` None: the first is read) or a vocabulary slice, slot
+    ``slots[i]`` of equal slices. Each slice's rows are looked up, the
+    tokens of other slices reading zeros, and the parts summed by
+    ``all_reduce`` (over the ranks of ``group`` too): the sum is the
+    lookup (JAX's one-hot matmul), exactly."""
+    if slots is None:
+        table = tables[0]
+        return on_each(table.to(dt)[tokens.to(table.device)], devices)
+    parts = []
+    for slot, table, d in zip(slots, tables, devices):
+        n_v = table.shape[0]
+        local = tokens.to(d) - slot * n_v
+        inside = (local >= 0) & (local < n_v)
+        row = table.to(dt)[local.clamp(0, n_v - 1)]
+        parts.append(torch.where(inside[..., None], row,
+                                 torch.zeros((), dtype=dt, device=d)))
+    x = all_reduce(parts, devices[:len(parts)], group)[devices[0]]
+    return on_each(x, devices)
+
+
+def embed_tokens(ps, devices, tokens, cfg: TransformerConfig
+                 ) -> Dict[torch.device, torch.Tensor]:
+    """``vocab_embed`` for the engine: ``ps[i]`` the params of the tp
+    position on ``devices[i]`` of the first stage, in tp order, whose
+    tables hold the whole vocabulary or its tp slices."""
+    first = ps[0]["embed"]
+    if first.shape[0] == cfg.vocab_size:
+        return vocab_embed([first], devices, tokens, cfg.dtype)
+    tables = [first] + [p["embed"] for p in ps[1:]]
+    return vocab_embed(tables, devices, tokens, cfg.dtype,
+                       list(range(len(ps))))
+
+
+def head_logits(ps, devices, xs, at, cfg: TransformerConfig
+                ) -> torch.Tensor:
+    """The final norm and lm_head at index ``at`` of the hidden state
+    ``xs`` {device: x}, f32 over the whole vocabulary on ``devices[0]``:
+    ``ps[i]`` the params of the last stage's tp position on
+    ``devices[i]``, in tp order, whose heads hold the whole vocabulary
+    (the first's is read) or its tp slices (each slice's logits on its
+    device, joined in order)."""
+    first = ps[0]["lm_head"]
+    heads = ([first] if first.shape[1] == cfg.vocab_size
+             else [first] + [p["lm_head"] for p in ps[1:]])
+    out = []
+    for p, head, d in zip(ps, heads, devices):
+        x = rms_norm(xs[d], p["ln_f"], cfg.rms_norm_eps)
+        out.append((x[at] @ head.to(cfg.dtype)).float().to(devices[0]))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
+
+
 def _group_embed(trees, lay: _Layout, g: int, j: int, tokens,
                  cfg: TransformerConfig):
     """Group ``g``'s sp shard ``j``'s embedding on stage 0: {device: (B,
@@ -893,28 +1184,13 @@ def _group_embed(trees, lay: _Layout, g: int, j: int, tokens,
     table."""
     ts = lay.local[0][g][j]
     devices = [lay.devices[0][g][j][t] for t in ts]
-    dt = cfg.dtype
     use = ts if lay.vocab_split else ts[:1]
-    tops = [_position_params(trees, lay, 0, g, j, t, ("embed",)) for t in use]
-    n_v = tops[0]["embed"].shape[0]
-    parts = []
-    for t, d, p in zip(use, devices, tops):
-        tok = tokens.to(d)
-        table = p["embed"].to(dt)
-        if lay.vocab_split:
-            # The slice's rows; other slices' tokens read zeros, so the sum
-            # over slices is the lookup (JAX's one-hot matmul).
-            local = tok - t * n_v
-            inside = (local >= 0) & (local < n_v)
-            row = table[local.clamp(0, n_v - 1)]
-            parts.append(torch.where(inside[..., None], row,
-                                     torch.zeros((), dtype=dt,
-                                                 device=row.device)))
-        else:
-            parts.append(table[tok])
-    group = lay.tp_groups[0][g][j] if lay.vocab_split else None
-    x = all_reduce(parts, devices[:len(parts)], group)[devices[0]]
-    return on_each(x, devices)
+    tables = [_position_params(trees, lay, 0, g, j, t, ("embed",))["embed"]
+              for t in use]
+    if not lay.vocab_split:
+        return vocab_embed(tables, devices, tokens, cfg.dtype)
+    return vocab_embed(tables, devices, tokens, cfg.dtype, use,
+                       lay.tp_groups[0][g][j])
 
 
 def _stage_layers(cfg: TransformerConfig, xss, trees, lay: _Layout, s: int,
@@ -1161,10 +1437,9 @@ def mesh_group_losses(params, batch: Dict[str, Any], cfg: TransformerConfig,
         inputs, targets = toks[:, :-1], toks[:, 1:]
         weights = torch.ones(targets.shape, dtype=torch.float32, device=dev)
     denom = weights.sum().clamp(min=1.0)
-    per_pos = shard_batch({"inputs": inputs, "targets": targets,
-                           "weights": weights}, mesh, lay.rules)
+    whole = {"inputs": inputs, "targets": targets, "weights": weights}
     for g in lay.local_groups:
-        b = per_pos[lay.first_local(g)]
+        b = {k: lay.group_rows(v, g) for k, v in whole.items()}
         logits, hand = _group_logits(trees, lay, g, b["inputs"], cfg,
                                      num_microbatches)
         rows = b["targets"].shape[0] // len(logits)
@@ -1206,15 +1481,13 @@ def _mesh_forward(params, tokens, cfg: TransformerConfig, mesh, rules, dev,
     several processes summed over the world, each piece held by one
     rank."""
     trees, lay = _sharded(params, mesh, rules)
-    per_pos = shard_batch(tokens, mesh, lay.rules)
     B, S = tokens.shape
     out = torch.zeros((B, S, cfg.vocab_size), dtype=torch.float32,
                       device=dev)
     Bg, Sl = B // len(lay.groups), S // lay.sp
     for g in lay.local_groups:
-        logits, _ = _group_logits(trees, lay, g,
-                                  per_pos[lay.first_local(g)], cfg,
-                                  num_microbatches)
+        logits, _ = _group_logits(trees, lay, g, lay.group_rows(tokens, g),
+                                  cfg, num_microbatches)
         rows = Bg // len(logits)
         for m, per_shard in enumerate(logits):
             r = slice(g * Bg + m * rows, g * Bg + (m + 1) * rows)

@@ -279,14 +279,50 @@ class Mesh:
         their own, which holds the stage's layers."""
         return [i for i, c in enumerate(self.coords()) if c[0] == stage]
 
-    def batch_groups(self) -> List[Tuple[int, int]]:
-        """One (dp, fsdp) pair per batch group, in the order of JAX's
-        ``("dp", "fsdp")`` batch axis: group g holds the g-th of
-        dp x fsdp equal slices of the batch's leading dim. Every stage
-        has the same groups."""
+    def batch_axes(self, rules=None) -> Tuple[str, ...]:
+        """The axes among dp and fsdp over which ``rules`` (a
+        ``sharding.LogicalAxisRules``; default its ``default()``,
+        ``("dp", "fsdp")``) split the batch's leading dim, in the table's
+        order. An axis of the batch's spec other than dp and fsdp splits
+        no batch group of the sharded model: it carries that model's
+        sequence shards, heads or stages."""
+        if rules is None:
+            return ("dp", "fsdp")
+        spec = rules.spec(("batch",), self)
+        axes = spec[0] if spec else None
+        axes = (() if axes is None else (axes,) if isinstance(axes, str)
+                else tuple(axes))
+        return tuple(a for a in axes if a in ("dp", "fsdp"))
+
+    def batch_groups(self, rules=None) -> List[Tuple[int, int]]:
+        """One (dp, fsdp) pair per batch group, in the order of the batch
+        axis that ``rules`` give the batch (``batch_axes``; by default
+        JAX's ``("dp", "fsdp")``): group g holds the g-th equal slice of
+        the batch's leading dim. An axis of dp and fsdp that the table
+        does not split the batch over has coordinate 0 in every pair: its
+        other positions would compute the same groups again, so they only
+        hold their slices of the params (``("batch", "dp")`` gives dp
+        groups, each a whole fsdp group's batch). Every stage has the same
+        groups."""
         self.train_axes()
-        return [(d, f) for d in range(self.shape["dp"])
-                for f in range(self.shape["fsdp"])]
+        axes = self.batch_axes(rules)
+        out = []
+        for at in itertools.product(*(range(self.shape[a]) for a in axes)):
+            c = dict(zip(axes, at))
+            out.append((c.get("dp", 0), c.get("fsdp", 0)))
+        return out
+
+    def sequence_shards(self, rules=None) -> int:
+        """How many sequence shards a batch group splits into: the sp
+        axis where ``rules`` (default: the default table's ``("seq",
+        "sp")``) split the sequence over sp, else 1, the sp positions
+        past the first then holding only their slices of the params."""
+        if rules is not None:
+            spec = rules.spec(("seq",), self)
+            axes = spec[0] if spec else None
+            if axes != "sp" and "sp" not in (axes or ()):
+                return 1
+        return self.shape["sp"]
 
     def group_positions(self, dp: int, fsdp: int, stage: int = 0,
                         sp: int = 0) -> List[int]:

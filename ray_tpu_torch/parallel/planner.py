@@ -65,7 +65,7 @@ import numpy as np
 import torch
 
 from .mesh import AXES, MeshSpec
-from .sharding import LogicalAxisRules
+from .sharding import LogicalAxisRules, _dim_axes
 
 GiB = float(1 << 30)
 
@@ -74,6 +74,11 @@ def _spec_axes(spec) -> set:
     """The mesh axes a spec splits some dim over."""
     return {a for axes in spec if axes is not None
             for a in ((axes,) if isinstance(axes, str) else axes)}
+
+
+def _split_axes(spec, d: int, sizes: Dict[str, int]) -> tuple:
+    """The axes larger than 1 that ``spec`` splits dim ``d`` over."""
+    return tuple(a for a in _dim_axes(spec, d) if sizes.get(a, 1) > 1)
 
 
 def _rank_slices(spec, sizes: Dict[str, int], world: int) -> int:
@@ -187,7 +192,8 @@ def plan_train_memory(cfg, spec: MeshSpec, *,
     sets the pipeline's depth under pp > 1 (default pp) and is ignored
     without it, as the train step does. Under sp a position holds its
     sequence shard, ``ceil(seq / sp)`` tokens of each row, as in JAX."""
-    from ..models.transformer import param_logical_axes, param_shapes
+    from ..models.transformer import (compute_rules, param_logical_axes,
+                                      param_shapes)
 
     rules = rules or LogicalAxisRules.default()
     sizes = spec.sizes()
@@ -217,13 +223,18 @@ def plan_train_memory(cfg, spec: MeshSpec, *,
     opt_b = opt_slots * params_b             # Adam: mu and nu mirror params
 
     # ---- one batch group's activations ------------------------------------
-    pp, dp, fsdp = sizes["pp"], sizes["dp"], sizes["fsdp"]
-    sp, tp = sizes["sp"], sizes["tp"]
+    # The batch groups, sequence shards and vocabulary slices are the
+    # table's (``Mesh.batch_groups``, ``Mesh.sequence_shards``, the
+    # vocabulary-parallel logits where it splits the vocabulary over tp).
+    pp, sp, tp = sizes["pp"], sizes["sp"], sizes["tp"]
     act = torch.tensor([], dtype=cfg.dtype).element_size()
     h, m, d = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
     nh, nkv = cfg.num_heads, cfg.num_kv_heads
-    B_loc = math.ceil(global_batch / (dp * fsdp))
-    S_loc = math.ceil(seq / sp)
+    groups = math.prod(sizes[a] for a in _spec_axes(rules.spec(("batch",)))
+                       if a in ("dp", "fsdp"))
+    B_loc = math.ceil(global_batch / groups)
+    seq_sp = sp if "sp" in _spec_axes(rules.spec(("seq",))) else 1
+    S_loc = math.ceil(seq / seq_sp)
     tokens_loc = B_loc * S_loc
     # Under pp the group's microbatches are all alive until its backward;
     # the workspace is one microbatch's.
@@ -232,7 +243,8 @@ def plan_train_memory(cfg, spec: MeshSpec, *,
     L_loc = math.ceil(cfg.num_layers / pp)
     act_b = L_loc * tokens_loc * h * act                 # each layer's input
 
-    V_loc = math.ceil(cfg.vocab_size / tp)
+    vocab_tp = tp if "tp" in _spec_axes(rules.spec(("vocab",))) else 1
+    V_loc = math.ceil(cfg.vocab_size / vocab_tp)
     logits_b = 2 * tokens_loc * V_loc * 4                # logits + exps, f32
 
     layer_tok = (2 * h                                   # the normed inputs
@@ -240,12 +252,23 @@ def plan_train_memory(cfg, spec: MeshSpec, *,
                  + 2 * math.ceil(nkv / tp) * d           # k, v
                  + math.ceil(nh / tp) * d                # o
                  + 3 * math.ceil(m / tp))                # gate, up, product
+    # A layer's weights that a position builds from other positions'
+    # slices (the embed dim across fsdp under the default table), in the
+    # compute layout's shapes.
+    compute = compute_rules(vocab_tp > 1)
     gathered = 0
-    if fsdp > 1:
-        w_elems = h * d * (2 * nh + 2 * nkv) + 3 * h * m
-        gathered = math.ceil(w_elems / tp) * act
+    for (shape, dtype), ax in state:
+        if ax[0] != "layer":
+            continue
+        want, have = compute.spec(ax), rules.spec(ax)
+        if any(_split_axes(want, k, sizes) != _split_axes(have, k, sizes)
+               for k in range(1, len(ax))):
+            gathered += (math.prod(math.ceil(n / math.prod(
+                sizes[a] for a in _split_axes(want, k, sizes)))
+                for k, n in enumerate(shape) if k)
+                * torch.tensor([], dtype=dtype).element_size())
     ring = 0
-    if sp > 1 and cfg.attention_impl == "ring":
+    if sp > 1 and seq_sp > 1 and cfg.attention_impl == "ring":
         ring = (3 * sp * math.ceil(B_loc / mb) * math.ceil(nh / tp)
                 * S_loc * S_loc * 4)
     ws_b = tokens_mb * layer_tok * act + gathered + ring

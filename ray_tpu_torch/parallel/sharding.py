@@ -18,6 +18,11 @@ splits, the slice that the position's coordinate picks. The model runs
 each position's share and moves the partials itself
 (``models.transformer``: the tp all-reduce, the fsdp gather, the
 vocabulary-parallel cross-entropy). ``gather_params`` is the inverse.
+``reshard`` builds a position's piece of a tensor in another layout from
+the stored slices of any spec (a gather along the dims the stored spec
+splits finer, a slice along those it splits coarser), differentiably:
+the sharded model computes in one layout whatever table stores the
+params.
 
 On a mesh over several processes (``Mesh.world`` > 1, one process per GPU,
 any axis across ranks) each rank builds only its own positions' shards:
@@ -32,9 +37,11 @@ position's work runs.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -253,6 +260,70 @@ def gather_tensor(parts: Sequence[torch.Tensor], spec: PartitionSpec,
             done.add(key)
             full[sl].copy_(part)
     return full
+
+
+def reshard_plan(spec: PartitionSpec, shape: Sequence[int], mesh: Mesh,
+                 region: Tuple[slice, ...], near: Tuple[int, ...]):
+    """How ``reshard`` builds the piece ``region`` of a tensor of ``shape``
+    from the slices that ``spec`` stores on ``mesh``'s positions: (the
+    grid of stored blocks the region meets, one count per dim; per block
+    in row-major order, (the position it is read from, the part of its
+    slice inside the region, or None for the whole slice)).
+
+    Along each dim the region meets one or more of the stored blocks (the
+    dim split over the mesh axes ``spec`` names there). Each block is read
+    from the position nearest ``near`` (a coordinate over ``AXES``) that
+    holds it: ``near`` with its coordinates on the axes ``spec`` splits
+    set to the block's."""
+    sizes = mesh.shape
+    per_dim = []
+    for d, dim in enumerate(shape):
+        axes = _dim_axes(spec, d)
+        size = dim // math.prod(sizes[a] for a in axes)
+        lo, hi, _ = region[d].indices(dim)
+        per_dim.append((axes, [(k, max(lo, k * size) - k * size,
+                                min(hi, (k + 1) * size) - k * size)
+                               for k in range(lo // size,
+                                              (hi - 1) // size + 1)],
+                        size))
+    pieces = []
+    for combo in itertools.product(*(b for _, b, _ in per_dim)):
+        coord = dict(zip(sizes, near))
+        for (axes, _, _), (k, _, _) in zip(per_dim, combo):
+            for a in reversed(axes):
+                coord[a], k = k % sizes[a], k // sizes[a]
+        i = int(np.ravel_multi_index(tuple(coord.values()),
+                                     tuple(sizes.values())))
+        whole = all((a, b) == (0, size)
+                    for (_, a, b), (_, _, size) in zip(combo, per_dim))
+        pieces.append((i, None if whole else
+                       tuple(slice(a, b) for _, a, b in combo)))
+    return tuple(len(b) for _, b, _ in per_dim), pieces
+
+
+def reshard(get, plan, device) -> torch.Tensor:
+    """The piece that ``plan`` (``reshard_plan``'s) describes, on
+    ``device``: each block's part (``get(i)``: position i's stored slice)
+    goes to ``device`` and the parts are joined dim by dim, a gather along
+    every dim the stored spec splits finer than the region and a slice
+    along every dim the region splits finer. The ops are ``.to()``,
+    slicing and ``cat``, so autograd's backward gives each stored slice
+    its own part of the gradient, on its own device. A region that is
+    one position's whole slice is that slice itself (no copy on its own
+    device)."""
+    counts, pieces = plan
+    got = {}
+    for at, (i, cut) in zip(np.ndindex(counts), pieces):
+        part = get(i)
+        got[at] = (part if cut is None else part[cut]).to(device)
+
+    def join(at):
+        d = len(at)
+        if d == len(counts):
+            return got[at]
+        parts = [join(at + (k,)) for k in range(counts[d])]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
+    return join(())
 
 
 def _specs(mesh, rules, logical_axes):

@@ -130,15 +130,28 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
 
 def test_unported_engine_options_are_absent():
     """sp_degree, sp_strategy, every serving mesh (sp, tp, pp, dp, fsdp
-    and any of them together) and the engine's own rules are ported
+    and any of them together) and any rule table are ported
     (tests/test_torch_sp_prefill.py, tests/test_torch_tp_engine.py,
-    tests/test_torch_mesh_engine.py); what stays unported: rules that lay
-    out a dim otherwise than the Megatron rules (the reference's default
-    table splits the vocabulary), raising NotImplementedError."""
+    tests/test_torch_mesh_engine.py, tests/test_torch_axis_rules.py). The
+    reference's default table, which splits the vocabulary over tp, serves
+    the JAX engine's greedy tokens on tp=2, each position holding its
+    vocabulary slice."""
+    from ray_tpu.parallel import MeshSpec as JaxMeshSpec
+    from ray_tpu.parallel import build_mesh as jax_build_mesh
+    from ray_tpu.parallel.sharding import LogicalAxisRules as JaxRules
     tp2 = build_mesh(MeshSpec(tp=2), devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="vocab"):
-        LLMEngine(CFG, device="cpu", mesh=tp2,
-                  rules=LogicalAxisRules.default())
+    jtp2 = jax_build_mesh(JaxMeshSpec(tp=2), devices=jax.devices()[:2])
+    kw = dict(max_batch=2, max_len=64, seed=0)
+    jeng = JaxEngine(JCFG, mesh=jtp2, rules=JaxRules.default(), **kw)
+    params = from_jax_params(jax.tree.map(np.asarray, jeng.params), CFG,
+                             "cpu")
+    teng = LLMEngine(CFG, params, device="cpu", mesh=tp2,
+                     rules=LogicalAxisRules.default(), **kw)
+    assert [s["embed"].shape[0] for s in teng._shards] == \
+        [CFG.vocab_size // 2] * 2
+    want, got = _both(jeng, teng, [[3, 17, 42, 7, 99, 5, 23], [4, 5]],
+                      max_tokens=8)
+    assert got == want
     for spec in (dict(sp=2, tp=2), dict(dp=2), dict(fsdp=2, sp=2),
                  dict(pp=2), dict(pp=2, sp=2)):
         mesh = build_mesh(MeshSpec(**spec),

@@ -156,18 +156,26 @@ def test_shard_params_bit_equal_to_jax_addressable_shards(n, dtype,
 
 
 def test_tp_shards_takes_the_engine_rules_only():
-    """tp_shards splits under megatron_rules() (heads, kv_heads, mlp) and
-    refuses a table that splits another dim; a dim that does not divide
-    raises."""
-    params = _jax_params("f32")[1]
+    """tp_shards splits under megatron_rules() (heads, kv_heads, mlp) by
+    default and under any other table as shard_params does (the default
+    table's vocabulary slices are JAX's addressable shards); a dim that
+    does not divide raises."""
+    jp, params = _jax_params("f32")
     mesh = build_mesh(MeshSpec(tp=2), devices=[CPU] * 2)
-    shards = tp_shards(params, mesh)
-    want = shard_params(params, mesh, megatron_rules())
-    for a, b in zip(shards, want):
-        for (k, x), (_, y) in zip(_leaves(a), _leaves(b)):
-            assert torch.equal(x, y), k
-    with pytest.raises(NotImplementedError, match="vocab"):
-        tp_shards(params, mesh, LogicalAxisRules.default())
+    for rules in (None, LogicalAxisRules.default()):
+        shards = tp_shards(params, mesh, rules)
+        want = shard_params(params, mesh, rules or megatron_rules())
+        for a, b in zip(shards, want):
+            for (k, x), (_, y) in zip(_leaves(a), _leaves(b)):
+                assert torch.equal(x, y), k
+    jmesh, _ = _meshes(dict(tp=2))
+    placed = jax.device_put(jp["embed"], jax_tree_shardings(
+        jax_param_logical_axes(JCFG), jmesh, JaxRules.default())["embed"])
+    by_dev = {d.device: d.data for d in placed.addressable_shards}
+    for i, dev in enumerate(jmesh.devices.flat):
+        np.testing.assert_array_equal(_bits(shards[i]["embed"]),
+                                      _np_bits(by_dev[dev]))
+    assert shards[0]["embed"].shape[0] == CFG.vocab_size // 2
     odd = build_mesh(MeshSpec(tp=3), devices=[CPU] * 3)
     with pytest.raises(ValueError, match="does not split over tp=3"):
         shard_params(params, odd, megatron_rules())

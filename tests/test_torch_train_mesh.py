@@ -30,6 +30,7 @@ from ray_tpu.models.transformer import \
     param_logical_axes as jax_param_logical_axes
 from ray_tpu.parallel import MeshSpec as JaxMeshSpec
 from ray_tpu.parallel import build_mesh as jax_build_mesh
+from ray_tpu.parallel.sharding import LogicalAxisRules as JaxRules
 from ray_tpu.parallel.sharding import shard_batch as jax_shard_batch
 from ray_tpu.parallel.sharding import tree_shardings as jax_tree_shardings
 from ray_tpu_torch.models import (PRESETS, forward, from_jax_params,
@@ -372,11 +373,40 @@ def test_megatron_rules_give_the_same_loss_and_other_tables_raise(jparams):
     assert state["params"][0]["embed"] is state["params"][7]["embed"]
     _, m = tb.step(state, batch)
     assert np.isfinite(m["loss"]) and m["step"] == 1
+    # Another table, once refused, stores the MLP's weights as it says
+    # (their hidden units whole, the embed dim over fsdp) and gives the
+    # same loss, and its train step the loss and grad norm of the
+    # default table's (the parity of every table with JAX is in
+    # tests/test_torch_axis_rules.py).
     other = LogicalAxisRules.default().with_overrides(("mlp", "fsdp"))
-    with pytest.raises(NotImplementedError, match="mlp"):
-        loss_fn(params, batch, CFG, mesh, device="cpu", rules=other)
-    with pytest.raises(NotImplementedError, match="mlp"):
-        make_train_step(CFG, mesh, rules=other, device="cpu")
+    with torch.no_grad():
+        got = float(loss_fn(params, batch, CFG, mesh, device="cpu",
+                            rules=other))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    jmesh, _ = _meshes(MESH)
+    jother = JaxRules.default().with_overrides(("mlp", "fsdp"))
+    jbatch = jax.tree.map(jnp.asarray, {"tokens": _tokens((8, 17), 7)})
+    placed = jax.device_put(jparams, jax_tree_shardings(
+        jax_param_logical_axes(JCFG), jmesh, jother))
+    np.testing.assert_allclose(got, float(jax.jit(lambda p, b: jax_loss_fn(
+        p, b, JCFG, jmesh, jother))(placed, jbatch)), **TOL)
+    tb_other = make_train_step(CFG, mesh, optimizer=_optimizer(False),
+                               rules=other, device="cpu")
+    assert tb_other.state_specs["params"]["layers"]["mlp"]["w_up"] == (
+        "pp", "fsdp")
+    tb = make_train_step(CFG, mesh, optimizer=_optimizer(False),
+                         device="cpu")
+    metrics = []
+    for bundle in (tb, tb_other):
+        params = from_jax_params(_np(jparams), CFG, "cpu")
+        state = {"params": shard_params(params, mesh, bundle.rules),
+                 "step": 0}
+        state["opt_state"] = bundle.optimizer.init(state["params"])
+        metrics.append(bundle.step(state, batch)[1])
+    np.testing.assert_allclose(metrics[1]["loss"], metrics[0]["loss"],
+                               rtol=1e-5)
+    np.testing.assert_allclose(metrics[1]["grad_norm"],
+                               metrics[0]["grad_norm"], rtol=1e-5)
 
 
 @pytest.mark.parametrize("spec", [dict(pp=2, sp=2), dict(sp=2, tp=2),
