@@ -343,9 +343,27 @@ Phases, each printing one JSON line on stdout:
    layer as in the moe phase); no kernel launched; per rank the host ms
    of the first forward and backward (NCCL's first-use set-up of the
    exchanges included) and a second, profiled, with the sp:ring,
-   sp:all_to_all, pp:send/recv and ep:all_to_all ranges apart. A rank
-   that raises, hangs past its bound or exits non-zero fails the run;
-   nothing falls back to gloo or the CPU.
+   sp:all_to_all, pp:send/recv and ep:all_to_all ranges apart; a third
+   MoE run on fsdp=2 x tp=2 with the experts whole (``("expert", None)``:
+   each rank all eight experts over a quarter of the MLP units, built
+   from the stored slices through the exchange, ep:all_gather). Last, the
+   RULES_RANKS runs: train_mesh's model under rule tables other than
+   the default, across ranks, each as a layout above (the same gates,
+   launches counted into the kernels line as train_rules_ranks). On one
+   card a world of one runs the batch over dp alone on dp=2 x fsdp=2; on
+   four, one position a rank, the MLP units over fsdp and the batch over
+   dp alone on dp=2 x fsdp=2 (two ranks compute, the fsdp > 0 ranks only
+   hold slices that the others read: 0 launches there) and the heads over
+   tp x fsdp with the embed dim whole on fsdp=2 x tp=2. A block another
+   rank holds comes through one NCCL all-gather of the ranks' slices per
+   leaf and use (reshard:all_gather), its gradient back by a
+   reduce-scatter (reshard:reduce_scatter), each a named range. Before
+   each run the planner's per-rank figure (the state four times, one
+   group's activations, logits and workspace) must leave
+   TRAIN_RULES_HEADROOM of the card free; a run that does not fit is
+   printed as not run, with the figure. A rank that raises, hangs past
+   its bound or exits non-zero fails the run; nothing falls back to gloo
+   or the CPU.
 19. moe: one MoE layer at Mixtral-8x7B's published widths (d_model 4096,
    d_ff 14336, 8 experts, top 2; capacity_factor 1.25, MoEConfig's
    default), bf16 on x of (4, 2048, 4096) from a seed, f32 params as
@@ -459,6 +477,7 @@ from ray_tpu_torch.parallel import (LogicalAxisRules, MeshSpec, build_mesh,
                                     plan_train_memory, shard_params,
                                     tree_specs)
 from ray_tpu_torch.parallel import pipeline
+from ray_tpu_torch.parallel import sharding as sharding_ops
 from ray_tpu_torch.parallel.mesh import AXES, Mesh
 from ray_tpu_torch.parallel.sharding import (all_gather_parts, gather_tensor,
                                              shard_slices)
@@ -744,7 +763,11 @@ COLLECTIVE_TIMEOUT_S = 120
 # four.
 FREE_LAYOUTS = {"ring-sp4": "ring", "ulysses-sp4": "ulysses",
                 "pipeline-pp4": "pipeline", "moe-fsdp2xsp2": "moe",
-                "moe-fsdp2xtp2": "moe"}
+                "moe-fsdp2xtp2": "moe", "moe-expert-none-fsdp2xtp2": "moe"}
+# The free-standing runs under a table other than the default: the
+# experts whole, so the embed dim goes over fsdp and each rank computes
+# every expert over its MLP units.
+FREE_RULES = {"moe-expert-none-fsdp2xtp2": (("expert", None),)}
 FREE_ATTN = dict(B=1, S=8192, Hq=32, Hkv=8, D=128)
 FREE_PP_MICROBATCHES = 4
 FREE_PP_SEQ = 2048
@@ -775,7 +798,20 @@ TRAIN_RANKS = {1: (("dp2xfsdp2", dict(dp=2, fsdp=2), None),
                    ("ulysses-sp4", dict(sp=4), None),
                    ("pipeline-pp4", dict(pp=4), FREE_PP_MICROBATCHES),
                    ("moe-fsdp2xsp2", dict(fsdp=2, sp=2), None),
-                   ("moe-fsdp2xtp2", dict(fsdp=2, tp=2), None))}
+                   ("moe-fsdp2xtp2", dict(fsdp=2, tp=2), None),
+                   ("moe-expert-none-fsdp2xtp2", dict(fsdp=2, tp=2),
+                    None))}
+# train_ranks' runs under other rule tables, across ranks: (name, mesh,
+# the overrides of the default table). Each runs where the planner's
+# per-rank figure leaves TRAIN_RULES_HEADROOM of the card free.
+RULES_RANKS = {1: (("batch-dp-dp2xfsdp2", dict(dp=2, fsdp=2),
+                    (("batch", "dp"),)),),
+               4: (("mlp-fsdp-dp2xfsdp2", dict(dp=2, fsdp=2),
+                    (("mlp", "fsdp"),)),
+                   ("batch-dp-dp2xfsdp2", dict(dp=2, fsdp=2),
+                    (("batch", "dp"),)),
+                   ("heads-tp-fsdp-fsdp2xtp2", dict(fsdp=2, tp=2),
+                    (("heads", ("tp", "fsdp")), ("embed", None))))}
 TRAIN_RANKS_DP = "dp2xfsdp2"
 TRAIN_RANKS_STEPS = 3
 TRAIN_RANKS_TIMEOUT_S = 600
@@ -784,13 +820,14 @@ TRAIN_RANKS_TIMEOUT_S = 600
 # sequence's join and split (each over NCCL where it spans ranks).
 TRAIN_RANKS_RANGES = (
     ("transformer", {"all_reduce": "tp:all_reduce",
-                     "fsdp_gather": "fsdp:gather",
+                     "exchange": "reshard:all_gather",
                      "vocab_parallel_nll": "vocab:cross_entropy",
                      "seq_gather": "sp:gather",
                      "seq_scatter": "sp:scatter"}),
+    ("exchange", {"backward": "reshard:reduce_scatter"}),
     ("handoffs", {"send": "pp:send", "recv": "pp:recv"}),
     ("ring", {"_exchange": "sp:ring", "all_to_all": "sp:all_to_all"}),
-    ("moe", {"all_to_all": "ep:all_to_all"}))
+    ("moe", {"all_to_all": "ep:all_to_all", "exchange": "ep:all_gather"}))
 # moe: one MoE layer at Mixtral-8x7B's published widths
 # (mistralai/Mixtral-8x7B-v0.1 config.json: hidden_size 4096,
 # intermediate_size 14336, num_local_experts 8, num_experts_per_tok 2),
@@ -4730,7 +4767,8 @@ def _rank_profile():
     prof = ctx.enter_context(profile(activities=[ProfilerActivity.CPU,
                                                  ProfilerActivity.CUDA]))
     owners = {"transformer": transformer, "handoffs": pipeline.Handoffs,
-              "ring": ring_ops, "moe": moe_ops}
+              "exchange": sharding_ops._Exchange, "ring": ring_ops,
+              "moe": moe_ops}
     for owner, names in TRAIN_RANKS_RANGES:
         ctx.enter_context(named_ranges(names, owners[owner]))
     return ctx, prof
@@ -4752,11 +4790,13 @@ def _rank_summary(prof, step: int, wall_ms: float) -> dict:
 
 
 def _rank_run(name, spec, microbatches, rank, world, tokens, ref_grads,
-              ref_scalars, fails) -> dict:
+              ref_scalars, fails, overrides=None) -> dict:
     """One layout of the train_ranks phase on this rank (see the module
-    docstring)."""
+    docstring), under the default table or its ``overrides``."""
     if name in FREE_LAYOUTS:
         return _free_run(name, spec, microbatches, rank, fails)
+    rules = (LogicalAxisRules.default().with_overrides(*overrides)
+             if overrides else None)
     cfg = dataclasses.replace(PRESETS["8b-gqa"], remat=True,
                               attention_impl="flash")
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -4766,7 +4806,8 @@ def _rank_run(name, spec, microbatches, rank, world, tokens, ref_grads,
     mesh = build_mesh(MeshSpec(**spec))
     bundle = make_train_step(cfg, mesh,
                              optimizer=make_optimizer(warmup_steps=1),
-                             num_microbatches=microbatches, device=dev)
+                             rules=rules, num_microbatches=microbatches,
+                             device=dev)
     specs = bundle.state_specs["params"]
     batch = {"tokens": torch.from_numpy(tokens).to(dev)}
 
@@ -4791,7 +4832,7 @@ def _rank_run(name, spec, microbatches, rank, world, tokens, ref_grads,
     shard_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     loss, grads = value_and_grad(shards, batch, cfg, device=dev, mesh=mesh,
-                                 num_microbatches=microbatches)
+                                 rules=rules, num_microbatches=microbatches)
     torch.cuda.synchronize()
     vg_s = time.perf_counter() - t0
     kept_device("value_and_grad")
@@ -4815,7 +4856,7 @@ def _rank_run(name, spec, microbatches, rank, world, tokens, ref_grads,
     del shards
     plan = plan_train_memory(cfg, MeshSpec(**spec),
                              global_batch=TRAIN_MESH_BATCH,
-                             seq_len=TRAIN_SEQ,
+                             seq_len=TRAIN_SEQ, rules=rules,
                              num_microbatches=microbatches, world=world)
     opt = state["opt_state"]
     held = dict(params=_held_bytes(state["params"]),
@@ -4826,12 +4867,15 @@ def _rank_run(name, spec, microbatches, rank, world, tokens, ref_grads,
              f"{planned}")
 
     # Per layer of its stage and microbatch, each of this rank's positions
-    # that attends (every position; under sp the first shard's, where the
-    # sequence is gathered): kernel 1 in the forward and the recompute,
-    # dQ and dK/dV once.
+    # that attends (every position of a batch group; under sp the first
+    # shard's, where the sequence is gathered): kernel 1 in the forward
+    # and the recompute, dQ and dK/dV once.
     pp = mesh.shape["pp"]
     mb = (microbatches or pp) if pp > 1 else 1
-    homes = sum(1 for i in mesh.local_positions() if mesh.coords()[i][3] == 0)
+    groups = set(mesh.batch_groups(bundle.rules))
+    homes = sum(1 for i in mesh.local_positions()
+                if mesh.coords()[i][3] == 0
+                and mesh.coords()[i][1:3] in groups)
     per = cfg.num_layers // pp * mb * homes
     want = (2 * per, per, per)
     torch.cuda.reset_peak_memory_stats()
@@ -4891,6 +4935,8 @@ def _rank_run(name, spec, microbatches, rank, world, tokens, ref_grads,
     tokens_n = TRAIN_MESH_BATCH * TRAIN_SEQ
     out = dict(
         layout=name, mesh=spec, num_microbatches=microbatches,
+        overrides=[list(o) for o in overrides or ()],
+        batch_groups=len(groups),
         positions=mesh.local_positions(), shard_s=shard_s,
         value_and_grad_s=vg_s, value_and_grad_loss=float(loss),
         sampled_grad_rel_err=sample_errs or "on rank 0",
@@ -4965,7 +5011,9 @@ def _free_run(name, spec, microbatches, rank, fails) -> dict:
         mesh.devices.shape))
     kind = FREE_LAYOUTS[name]
     run = {"ring": _free_attention, "ulysses": _free_attention,
-           "pipeline": _free_pipeline, "moe": _free_moe}[kind]
+           "pipeline": _free_pipeline,
+           "moe": functools.partial(_free_moe, overrides=FREE_RULES.get(
+               name))}[kind]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5153,12 +5201,15 @@ def _leaf(tree, key: str):
     return tree
 
 
-def _free_moe(kind, mesh, one, rank, dev, fail, _mb) -> dict:
-    """The expert-parallel MoE layer over the ranks: each rank its shards
-    of the seed-0 params, y of its run of the tokens and its objective
-    (sum(y), the aux losses on rank 0); the runs' y, the routing, the aux
-    losses and every parameter's gradient gathered across ranks, held on
-    rank 0 against the unsharded layer in one process."""
+def _free_moe(kind, mesh, one, rank, dev, fail, _mb, overrides=None) -> dict:
+    """The expert-parallel MoE layer over the ranks, under the default
+    table or its ``overrides``: each rank its shards of the seed-0
+    params, y of its run of the tokens and its objective (sum(y), the aux
+    losses on rank 0); the runs' y, the routing, the aux losses and every
+    parameter's gradient gathered across ranks, held on rank 0 against
+    the unsharded layer in one process."""
+    rules = (LogicalAxisRules.default().with_overrides(*overrides)
+             if overrides else None)
     cfg = MoEConfig(**MOE)
     params = init_moe_params(cfg, torch.Generator(dev).manual_seed(0), dev)
     x = torch.randn(MOE_X + (cfg.d_model,), device=dev,
@@ -5166,7 +5217,7 @@ def _free_moe(kind, mesh, one, rank, dev, fail, _mb) -> dict:
                     ).to(cfg.dtype)
     with torch.no_grad():
         shards = shard_params({k: v.detach() for k, v in params.items()},
-                              mesh, logical_axes=moe_logical_axes())
+                              mesh, rules, logical_axes=moe_logical_axes())
     leaves = {}
     shards = [None if t is None else {
         k: leaves.setdefault(id(v), v.requires_grad_())
@@ -5179,7 +5230,7 @@ def _free_moe(kind, mesh, one, rank, dev, fail, _mb) -> dict:
     def run():
         for t in leaves.values():
             t.grad = None
-        y, aux, routing = moe_layer_routed(shards, x, cfg, mesh)
+        y, aux, routing = moe_layer_routed(shards, x, cfg, mesh, rules)
         obj = y.float().sum()
         if rank == 0:
             obj = obj + aux["moe_load_balance_loss"] + aux["moe_router_z_loss"]
@@ -5193,8 +5244,9 @@ def _free_moe(kind, mesh, one, rank, dev, fail, _mb) -> dict:
     torch.distributed.all_gather(idxs, idx)
     keeps = [torch.empty_like(keep) for _ in range(mesh.world)]
     torch.distributed.all_gather(keeps, keep)
-    specs = tree_specs(moe_logical_axes(), mesh)
-    res = dict(mesh=dict(mesh.shape), rows=list(moe_ops.moe_rows(
+    specs = tree_specs(moe_logical_axes(), mesh, rules)
+    res = dict(mesh=dict(mesh.shape), overrides=[
+        list(o) for o in overrides or ()], rows=list(moe_ops.moe_rows(
         mesh, MOE_X[0] * MOE_X[1])), first_call_ms=ms, profiled=summary,
         aux=aux)
     ref = None
@@ -5240,7 +5292,37 @@ def _train_rank(rank: int, world: int, tokens, ref_path: str,
     runs = [_rank_run(name, spec, mb, rank, world, tokens, ref_grads,
                        ref_scalars, fails)
             for name, spec, mb in TRAIN_RANKS[world]]
+    for name, spec, over in RULES_RANKS[world]:
+        fit = _rules_rank_fit(spec, over, world)
+        runs.append(_rank_run(name, spec, None, rank, world, tokens,
+                              ref_grads, ref_scalars, fails, over)
+                    if fit["ran"] else dict(layout=name, mesh=spec))
+        runs[-1]["fit"] = fit
+        if not fit["ran"]:
+            print(f"train_ranks {name}: not run, the planner's per-rank "
+                  f"figure {fit['planned_gb']:.1f} GB leaves less than "
+                  f"{TRAIN_RULES_HEADROOM:.0%} of {fit['card_gb']:.1f} GB "
+                  f"free", flush=True)
     return dict(rank=rank, device=str(dev), runs=runs, failures=fails)
+
+
+def _rules_rank_fit(spec, overrides, world) -> dict:
+    """Whether a RULES_RANKS run fits: the planner's per-rank figure (the
+    rank's params, gradients and two moments, one group's activations and
+    logits, the workspace) against the card less TRAIN_RULES_HEADROOM."""
+    plan = plan_train_memory(
+        dataclasses.replace(PRESETS["8b-gqa"], remat=True,
+                            attention_impl="flash"),
+        MeshSpec(**spec), global_batch=TRAIN_MESH_BATCH, seq_len=TRAIN_SEQ,
+        rules=LogicalAxisRules.default().with_overrides(*overrides),
+        world=world)
+    need = (4 * plan.rank_params_bytes + plan.activation_bytes
+            + plan.logits_bytes + plan.workspace_bytes)
+    card = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).total_memory
+    return dict(ran=need <= (1 - TRAIN_RULES_HEADROOM) * card,
+                planned_gb=need / 1e9, card_gb=card / 1e9,
+                headroom=TRAIN_RULES_HEADROOM)
 
 
 def train_ranks_phase(card: str, failures: list, train_mesh: dict,
@@ -5266,18 +5348,25 @@ def train_ranks_phase(card: str, failures: list, train_mesh: dict,
                          for f in r["failures"]]
     done = [r for r in ranks if r is not None]
     by_layout = {n: {k: sum(run["launches"][k] for r in done
-                            for run in r["runs"] if run["layout"] == n)
+                            for run in r["runs"]
+                            if run["layout"] == n and "launches" in run)
                      for k in ("fwd", "dq", "dkv")}
-                 for n, _, _ in TRAIN_RANKS[world]}
+                 for n, _, _ in TRAIN_RANKS[world] + RULES_RANKS[world]}
+    rules_names = [n for n, _, _ in RULES_RANKS[world]]
     res = dict(
         phase="train_ranks", preset="8b-gqa", world=world,
         layouts=[dict(name=n, mesh=sp, num_microbatches=mb)
                  for n, sp, mb in TRAIN_RANKS[world]],
+        rules_layouts=[dict(name=n, mesh=sp, overrides=[list(o) for o in ov])
+                       for n, sp, ov in RULES_RANKS[world]],
         batch=TRAIN_MESH_BATCH, seq_len=TRAIN_SEQ, steps=TRAIN_RANKS_STEPS,
         ranks=ranks, launches_by_layout=by_layout,
         launches=by_layout[TRAIN_RANKS_DP],
         split_launches={k: sum(v[k] for n, v in by_layout.items()
-                               if n != TRAIN_RANKS_DP)
+                               if n != TRAIN_RANKS_DP
+                               and n not in rules_names)
+                        for k in ("fwd", "dq", "dkv")},
+        rules_launches={k: sum(by_layout[n][k] for n in rules_names)
                         for k in ("fwd", "dq", "dkv")},
         train_mesh=dict(
             steady_step_ms=train_mesh["runs"][0]["steady_step_ms"],
@@ -6126,6 +6215,7 @@ def main() -> int:
     collective_phase(card, failures)
     train_ranks = train_ranks_phase(card, failures, train_mesh, ref)
     train_split = train_ranks["split_launches"]
+    train_rules_ranks = train_ranks["rules_launches"]
     del ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -6167,7 +6257,8 @@ def main() -> int:
                        + train_pp["launches"]["fwd"]
                        + train_sp["launches"]["fwd"]
                        + train_ranks["launches"]["fwd"]
-                       + train_split["fwd"]),
+                       + train_split["fwd"]
+                       + train_rules_ranks["fwd"]),
              launches_by_path=dict(
                  serve=serve["flash_launches"],
                  serve_cache=serve_cache["flash_launches"],
@@ -6184,7 +6275,8 @@ def main() -> int:
                  train_pp=train_pp["launches"]["fwd"],
                  train_sp=train_sp["launches"]["fwd"],
                  train_ranks=train_ranks["launches"]["fwd"],
-                 train_split_ranks=train_split["fwd"]),
+                 train_split_ranks=train_split["fwd"],
+                 train_rules_ranks=train_rules_ranks["fwd"]),
              max_abs_err=max(r["max_abs_err_o"]
                              for r in engine_rows + tp_rows),
              ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
@@ -6201,14 +6293,17 @@ def main() -> int:
                        + train_pp["launches"]["dq"]
                        + train_sp["launches"]["dq"]
                        + train_ranks["launches"]["dq"]
-                       + train_split["dq"]),
+                       + train_split["dq"]
+                       + train_rules_ranks["dq"]),
              launches_by_path=dict(train=train["launches"]["dq"],
                                    train_mesh=train_mesh["launches"]["dq"],
                                    train_rules=train_rules["launches"]["dq"],
                                    train_pp=train_pp["launches"]["dq"],
                                    train_sp=train_sp["launches"]["dq"],
                                    train_ranks=train_ranks["launches"]["dq"],
-                                   train_split_ranks=train_split["dq"]),
+                                   train_split_ranks=train_split["dq"],
+                                   train_rules_ranks=train_rules_ranks[
+                                       "dq"]),
              max_abs_err=max(r["max_abs_err_dq"] for r in train_rows),
              ms=bat["dq_ms"], plain_ms=bat["plain_dq_ms"],
              bound_ms=bat["dq_bound_ms"], bound_by=bat["dq_bound_by"],
@@ -6223,14 +6318,17 @@ def main() -> int:
                        + train_pp["launches"]["dkv"]
                        + train_sp["launches"]["dkv"]
                        + train_ranks["launches"]["dkv"]
-                       + train_split["dkv"]),
+                       + train_split["dkv"]
+                       + train_rules_ranks["dkv"]),
              launches_by_path=dict(train=train["launches"]["dkv"],
                                    train_mesh=train_mesh["launches"]["dkv"],
                                    train_rules=train_rules["launches"]["dkv"],
                                    train_pp=train_pp["launches"]["dkv"],
                                    train_sp=train_sp["launches"]["dkv"],
                                    train_ranks=train_ranks["launches"]["dkv"],
-                                   train_split_ranks=train_split["dkv"]),
+                                   train_split_ranks=train_split["dkv"],
+                                   train_rules_ranks=train_rules_ranks[
+                                       "dkv"]),
              max_abs_err=max(max(r["max_abs_err_dk"], r["max_abs_err_dv"])
                              for r in train_rows),
              ms=bat["dkv_ms"], plain_ms=bat["plain_dkv_ms"],

@@ -15,9 +15,10 @@ The router is gathered across the positions that split it (fsdp, on its
 embed dim), not summed from partial products, so ``expert_idx`` and
 ``keep`` are bit-equal to the unsharded layer's on the same device and a
 near-tie cannot flip a token's expert. Each position computes its experts
-over its slice of the MLP units (tp), and the w_down partials of one
-expert group are summed in f32 and rounded once, as
-``transformer.all_reduce`` does.
+over its slice of the MLP units (split over the axes among fsdp, sp and
+tp that do not split the experts: tp under the default table), and the
+w_down partials of one expert group are summed in f32 and rounded once,
+as ``transformer.all_reduce`` does.
 
 - One process (``parallel.mesh.Mesh``, the single controller), under
   any rule table: each expert group's dispatched slots, (E/ep, C, D), go
@@ -28,18 +29,21 @@ expert group are summed in f32 and rounded once, as
   expert and MLP axes (dp, pp) are 0 do the work; where other positions
   hold the same slices they are replicas, which a trainer would
   all-reduce as ``models.train_step`` does.
-- A mesh over several processes (the default table's layout of the
-  experts; any other raises NotImplementedError, ROADMAP item 17b): each
-  rank holds its positions' expert groups at their MLP slices, and
-  every position of a (pp, dp) replica
-  takes an equal run of the N tokens (``moe_rows``). A rank routes all N
-  tokens (N x E logits, small beside the experts) and dispatches its
-  run's; one ``all_to_all_single`` over the replica's ranks takes each
-  expert group's slots to the ranks that hold it, where the sources'
-  disjoint slots are added; the tp partials are summed over the group's
-  ranks in f32 (``transformer._AllReduce``); a second all-to-all brings
-  every group's outputs to every rank, which combines its run. Both
-  exchanges have equal splits (C is static) and run back in the backward.
+- A mesh over several processes, under any rule table: each rank
+  computes its positions' expert groups at their MLP units, built from
+  the stored slices (those other ranks hold through one all-gather over
+  the ranks that read and hold them, ``_EPLayout.fetch``, whose backward
+  reduce-scatters the gradient back), and every position of a (pp, dp)
+  replica takes an equal run of the N tokens (``moe_rows``). A rank
+  routes all N tokens (N x E logits, small beside the experts) and
+  dispatches its run's; one
+  ``all_to_all_single`` over the replica's ranks takes each expert
+  group's slots to the ranks that compute it, where the sources'
+  disjoint slots are added; the MLP partials are summed over the
+  group's ranks in f32 (``transformer._AllReduce``); a second
+  all-to-all brings every group's outputs to every rank, which combines
+  its run. Both exchanges have equal splits (C is static) and run back
+  in the backward.
 """
 
 from __future__ import annotations
@@ -53,9 +57,10 @@ import torch.nn.functional as F
 from .._device import resolve_device
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import (LogicalAxisRules, PartitionSpec,
-                                 _dim_axes, gather_tensor, reshard,
-                                 reshard_plan, shard_params, shard_slices,
-                                 tree_specs)
+                                 _dim_axes, exchange, exchange_slots,
+                                 from_runs, gather_tensor, prefer_rank,
+                                 reshard, reshard_plan, shard_params,
+                                 shard_slices, tie, tree_specs)
 from ..ops.ring_attention import all_to_all
 from .transformer import _AllReduce, _to_tensor
 
@@ -176,20 +181,22 @@ def _aux(router_logits, probs, expert_idx, keep, cfg: MoEConfig):
 
 
 class _EPLayout:
-    """Who computes what on ``mesh`` under ``rules``: per expert group (a
-    slice of the expert dim, in expert order), the first position of each
-    distinct MLP-unit slice, in position order; the params' specs.
+    """Who computes what on ``mesh`` under ``rules``: the params' specs;
+    the compute layout of w_gate, w_up and w_down (the experts split as
+    the table splits them, the MLP units over the axes among fsdp, sp and
+    tp that do not split the experts, the embed dim whole), so that the
+    positions of a (pp, dp) replica each compute a distinct part; per
+    expert group (a slice of the expert dim, in expert order), the first
+    position of each distinct MLP-unit slice, in position order.
 
-    On a mesh that one process drives the table may store the weights in
-    any layout: each computing position builds its experts' weights over
-    its MLP units (the experts split as the table splits them, the MLP
-    units over tp where tp does not split the experts, the embed dim
-    whole) from the stored slices at use
-    (``parallel.sharding.reshard``), and the gradient goes back to them.
-    Over several processes the table must split the experts and the MLP
-    units of w_gate, w_up and w_down alike and leave their embed dim whole,
-    as the default table does; any other raises NotImplementedError
-    (ROADMAP item 17b)."""
+    Each computing position builds its experts' weights over its MLP
+    units from the stored slices at use (``parallel.sharding.reshard``),
+    under any table, and the gradient goes back to them. Over several
+    processes a block another rank holds comes through one all-gather of
+    each rank's slices over the ranks that read and hold it (``fetch``,
+    ``sharding.exchange``), whose backward reduce-scatters the gradient
+    back: the embed dim split over fsdp where ``("expert", None)`` leaves
+    the experts whole, or w_gate, w_up and w_down split unalike."""
 
     def __init__(self, cfg: MoEConfig, mesh, rules: LogicalAxisRules):
         self.mesh = mesh
@@ -197,51 +204,98 @@ class _EPLayout:
         E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
         self.shapes = {"w_gate": (E, D, Fd), "w_up": (E, D, Fd),
                        "w_down": (E, Fd, D)}
-        experts = _dim_axes(self.specs["w_gate"], 0)
-        mlp = ("tp",) if "tp" not in experts else ()
+        # A (pp, dp) replica computes every expert: the compute layout
+        # splits the experts over the table's expert axes among fsdp, sp
+        # and tp, the MLP units over the others.
+        experts = tuple(a for a in _dim_axes(self.specs["w_gate"], 0)
+                        if a in ("fsdp", "sp", "tp"))
+        mlp = tuple(a for a in ("fsdp", "sp", "tp") if a not in experts)
         ex = experts or None
         mp = mlp or None
         self.compute = {"w_gate": PartitionSpec(ex, None, mp),
                         "w_up": PartitionSpec(ex, None, mp),
                         "w_down": PartitionSpec(ex, mp, None)}
         groups: Dict[Tuple[int, int], Dict[Tuple[int, int], int]] = {}
-        self.plans: Dict[int, Dict[str, tuple]] = {}
-        for i, coord in enumerate(mesh.coords()):
-            sl = {k: shard_slices(self.specs[k], self.shapes[k], mesh, coord)
-                  for k in self.shapes}
-            if mesh.world > 1 and (
-                    sl["w_gate"][1] != slice(0, D)
-                    or sl["w_up"] != sl["w_gate"]
-                    or sl["w_down"] != (sl["w_gate"][0], sl["w_gate"][2],
-                                        slice(0, D))):
-                raise NotImplementedError(
-                    f"rules that split the experts' embed dim, or w_gate, "
-                    f"w_up and w_down otherwise than over experts and MLP "
-                    f"units alike, are not ported across processes "
-                    f"(ROADMAP item 17b): {self.specs}")
-            region = shard_slices(self.compute["w_gate"],
-                                  self.shapes["w_gate"], mesh, coord)
-            e = (region[0].start, region[0].stop)
-            f = (region[2].start, region[2].stop)
-            if f not in groups.setdefault(e, {}):
-                groups[e][f] = i
-                self.plans[i] = {
-                    k: reshard_plan(self.specs[k], self.shapes[k], mesh,
-                                    shard_slices(self.compute[k],
-                                                 self.shapes[k], mesh,
-                                                 coord), coord)
-                    for k in self.shapes}
+        for i in range(mesh.devices.size):
+            e, f = self.region(i)
+            groups.setdefault(e, {}).setdefault(f, i)
         self.groups: List[Tuple[Tuple[int, int], List[int]]] = [
             (e, list(groups[e].values())) for e in sorted(groups)]
         self.devices = list(mesh.devices.flat)
+        self._plans: Dict[int, Dict[str, tuple]] = {}
 
-    def weights(self, trees, i: int):
+    def region(self, i: int):
+        """Position ``i``'s compute region: its (first, end) expert and
+        MLP unit."""
+        r = shard_slices(self.compute["w_gate"], self.shapes["w_gate"],
+                         self.mesh, self.mesh.coords()[i])
+        return (r[0].start, r[0].stop), (r[2].start, r[2].stop)
+
+    def plans(self, i: int) -> Dict[str, tuple]:
+        """Position ``i``'s reshard plan per weight (a block that its
+        rank holds read there)."""
+        if i not in self._plans:
+            mesh, coord = self.mesh, self.mesh.coords()[i]
+            self._plans[i] = {}
+            for k, shape in self.shapes.items():
+                plan = reshard_plan(self.specs[k], shape, mesh,
+                                    shard_slices(self.compute[k], shape,
+                                                 mesh, coord), coord)
+                if mesh.world > 1:
+                    keys = [shard_slices(self.specs[k], shape, mesh, c)
+                            for c in mesh.coords()]
+                    plan = prefer_rank(plan, keys, mesh,
+                                       mesh.process_index(i))
+                self._plans[i][k] = plan
+        return self._plans[i]
+
+    def fetch(self, trees):
+        """(link, got), every rank calling it: per weight that some
+        position reads from another rank, this rank's positions' slices
+        all-gathered over the fewest ranks of a process group that cover
+        every such read (``Mesh.covering``, ``sharding.exchange``); got
+        {weight: (runs, {other rank's position: its slot})} for
+        ``weights``."""
+        mesh = self.mesh
+        rank_of = mesh.process_index
+        every = range(mesh.devices.size)
+        names, ranks = [], set()
+        for k in self.shapes:
+            far = {(rank_of(p), rank_of(i)) for p in every
+                   for i, _ in self.plans(p)[k][1] if rank_of(i) != rank_of(p)}
+            if far:
+                names.append(k)
+                ranks.update(r for pair in far for r in pair)
+        if not names:
+            return None, None
+        cover = mesh.covering(ranks)
+        if mesh.rank not in cover:
+            return None, None
+        loc = mesh.local_positions()
+        home = self.devices[loc[0]]
+        parts = [torch.stack([trees[i][k].to(home) for i in loc])
+                 for k in names]
+        link, got = exchange(parts, [mesh.group(cover)] * len(names))
+        return link, {k: (runs, exchange_slots(mesh, cover, [
+            i for p in loc for i, _ in self.plans(p)[k][1]
+            if rank_of(i) in cover])) for k, runs in zip(names, got)}
+
+    def weights(self, trees, i: int, got=None):
         """Computing position ``i``'s w_gate, w_up and w_down over its
         experts and MLP units, on its device (its own slices where they
-        are those)."""
-        return [reshard(lambda j, k=k: trees[j][k], self.plans[i][k],
-                        self.devices[i])
-                for k in ("w_gate", "w_up", "w_down")]
+        are those; across ranks, as ``fetch`` gives them in ``got``, a
+        block in an exchange from its runs, ``from_runs`` where whole)."""
+        out = []
+        for k in ("w_gate", "w_up", "w_down"):
+            runs, slots = (got or {}).get(k, (None, {}))
+            whole = (None if runs is None
+                     else from_runs(self.plans(i)[k], slots, runs))
+            out.append(whole.to(self.devices[i]) if whole is not None
+                       else reshard(lambda j, k=k, runs=runs, slots=slots:
+                                    runs[slots[j]] if j in slots
+                                    else trees[j][k], self.plans(i)[k],
+                                    self.devices[i]))
+        return out
 
 
 def _ep_forward(trees, lay: _EPLayout, mesh, xf, cfg: MoEConfig):
@@ -291,10 +345,10 @@ def moe_rows(mesh, num_tokens: int) -> Tuple[int, int]:
     return k * run, (k + len(loc)) * run
 
 
-def _ep_ranks(trees, specs, mesh, xf, cfg: MoEConfig):
+def _ep_ranks(trees, lay: _EPLayout, mesh, xf, cfg: MoEConfig):
     """``_ep_forward`` on a mesh over several processes (see the module
     docstring): (y of this rank's run of tokens (n, D) f32, routing)."""
-    E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
+    specs = lay.specs
     coords = mesh.coords()
     loc = mesh.local_positions()
     a, b = moe_rows(mesh, xf.shape[0])
@@ -312,12 +366,9 @@ def _ep_ranks(trees, specs, mesh, xf, cfg: MoEConfig):
     disp, comb = routing[4], routing[5]
     xe = torch.einsum("nd,nec->ecd", xf[a:b].to(cfg.dtype), disp)  # [E,C,D]
 
-    def experts_of(i):
-        sl = shard_slices(specs["w_gate"], (E, D, Fd), mesh, coords[i])
-        return sl[0].start, sl[0].stop
     held = {r: set() for r in ranks}
     for i in members:
-        held[mesh.process_index(i)].add(experts_of(i))
+        held[mesh.process_index(i)].add(lay.region(i)[0])
     spans = {r: (min(e[0] for e in g), max(e[1] for e in g))
              for r, g in held.items()}
     ranges = set(spans.values())
@@ -333,14 +384,16 @@ def _ep_ranks(trees, specs, mesh, xf, cfg: MoEConfig):
     # Dispatch: each rank's slots for each rank's experts, added up.
     xe = torch.stack(all_to_all([xe[s0:s1] for s0, s1 in
                                  (spans[r] for r in ranks)], group)).sum(0)
-    # This rank's experts over its MLP slices, summed in f32 over the
-    # slices here, then over the ranks that hold the others.
+    # This rank's experts over its MLP units, built from the stored
+    # slices (other ranks' through the exchange), summed in f32 over its
+    # positions, then over the ranks that hold the others.
+    link, got = lay.fetch(trees)
+    xe = tie(xe, link)
     total = None
     for i in dict.fromkeys(loc):
-        g0, g1 = experts_of(i)
-        t = trees[i]
-        part = _experts(xe[g0 - e0:g1 - e0], t["w_gate"], t["w_up"],
-                        t["w_down"], cfg.dtype).float()
+        (g0, g1), _ = lay.region(i)
+        part = _experts(xe[g0 - e0:g1 - e0], *lay.weights(trees, i, got),
+                        cfg.dtype).float()
         part = F.pad(part, (0, 0, 0, 0, g0 - e0, e1 - g1))
         total = part if total is None else total + part
     holders = mesh.ranks([i for i in members if spans[
@@ -379,9 +432,10 @@ def moe_layer_routed(params, x: torch.Tensor, cfg: MoEConfig, mesh=None,
 
     ``mesh``: expert parallelism over its positions under ``rules``
     (default ``LogicalAxisRules.default()``: experts over fsdp x sp, MLP
-    units over tp, the router's embed dim over fsdp; on a mesh that one
-    process drives, any table, whose stored slices each computing
-    position gathers at use, see ``_EPLayout``); ``params`` is then the
+    units over tp, the router's embed dim over fsdp; any table, on a mesh
+    that one process drives or over several processes, whose stored
+    slices each computing position gathers at use, see ``_EPLayout``);
+    ``params`` is then the
     full tree, which is split, or the per-position list that
     ``shard_params(params, mesh, rules, moe_logical_axes())`` gives. See
     the module docstring. On a mesh over several processes every rank
@@ -407,7 +461,7 @@ def moe_layer_routed(params, x: torch.Tensor, cfg: MoEConfig, mesh=None,
                              f"{mesh.devices.size} positions")
         lay = _EPLayout(cfg, mesh, rules)
         if mesh.world > 1:
-            y, routing = _ep_ranks(trees, lay.specs, mesh, xf, cfg)
+            y, routing = _ep_ranks(trees, lay, mesh, xf, cfg)
             shape = y.shape                 # this rank's run of the tokens
         else:
             y, routing = _ep_forward(trees, lay, mesh, xf, cfg)

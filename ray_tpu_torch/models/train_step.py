@@ -24,9 +24,9 @@ inside one 80 GB card:
 
 Under a mesh (``parallel.mesh.Mesh``, any of pp, dp, fsdp, sp and tp)
 params, ``mu`` and ``nu`` are lists of per-position trees
-(``parallel.sharding.shard_params`` under ``rules``, any table on a mesh
-that one process drives; ``state_specs`` holds their specs, JAX's
-``state_shardings``), each shard held once per distinct device. A step
+(``parallel.sharding.shard_params`` under ``rules``, any table;
+``state_specs`` holds their specs, JAX's ``state_shardings``), each
+shard held once per distinct device. A step
 runs the batch groups' forward and backward in turn
 (``transformer.mesh_group_losses``), the single-controller counterpart of
 each data-parallel rank's own backward; each piece of work runs once, on
@@ -53,20 +53,27 @@ the sum like any other replica. As in the JAX package,
 ``num_microbatches`` is ignored without a pp axis.
 
 On a mesh over several processes (one per GPU; any axis across ranks,
-``parallel.mesh``) each rank calls the same step with the whole batch and
-holds only its own positions' shards (None at the others'). It runs its
-own positions; a weight's fsdp slices on other ranks come through the
-model's all-gather, whose backward reduce-scatters their gradients, and
-a tp, sp or pp group's exchanges run between its ranks
-(``models.transformer``). A replica class (one slice) that other ranks
-also hold is summed locally first, then all-reduced over the process
-group of the ranks that hold it: dp and sp copies, a tensor replicated
-over tp (each rank's partial gradient), the top-level tensors of the
-stages. The global norm counts each slice once, on the lowest rank that holds
-it, its squares summed over the world; the loss is summed over the world,
-so every rank reports the same loss and grad norm. Each rank updates its
-own shards: replicas on other ranks take identical updates from identical
-gradients.
+any table, ``parallel.mesh``) each rank calls the same step with the
+whole batch and holds only its own positions' shards (None at the
+others'). It runs its own positions, round by round
+(``transformer._Layout``); a block of a weight that other ranks hold
+comes through the model's exchange, an all-gather whose backward
+reduce-scatters the block's gradient back to the rank it was read from,
+and a tp, sp or pp group's exchanges run between its ranks
+(``models.transformer``). A rank that computes no batch group (the fsdp
+> 0 ranks under ``("batch", "dp")``) still takes part in the exchanges
+that read its slices, and their gradients come only through those
+reduce-scatters: each read lands on one holder, so no work is summed
+twice. A replica class (one slice) that other ranks also hold is summed
+locally first, then all-reduced over the process group of the ranks
+that hold it: dp and sp copies, a tensor replicated over tp (each
+rank's partial gradient), the top-level tensors of the stages, the
+slices that other ranks read. The global norm counts each slice once,
+on the lowest rank that holds it, its squares summed over the world;
+the loss is summed over the world, each group's term counted on one
+rank, so every rank reports the same loss and grad norm. Each rank
+updates its own shards: replicas on other ranks take identical updates
+from identical gradients.
 """
 
 from __future__ import annotations
@@ -283,12 +290,11 @@ def _mesh_backward(trees, batch, cfg: TransformerConfig, lay: _MeshLayout,
     turn, the replicas' gradients all-reduced; the leaf trees and ``made``
     as ``_mesh_leaves`` gives them."""
     fwd_trees, made = _mesh_leaves(trees)
-    loss = None
+    loss = torch.zeros((), device=device)
     for part in mesh_group_losses(fwd_trees, batch, cfg, lay.mesh,
                                   lay.rules, device, num_microbatches):
         part.backward()
-        part = part.detach().to(device)
-        loss = part if loss is None else loss + part
+        loss = loss + part.detach().to(device)
     _all_reduce_replicas(lay, trees, made)
     return world_sum(loss, lay.mesh), fwd_trees, made
 
@@ -487,9 +493,9 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
     ``donate_state`` the step updates ``state``'s tensors in place (the
     port of JAX's donation); otherwise it works on a copy. ``mesh``: the
     state is sharded over its positions under ``rules`` (default
-    ``LogicalAxisRules.default()``; any table on a mesh that one process
-    drives, the default or ``megatron_rules()`` over several processes;
-    see the module docstring); batches and metrics live on ``device``.
+    ``LogicalAxisRules.default()``; any table, on a mesh that one process
+    drives or over several processes; see the module docstring); batches
+    and metrics live on ``device``.
     ``num_microbatches`` only matters under a pp > 1 mesh axis: it sets
     the pipeline schedule's depth (default pp)."""
     if mesh is not None:

@@ -74,32 +74,40 @@ layer's tensor.)
   so the two agree. Inside its pipeline JAX elides the ring (plain
   attention); the port runs each stage's ring, the same values.
 - a mesh over several processes (``parallel.mesh``: one process per GPU,
-  any axis across ranks; the default table or ``megatron_rules()``, any
-  other raising NotImplementedError, ROADMAP item 17b): every rank is
-  given the whole batch and runs only its own positions, in the same
-  order as every other rank. A
-  weight's fsdp slices held by other ranks come through ``fsdp_gather``'s
-  all-gather over the process group of the ranks that hold them, whose
-  backward reduce-scatters the gradient back. A tp group across ranks
-  sums its partials by ``all_reduce`` over its process group
-  (``_AllReduce``: an f32 all-reduce, rounded once; its backward sums the
-  copies' gradients, the counterpart of the ``.to()`` copies' backward),
-  the vocabulary-split embedding and cross-entropy likewise. Each rank
-  keeps its own copy of the residual stream, whose gradient is that
-  copy's share, and a tensor replicated over tp (the norm scales; under
-  ``megatron_rules()`` the embedding and head) takes a partial gradient
-  on each rank, which the train step's replica all-reduce sums. An sp
-  group across ranks rotates the ring by P2P or gathers the sequence on
-  its first shard's rank (``_sp_attention``); stages across ranks hand
-  off by send/recv (``parallel.pipeline.Handoffs``), the backward
-  ordered per microbatch. The loss is summed over the world
-  (``world_sum``), and ``forward`` sums the ranks' pieces of the logits.
+  any axis across ranks, any table): every rank is given the whole batch
+  and runs only its own positions, in rounds (``_Layout``: round k runs
+  each rank's k-th batch group, in the same order on every rank). A
+  position builds its compute params from the stored slices as in one
+  process (``_ParamPlan``); a block that only other ranks hold comes
+  through one all-gather per leaf and event of each rank's slices over
+  the process group of the ranks that read and hold it
+  (``parallel.sharding.exchange``, in ``_Layout.fetch``), whose backward
+  reduce-scatters the gradient back. A rank that holds slices others
+  read but computes nothing with them there (no batch group under
+  ``("batch", "dp")``, no sequence shard under ``("seq", None)``, no
+  head where the vocabulary is whole) still runs those events, per
+  layer and in the recompute too (``_mock_stage``, the head's hidden
+  state). A tp group across ranks sums its partials by ``all_reduce``
+  over its process group (``_AllReduce``: an f32 all-reduce, rounded
+  once; its backward sums the copies' gradients, the counterpart of the
+  ``.to()`` copies' backward), the vocabulary-split embedding and
+  cross-entropy likewise. Each rank keeps its own copy of the residual stream, whose
+  gradient is that copy's share, and a tensor replicated over tp (the
+  norm scales; under ``megatron_rules()`` the embedding and head) takes
+  a partial gradient on each rank, which the train step's replica
+  all-reduce sums. An sp group across ranks rotates the ring by P2P or
+  gathers the sequence on its first shard's rank (``_sp_attention``);
+  stages across ranks hand off by send/recv
+  (``parallel.pipeline.Handoffs``), the backward ordered per
+  microbatch. The loss is summed over the world (``world_sum``), and
+  ``forward`` sums the ranks' pieces of the logits.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from collections.abc import Mapping
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -116,10 +124,10 @@ from ..ops.ring_attention import (_ring_shards, ring_attention, ring_shift,
 from ..parallel.pipeline import (Handoffs, check_microbatches, gpipe_ticks,
                                  stage_send)
 from ..parallel.sharding import (LogicalAxisRules, PartitionSpec,
-                                 _dim_axes, _tree_map, all_gather_single,
-                                 axis_dim, reduce_scatter_single,
-                                 reshard, reshard_plan, shard_params,
-                                 shard_slices, tree_specs)
+                                 _dim_axes, exchange, exchange_slots,
+                                 from_runs, prefer_rank, reshard,
+                                 reshard_plan, shard_params, shard_slices,
+                                 tie, tree_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -565,33 +573,11 @@ def _layer(cfg: TransformerConfig, x, lp, cos, sin, mesh=None):
 
 def mesh_rules(mesh, rules: Optional[LogicalAxisRules] = None
                ) -> LogicalAxisRules:
-    """``rules`` (default ``LogicalAxisRules.default()``). On a mesh that
-    one process drives, any table: the params are stored as it says and
-    computed in the sharded model's layout (``compute_rules``). Over
-    several processes (``mesh.world`` > 1) the table must lay out the
-    params and the batch as the default table or ``megatron_rules()``
-    does; any other raises NotImplementedError (ROADMAP item 17b)."""
-    rules = rules or LogicalAxisRules.default()
-    if mesh.world == 1:
-        return rules
-    axes = param_logical_axes(None)
-
-    def layout(r):
-        return (tree_specs(axes, mesh, r), r.spec(("batch",), mesh),
-                r.spec(("seq",), mesh))
-    got = layout(rules)
-    if got not in (layout(LogicalAxisRules.default()),
-                   layout(megatron_rules())):
-        default = _flat(layout(LogicalAxisRules.default())[0], tuple)
-        names = _flat(axes, lambda a: a)
-        bad = {k: names[k] for k, v in _flat(got[0], tuple).items()
-               if v != default[k]} or {"batch": got[1], "seq": got[2]}
-        raise NotImplementedError(
-            f"rules that lay out {bad} otherwise than "
-            f"LogicalAxisRules.default() and megatron_rules() are not "
-            f"ported across processes (ROADMAP item 17b): on a mesh over "
-            f"{mesh.world} processes the sharded model runs those two")
-    return rules
+    """``rules`` (default ``LogicalAxisRules.default()``): any table, on a
+    mesh that one process drives or over several processes. The params
+    are stored as it says and computed in the sharded model's layout
+    (``compute_rules``)."""
+    return rules or LogicalAxisRules.default()
 
 
 def compute_rules(vocab_split: bool) -> LogicalAxisRules:
@@ -639,17 +625,21 @@ def _layer_count(tree) -> int:
 
 class _ParamPlan:
     """How each position's params in the compute layout
-    (``compute_rules``) come from the slices the table stores, on a mesh
-    that one process drives: per leaf (dotted name) the spec the table
-    stores it under and the spec the model computes it under, and per
-    (leaf, position, layer) the ``parallel.sharding.reshard_plan`` that
-    builds the compute tensor, made once. A compute tensor that is the
-    position's own stored slice is that tensor: under
-    ``LogicalAxisRules.default()`` this gathers the embed dim across the
-    fsdp positions, as the sharded model always has; under a table that
-    stores a dim finer or coarser than the compute layout wants, it
-    gathers or slices that dim too, and the gradient goes back to the
-    stored slices."""
+    (``compute_rules``) come from the slices the table stores: per leaf
+    (dotted name) the spec the table stores it under and the spec the
+    model computes it under, and per (leaf, position, layer) the
+    ``parallel.sharding.reshard_plan`` that builds the compute tensor,
+    made once. A compute tensor that is the position's own stored slice
+    is that tensor: under ``LogicalAxisRules.default()`` this gathers the
+    embed dim across the fsdp positions, as the sharded model always has;
+    under a table that stores a dim finer or coarser than the compute
+    layout wants, it gathers or slices that dim too, and the gradient goes
+    back to the stored slices. Over several processes a block is read
+    from a position of the reader's own rank where one holds it
+    (``sharding.prefer_rank``), else from the rank that ``reshard_plan``
+    names, through ``_Layout.fetch``'s exchange; plans can be made for
+    any rank's positions (every rank's positions' slices have one
+    shape)."""
 
     def __init__(self, mesh, rules: LogicalAxisRules):
         axes = param_logical_axes(None)
@@ -661,11 +651,32 @@ class _ParamPlan:
                                         compute_rules(self.vocab_split)),
                              lambda sp: sp)
         self._plans: Dict[tuple, tuple] = {}
+        self._keys: Dict[str, list] = {}
 
     def _full(self, spec, shape) -> Tuple[int, ...]:
         sizes = self.mesh.shape
         return tuple(n * math.prod(sizes[a] for a in _dim_axes(spec, d))
                      for d, n in enumerate(shape))
+
+    def _stacked_shape(self, own, name: str) -> Tuple[int, ...]:
+        """The shape of a position's stored tensor of ``name`` (a layer
+        leaf's stacked over the layers the position holds)."""
+        if not name.startswith("layers."):
+            return tuple(own[name].shape)
+        leaf = _layer_leaf(own, name.split(".")[1:], 0)
+        return (_layer_count(own),) + tuple(leaf.shape)
+
+    def slice_keys(self, own, name: str) -> list:
+        """Per position, the slice of the whole stored tensor of ``name``
+        that it holds (positions with equal keys hold equal slices)."""
+        if name not in self._keys:
+            stored = self.stored[name]
+            full = self._full(stored, self._stacked_shape(own, name))
+            self._keys[name] = [
+                tuple((s.start, s.stop) for s in
+                      shard_slices(stored, full, self.mesh, c))
+                for c in self.mesh.coords()]
+        return self._keys[name]
 
     def _make(self, own, name: str, p: int, li):
         """(reshard plan, the stored layer index, the compute shape of
@@ -676,47 +687,71 @@ class _ParamPlan:
         if li is None:
             full = self._full(stored, own[name].shape)
             region = shard_slices(compute, full, mesh, coord)
-            return (reshard_plan(stored, full, mesh, region, coord), None,
-                    tuple(r.stop - r.start for r in region))
-        path = name.split(".")[1:]
-        n_own = _layer_count(own)
-        layer_spec = PartitionSpec(*stored[1:])
-        full = self._full(layer_spec, _layer_leaf(own, path, 0).shape)
-        L = n_own * math.prod(sizes[a] for a in _dim_axes(stored, 0))
-        stage = shard_slices(compute, (L,), mesh, coord)[0]
-        k, local = divmod(stage.start + li, n_own)
-        near = dict(zip(sizes, coord))
-        for a in reversed(_dim_axes(stored, 0)):
-            near[a], k = k % sizes[a], k // sizes[a]
-        region = shard_slices(PartitionSpec(*compute[1:]), full, mesh, coord)
-        return (reshard_plan(layer_spec, full, mesh, region,
-                             tuple(near.values())), local,
-                (stage.stop - stage.start,)
-                + tuple(r.stop - r.start for r in region))
+            plan, local = reshard_plan(stored, full, mesh, region,
+                                       coord), None
+            shape = tuple(r.stop - r.start for r in region)
+        else:
+            path = name.split(".")[1:]
+            n_own = _layer_count(own)
+            layer_spec = PartitionSpec(*stored[1:])
+            full = self._full(layer_spec, _layer_leaf(own, path, 0).shape)
+            L = n_own * math.prod(sizes[a] for a in _dim_axes(stored, 0))
+            stage = shard_slices(compute, (L,), mesh, coord)[0]
+            k, local = divmod(stage.start + li, n_own)
+            near = dict(zip(sizes, coord))
+            for a in reversed(_dim_axes(stored, 0)):
+                near[a], k = k % sizes[a], k // sizes[a]
+            region = shard_slices(PartitionSpec(*compute[1:]), full, mesh,
+                                  coord)
+            plan = reshard_plan(layer_spec, full, mesh, region,
+                                tuple(near.values()))
+            shape = ((stage.stop - stage.start,)
+                     + tuple(r.stop - r.start for r in region))
+        if mesh.world > 1:
+            plan = prefer_rank(plan, self.slice_keys(own, name), mesh,
+                               mesh.process_index(p))
+        return plan, local, shape
 
     def _get(self, trees, name: str, p: int, li):
         key = (name, p, li)
         if key not in self._plans:
-            self._plans[key] = self._make(trees[p], name, p, li)
+            own = trees[p] if trees[p] is not None else next(
+                t for t in trees if t is not None)
+            self._plans[key] = self._make(own, name, p, li)
         return self._plans[key]
 
-    def tensor(self, trees, name: str, p: int, li=None) -> torch.Tensor:
+    def tensor(self, trees, name: str, p: int, li=None,
+               got=None) -> torch.Tensor:
         """Position ``p``'s compute tensor of leaf ``name`` (of its compute
-        stage's layer ``li`` for a layer leaf), on its device."""
+        stage's layer ``li`` for a layer leaf), on its device. ``got``:
+        {leaf: (gathered runs, {position: its slot})}, ``_Layout.fetch``'s:
+        a block whose holder is in the leaf's exchange, this rank's own
+        among them, is read from the runs (whose reduce-scatter returns
+        its gradient), any other from this rank's slices."""
         plan, local, _ = self._get(trees, name, p, li)
         dev = self.mesh.devices.flat[p]
-        if li is None:
-            return reshard(lambda i: trees[i][name], plan, dev)
         path = name.split(".")[1:]
-        return reshard(lambda i: _layer_leaf(trees[i], path, local), plan,
-                       dev)
+        runs, slots = (got or {}).get(name, (None, {}))
+        if runs is not None:
+            whole = from_runs(plan, slots, runs)
+            if whole is not None:
+                return whole.to(dev)
 
-    def params(self, trees, p: int, li):
+        def get(i):
+            if i in slots:
+                return runs[slots[i]]
+            return (trees[i][name] if li is None
+                    else _layer_leaf(trees[i], path, local))
+        return reshard(get, plan, dev)
+
+    def params(self, trees, p: int, li, got=None):
         """Position ``p``'s compute params: the top-level tensors named in
-        the tuple ``li``, or its compute stage's layer ``li``'s tree."""
+        the tuple ``li``, or its compute stage's layer ``li``'s tree
+        (``got`` as in ``tensor``)."""
         if isinstance(li, tuple):
-            return {k: self.tensor(trees, k, p) for k in li}
-        return _layer_tree(lambda name: self.tensor(trees, name, p, li))
+            return {k: self.tensor(trees, k, p, None, got) for k in li}
+        return _layer_tree(lambda name: self.tensor(trees, name, p, li,
+                                                    got))
 
     def shape(self, trees, name: str, p: int) -> Tuple[int, ...]:
         """The compute shape of position ``p``'s leaf ``name``: of its
@@ -802,31 +837,53 @@ def position_views(trees, mesh, rules: LogicalAxisRules) -> list:
             for p, tree in enumerate(trees)]
 
 
+@dataclasses.dataclass
+class _Event:
+    """One exchange event of a round (``_Layout.event``): the leaves this
+    rank gathers, in order, with the process group each is gathered over
+    and the stored layer index its runs hold (None for a top-level leaf);
+    per leaf the slot in the gathered runs of each other rank's position
+    that this rank reads; every rank that takes part."""
+    names: list
+    groups: list
+    layers: list
+    slots: Dict[str, Dict[int, int]]
+    members: set
+
+
 class _Layout:
     """Where a sharded forward's pieces live, all indexed
     [stage][group][sequence shard]: the tp positions (flat mesh indices)
     of each pipeline stage's batch group's sp shard and their devices; the
     batch groups (``Mesh.batch_groups``) and the sequence shards
     (``Mesh.sequence_shards``) that ``rules`` give, the positions off them
-    computing nothing; whether the vocabulary is split over tp. On a mesh
-    that one process drives, ``plan`` (``_ParamPlan``) builds each
-    position's compute params from the stored slices. Over several
-    processes (``devices`` None at other ranks' positions; the default
-    table or ``megatron_rules()`` only): per tp position the positions
-    whose embed-dim slices it gathers, only those this rank holds, with
-    the process group of the ranks that hold the others (``fsdp_groups``;
-    None where this rank holds them all), and per leaf the dim its spec
-    splits over fsdp (of one layer's tensor for layer leaves); per
-    [stage][group][shard] the tp indices this rank holds (``local``) and
-    the process group of the ranks that hold the shard's tp positions
-    (``tp_groups``); the batch groups where this rank holds a position
-    (``local_groups``)."""
+    computing nothing; whether the vocabulary is split over tp; ``plan``
+    (``_ParamPlan``), which builds each position's compute params from the
+    stored slices.
+
+    Over several processes (``devices`` None at other ranks' positions):
+    per [stage][group][shard] the tp indices this rank holds (``local``)
+    and the process group of the ranks that hold the shard's tp positions
+    (``tp_groups``); per rank the batch groups where it holds a position
+    (``rank_groups``, this rank's ``local_groups``). A step runs in
+    ``rounds``: in round k every rank runs its k-th group, or none. Each
+    time a round's stage reads a leaf (the embedding on stage 0, each
+    layer, the head on the last stage: an event, ``event``), the blocks
+    that a reader's plan takes from another rank come in one all-gather
+    of each rank's run of its positions' slices over the smallest process
+    group of ranks that covers the readers and the ranks they read from
+    (``sharding.exchange``), whose backward reduce-scatters the gradient
+    back. Every rank of that group takes part, in the same order, again
+    in a checkpoint's recompute: a rank that reads nothing there (it
+    holds no group in the round, as the fsdp > 0 ranks under ``("batch",
+    "dp")``, or it runs no head) runs the events alone on a chain of its
+    own (``_mock_stage``), so that its backward issues the matching
+    reduce-scatters."""
 
     def __init__(self, mesh, rules: LogicalAxisRules):
         self.mesh, self.rules = mesh, rules
-        self.plan = _ParamPlan(mesh, rules) if mesh.world == 1 else None
-        self.vocab_split = (mesh.shape["tp"] > 1 and "tp" in _dim_axes(
-            rules.spec(("vocab",), mesh), 0))
+        self.plan = _ParamPlan(mesh, rules)
+        self.vocab_split = self.plan.vocab_split
         self.batch_axes = mesh.batch_axes(rules)
         self.groups = mesh.batch_groups(rules)
         self.pp, self.sp = mesh.shape["pp"], mesh.sequence_shards(rules)
@@ -839,27 +896,16 @@ class _Layout:
                         for pos in g] for g in st] for st in self.positions]
         self.tp_groups = [[[mesh.axis_group(pos[0], "tp") for pos in g]
                            for g in st] for st in self.positions]
-        self.local_groups = [g for g in range(len(self.groups))
-                             if any(self.holds(s, g) for s in stages)]
-        if self.plan is not None:
-            return
-        specs = tree_specs(param_logical_axes(None), mesh, rules)
-        fsdp = mesh.shape["fsdp"] > 1
-        self.top_dims = {k: axis_dim(specs[k], "fsdp") if fsdp else None
-                         for k in ("embed", "ln_f", "lm_head")}
-        # A layer's tensor is its stacked tensor without the (L) dim.
-        self.layer_dims = _tree_map(
-            lambda sp: axis_dim(sp[1:], "fsdp") if fsdp else None,
-            specs["layers"])
-        by_fsdp = [[[[mesh.fsdp_positions(d, t, s, j)
-                      for t in range(mesh.shape["tp"])]
-                     for j in shards] for d, f in self.groups]
-                   for s in stages]
-        self.sources = [[[[[i for i in pos if mesh.is_local(i)]
-                           for pos in shard] for shard in g] for g in st]
-                        for st in by_fsdp]
-        self.fsdp_groups = [[[[mesh.group(mesh.ranks(pos)) for pos in shard]
-                              for shard in g] for g in st] for st in by_fsdp]
+        rank_of = mesh.process_index
+        self.rank_groups = [[g for g in range(len(self.groups))
+                             if any(rank_of(i) == r for st in self.positions
+                                    for pos in st[g] for i in pos)]
+                            for r in range(mesh.world)]
+        self.local_groups = self.rank_groups[mesh.rank]
+        self.rounds = max(len(gs) for gs in self.rank_groups)
+        self.home = mesh.devices.flat[mesh.local_positions()[0]]
+        self._events: Dict[tuple, _Event] = {}
+        self._mocks: Optional[bool] = None
 
     def group_rows(self, x: torch.Tensor, g: int) -> torch.Tensor:
         """Batch group ``g``'s rows of ``x`` (the whole batch's leading
@@ -871,15 +917,144 @@ class _Layout:
         rows = x.shape[0] // n
         return x[g * rows:(g + 1) * rows].to(
             self.mesh.devices.flat[self.first_local(g)])
+
+    def group_at(self, k: int) -> Optional[int]:
+        """The batch group this rank runs in round ``k`` (None: none)."""
+        return (self.local_groups[k] if k < len(self.local_groups)
+                else None)
+
     def holds(self, s: int, g: int) -> bool:
         """Whether this rank holds a position of stage ``s``'s group
         ``g``."""
         return any(self.local[s][g])
 
+    def _holds_at(self, r: int, k: int, s: int) -> bool:
+        """Whether rank ``r`` runs stage ``s`` of a group in round ``k``."""
+        gs = self.rank_groups[r]
+        return k < len(gs) and any(self.mesh.process_index(i) == r
+                                   for pos in self.positions[s][gs[k]]
+                                   for i in pos)
+
     def first_local(self, g: int) -> int:
         """This rank's first position of group ``g`` (any stage)."""
         return next(pos[t] for st, loc in zip(self.positions, self.local)
                     for pos, ts in zip(st[g], loc[g]) for t in ts)
+
+    def keys(self, s: int, n_layers: int) -> list:
+        """Stage ``s``'s events in the order a microbatch meets them: the
+        embedding on stage 0, its L/pp layers, the head on the last."""
+        return ((["embed"] if s == 0 else []) + list(range(n_layers))
+                + (["head"] if s == self.pp - 1 else []))
+
+    def readers(self, r: int, k: int, s: int, key) -> list:
+        """The positions of rank ``r`` that read the leaves of event
+        ``key`` on stage ``s`` in round ``k``: every position it holds of
+        its group's stage for a layer; per sequence shard, where the
+        vocabulary is whole, the first it holds for the embedding and the
+        first tp position for the head (``_group_embed``,
+        ``_group_head``)."""
+        gs = self.rank_groups[r]
+        if k >= len(gs):
+            return []
+        out = []
+        for pos in self.positions[s][gs[k]]:
+            ts = [t for t, i in enumerate(pos)
+                  if self.mesh.process_index(i) == r]
+            if key == "embed" and not self.vocab_split:
+                ts = ts[:1]
+            elif key == "head" and not self.vocab_split:
+                ts = [t for t in ts if t == 0]
+            out += [pos[t] for t in ts]
+        return out
+
+    def event(self, trees, k: int, s: int, key) -> _Event:
+        """Round ``k``'s event ``key`` (a layer index of stage ``s``,
+        "embed" or "head") as this rank takes part in it, made once from
+        every rank's readers' plans: per leaf, the ranks joined by a read
+        from another rank, each such set widened to the fewest ranks that
+        one of the mesh's process groups spans (``Mesh.covering``)."""
+        ck = (k, s, key)
+        if ck in self._events:
+            return self._events[ck]
+        mesh, world = self.mesh, self.mesh.world
+        rank_of = mesh.process_index
+        li = key if isinstance(key, int) else None
+        names = ([n for n in self.plan.stored if n.startswith("layers.")]
+                 if li is not None else
+                 ["embed"] if key == "embed" else ["ln_f", "lm_head"])
+        reads = ({r: self.readers(r, k, s, key) for r in range(world)}
+                 if world > 1 else {})
+        ev = _Event([], [], [], {}, set())
+        for name in names:
+            srcs, layer, joined = {}, None, []
+            for r, ps in reads.items():
+                for p in ps:
+                    plan, layer, _ = self.plan._get(trees, name, p, li)
+                    srcs[p] = [i for i, _ in plan[1]]
+                    far = {rank_of(i) for i in srcs[p]} - {r}
+                    if far:
+                        joined.append({r} | far)
+            covers: list = []
+            for ranks in joined:
+                ranks = set(mesh.covering(ranks))
+                for c in [c for c in covers if c & ranks]:
+                    covers.remove(c)
+                    ranks = set(mesh.covering(ranks | c))
+                covers.append(ranks)
+            for cover in sorted(tuple(sorted(c)) for c in covers):
+                ev.members.update(cover)
+                if mesh.rank not in cover:
+                    continue
+                ev.names.append(name)
+                ev.groups.append(mesh.group(cover))
+                ev.layers.append(layer)
+                ev.slots[name] = exchange_slots(
+                    mesh, cover, [i for p in reads[mesh.rank]
+                                  for i in srcs[p] if rank_of(i) in cover])
+        self._events[ck] = ev
+        return ev
+
+    def fetch(self, trees, k: int, s: int, key):
+        """(link, got) of this rank's exchanges at event ``key`` (see
+        ``event``): its run of each leaf's slices gathered over the
+        event's groups (``sharding.exchange``), got {leaf: (runs, {other
+        rank's position: its slot})} for ``_ParamPlan.tensor``; (None,
+        None) where this rank takes part in none."""
+        if self.mesh.world == 1:
+            return None, None
+        ev = self.event(trees, k, s, key)
+        if not ev.names:
+            return None, None
+        parts = []
+        for name, layer in zip(ev.names, ev.layers):
+            path = name.split(".")[1:]
+            mine = [(trees[i][name] if layer is None
+                     else _layer_leaf(trees[i], path, layer)).to(self.home)
+                    for i in self.mesh.local_positions()]
+            parts.append(mine[0][None] if len(mine) == 1
+                         else torch.stack(mine))
+        link, got = exchange(parts, ev.groups)
+        return link, {name: (runs, ev.slots[name])
+                      for name, runs in zip(ev.names, got)}
+
+    def member(self, trees, k: int, s: int, n_layers: int) -> bool:
+        """Whether this rank takes part in an event of stage ``s`` in
+        round ``k``."""
+        return self.mesh.world > 1 and any(
+            self.mesh.rank in self.event(trees, k, s, key).members
+            for key in self.keys(s, n_layers))
+
+    def has_mocks(self, trees, n_layers: int) -> bool:
+        """Whether some rank takes part in a stage's events in a round in
+        which it runs no group on that stage (``_mock_stage``)."""
+        if self._mocks is None:
+            self._mocks = self.mesh.world > 1 and any(
+                r in self.event(trees, k, s, key).members
+                and not self._holds_at(r, k, s)
+                for k in range(self.rounds) for s in range(self.pp)
+                for key in self.keys(s, n_layers)
+                for r in range(self.mesh.world))
+        return self._mocks
 
     def owns(self, g: int, j: int) -> bool:
         """Whether this rank counts group ``g``'s shard ``j``'s loss: it
@@ -905,6 +1080,48 @@ class _Layout:
             self.positions[s - 1][g][j][self.local[s][g][j][0]])
 
 
+def _tied(xss, link) -> list:
+    """``xss`` (a list of {device: tensor}) with ``link`` tied to its
+    first tensor (``sharding.tie``)."""
+    if link is None:
+        return xss
+    out = [dict(xs) for xs in xss]
+    for xs in out:
+        if xs:
+            d = next(iter(xs))
+            xs[d] = tie(xs[d], link)
+            break
+    return out
+
+
+def _mock_layer(lay: _Layout, trees, k: int, s: int, key,
+                x: torch.Tensor) -> torch.Tensor:
+    """Event ``key`` of stage ``s`` in round ``k`` on a rank that reads
+    nothing there, tied to its chain ``x``."""
+    link, _ = lay.fetch(trees, k, s, key)
+    return tie(x, link).clone()
+
+
+def _mock_stage(lay: _Layout, trees, k: int, s: int, n_layers: int,
+                remat: bool) -> torch.Tensor:
+    """Stage ``s``'s events of round ``k`` on a rank that takes part in
+    them but runs none of that stage's work: a 0-d chain through every
+    event in a microbatch's order, each layer's checkpointed where the
+    readers' are (so its recompute gathers again where theirs do), ending
+    in a zero term (``_Zeroed``) whose backward issues the events'
+    reduce-scatters in reverse order."""
+    x = torch.zeros((), device=lay.home, requires_grad=(
+        torch.is_grad_enabled()
+        and any(t.requires_grad for t in _tensors(trees))))
+    for key in lay.keys(s, n_layers):
+        if remat and isinstance(key, int):
+            x = checkpoint(_mock_layer, lay, trees, k, s, key, x,
+                           use_reentrant=True, preserve_rng_state=False)
+        else:
+            x = _mock_layer(lay, trees, k, s, key, x)
+    return _Zeroed.apply(x)
+
+
 def _tensors(tree):
     """Every tensor of nested dicts and lists (None, another process's
     position, holds none)."""
@@ -915,53 +1132,6 @@ def _tensors(tree):
             yield from _tensors(node)
     elif tree is not None:
         yield tree
-
-
-def fsdp_gather(parts, dim: int, device, group=None) -> torch.Tensor:
-    """A weight's tp slice on ``device`` from its embed-dim slices
-    ``parts``, one per fsdp position in fsdp order: a ``.to()`` of each
-    and a ``cat`` along ``dim``. Autograd's backward of it returns each
-    slice its own part of the gradient, on its own device (the
-    reduce-scatter).
-
-    ``group``: ``parts`` are this process's run of the slices, and the
-    ranks of ``group`` hold the others, each an equal run in rank order;
-    the runs are all-gathered (``_FsdpGather``)."""
-    local = (parts[0].to(device) if len(parts) == 1
-             else torch.cat([p.to(device) for p in parts], dim=dim))
-    if group is None:
-        return local
-    return _FsdpGather.apply(local, dim, group)
-
-
-class _FsdpGather(torch.autograd.Function):
-    """The ranks' runs of a weight's fsdp slices concatenated along
-    ``dim`` in rank order: one all-gather over ``group`` in the forward
-    (again in a checkpoint's recompute, where every rank of the group
-    issues it in the same order); the gradient reduce-scattered back to
-    each rank's run in the backward, in its dtype, the ranks' sums in
-    rank order. It is the fsdp group's share of the gradient's sum; the
-    dp replicas of a slice are all-reduced by the train step."""
-
-    @staticmethod
-    def forward(ctx, piece, dim: int, group):
-        n = dist.get_world_size(group)
-        ctx.dim, ctx.group, ctx.shape = dim, group, piece.shape
-        piece = piece.contiguous()
-        out = piece.new_empty((n * piece.shape[0],) + piece.shape[1:])
-        all_gather_single(out, piece, group=group)
-        return out.view((n,) + piece.shape).movedim(0, dim).flatten(
-            dim, dim + 1)
-
-    @staticmethod
-    def backward(ctx, grad):
-        dim, shape = ctx.dim, ctx.shape
-        n = grad.shape[dim] // shape[dim]
-        runs = grad.unflatten(dim, (n, shape[dim])).movedim(dim, 0)
-        runs = runs.contiguous().view((n * shape[0],) + shape[1:])
-        out = grad.new_empty(shape)
-        reduce_scatter_single(out, runs, group=ctx.group)
-        return out, None, None
 
 
 class _WorldSum(torch.autograd.Function):
@@ -986,38 +1156,14 @@ def world_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     return t if group is None else _WorldSum.apply(t, group)
 
 
-def _gathered(own, sources, dims, device, group=None):
-    """A tree of a position's tensors: each leaf its own where ``dims``
-    says it is not split over fsdp, else gathered from ``sources`` (and
-    from the ranks of ``group``)."""
-    if isinstance(dims, dict):
-        return {k: _gathered(own[k], [s[k] for s in sources], dims[k],
-                             device, group) for k in dims}
-    return own if dims is None else fsdp_gather(sources, dims, device, group)
-
-
 def _position_params(trees, lay: _Layout, s: int, g: int, j: int, t: int,
-                     li):
+                     li, got=None):
     """Stage ``s``'s group ``g``'s sp shard ``j``'s tp position ``t``'s
-    params, gathered across fsdp: the top-level tensors named in the tuple
-    ``li``, or the stage's layer ``li``'s (an index into the stage's own
-    L/pp layers). On a mesh that one process drives the tensors are built
-    from the stored slices (``_ParamPlan``); over several processes they
-    are gathered across fsdp."""
-    if lay.plan is not None:
-        return lay.plan.params(trees, lay.positions[s][g][j][t], li)
-    own = trees[lay.positions[s][g][j][t]]
-    srcs = [trees[i] for i in lay.sources[s][g][j][t]]
-    dev = lay.devices[s][g][j][t]
-    group = lay.fsdp_groups[s][g][j][t]
-    if isinstance(li, tuple):
-        dims = {k: lay.top_dims[k] for k in li}
-        return _gathered({k: own[k] for k in li},
-                         [{k: src[k] for k in li} for src in srcs], dims, dev,
-                         group)
-    return _gathered(layer_params(own, li),
-                     [layer_params(src, li) for src in srcs], lay.layer_dims,
-                     dev, group)
+    compute params, built from the stored slices (``_ParamPlan``; ``got``
+    the event's exchanges, ``_Layout.fetch``): the top-level tensors named
+    in the tuple ``li``, or the stage's layer ``li``'s (an index into the
+    stage's own L/pp layers)."""
+    return lay.plan.params(trees, lay.positions[s][g][j][t], li, got)
 
 
 def _sp_attention(cfg: TransformerConfig, lay: _Layout, s: int, g: int,
@@ -1094,16 +1240,20 @@ def _sp_attention(cfg: TransformerConfig, lay: _Layout, s: int, g: int,
     return out
 
 
-def _group_layer(cfg: TransformerConfig, xss, trees, lay: _Layout, s: int,
-                 g: int, li: int, ropes):
+def _group_layer(cfg: TransformerConfig, xss, trees, lay: _Layout, k: int,
+                 s: int, g: int, li: int, ropes):
     """Stage ``s``'s layer ``li`` over group ``g``'s positions that this
-    rank holds: each gathers its weights across fsdp, then ``sp_layer``
-    (its all-reduces over the tp group's ranks), whose attention runs per
-    tp position over the sp shards (``_sp_attention``)."""
+    rank holds in round ``k``: the layer's event (``_Layout.fetch``, the
+    blocks other ranks hold), each position's weights built from the
+    stored slices, then ``sp_layer`` (its all-reduces over the tp group's
+    ranks), whose attention runs per tp position over the sp shards
+    (``_sp_attention``)."""
+    link, got = lay.fetch(trees, k, s, li)
+    xss = _tied(xss, link)
     local = lay.local[s][g]
     devss = [[lay.devices[s][g][j][t] for t in ts]
              for j, ts in enumerate(local)]
-    lpss = [[_position_params(trees, lay, s, g, j, t, li) for t in ts]
+    lpss = [[_position_params(trees, lay, s, g, j, t, li, got) for t in ts]
             for j, ts in enumerate(local)]
 
     def attend(hs):
@@ -1175,28 +1325,29 @@ def head_logits(ps, devices, xs, at, cfg: TransformerConfig
 
 
 def _group_embed(trees, lay: _Layout, g: int, j: int, tokens,
-                 cfg: TransformerConfig):
+                 cfg: TransformerConfig, got=None):
     """Group ``g``'s sp shard ``j``'s embedding on stage 0: {device: (B,
     S_j, E)} on each distinct device of this rank's tp positions. The
     table is looked up per vocabulary slice and summed where the
     vocabulary is split (over the tp group's ranks where it spans
     several); else each rank looks up its first position's copy of the
-    table."""
+    table. ``got``: the embedding event's exchanges."""
     ts = lay.local[0][g][j]
     devices = [lay.devices[0][g][j][t] for t in ts]
     use = ts if lay.vocab_split else ts[:1]
-    tables = [_position_params(trees, lay, 0, g, j, t, ("embed",))["embed"]
-              for t in use]
+    tables = [_position_params(trees, lay, 0, g, j, t, ("embed",),
+                               got)["embed"] for t in use]
     if not lay.vocab_split:
         return vocab_embed(tables, devices, tokens, cfg.dtype)
     return vocab_embed(tables, devices, tokens, cfg.dtype, use,
                        lay.tp_groups[0][g][j])
 
 
-def _stage_layers(cfg: TransformerConfig, xss, trees, lay: _Layout, s: int,
-                  g: int, ropes):
-    """Stage ``s``'s L/pp layers over group ``g``'s positions, each
-    checkpointed when a gradient is needed.
+def _stage_layers(cfg: TransformerConfig, xss, trees, lay: _Layout, k: int,
+                  s: int, g: int, ropes):
+    """Stage ``s``'s L/pp layers over group ``g``'s positions in round
+    ``k``, each checkpointed when a gradient is needed (its event, and so
+    its exchanges, again in the recompute).
 
     The checkpoint is the reentrant one: a layer's positions may lie on
     several devices (the ring's sp positions, tp positions), and autograd
@@ -1216,9 +1367,9 @@ def _stage_layers(cfg: TransformerConfig, xss, trees, lay: _Layout, s: int,
 
     def layer(li, *flat):
         it = iter(flat)
-        out = _group_layer(cfg, [{d: next(it) for d in k} for k in keys],
-                           trees, lay, s, g, li, ropes)
-        return tuple(o[d] for o, k in zip(out, keys) for d in k)
+        out = _group_layer(cfg, [{d: next(it) for d in ds} for ds in keys],
+                           trees, lay, k, s, g, li, ropes)
+        return tuple(o[d] for o, ds in zip(out, keys) for d in ds)
     for li in range(cfg.num_layers // lay.pp):
         if remat:
             flat = [xs[d] for xs, k in zip(xss, keys) for d in k]
@@ -1229,12 +1380,12 @@ def _stage_layers(cfg: TransformerConfig, xss, trees, lay: _Layout, s: int,
             it = iter(flat)
             xss = [{d: next(it) for d in k} for k in keys]
         else:
-            xss = _group_layer(cfg, xss, trees, lay, s, g, li, ropes)
+            xss = _group_layer(cfg, xss, trees, lay, k, s, g, li, ropes)
     return xss
 
 
 def _group_head(trees, lay: _Layout, g: int, j: int, xs,
-                cfg: TransformerConfig):
+                cfg: TransformerConfig, got=None):
     """Group ``g``'s sp shard ``j``'s logits on the last stage, split over
     the vocabulary: [(logits (B, S_j, V/tp) f32 on its position's device,
     the slice's first id)], one per tp position this rank holds where the
@@ -1242,14 +1393,15 @@ def _group_head(trees, lay: _Layout, g: int, j: int, xs,
     holds the shard but not that position (the vocabulary unsplit, tp
     across ranks) runs no head: it gets a zero 0-d term on its hidden
     state (``_Zeroed``), whose backward runs the layers' collectives that
-    pair with the owner's."""
+    pair with the owner's. ``got``: the head event's exchanges."""
     s = lay.pp - 1
     ts = lay.local[s][g][j]
     if not (lay.vocab_split or 0 in ts):
         return _Zeroed.apply(xs[lay.devices[s][g][j][ts[0]]].sum().float())
     out = []
     for t in (ts if lay.vocab_split else [0]):
-        p = _position_params(trees, lay, s, g, j, t, ("ln_f", "lm_head"))
+        p = _position_params(trees, lay, s, g, j, t, ("ln_f", "lm_head"),
+                             got)
         x = rms_norm(xs[lay.devices[s][g][j][t]], p["ln_f"], cfg.rms_norm_eps)
         out.append((torch.einsum("bse,ev->bsv", x,
                                  p["lm_head"].to(cfg.dtype)).float(),
@@ -1266,49 +1418,73 @@ def _seq_shards(x, sp: int) -> list:
     return list(x.split(S // sp, dim=1))
 
 
-def _group_logits(trees, lay: _Layout, g: int, tokens,
+def _group_logits(trees, lay: _Layout, k: int, tokens,
                   cfg: TransformerConfig, num_microbatches=None):
-    """Group ``g``'s logits per microbatch and sp shard, and its hand-offs
-    across ranks: ``out[m][j]`` is ``_group_head``'s vocabulary slices of
-    microbatch m (one where there is no pp axis) and sequence shard j
-    (one where there is no sp axis) or its zero term, [] for a shard this
-    rank holds no position of, and ``out[m]`` None on a rank without the
-    last stage.
-    ``tokens`` (B_g, S) are the group's rows; shard j takes tokens
-    [j S/sp, (j+1) S/sp) and RoPE at those positions. Under pp the
-    group's rows are split into ``num_microbatches`` (default pp) that
-    run the GPipe schedule (``pipeline.gpipe_ticks``), launched tick by
-    tick, every rank in the same order, each rank its own stages; each
-    shard of a stage's output goes to the next stage's devices by
-    ``stage_send``, or to the next stage's ranks by ``Handoffs`` (None
-    where this rank holds every stage)."""
+    """Round ``k`` on this rank: (out, hand, mocks). ``out[m][j]`` is
+    ``_group_head``'s vocabulary slices of microbatch m (one where there
+    is no pp axis) and sequence shard j (one where there is no sp axis)
+    of the round's group (``_Layout.group_at``) or its zero term, [] for
+    a shard this rank holds no position of, and ``out[m]`` None on a rank
+    without the last stage; ``hand`` the hand-offs across ranks;
+    ``mocks[m]`` the zero term of microbatch m's stages whose events this
+    rank takes part in without running them (``_mock_stage``; None where
+    there is none).
+    ``tokens`` (B_g, S) are the group's rows (None where this rank runs
+    no group in the round); shard j takes tokens [j S/sp, (j+1) S/sp) and
+    RoPE at those positions. Under pp the group's rows are split into
+    ``num_microbatches`` (default pp) that run the GPipe schedule
+    (``pipeline.gpipe_ticks``), launched tick by tick, every rank in the
+    same order, each rank its own stages; each shard of a stage's output
+    goes to the next stage's devices by ``stage_send``, or to the next
+    stage's ranks by ``Handoffs``. ``hand`` is None where this rank
+    holds every stage, unless some rank runs a stage's events alone
+    (``_Layout.has_mocks``) under several microbatches: every rank's
+    backward then runs microbatch by microbatch in reverse order
+    (``Handoffs.loss``), so that the events' reduce-scatters meet in one
+    order."""
+    g = lay.group_at(k)
     pp, sp = lay.pp, lay.sp
     mb = (num_microbatches or pp) if pp > 1 else 1
     if pp > 1:
         if cfg.num_layers % pp:
             raise ValueError(f"{cfg.num_layers} layers not divisible by "
                              f"pp={pp}")
-        check_microbatches(tokens.shape[0], mb, pp)
-    Sl = tokens.shape[1] // sp
-    shards = _seq_shards(tokens, sp)
-    ropes = [{d: rope_angles(Sl, cfg.head_dim_, cfg.rope_theta,
-                             offset=j * Sl, device=d)
-              for d in dict.fromkeys(d for st in lay.devices
-                                     for d in st[g][j] if d is not None)}
-             for j in range(sp)]
-    rows = tokens.shape[0] // mb
-    xs = [[t[m * rows:(m + 1) * rows] for t in shards] for m in range(mb)]
-    held = [lay.holds(s, g) for s in range(pp)]
-    hand = None if all(held) else Handoffs(mb)
-    out = [None] * mb
+        if tokens is not None:
+            check_microbatches(tokens.shape[0], mb, pp)
+    n_layers = cfg.num_layers // pp
+    held = [g is not None and lay.holds(s, g) for s in range(pp)]
+    alone = [not held[s] and lay.member(trees, k, s, n_layers)
+             for s in range(pp)]
+    remat = (cfg.remat and torch.is_grad_enabled()
+             and any(t.requires_grad for t in _tensors(trees)))
+    out, mocks = [None] * mb, [None] * mb
+    hand = (None if all(held) and not (mb > 1
+                                       and lay.has_mocks(trees, n_layers))
+            else Handoffs(mb))
+    if g is not None:
+        Sl = tokens.shape[1] // sp
+        shards = _seq_shards(tokens, sp)
+        ropes = [{d: rope_angles(Sl, cfg.head_dim_, cfg.rope_theta,
+                                 offset=j * Sl, device=d)
+                  for d in dict.fromkeys(d for st in lay.devices
+                                         for d in st[g][j] if d is not None)}
+                 for j in range(sp)]
+        rows = tokens.shape[0] // mb
+        xs = [[t[m * rows:(m + 1) * rows] for t in shards]
+              for m in range(mb)]
     for _, s, m in gpipe_ticks(mb, pp):
+        if alone[s]:
+            z = _mock_stage(lay, trees, k, s, n_layers, remat)
+            mocks[m] = z if mocks[m] is None else mocks[m] + z
         if not held[s]:
             continue
         devss = [[lay.devices[s][g][j][t] for t in ts]
                  for j, ts in enumerate(lay.local[s][g])]
         if s == 0:
-            x = [_group_embed(trees, lay, g, j, t, cfg) if devss[j] else {}
-                 for j, t in enumerate(xs[m])]
+            link, got = lay.fetch(trees, k, 0, "embed")
+            x = _tied([_group_embed(trees, lay, g, j, t, cfg, got)
+                       if devss[j] else {} for j, t in enumerate(xs[m])],
+                      link)
         elif held[s - 1]:
             x = [stage_send(x[lay.devices[s - 1][g][j][0]], devss[j])
                  for j, x in enumerate(xs[m])]
@@ -1321,17 +1497,18 @@ def _group_logits(trees, lay: _Layout, g: int, tokens,
                 x.append(on_each(hand.recv(
                     m, tok.shape + (cfg.hidden_size,), cfg.dtype,
                     devss[j][0], lay.source(s, g, j)), devss[j]))
-        xs[m] = _stage_layers(cfg, x, trees, lay, s, g, ropes)
+        xs[m] = _stage_layers(cfg, x, trees, lay, k, s, g, ropes)
         if s == pp - 1:
-            out[m] = [_group_head(trees, lay, g, j, x, cfg) if x else []
-                      for j, x in enumerate(xs[m])]
+            link, got = lay.fetch(trees, k, s, "head")
+            out[m] = [_group_head(trees, lay, g, j, x, cfg, got) if x else []
+                      for j, x in enumerate(_tied(xs[m], link))]
             xs[m] = None
         elif not held[s + 1]:
             for j, x in enumerate(xs[m]):
                 for t, dst in lay.sends(s, g, j):
                     hand.send(m, x[lay.devices[s][g][j][t]], dst)
             xs[m] = None
-    return out, hand
+    return out, hand, mocks
 
 
 def vocab_parallel_nll(logits, targets, group=None) -> torch.Tensor:
@@ -1385,15 +1562,29 @@ class _Zeroed(torch.autograd.Function):
         return torch.zeros_like(grad)
 
 
+# Per mesh, its layouts by table and stored shapes: a layout's plans and
+# events are made once, not at every step.
+_LAYOUTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
 def _sharded(params, mesh, rules):
-    """(per-position params, layout) for the sharded model."""
+    """(per-position params, layout) for the sharded model; the layout is
+    made once per mesh, table and stored shapes."""
     rules = mesh_rules(mesh, rules)
     trees = (params if isinstance(params, (list, tuple))
              else shard_params(params, mesh, rules))
     if len(trees) != mesh.devices.size:
         raise ValueError(f"{len(trees)} position trees for a mesh of "
                          f"{mesh.devices.size} positions")
-    return trees, _Layout(mesh, rules)
+    like = next(t for t in trees if t is not None)
+    key = (tuple(rules.rules), _layer_count(like),
+           tuple(tuple(like[k].shape) for k in ("embed", "ln_f", "lm_head")),
+           tuple(_flat(_layer_tree(lambda name: tuple(_layer_leaf(
+               like, name.split(".")[1:], 0).shape)), lambda v: v).items()))
+    layouts = _LAYOUTS.setdefault(mesh, {})
+    if key not in layouts:
+        layouts[key] = _Layout(mesh, rules)
+    return trees, layouts[key]
 
 
 def _splits(mesh, params) -> bool:
@@ -1418,14 +1609,17 @@ def mesh_group_losses(params, batch: Dict[str, Any], cfg: TransformerConfig,
     its microbatches' shares, in microbatch order). ``loss_fn`` sums
     them; the train step runs each one's backward before the next group's
     forward, so that one group's activations (all of its microbatches')
-    are alive at a time. Over several processes, this rank's groups only
-    (``batch`` is the whole batch on every rank), each its share of the
-    group's loss: a loss term counts on the rank of its shard's first tp
-    position on the last stage, and is a zero that keeps its graph on the
-    tp group's other ranks (``_Zeroed``: of the loss where the vocabulary
-    is split, else of the hidden state); under stages across ranks the
-    share is ``Handoffs.loss``'s (0 on a rank without the last stage),
-    whose backward runs the schedule's."""
+    are alive at a time. Over several processes, one share per round
+    (``_Layout.rounds``) in which this rank runs a group or takes part in
+    another's exchanges (``batch`` is the whole batch on every rank),
+    each its share of the group's loss: a loss term counts on the rank of
+    its shard's first tp position on the last stage, and is a zero that
+    keeps its graph on the tp group's other ranks (``_Zeroed``: of the
+    loss where the vocabulary is split, else of the hidden state), and on
+    a rank that only takes part in exchanges, the zero term of its
+    events' chain (``_mock_stage``); under stages across ranks the share
+    is ``Handoffs.loss``'s (0 on a rank without the last stage), whose
+    backward runs the schedule's."""
     trees, lay = _sharded(params, mesh, rules)
     dev = resolve_device(device)
     if "targets" in batch:
@@ -1438,20 +1632,25 @@ def mesh_group_losses(params, batch: Dict[str, Any], cfg: TransformerConfig,
         weights = torch.ones(targets.shape, dtype=torch.float32, device=dev)
     denom = weights.sum().clamp(min=1.0)
     whole = {"inputs": inputs, "targets": targets, "weights": weights}
-    for g in lay.local_groups:
-        b = {k: lay.group_rows(v, g) for k, v in whole.items()}
-        logits, hand = _group_logits(trees, lay, g, b["inputs"], cfg,
-                                     num_microbatches)
-        rows = b["targets"].shape[0] // len(logits)
+    for k in range(lay.rounds):
+        g = lay.group_at(k)
+        b = (None if g is None
+             else {n: lay.group_rows(v, g) for n, v in whole.items()})
+        logits, hand, mocks = _group_logits(
+            trees, lay, k, None if b is None else b["inputs"], cfg,
+            num_microbatches)
+        if b is None and all(z is None for z in mocks):
+            continue
         terms = []
         for m, per_shard in enumerate(logits):
-            term = None
+            term = mocks[m]
             for j, lg in enumerate(per_shard or ()):
                 if torch.is_tensor(lg):
                     term = lg if term is None else term + lg.to(term.device)
                     continue
                 if not lg:
                     continue
+                rows = b["targets"].shape[0] // len(logits)
                 r = slice(m * rows, (m + 1) * rows)
                 group = (lay.tp_groups[-1][g][j] if lay.vocab_split
                          else None)
@@ -1479,15 +1678,19 @@ def _mesh_forward(params, tokens, cfg: TransformerConfig, mesh, rules, dev,
     written where a single controller would take it (a vocabulary slice
     from its position; unsplit, from the first tp position), and over
     several processes summed over the world, each piece held by one
-    rank."""
+    rank (every rank runs every round, ``mesh_group_losses``)."""
     trees, lay = _sharded(params, mesh, rules)
     B, S = tokens.shape
     out = torch.zeros((B, S, cfg.vocab_size), dtype=torch.float32,
                       device=dev)
     Bg, Sl = B // len(lay.groups), S // lay.sp
-    for g in lay.local_groups:
-        logits, _ = _group_logits(trees, lay, g, lay.group_rows(tokens, g),
-                                  cfg, num_microbatches)
+    for k in range(lay.rounds):
+        g = lay.group_at(k)
+        logits, _, _ = _group_logits(
+            trees, lay, k, None if g is None else lay.group_rows(tokens, g),
+            cfg, num_microbatches)
+        if g is None:
+            continue
         rows = Bg // len(logits)
         for m, per_shard in enumerate(logits):
             r = slice(g * Bg + m * rows, g * Bg + (m + 1) * rows)
@@ -1562,6 +1765,8 @@ def loss_fn(params, batch: Dict[str, Any], cfg: TransformerConfig, mesh=None,
         for part in mesh_group_losses(params, batch, cfg, mesh, rules, dev,
                                       num_microbatches):
             total = part.to(dev) if total is None else total + part.to(dev)
+        if total is None:
+            total = torch.zeros((), device=dev)
         return world_sum(total, mesh)
     if "targets" in batch:
         inputs = torch.as_tensor(batch["inputs"], device=dev).long()

@@ -177,6 +177,13 @@ class Mesh:
             return dist.group.WORLD
         return self._groups[ranks]
 
+    def covering(self, ranks) -> Tuple[int, ...]:
+        """The fewest ranks, among the sets the mesh made a process group
+        for and the whole world, that include ``ranks``."""
+        want = set(ranks)
+        sets = list(self._groups or ()) + [tuple(range(self.world))]
+        return min((s for s in sets if want <= set(s)), key=len)
+
     def world_group(self):
         """The world's group where the mesh spans a formed world (a world
         of one too), else None: the group over which a step sums its loss
@@ -303,7 +310,10 @@ class Mesh:
         other positions would compute the same groups again, so they only
         hold their slices of the params (``("batch", "dp")`` gives dp
         groups, each a whole fsdp group's batch). Every stage has the same
-        groups."""
+        groups. Over several processes a rank may hold no group (the
+        fsdp > 0 ranks under ``("batch", "dp")`` one position a rank): it
+        still takes part in the collectives that read its slices
+        (``models.transformer._Layout``)."""
         self.train_axes()
         axes = self.batch_axes(rules)
         out = []
@@ -316,7 +326,8 @@ class Mesh:
         """How many sequence shards a batch group splits into: the sp
         axis where ``rules`` (default: the default table's ``("seq",
         "sp")``) split the sequence over sp, else 1, the sp positions
-        past the first then holding only their slices of the params."""
+        past the first then holding only their slices of the params (over
+        several processes, a rank of them computes nothing)."""
         if rules is not None:
             spec = rules.spec(("seq",), self)
             axes = spec[0] if spec else None

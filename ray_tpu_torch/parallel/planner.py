@@ -43,13 +43,18 @@ those two terms are the group's, as without pp, while the workspace is
 one microbatch's. The plan is the last stage's, which holds the most.
 
 Per rank (``world`` processes, one per GPU, each holding an equal run of
-the positions in grid order, ``parallel.mesh``, any axis across ranks):
-the params and optimizer bytes of the distinct tensors a rank holds, each
-slice once however many of its positions hold it (they share one tensor
-on its card); the activation, logits and workspace terms stay a
-position's, which is what a rank holding one position of a split tp, sp
-or pp group keeps (its own copy of each layer input, its vocabulary
-slice's logits, its stage's layers).
+the positions in grid order, ``parallel.mesh``, any axis across ranks,
+any table): the params and optimizer bytes of the distinct tensors a
+rank holds, each slice once however many of its positions hold it (they
+share one tensor on its card), also on a rank that computes no batch
+group (the fsdp > 0 ranks under ``("batch", "dp")``); the activation,
+logits and workspace terms stay a position's, which is what a rank
+holding one position of a split tp, sp or pp group keeps (its own copy
+of each layer input, its vocabulary slice's logits, its stage's layers).
+Where a layer's blocks come from other ranks, the all-gather that
+brings them (``sharding.exchange``) also holds every rank's run of the
+layer's slices over the exchange's ranks while the layer runs: not in
+the workspace term.
 
 The reference's default of 16 GiB is a TPU's memory: here the default is
 the card's.

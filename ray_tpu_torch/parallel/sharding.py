@@ -28,7 +28,11 @@ On a mesh over several processes (``Mesh.world`` > 1, one process per GPU,
 any axis across ranks) each rank builds only its own positions' shards:
 the per-position lists hold None at other ranks' positions, and a rank
 never allocates another rank's shard, a tp, sp or pp group's included.
-``gather_params`` then all-gathers the full tensors.
+``gather_params`` then all-gathers the full tensors. ``reshard`` reads a
+block that only other ranks hold from ``exchange``'s all-gather of the
+ranks' stored slices over the process group of the ranks that read and
+hold it, whose backward reduce-scatters each slice its part of the
+gradient (``prefer_rank``: a block this rank holds is read here).
 
 ``with_logical_constraint`` is not ported: it is a layout hint to GSPMD
 inside a jitted program, and here every tensor already lives where its
@@ -168,14 +172,6 @@ def replicated(mesh: Mesh) -> PartitionSpec:
     return PartitionSpec()
 
 
-def axis_dim(spec: PartitionSpec, axis: str) -> Optional[int]:
-    """The dim ``spec`` splits over the mesh axis ``axis``, or None."""
-    for i, axes in enumerate(spec):
-        if axes == axis or (isinstance(axes, tuple) and axis in axes):
-            return i
-    return None
-
-
 def _zip_trees(a, b, fn):
     if isinstance(a, dict):
         if not isinstance(b, dict) or a.keys() != b.keys():
@@ -301,6 +297,22 @@ def reshard_plan(spec: PartitionSpec, shape: Sequence[int], mesh: Mesh,
     return tuple(len(b) for _, b, _ in per_dim), pieces
 
 
+def prefer_rank(plan, keys, mesh: Mesh, rank: int):
+    """``plan`` (``reshard_plan``'s) with each block that ``rank`` holds
+    read from the first of its positions that holds it (``keys[i]``:
+    position i's stored slice, any hashable): a block comes from another
+    rank only where no position of ``rank`` holds it."""
+    counts, pieces = plan
+    mine = [i for i in range(mesh.devices.size)
+            if mesh.process_index(i) == rank]
+    out = []
+    for i, cut in pieces:
+        if mesh.process_index(i) != rank:
+            i = next((q for q in mine if keys[q] == keys[i]), i)
+        out.append((i, cut))
+    return counts, out
+
+
 def reshard(get, plan, device) -> torch.Tensor:
     """The piece that ``plan`` (``reshard_plan``'s) describes, on
     ``device``: each block's part (``get(i)``: position i's stored slice)
@@ -310,7 +322,12 @@ def reshard(get, plan, device) -> torch.Tensor:
     slicing and ``cat``, so autograd's backward gives each stored slice
     its own part of the gradient, on its own device. A region that is
     one position's whole slice is that slice itself (no copy on its own
-    device)."""
+    device).
+
+    Across ranks ``get(i)`` of a position i in an exchange is its slot of
+    ``exchange``'s gathered runs (``from_runs`` where the piece is whole
+    slots), whose backward reduce-scatters the gradient back to the rank
+    that holds the slice."""
     counts, pieces = plan
     got = {}
     for at, (i, cut) in zip(np.ndindex(counts), pieces):
@@ -324,6 +341,103 @@ def reshard(get, plan, device) -> torch.Tensor:
         parts = [join(at + (k,)) for k in range(counts[d])]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
     return join(())
+
+
+class _Exchange(torch.autograd.Function):
+    """Each of this rank's runs ``parts[x]`` (its positions' stored
+    slices of one tensor, stacked) all-gathered over ``groups[x]``, in
+    order: (a 0-d link, then per run the group's runs in group-rank order,
+    stacked). The backward reduce-scatters each run's gradient back over
+    its group in the same order, in the run's dtype: every rank of a group
+    gets the sum of what the group read from its slices. One node for
+    every run, so the ranks issue the reduce-scatters in one order
+    whatever order autograd reaches the runs' readers in; the link (its
+    gradient zero) ties the node to the caller's chain (``tie``), so a
+    rank that reads nothing from a run still issues its reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, groups, *parts):
+        ctx.groups, ctx.shapes = groups, [p.shape for p in parts]
+        out = [torch.zeros((), device=parts[0].device)]
+        for part, group in zip(parts, groups):
+            part = part.contiguous()
+            buf = part.new_empty((dist.get_world_size(group)
+                                  * part.shape[0],) + part.shape[1:])
+            all_gather_single(buf, part, group=group)
+            out.append(buf)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, _link, *grads):
+        out = []
+        for grad, group, shape in zip(grads, ctx.groups, ctx.shapes):
+            part = grad.new_empty(shape)
+            reduce_scatter_single(part, grad.contiguous(), group=group)
+            out.append(part)
+        return (None, *out)
+
+
+def exchange(parts: Sequence[torch.Tensor], groups: Sequence[Any]):
+    """(link, gathered): ``parts[x]``, this rank's run of a tensor's
+    stored slices (one per position it holds, stacked), all-gathered over
+    the process group ``groups[x]`` (every rank of which passes a run of
+    one shape), differentiably (``_Exchange``). Every rank of each group
+    calls it with the same groups in the same order; the caller ties
+    ``link`` into what it computes next (``tie``)."""
+    link, *got = _Exchange.apply(tuple(groups), *parts)
+    return link, got
+
+
+def from_runs(plan, slots: Dict[int, int], runs: torch.Tensor
+              ) -> Optional[torch.Tensor]:
+    """The piece that ``plan`` (``reshard_plan``'s) describes, taken
+    from ``exchange``'s gathered ``runs`` without ``reshard``'s cut and
+    ``cat`` where it is whole slices in consecutive slots (``slots``: a
+    position's slot) along at most one dim: a view of the runs where that
+    dim is the first (the gather along the embed dim of a layer's
+    weights), one copy otherwise; None for any other piece."""
+    counts, pieces = plan
+    at = [slots.get(i) if cut is None else None for i, cut in pieces]
+    split = [d for d, c in enumerate(counts) if c > 1]
+    if None in at or len(split) > 1 or at != list(range(at[0],
+                                                        at[0] + len(at))):
+        return None
+    block = (runs if at[0] == 0 and len(at) == runs.shape[0]
+             else runs[at[0]:at[0] + len(at)])
+    if not split:
+        return block[0]
+    return block.movedim(0, split[0]).flatten(split[0], split[0] + 1)
+
+
+def exchange_slots(mesh: Mesh, ranks: Sequence[int],
+                   positions) -> Dict[int, int]:
+    """Each of ``positions``' slot in ``exchange``'s gathered runs over
+    ``ranks`` (sorted), every rank's run one slice per position it
+    holds."""
+    per = mesh.devices.size // mesh.world
+    return {i: list(ranks).index(mesh.process_index(i)) * per + i % per
+            for i in positions}
+
+
+class _Tie(torch.autograd.Function):
+    """``x`` (a view), with ``link`` (0-d) among its inputs: the
+    backward gives ``link`` a zero gradient once ``x``'s has arrived."""
+
+    @staticmethod
+    def forward(ctx, x, link):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, torch.zeros((), device=grad.device)
+
+
+def tie(x: torch.Tensor, link: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x`` with ``exchange``'s ``link`` tied to it (``x`` itself where
+    there is no link or no gradient to carry)."""
+    if link is None or not (link.requires_grad and torch.is_grad_enabled()):
+        return x
+    return _Tie.apply(x, link)
 
 
 def _specs(mesh, rules, logical_axes):

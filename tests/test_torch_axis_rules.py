@@ -369,42 +369,49 @@ def test_moe_layer_under_embed_over_tp():
         np.testing.assert_allclose(float(aux[k]), float(v), **TOL)
 
 
-def _other_table_across_ranks(rank, world):
-    """On a mesh over the world, the default table trains and a third
-    table raises NotImplementedError, in the train step, the loss and the
-    MoE layer: what each call gives."""
+def _other_table_across_ranks(rank, world, one_process=False):
+    """On fsdp=2 over the world's two ranks (or in one process, naming the
+    CPU twice), under tables other than the default: one step of the
+    train step under ``("mlp", "fsdp")`` from the seeded params, loss_fn
+    on them, and the MoE layer under ``("expert", None)`` (the experts
+    whole, so the embed dim goes over fsdp): the metrics, the loss, y of
+    this rank's run of the tokens and the aux losses."""
     from ray_tpu_torch.models import init_moe_params, init_params
-    mesh = build_mesh(MeshSpec(fsdp=2))
+    from ray_tpu_torch.models.moe import moe_rows
+    mesh = build_mesh(MeshSpec(fsdp=2),
+                      devices=["cpu"] * 2 if one_process else None)
     other = LogicalAxisRules.default().with_overrides(("mlp", "fsdp"))
-    # The experts whole, so the embed dim goes over fsdp.
     moe_other = LogicalAxisRules.default().with_overrides(("expert", None))
     cfg = MoEConfig(d_model=8, d_ff=16, num_experts=4, dtype=torch.float32)
-    batch = {"tokens": np.ones((2, 5), np.int64)}
-    calls = {
-        "default": lambda: make_train_step(CFG, mesh, device="cpu"),
-        "train_step": lambda: make_train_step(CFG, mesh, rules=other,
-                                              device="cpu"),
-        "loss_fn": lambda: loss_fn(init_params(CFG, device="cpu"), batch,
-                                   CFG, mesh, device="cpu", rules=other),
-        "moe_layer": lambda: moe_layer(init_moe_params(cfg, device="cpu"),
-                                       torch.ones(1, 4, 8), cfg, mesh,
-                                       moe_other),
-    }
-    out = {}
-    for name, call in calls.items():
-        try:
-            call()
-            out[name] = "ran"
-        except NotImplementedError as e:
-            out[name] = str(e)
-    return out
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(3).integers(
+        1, CFG.vocab_size, (2, 5)))}
+    bundle = make_train_step(CFG, mesh, rules=other, device="cpu",
+                             optimizer=_optimizer(False))
+    _, metrics = bundle.step(bundle.init(), batch)
+    with torch.no_grad():
+        loss = loss_fn(init_params(CFG, device="cpu"), batch, CFG, mesh,
+                       device="cpu", rules=other)
+        x = torch.from_numpy(np.random.default_rng(4).normal(
+            size=(1, 4, 8)).astype(np.float32))
+        y, aux = moe_layer(init_moe_params(cfg, device="cpu"), x, cfg, mesh,
+                           moe_other)
+    return dict(metrics=(metrics["loss"], metrics["grad_norm"]),
+                loss=float(loss), y=y.reshape(-1, 8).numpy(),
+                rows=(0, 4) if one_process else moe_rows(mesh, 4),
+                aux={k: float(v) for k, v in aux.items()})
 
 
-def test_another_table_across_processes_names_item_17b(tmp_path):
-    """Across processes only the default table and megatron_rules() run
-    (ROADMAP item 17b): a third one raises NotImplementedError in the
-    train step, the loss and the MoE layer on every rank."""
+def test_another_table_across_processes_matches_one_process(tmp_path):
+    """Across processes a table other than the default and
+    megatron_rules() runs (ROADMAP item 17b): on every rank the train
+    step, the loss and the MoE layer under it agree with the same calls
+    in one process."""
+    one = _other_table_across_ranks(0, 1, one_process=True)
     for out in spawn_ranks(_other_table_across_ranks, 2, tmp_path):
-        assert out["default"] == "ran"
-        for name in ("train_step", "loss_fn", "moe_layer"):
-            assert "ROADMAP item 17b" in out[name], (name, out[name])
+        np.testing.assert_allclose(out["metrics"], one["metrics"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(out["loss"], one["loss"], rtol=1e-5)
+        a, b = out["rows"]
+        np.testing.assert_allclose(out["y"], one["y"][a:b], **TOL)
+        for k, v in one["aux"].items():
+            np.testing.assert_allclose(out["aux"][k], v, **TOL)
