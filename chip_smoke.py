@@ -211,6 +211,28 @@ Phases, each printing one JSON line on stdout:
    32 x tp kernel 1 launches per full prefill; the longest prompt again,
    a resident prefix hit with no launch. Prints the wave's decode step ms,
    a 1900-token prefill's ms and the peak memory.
+12c. perf: the same params through the port's engine and device-plane
+   rows (ray_tpu_torch/util/perf.py run_microbenchmarks, min_time_s 1, one
+   call per report): one EngineReplica (max_len 64, 16 tokens, pages of 8)
+   and a P/D replica pair (the blob through the serializer and a host
+   buffer) each under the reference's open loop (a warm-up, then 3-token
+   prompts at 4 Hz for 4 s); SP prefill tokens/s of 512 tokens at degree 1
+   (kernel 1) and 4 (the sp mesh naming the card four times) and the paged
+   path's TTFT of 384 tokens in 64-token parts, device-resident and
+   host-staged; the device channel's steps/s (a 4 MiB tensor by rung-0
+   token, the same-size numpy array through a host buffer) and the 64 MiB
+   KV blob's GiB/s through the serializer; the prefix-cache hit rate under
+   pool squeezes with demotion on and off. Checks: hits and misses exactly
+   9/2 and 4/7 (the reference script's); every open-loop request served in
+   full (none shed, failed, broken or short); kernel 1's launches, 32 per
+   full prefill, the serving replica's 17 and the P/D prefill replica's
+   17 and none on the decode replica, 32 per degree-1 SP prefill and none
+   on the degree-4 SP prefill or prefill_paged; one first token for every
+   timed paged serve, staged and direct; after the run the payloads on the
+   card (the device tensor back at its data_ptr, the host array and the
+   64 MiB blob bit-equal, 64 MiB each way in the copy audit) and an empty
+   rung-0 registry; the phase under 90 s. Prints the 13 rows and each
+   report's counts.
 13. train: the same model at full width and depth, random weights, four
    steps of make_train_step on one fixed 2048-token batch with per-layer
    checkpointing; checks finite metrics, a falling loss, each kernel's
@@ -463,6 +485,7 @@ from ray_tpu_torch.exceptions import (DeadlineExceededError, KVGatherError,
 from ray_tpu_torch.llm import (EngineReplica, LLMEngine, SamplingParams,
                                run_open_loop)
 from ray_tpu_torch.llm import engine as llm_engine
+from ray_tpu_torch.llm import sequence_parallel as llm_sp
 from ray_tpu_torch.models import (PRESETS, MoEConfig, forward,
                                   init_moe_params, init_params,
                                   make_optimizer, make_train_step,
@@ -492,6 +515,7 @@ from ray_tpu_torch.rllib.cql import CQLLearner
 from ray_tpu_torch.rllib.iql import IQLLearner
 from ray_tpu_torch.rllib.rl_module import RLModule, RLModuleSpec
 from ray_tpu_torch.train.backend import TorchConfig, _TorchBackend
+from ray_tpu_torch.util import perf
 from ray_tpu_torch.ops.flash_attention import (
     attention_bwd_delta, flash_attention, flash_attention_bwd,
     flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
@@ -746,6 +770,28 @@ TRAIN_RULES_HEADROOM = 0.05
 # again as a prefix hit.
 SERVE_RULES = (("tp2", dict(tp=2)), ("fsdp2xtp2", dict(fsdp=2, tp=2)))
 SERVE_RULES_ENGINE = dict(SERVE_ENGINE, prefix_cache=True)
+# perf: the port's engine and device-plane rows (ray_tpu_torch/util/perf.py)
+# on the serve params, one run_microbenchmarks call per report, each row's
+# min_time_s the reference's --min-time-s of 1; a report's rows run once.
+PERF_MIN_TIME_S = 1.0
+PERF_GROUPS = (
+    ("serving", ("serving_ttft_p50_ms", "serving_tokens_per_s_per_replica")),
+    ("pd_serving", ("serving_pd_ttft_p50_ms",
+                    "serving_pd_tokens_per_s_per_replica")),
+    ("long_context", ("sp_prefill_tokens_per_s",
+                      "sp_prefill_tokens_per_s_base", "long_context_ttft_ms",
+                      "long_context_ttft_staged_ms")),
+    ("device_channel", ("device_channel_steps_per_s",
+                        "device_channel_steps_per_s_host")),
+    ("kv_handoff", ("kv_handoff_gibs",)),
+    ("kv_pressure", ("prefix_cache_hit_rate_under_pressure",
+                     "prefix_cache_hit_rate_nodemote")),
+)
+# The reference script's counts (ray_tpu/util/perf.py:826-858): hits and
+# misses with demotion on, then off.
+PERF_KV_COUNTS = {"with_demotion": (9, 2), "without_demotion": (4, 7)}
+PERF_OPEN_LOOP_REQUESTS = 17      # the warm-up and 4 Hz for 4 s
+PERF_PHASE_S = 90.0
 # collective: a 256 MiB bf16 all-reduce timed where world >= 2 (NCCL's
 # bus bandwidth: algbw x 2(n - 1)/n); every wait of the spawned ranks is
 # bounded.
@@ -4347,6 +4393,177 @@ def serve_rules_phase(card: str, failures: list, params) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def launches_per_call(owner, name: str, key=lambda out, *a, **k: None):
+    """Wrap ``owner.name`` so that each call's kernel 1 launches are kept,
+    as (key(its result, *its args), launches) in call order; restore it
+    after."""
+    calls = []
+    orig = getattr(owner, name)
+
+    def counted(*a, **k):
+        before = flash_attention_fwd.launches
+        out = orig(*a, **k)
+        calls.append((key(out, *a, **k),
+                      flash_attention_fwd.launches - before))
+        return out
+    setattr(owner, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, orig)
+
+
+def perf_payload_checks(failures: list) -> dict:
+    """The device channel's and the KV handoff's payloads on the card, after
+    the timed run: the device payload back as the same tensor, the host
+    one and the 64 MiB blob bit-equal, with the copy audit's deltas; the
+    rung-0 registry empty."""
+    dev = torch.device("cuda", 0)
+    ctx = serialization.get_context()
+    n = perf._DEV_PAYLOAD_ELEMS
+    buf = perf._host_buffer(n * 4 + (1 << 16), dev)
+    out = {}
+    for kind, payload in (("dev", torch.arange(n, dtype=torch.float32,
+                                               device=dev)),
+                          ("host", np.arange(n, dtype=np.float32))):
+        before = device_plane.device_copy_stats()
+        got = perf._channel_step(ctx, payload, buf)
+        same = (got.data_ptr() == payload.data_ptr() if kind == "dev"
+                else bool(np.array_equal(got, payload)))
+        out[kind] = dict(bit_equal=same, audit=_dp_delta(before))
+        if not same:
+            failures.append(f"perf device channel ({kind}): the payload "
+                            f"came back changed")
+    blob = perf._kv_blob(64, dev)
+    hbuf = perf._host_buffer((64 << 20) + (1 << 16), dev)
+    before = device_plane.device_copy_stats()
+    got = perf._kv_handoff_round(ctx, blob, hbuf, dev)
+    audit = _dp_delta(before)
+    equal = all(got[k].device == dev and torch.equal(got[k], blob[k])
+                for k in ("k", "v")) and got["len"] == blob["len"]
+    want = 64 << 20
+    out["kv_handoff"] = dict(bit_equal=equal, audit=audit)
+    if not equal or audit["device_to_host_bytes"] != want \
+            or audit["host_to_device_bytes"] != want:
+        failures.append(f"perf kv handoff: bit_equal {equal}, audit {audit}")
+    out["local_registry_size"] = device_plane.local_registry_size()
+    if out["local_registry_size"]:
+        failures.append(f"perf: {out['local_registry_size']} rung-0 tokens "
+                        f"left registered")
+    return out
+
+
+def perf_phase(card: str, failures: list, params) -> dict:
+    """The port's engine and device-plane rows on the card (see the module
+    docstring)."""
+    cfg = PRESETS["8b-gqa"]
+    L = cfg.num_layers
+    t_phase = time.perf_counter()
+    results, details, launches, groups = {}, {}, {}, {}
+
+    def fail(what, detail):
+        failures.append(f"perf {what}: {detail}")
+    for name, rows in PERF_GROUPS:
+        t_group = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            prefills = stack.enter_context(launches_per_call(
+                LLMEngine, "_run_prefill",
+                lambda out, eng, *a: eng.max_batch))
+            flat = stack.enter_context(launches_per_call(
+                llm_engine, "_prefill_fn"))
+            sp = stack.enter_context(launches_per_call(
+                llm_sp, "sp_prefill_fn"))
+            paged = stack.enter_context(launches_per_call(
+                LLMEngine, "prefill_paged"))
+            firsts = stack.enter_context(launches_per_call(
+                llm_sp, "_long_context_first",
+                lambda out, pre, dec, prompt, spp, kw: (kw["host_staged"],
+                                                        out[1])))
+            torch.cuda.synchronize()
+            flash_attention_fwd.launches = 0
+            try:
+                results.update(perf.run_microbenchmarks(
+                    PERF_MIN_TIME_S, only=rows, cfg=cfg, params=params,
+                    device="cuda", details=details))
+            except Exception as e:  # noqa: BLE001 — a failed row fails
+                fail(name, repr(e))
+            got = flash_attention_fwd.launches
+        launches[name] = got
+        tokens = [k for k, _ in firsts]
+        groups[name] = dict(
+            seconds=time.perf_counter() - t_group, launches=got,
+            full_prefills=collections.Counter(k for k, _ in prefills),
+            launches_per_prefill=sorted({n for _, n in prefills}))
+        want = 0                        # no kernel 1 on the device rows
+        if name in ("serving", "pd_serving"):
+            # Every request is a full prefill (3 tokens < a page), run by
+            # the serving replica or by the P/D pair's prefill replica
+            # (max_batch 1) only.
+            on = 1 if name == "pd_serving" else 4
+            want = PERF_OPEN_LOOP_REQUESTS * L
+            if dict(groups[name]["full_prefills"]) \
+                    != {on: PERF_OPEN_LOOP_REQUESTS} \
+                    or any(n != L for _, n in prefills):
+                fail(f"{name} prefills", groups[name])
+            ol = details.get(name, {}).get("open_loop", {})
+            groups[name]["open_loop"] = {
+                k: ol.get(k) for k in ("offered", "completed", "shed",
+                                       "broken", "errors", "unfinished",
+                                       "tokens_total", "max_inflight",
+                                       "ttft_p99_ms", "itl_p50_ms",
+                                       "itl_p99_ms", "duration_s")}
+            if not ol or ol["shed"] or ol["broken"] or ol["errors"] \
+                    or ol["unfinished"] or ol["tokens_total"] \
+                    != ol["completed"] * 16:
+                fail(f"{name} open loop", groups[name]["open_loop"])
+        elif name == "long_context":
+            # Degree 1 runs kernel 1 (32 a prefill); the degree-4 SP
+            # prefill and the paged path run plain attention.
+            want = len(flat) * L
+            groups[name].update(
+                flat_prefill=dict(calls=len(flat),
+                                  launches=[n for _, n in flat]),
+                sp_prefill=dict(calls=len(sp), launches=[n for _, n in sp]),
+                prefill_paged=dict(calls=len(paged),
+                                   launches=[n for _, n in paged]),
+                first_tokens=tokens)
+            if not flat or any(n != L for _, n in flat) or not sp \
+                    or any(n for _, n in sp) or not paged \
+                    or any(n for _, n in paged):
+                fail("long-context launches", groups[name])
+            if len({t for _, t in tokens}) != 1 \
+                    or {s for s, _ in tokens} != {False, True}:
+                fail("long-context first tokens (staged and direct)",
+                     tokens)
+        elif name == "kv_pressure":
+            kv = details.get(name, {})
+            counts = {k: (kv[k]["hits"], kv[k]["misses"]) for k in
+                      PERF_KV_COUNTS if k in kv}
+            groups[name]["hits_misses"] = counts
+            if counts != PERF_KV_COUNTS:
+                fail("prefix-cache hits and misses", counts)
+            groups[name]["stats"] = kv
+            want = None         # the misses' prefills: printed, no gate
+        if want is not None and got != want:
+            fail(f"{name} kernel 1 launches", dict(got=got, want=want))
+    groups["long_context"]["row"] = {
+        k: details.get("long_context", {}).get(k)
+        for k in ("sp_degree", "sp_speedup")}
+    payload = perf_payload_checks(failures)
+    seconds = time.perf_counter() - t_phase
+    if seconds > PERF_PHASE_S:
+        fail("phase time", f"{seconds:.1f} s > {PERF_PHASE_S} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(phase="perf", preset="8b-gqa", min_time_s=PERF_MIN_TIME_S,
+               rows=results, groups=groups, payload=payload,
+               flash_launches=sum(launches.values()),
+               seconds=seconds, card=card)
+    emit(res)
+    return res
+
+
 def train_pp_phase(card: str, failures: list, train: dict,
                    train_mesh: dict, ref: dict) -> dict:
     """Training on a pp x dp x tp mesh (see the module docstring), held
@@ -6204,6 +6421,7 @@ def main() -> int:
     serve_mesh = serve_mesh_phase(card, failures, params)
     dplane = device_plane_phase(card, failures, params)
     serve_rules = serve_rules_phase(card, failures, params)
+    perf_res = perf_phase(card, failures, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -6251,6 +6469,7 @@ def main() -> int:
                        + serve_mesh["flash_launches"]
                        + dplane["flash_launches"]
                        + serve_rules["flash_launches"]
+                       + perf_res["flash_launches"]
                        + train["launches"]["fwd"]
                        + train_mesh["launches"]["fwd"]
                        + train_rules["launches"]["fwd"]
@@ -6269,6 +6488,7 @@ def main() -> int:
                  serve_mesh=serve_mesh["flash_launches"],
                  device_plane=dplane["flash_launches"],
                  serve_rules=serve_rules["flash_launches"],
+                 perf=perf_res["flash_launches"],
                  train=train["launches"]["fwd"],
                  train_mesh=train_mesh["launches"]["fwd"],
                  train_rules=train_rules["launches"]["fwd"],

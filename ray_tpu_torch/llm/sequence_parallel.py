@@ -34,11 +34,18 @@ instead).
 
 The reference's ``_seq_sharding`` (a NamedSharding for
 ``with_sharding_constraint``) has no counterpart: the split is explicit.
+
+The bench entry (``_bench_main``, ``python -m
+ray_tpu_torch.llm.sequence_parallel --bench``) prints the reference's
+long-context rows: SP prefill tokens/s at degree 1 and n, and the paged
+path's TTFT, device-resident and host-staged. ``util/perf.py`` calls
+``_bench_rows`` in its own process, where the reference needs a subprocess.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -395,3 +402,181 @@ class StreamAttn:
         cfg = self.cfg
         last = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)[0, idx]
         return last.float() @ params["lm_head"].to(cfg.dtype).float()
+
+
+# ---------------------------------------------------------------------------
+# Bench entry (perf rows: sp_prefill_tokens_per_s / long_context_ttft_ms)
+# ---------------------------------------------------------------------------
+#
+# The reference's bench entry runs in a subprocess with forced host devices
+# (its sp mesh needs four devices, and XLA's flags must be set before JAX
+# starts). Here nothing needs setting first: ``util/perf.py`` calls
+# ``_bench_rows`` in its own process, and ``_bench_main`` is the command
+# line over it. Each function takes ``cfg`` (a preset name or a config),
+# ``params`` (default: ``init_params`` of the config from seed 0, as the
+# reference's engine and bench draw theirs) and ``device``; the weights
+# are shared by every engine and prefill of one call.
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _bench_setup(cfg, params, device):
+    """(config, params, device) of a bench call: params default to the
+    config's ``init_params`` from seed 0 on the device, the weights
+    ``LLMEngine(seed=0)`` would draw."""
+    from ..models import PRESETS
+    from ..models.transformer import init_params
+    cfg = PRESETS[cfg] if isinstance(cfg, str) else cfg
+    dev = resolve_device(device)
+    if params is None:
+        params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    return cfg, params, dev
+
+
+def _sp_prefill_call(degree: int, tokens: int, strategy: str, cfg, params,
+                     device: torch.device):
+    """A function running one prefill of the bench's prompt (tokens drawn
+    from seed 0) and returning its (last_logits, ks, vs): degree 1 the
+    engine's ``_prefill_fn`` (kernel 1 on a card), degree n
+    ``sp_prefill_fn`` on an sp mesh of n shards. The mesh takes n visible
+    cards where there are as many, else it names ``device`` n times (one
+    card, or the CPU), as the engine's SP tests and ``serve_sp`` do."""
+    from .engine import _prefill_fn
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (1, tokens)), dtype=torch.int64, device=device)
+    if degree == 1:
+        return lambda: _prefill_fn([params], toks, tokens, cfg)
+    enough = device.type == "cuda" and torch.cuda.device_count() >= degree
+    mesh = sp_mesh(degree, devices=None if enough else [device] * degree)
+    on = replicate_params(params, mesh)
+    return lambda: sp_prefill_fn(on, toks, tokens, cfg, mesh, strategy)
+
+
+@torch.no_grad()
+def _bench_sp_prefill(degree: int, tokens: int, strategy: str, iters: int,
+                      *, cfg="tiny", params=None, device="cuda") -> float:
+    """Prefill tokens/s at a given sp degree (degree 1 = the engine's
+    single-device _prefill_fn — the A/B base); each prefill ends
+    synchronised with the device."""
+    cfg, params, dev = _bench_setup(cfg, params, device)
+    fn = _sp_prefill_call(degree, tokens, strategy, cfg, params, dev)
+    fn()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        _sync(dev)
+    dt = (time.perf_counter() - t0) / iters
+    return tokens / dt
+
+
+def _long_context_engines(cfg, params, device):
+    """The prefill and decode engines of the paged TTFT bench, on one set
+    of params: each pool (4 pages of 16) is far below the context, so the
+    parts carry it."""
+    from .engine import LLMEngine
+    return tuple(LLMEngine(cfg, params, max_batch=1, max_len=64,
+                           page_size=16, kv_pages=4, seed=0, device=device)
+                 for _ in range(2))
+
+
+@torch.no_grad()
+def _long_context_first(pre, dec, prompt, sp, kw) -> Tuple[float, int]:
+    """One timed serve of ``prompt`` through the paged path: ``pre``'s
+    ``prefill_paged(prompt, sp, **kw)``, then ``dec``'s
+    ``add_paged_request`` stepped until the request's first token.
+    Returns (ms, that token); the request is cancelled after."""
+    t0 = time.perf_counter()
+    handoff = pre.prefill_paged(prompt, sp, **kw)
+    rid = dec.add_paged_request(handoff["parts"], handoff["len"],
+                                handoff["first"], sp)
+    first = None
+    while dec.has_unfinished() and first is None:
+        dec.step()
+        for ev_rid, tok, _fin in dec.take_tick_events():
+            if ev_rid == rid:
+                first = int(tok)
+                break
+    _sync(dec.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    dec.cancel_request(rid)
+    if first is None:
+        raise RuntimeError(f"paged request {rid} finished without a token")
+    return ms, first
+
+
+def _bench_long_context_ttft(context: int, span: int,
+                             host_staged: bool = False, *, cfg="tiny",
+                             params=None, device="cuda") -> float:
+    """TTFT (ms) for a context served through the paged cross-host KV
+    path: streamed chunked prefill (pool-free) + paged admission — the
+    pool of BOTH engines is sized well below the context to prove the
+    page-location tier carries it.  host_staged=True forces the legacy
+    downgrade (every KV stripe round-trips through host numpy, publish
+    pipelining off) — the informational A/B base for the device-direct
+    data plane. Best of 3, after one warm serve."""
+    from .engine import SamplingParams
+    cfg, params, dev = _bench_setup(cfg, params, device)
+    pre, dec = _long_context_engines(cfg, params, dev)
+    prompt = [int(t) for t in np.random.default_rng(1).integers(
+        1, cfg.vocab_size, context)]
+    sp = SamplingParams(max_tokens=4)
+    kw = dict(span=span, host_staged=host_staged, pipeline=not host_staged)
+    h = pre.prefill_paged(prompt, sp, **kw)
+    dec.decode_paged(h, sp)
+    return min(_long_context_first(pre, dec, prompt, sp, kw)[0]
+               for _ in range(3))
+
+
+def _bench_rows(degree: int = 4, tokens: int = 1024, strategy: str = "ring",
+                iters: int = 3, context: int = 384, span: int = 64, *,
+                cfg="tiny", params=None, device="cuda") -> Dict[str, Any]:
+    """The bench's rows, the keys ``_bench_main`` prints."""
+    cfg, params, dev = _bench_setup(cfg, params, device)
+    on = dict(cfg=cfg, params=params, device=dev)
+    base = _bench_sp_prefill(1, tokens, strategy, iters, **on)
+    spn = _bench_sp_prefill(degree, tokens, strategy, iters, **on)
+    ttft = _bench_long_context_ttft(context, span, **on)
+    # Informational A/B base: same serve path with the legacy host-
+    # staged KV downgrade.
+    ttft_staged = _bench_long_context_ttft(context, span, host_staged=True,
+                                           **on)
+    return {
+        "sp_prefill_tokens_per_s": round(spn, 1),
+        "sp_prefill_tokens_per_s_base": round(base, 1),
+        "sp_degree": degree,
+        "sp_speedup": round(spn / base, 3) if base else 0.0,
+        "long_context_ttft_ms": round(ttft, 2),
+        "long_context_ttft_staged_ms": round(ttft_staged, 2),
+    }
+
+
+def _bench_main(argv=None) -> int:
+    """``python -m ray_tpu_torch.llm.sequence_parallel --bench`` → one JSON
+    line with the bench's rows. ``--preset`` (default tiny) and
+    ``--device`` (default cuda) choose the model and where it runs."""
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--bench", action="store_true")
+    ap.add_argument("--degree", type=int, default=4)
+    ap.add_argument("--tokens", type=int, default=1024)
+    ap.add_argument("--strategy", default="ring")
+    ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--context", type=int, default=384)
+    ap.add_argument("--span", type=int, default=64)
+    ap.add_argument("--preset", default="tiny")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    print(json.dumps(_bench_rows(
+        args.degree, args.tokens, args.strategy, args.iters, args.context,
+        args.span, cfg=args.preset, device=args.device)))
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(_bench_main())

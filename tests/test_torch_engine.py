@@ -198,6 +198,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch._private.device_plane\n"
         "import ray_tpu_torch._private.serialization\n"
         "import ray_tpu_torch.experimental\n"
+        "import ray_tpu_torch.util.perf\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'optax')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'optax.'))\n"
