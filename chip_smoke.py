@@ -233,6 +233,34 @@ Phases, each printing one JSON line on stdout:
    64 MiB blob bit-equal, 64 MiB each way in the copy audit) and an empty
    rung-0 registry; the phase under 90 s. Prints the 13 rows and each
    report's counts.
+12d. serve_apps: the same params behind the serving apps
+   (ray_tpu_torch/llm/openai_api.py, serve_patterns.py), each replica
+   hosted on an event loop of its own thread (serve_patterns.Hosted).
+   OpenAIServer (APPS_SERVER, prefix cache on, a tokenizer whose text is
+   the token ids) on every route: /v1/models; a 300-token completion; a
+   list of three prompts in one request (max_active 3); a chat; an SSE
+   completion and an SSE chat (the role frame, one frame per token, the
+   final chunk, [DONE]); a chat stream whose client leaves after 2 frames
+   (cancelled 1, every page free or only cached); the reference's
+   400/404/405 errors with its messages. CompiledPDApp with one prefill
+   and one decode replica: two 1000-token prompts through generate and
+   stream, the blob through the lane's edge once each way in the copy
+   audit. LongContextApp with 2 shards and 1 decode replica whose pool
+   (1024 tokens) holds less than the 3000-token context: six 512-token
+   stripes round-robined 3/3, each a HostRef into its shard's buffers,
+   decoded for 8 tokens through a window of 8 (6 fetches, no refetch).
+   Checks every token against a closed-loop engine on the same params
+   (the server's and the P/D app's against LLMEngine.generate of the same
+   shape, each request alone or, for the list, in one wave; the
+   long-context app's against one engine's prefill_paged/decode_paged),
+   pools free at the end, every shard's buffers freed once the request is
+   done and its handoff dropped (before shutdown), kernel 1's launches
+   (32 per full prefill: 8 on the server, 2 on the P/D prefill replica,
+   none on decode replicas or the paged path), every stream finished or cancelled where it is left,
+   the phase under 90 s. With several cards the decode side sits on
+   cuda:1 (its params copied there once). Prints each request's host ms,
+   the SSE first-frame ms, the P/D generate ms and stream TTFT, the
+   long-context prefill and decode ms and the gather counters.
 13. train: the same model at full width and depth, random weights, four
    steps of make_train_step on one fixed 2048-token batch with per-layer
    checkpointing; checks finite metrics, a falling loss, each kernel's
@@ -477,14 +505,17 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from ray_tpu_torch import collective, experimental
+from ray_tpu_torch import collective, experimental, serve
 from ray_tpu_torch._private import (deadlines, device_plane,
                                     flight_recorder, serialization)
 from ray_tpu_torch.exceptions import (DeadlineExceededError, KVGatherError,
                                       OverloadedError, StreamBrokenError)
 from ray_tpu_torch.llm import (EngineReplica, LLMEngine, SamplingParams,
                                run_open_loop)
+from ray_tpu_torch.llm import (CompiledPDApp, LongContextApp,
+                               OpenAIServer)
 from ray_tpu_torch.llm import engine as llm_engine
+from ray_tpu_torch.llm.serve_patterns import HostRef, Hosted
 from ray_tpu_torch.llm import sequence_parallel as llm_sp
 from ray_tpu_torch.models import (PRESETS, MoEConfig, forward,
                                   init_moe_params, init_params,
@@ -792,6 +823,26 @@ PERF_GROUPS = (
 PERF_KV_COUNTS = {"with_demotion": (9, 2), "without_demotion": (4, 7)}
 PERF_OPEN_LOOP_REQUESTS = 17      # the warm-up and 4 Hz for 4 s
 PERF_PHASE_S = 90.0
+# serve_apps: the serving apps over the serve params. OpenAIServer on the
+# serve_replica shape (prefix cache on) takes a completion, a list of three
+# prompts in one request, a chat, an SSE completion and chat and a chat
+# stream its client leaves after APPS_CANCEL_AFTER frames: 8 full
+# prefills of distinct prompts (np.random.default_rng(6)), 16 tokens
+# each, and the reference's error requests. CompiledPDApp (one prefill,
+# one decode replica) takes two 1000-token prompts, through generate and
+# through stream. LongContextApp: a 3000-token prompt in six 512-token
+# stripes over 2 shards, decoded for 8 tokens by one replica whose pool
+# (max_len 512, 2 slots: 1024 tokens) holds less than the context, through
+# a window of 8.
+APPS_SERVER = dict(max_batch=4, max_len=2048, page_size=64)
+APPS_PROMPT_LENS = (37, 300, 1000)
+APPS_CANCEL_AFTER = 2
+APPS_PD = dict(max_batch=4, max_len=2048, page_size=64)
+APPS_PD_LEN = 1000
+APPS_LC = dict(prefill_shards=2, decode_replicas=1, span=512, max_batch=2,
+               max_len=512, page_size=64, kv_gather_window=8)
+APPS_LC_LEN, APPS_LC_TOKENS = 3000, 8
+SERVE_APPS_PHASE_S = 90.0
 # collective: a 256 MiB bf16 all-reduce timed where world >= 2 (NCCL's
 # bus bandwidth: algbw x 2(n - 1)/n); every wait of the spawned ranks is
 # bounded.
@@ -2017,51 +2068,6 @@ def serve_paged_phase(card: str, failures: list, params) -> dict:
     return res
 
 
-class LoopThread:
-    """An asyncio event loop on a thread of its own. The replicas live on
-    it (a replica keeps to one loop); the script and run_open_loop's request
-    threads call into it."""
-
-    def __init__(self):
-        self.loop = asyncio.new_event_loop()
-        self._thread = threading.Thread(target=self.loop.run_forever,
-                                        name="replica-loop", daemon=True)
-        self._thread.start()
-
-    def call(self, coro, timeout: float = 600.0):
-        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
-            timeout)
-
-    def stream(self, agen, timeout: float = 600.0):
-        """Iterate an async generator of the loop from this thread; closing
-        early closes it (a replica then cancels the request)."""
-        async def step():
-            return await agen.__anext__()
-        try:
-            while True:
-                try:
-                    yield self.call(step(), timeout)
-                except StopAsyncIteration:
-                    return
-        finally:
-            self.call(agen.aclose(), timeout)
-
-    def close(self) -> None:
-        """Cancel the loop's tasks (the replicas' idle decode loops), shut
-        its executor down and stop the thread."""
-        async def shutdown():
-            tasks = [t for t in asyncio.all_tasks()
-                     if t is not asyncio.current_task()]
-            for t in tasks:
-                t.cancel()
-            await asyncio.gather(*tasks, return_exceptions=True)
-            await asyncio.get_running_loop().shutdown_default_executor()
-        self.call(shutdown())
-        self.loop.call_soon_threadsafe(self.loop.stop)
-        self._thread.join(60)
-        self.loop.close()
-
-
 class TickProbe:
     """Host times around one replica's decode loop, in ms: each engine step
     (run on an executor thread), the wait from a step's return to its
@@ -2189,7 +2195,7 @@ def serve_replica_phase(card: str, failures: list, params) -> dict:
     def fail(what, detail):
         failures.append(f"serve_replica {what}: {detail}")
 
-    bridge = LoopThread()
+    bridge = Hosted()
     R = EngineReplica(cfg, params, device="cuda", **REPLICA)
     ref = LLMEngine(cfg, params, device="cuda",
                     **{k: v for k, v in REPLICA.items() if k != "max_tokens"})
@@ -2449,7 +2455,7 @@ def serve_replica_phase(card: str, failures: list, params) -> dict:
                                               "tokens_out")},
         seconds=time.perf_counter() - t_phase, card=card)
     emit(res)
-    bridge.close()
+    bridge.shutdown()
     del R, S, P, D, F, ref, parts, small, handoff, paged
     gc.collect()
     torch.cuda.empty_cache()
@@ -2940,7 +2946,7 @@ def serve_tp_replica(cfg, params, prompts, closed, failures) -> dict:
     own event loop thread: generate's tokens against the tp=2 closed-loop
     engine's."""
     t0 = time.perf_counter()
-    bridge = LoopThread()
+    bridge = Hosted()
     cuda0 = torch.device("cuda", 0)
     R = EngineReplica(cfg, params, device="cuda", mesh=build_mesh(
         MeshSpec(tp=2), devices=[cuda0] * 2), **REPLICA)
@@ -2955,7 +2961,7 @@ def serve_tp_replica(cfg, params, prompts, closed, failures) -> dict:
     if got != closed or launches != want_launches:
         failures.append(f"serve_tp replica: {res}, got {got}, closed loop "
                         f"{closed}")
-    bridge.close()
+    bridge.shutdown()
     del R
     gc.collect()
     torch.cuda.empty_cache()
@@ -3246,7 +3252,7 @@ def serve_mesh_replica(cfg, params, prompts, closed, failures) -> dict:
     event loop thread: generate's tokens against the pp=2 engine's closed
     loop."""
     t0 = time.perf_counter()
-    bridge = LoopThread()
+    bridge = Hosted()
     cuda0 = torch.device("cuda", 0)
     R = EngineReplica(cfg, params, device="cuda", mesh=build_mesh(
         MeshSpec(pp=2), devices=[cuda0] * 2), **REPLICA)
@@ -3261,7 +3267,7 @@ def serve_mesh_replica(cfg, params, prompts, closed, failures) -> dict:
     if got != closed or launches != want_launches:
         failures.append(f"serve_mesh replica: {res}, got {got}, closed "
                         f"loop {closed}")
-    bridge.close()
+    bridge.shutdown()
     del R
     gc.collect()
     torch.cuda.empty_cache()
@@ -4560,6 +4566,374 @@ def perf_phase(card: str, failures: list, params) -> dict:
                rows=results, groups=groups, payload=payload,
                flash_launches=sum(launches.values()),
                seconds=seconds, card=card)
+    emit(res)
+    return res
+
+
+class IdTokenizer:
+    """Text of token ids ("12 7 31 ") and back, so that a completion's text
+    gives its tokens exactly (the byte-level default folds every id above
+    258 into one byte). A word that is not a number takes an id from its
+    bytes."""
+
+    def encode(self, text: str) -> list:
+        return [int(w) if w.isdigit() else 1 + sum(w.encode()) % 1000
+                for w in text.split()]
+
+    def decode(self, tokens) -> str:
+        return "".join(f"{t} " for t in tokens)
+
+
+def http(method: str, path: str, body=None, raw: bytes = None):
+    return serve.Request(method, path, {}, {},
+                         raw if raw is not None else json.dumps(body).encode())
+
+
+def sse_frames(host: Hosted, server, resp, limit=None) -> dict:
+    """Consume a StreamingResponse of ``server`` on its host's loop:
+    the parsed frames, the text of the deltas, the final finish reason and
+    the host-clock arrival of each frame; ``limit`` leaves after that many
+    frames (a client that goes away)."""
+    t0 = time.perf_counter()
+    it = host.stream(getattr(server, resp.method)(*resp.args, **resp.kwargs))
+    frames, stamps = [], []
+    try:
+        for frame in it:
+            stamps.append((time.perf_counter() - t0) * 1e3)
+            body = frame[len("data: "):].strip()
+            frames.append(body if body == "[DONE]" else json.loads(body))
+            if limit and len(frames) >= limit:
+                break
+    finally:
+        it.close()
+    chunks = [f["choices"][0] for f in frames if isinstance(f, dict)]
+    text = "".join(c.get("text") or c.get("delta", {}).get("content", "")
+                   for c in chunks if c["finish_reason"] is None)
+    return dict(frames=frames, text=text,
+                finish=[c["finish_reason"] for c in chunks
+                        if c["finish_reason"]],
+                done=frames[-1:] == ["[DONE]"], stamps_ms=stamps)
+
+
+# The reference's error requests: (method, path, body or raw bytes, status,
+# message).
+APPS_ERRORS = (
+    ("POST", "/v1/chat/completions", {"messages": []}, 400,
+     "messages is required"),
+    ("POST", "/v1/completions", {"max_tokens": 4}, 400,
+     "prompt is required"),
+    ("POST", "/v1/completions", {"prompt": "1", "max_tokens": "many"}, 400,
+     "max_tokens/temperature must be numbers"),
+    ("POST", "/v1/completions", b"{not json", 400, "invalid JSON body"),
+    ("GET", "/v1/completions", b"", 405, "method GET not allowed"),
+    ("POST", "/v1/embeddings", {"input": "1"}, 404,
+     "no route for /v1/embeddings"),
+    ("POST", "/v1/completions", {"prompt": ["1", "2"], "stream": True}, 400,
+     "stream=true supports a single prompt"),
+)
+
+
+def shard_buffers_released(shards, wait_s: float = 5.0) -> list:
+    """Each shard's live buffer count, once it reaches 0 or ``wait_s``
+    passes: a thread that carried the last step may still be returning."""
+    end = time.monotonic() + wait_s
+    while True:
+        n = [len(s.buffers) for s in shards]
+        if not any(n) or time.monotonic() > end:
+            return n
+        time.sleep(0.01)
+
+
+def serve_apps_phase(card: str, failures: list, params) -> dict:
+    """The serving apps over the serve params (see the module
+    docstring)."""
+    cfg = PRESETS["8b-gqa"]
+    L = cfg.num_layers
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(6)
+
+    def toks(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    def words(p):
+        return " ".join(map(str, p))
+
+    def fail(what, detail):
+        failures.append(f"serve_apps {what}: {detail}")
+    # With several cards the prefill side and the decode side sit on two.
+    pre_dev = torch.device("cuda", 0)
+    dec_dev = torch.device("cuda", 1 if torch.cuda.device_count() > 1
+                           else 0)
+    ref = LLMEngine(cfg, params, device="cuda", **APPS_SERVER)
+    launches, seconds = {}, {}
+
+    def closed(prompts, n=MAX_TOKENS):
+        with uncounted():
+            return ref.generate(prompts, SamplingParams(max_tokens=n))
+
+    def counted(section, full_prefills, t0):
+        torch.cuda.synchronize()
+        seconds[section] = time.perf_counter() - t0
+        launches[section] = dict(got=flash_attention_fwd.launches,
+                                 want=full_prefills * L)
+        flash_attention_fwd.launches = 0
+
+    # OpenAIServer, on the loop of its replica's host.
+    tk = IdTokenizer()
+    server = OpenAIServer(cfg, params, tokenizer=tk, device=pre_dev,
+                          **APPS_SERVER)
+    host = Hosted(server.serving)
+    ms = {}
+
+    def ask(name, method, path, body=None):
+        t = time.perf_counter()
+        req = http(method, path, None if isinstance(body, bytes) else body,
+                   body if isinstance(body, bytes) else None)
+        resp = host.call(server(req), 300)
+        ms[name] = (time.perf_counter() - t) * 1e3
+        return resp
+
+    def ids(text):
+        return [int(w) for w in text.split()]
+
+    def chat_prompt(msgs):
+        return tk.encode("\n".join(f"{m['role']}: {m['content']}"
+                                   for m in msgs) + "\nassistant:")
+    torch.cuda.synchronize()
+    flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    models = ask("models", "GET", "/v1/models")
+    single = toks(APPS_PROMPT_LENS[1])
+    one = ask("completion", "POST", "/v1/completions",
+              {"prompt": words(single), "max_tokens": MAX_TOKENS})
+    wave = [toks(n) for n in APPS_PROMPT_LENS]
+    three = ask("completions_x3", "POST", "/v1/completions",
+                {"prompt": [words(p) for p in wave],
+                 "max_tokens": MAX_TOKENS})
+    max_active = host.debug_stats()["max_active"]
+    msgs = [{"role": "system", "content": words(toks(20))},
+            {"role": "user", "content": words(toks(200))}]
+    chat = ask("chat", "POST", "/v1/chat/completions",
+               {"messages": msgs, "max_tokens": MAX_TOKENS})
+    sse_prompt = toks(APPS_PROMPT_LENS[0])
+    sse_text = sse_frames(host, server, ask(
+        "sse_completion", "POST", "/v1/completions",
+        {"prompt": words(sse_prompt), "max_tokens": MAX_TOKENS,
+         "stream": True}))
+    sse_msgs = [{"role": "user", "content": words(toks(100))}]
+    sse_chat = sse_frames(host, server, ask(
+        "sse_chat", "POST", "/v1/chat/completions",
+        {"messages": sse_msgs, "max_tokens": MAX_TOKENS, "stream": True}))
+    left = sse_frames(host, server, ask(
+        "sse_cancelled", "POST", "/v1/chat/completions",
+        {"messages": [{"role": "user", "content": words(toks(64))}],
+         "max_tokens": MAX_TOKENS, "stream": True}),
+        limit=APPS_CANCEL_AFTER)
+    for _ in range(1000):
+        st = host.debug_stats()
+        if st["active"] == st["queue_depth"] == 0:
+            break
+        time.sleep(0.01)
+    errors = []
+    for method, path, body, status, message in APPS_ERRORS:
+        r = ask("error", method, path, body)
+        errors.append(dict(path=path, method=method,
+                           status=getattr(r, "status", None),
+                           message=getattr(r, "body", {}).get(
+                               "error", {}).get("message")))
+        if errors[-1]["status"] != status or errors[-1]["message"] != message:
+            fail("error response", errors[-1])
+    counted("openai", 8, t0)
+    got = {"completion": (single, ids(one["choices"][0]["text"])),
+           "chat": (chat_prompt(msgs),
+                    ids(chat["choices"][0]["message"]["content"])),
+           "sse_completion": (sse_prompt, ids(sse_text["text"])),
+           "sse_chat": (chat_prompt(sse_msgs), ids(sse_chat["text"]))}
+    got.update({f"completions_x3[{i}]": (p, ids(c["text"]))
+                for i, (p, c) in enumerate(zip(wave, three["choices"]))})
+    # Each request alone, as the server ran it; the three of one request
+    # in one wave, as the server admitted them.
+    want = {name: closed([p])[0] for name, (p, _) in got.items()
+            if not name.startswith("completions_x3")}
+    want.update({f"completions_x3[{i}]": w
+                 for i, w in enumerate(closed(wave))})
+    for name, (prompt, tokens) in got.items():
+        if tokens != want[name]:
+            fail("OpenAI tokens", dict(request=name, **divergence(
+                params, cfg, prompt, tokens, want[name])))
+    finishes = ([c["finish_reason"] for c in one["choices"]
+                 + three["choices"] + chat["choices"]]
+                + sse_text["finish"] + sse_chat["finish"])
+    usage_ok = (one["usage"] == {"prompt_tokens": len(single),
+                                 "completion_tokens": MAX_TOKENS,
+                                 "total_tokens": len(single) + MAX_TOKENS}
+                and three["usage"]["completion_tokens"] == 3 * MAX_TOKENS
+                and three["usage"]["prompt_tokens"] == sum(APPS_PROMPT_LENS))
+    openai = dict(
+        ms=ms, max_active=max_active, finishes=finishes,
+        usage_ok=usage_ok, sse_frames=[len(sse_text["frames"]),
+                                       len(sse_chat["frames"])],
+        sse_first_frame_ms=[sse_text["stamps_ms"][0],
+                            sse_chat["stamps_ms"][1]],
+        cancelled_frames=len(left["frames"]), cancelled=st["cancelled"],
+        completed=st["completed"],
+        request_held_pages=request_held_pages(server.serving.engine),
+        errors=errors,
+        tokens_equal={k: v[1] == want[k] for k, v in got.items()})
+    if not (models["data"][0]["id"] == server.model_name
+            and max_active == 3 and usage_ok
+            and finishes == ["length"] * 7
+            and sse_text["done"] and sse_chat["done"]
+            and sse_chat["frames"][0]["choices"][0]["delta"]
+            == {"role": "assistant"}
+            and len(sse_text["frames"]) == MAX_TOKENS + 2
+            and len(sse_chat["frames"]) == MAX_TOKENS + 3
+            and len(left["frames"]) == APPS_CANCEL_AFTER
+            and st["cancelled"] == 1 and st["completed"] == 7
+            and st["active"] == st["queue_depth"] == 0
+            and openai["request_held_pages"] == 0):
+        fail("OpenAI server", openai)
+    host.shutdown()
+    del server, host
+
+    # CompiledPDApp: one lane, the blob through the lane's edge.
+    t0 = time.perf_counter()
+    pd = CompiledPDApp(cfg, params, seed=0, prefix_cache=True,
+                       prefill_options={"device": pre_dev},
+                       decode_options={"device": dec_dev}, device="cuda",
+                       **APPS_PD)
+    a, b = toks(APPS_PD_LEN), toks(APPS_PD_LEN)
+    before = device_plane.device_copy_stats()
+    t = time.perf_counter()
+    gen = pd.generate(a, {"max_tokens": MAX_TOKENS}, timeout=300)
+    gen_ms = (time.perf_counter() - t) * 1e3
+    audit = _dp_delta(before)
+    t, stamps, items = time.perf_counter(), [], []
+    for item in pd.stream(b, {"max_tokens": MAX_TOKENS}, timeout=300):
+        stamps.append((time.perf_counter() - t) * 1e3)
+        items.append(item)
+    dstats = pd.decodes[0].debug_stats()
+    placed = dict(prefill=str(pd.prefills[0].replica.engine.device),
+                  decode=str(pd.decodes[0].replica.engine.device),
+                  decode_shares_params=pd.decodes[0].replica.engine.params
+                  is params)
+    held = [request_held_pages(h.replica.engine)
+            for h in pd.prefills + pd.decodes]
+    pd.shutdown()
+    counted("compiled_pd", 2, t0)
+    pd_want = closed([a]) + closed([b])
+    blob_bytes = (2 * L * APPS_PD_LEN * cfg.num_kv_heads * cfg.head_dim_
+                  * torch.finfo(cfg.dtype).bits // 8)
+    compiled_pd = dict(
+        generate_ms=gen_ms, stream_ttft_ms=stamps[0],
+        stream_ms=stamps[-1], tokens_equal=[gen["tokens"] == pd_want[0],
+                                            items[:-1] == pd_want[1]],
+        terminal=items[-1], completed=dstats["completed"],
+        audit=audit, blob_bytes=blob_bytes, placed=placed,
+        request_held_pages=held)
+    for name, got_t, w, p in (("generate", gen["tokens"], pd_want[0], a),
+                              ("stream", items[:-1], pd_want[1], b)):
+        if got_t != w:
+            fail(f"compiled P/D {name} tokens",
+                 divergence(params, cfg, p, got_t, w))
+    if not (gen["finish_reason"] == "length"
+            and items[-1] == {"finish_reason": "length",
+                              "n_tokens": MAX_TOKENS}
+            and dstats["completed"] == 2
+            and audit["device_to_host_bytes"] == blob_bytes
+            and audit["host_to_device_bytes"] == blob_bytes
+            and placed["prefill"] == str(pre_dev)
+            and placed["decode"] == str(dec_dev)
+            and placed["decode_shares_params"] == (dec_dev == pre_dev)
+            and held == [0, 0]):
+        fail("compiled P/D", compiled_pd)
+    del pd
+
+    # LongContextApp: 2 shards' stripes, one decode replica.
+    t0 = time.perf_counter()
+    lc = LongContextApp(cfg, params, max_tokens=APPS_LC_TOKENS, seed=0,
+                        prefill_options={"device": pre_dev},
+                        decode_options={"device": dec_dev}, device="cuda",
+                        **APPS_LC)
+    prompt = toks(APPS_LC_LEN)
+    opts = {"max_tokens": APPS_LC_TOKENS}
+    t = time.perf_counter()
+    handoff = lc.prefill(prompt, opts, timeout=300)
+    torch.cuda.synchronize()
+    lc_prefill_ms = (time.perf_counter() - t) * 1e3
+    parts = handoff["parts"]
+    stores = [p["handle"].store if isinstance(p["handle"], HostRef)
+              else None for p in parts]
+    shard_parts = [len(s.buffers) for s in lc.shards]
+    dec = lc.decodes[0]
+    t = time.perf_counter()
+    rid = dec.call(dec.replica.admit_paged(handoff), 300)
+    lc_items = list(dec.stream(dec.replica.collect_stream(rid), 300))
+    lc_decode_ms = (time.perf_counter() - t) * 1e3
+    lstats = lc.debug_stats()
+    pool_tokens = dec.replica.engine.kv_pages_total * APPS_LC["page_size"]
+    spans, lc_first, lc_len = ([p["span"] for p in parts], handoff["first"],
+                               handoff["len"])
+    # A stripe lives as long as its handle: with the request done and the
+    # handoff dropped, every shard's buffers are free before shutdown.
+    buffers_held = [len(s.buffers) for s in lc.shards]
+    del handoff, parts
+    buffers_released = shard_buffers_released(lc.shards)
+    lc.shutdown()
+    counted("long_context", 0, t0)
+    with uncounted():
+        eng = LLMEngine(cfg, params, device="cuda", max_batch=1,
+                        max_len=APPS_LC["max_len"],
+                        page_size=APPS_LC["page_size"],
+                        kv_gather_window=APPS_LC["kv_gather_window"])
+        lsp = SamplingParams(max_tokens=APPS_LC_TOKENS)
+        eh = eng.prefill_paged(prompt, lsp, span=APPS_LC["span"])
+        lc_want = eng.decode_paged(eh, lsp)
+        del eng, eh
+    gather = lstats["decodes"][0]["kv_gather"]
+    long_context = dict(
+        parts=spans, shard_parts=shard_parts,
+        first_equal=lc_first == lc_want[0] if lc_want else None,
+        tokens_equal=lc_items[:-1] == lc_want, terminal=lc_items[-1],
+        prefill_ms=lc_prefill_ms, decode_ms=lc_decode_ms, gather=gather,
+        decode_pool_tokens=pool_tokens,
+        pools_free=[(s["kv_pages_free"], s["kv_pages_total"])
+                    for s in lstats["shards"] + lstats["decodes"]],
+        buffers_held_after_decode=buffers_held,
+        buffers_released=buffers_released,
+        buffers_after=[len(s.buffers) for s in lc.shards])
+    n_parts = math.ceil(APPS_LC_LEN / APPS_LC["span"])
+    if lc_items[:-1] != lc_want:
+        fail("long-context tokens", divergence(params, cfg, prompt,
+                                               lc_items[:-1], lc_want))
+    if not (len(spans) == n_parts and lc_len == APPS_LC_LEN
+            and stores == [lc.shards[c % 2].buffers for c in range(n_parts)]
+            and shard_parts == [3, 3]
+            and lc_items[-1] == {"finish_reason": "length",
+                                 "n_tokens": APPS_LC_TOKENS}
+            and pool_tokens < APPS_LC_LEN
+            and gather["fetches"] == n_parts and gather["refetches"] == 0
+            and gather["bytes"] > 0 and gather["resident"] == 0
+            and all(f == t for f, t in long_context["pools_free"])
+            and buffers_held == [3, 3] and buffers_released == [0, 0]
+            and long_context["buffers_after"] == [0, 0]):
+        fail("long context", long_context)
+    del lc, stores
+
+    for section, n in launches.items():
+        if n["got"] != n["want"]:
+            fail("kernel 1 launches", f"{section}: {n}")
+    total = time.perf_counter() - t_phase
+    if total > SERVE_APPS_PHASE_S:
+        fail("phase time", f"{total:.1f} s > {SERVE_APPS_PHASE_S} s")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(phase="serve_apps", preset="8b-gqa", server=APPS_SERVER,
+               openai=openai, compiled_pd=compiled_pd,
+               long_context=long_context, launches_by_section=launches,
+               flash_launches=sum(n["got"] for n in launches.values()),
+               section_seconds=seconds, seconds=total, card=card)
     emit(res)
     return res
 
@@ -6422,6 +6796,7 @@ def main() -> int:
     dplane = device_plane_phase(card, failures, params)
     serve_rules = serve_rules_phase(card, failures, params)
     perf_res = perf_phase(card, failures, params)
+    serve_apps = serve_apps_phase(card, failures, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -6470,6 +6845,7 @@ def main() -> int:
                        + dplane["flash_launches"]
                        + serve_rules["flash_launches"]
                        + perf_res["flash_launches"]
+                       + serve_apps["flash_launches"]
                        + train["launches"]["fwd"]
                        + train_mesh["launches"]["fwd"]
                        + train_rules["launches"]["fwd"]
@@ -6489,6 +6865,7 @@ def main() -> int:
                  device_plane=dplane["flash_launches"],
                  serve_rules=serve_rules["flash_launches"],
                  perf=perf_res["flash_launches"],
+                 serve_apps=serve_apps["flash_launches"],
                  train=train["launches"]["fwd"],
                  train_mesh=train_mesh["launches"]["fwd"],
                  train_rules=train_rules["launches"]["fwd"],

@@ -1782,6 +1782,9 @@ class LLMEngine:
         req.shared_pages = []
         if req.ext_parts:
             self._kv_window.drop([p["key"] for p in req.ext_parts])
+            # The handles go with the slot: a part's host buffer is freed
+            # when its last handle is dropped.
+            req.ext_parts = []
         self._tables[slot] = 0
         self._lengths[slot] = 0
         self._temps[slot] = 0.0

@@ -269,6 +269,9 @@ class EngineReplica:
                                                self.engine.active_requests
                                                + len(done))
                         self._fan_out(self.engine.take_tick_events(), done)
+                        # The retired requests go now, and with them the KV
+                        # handles they hold, not when the next tick comes.
+                        del done
                 if not self.engine.has_unfinished():
                     self._wake.clear()
                     await self._wake.wait()

@@ -19,12 +19,13 @@ The runtime services the reference reaches (Serve, actors, compiled DAGs,
 counterparts, as the rest of the port takes runtime services as callbacks:
 
   - serving: one ``EngineReplica`` on an event loop of its own thread (the
-    reference's one-replica deployment), fed by ``run_open_loop``;
-  - P/D: a prefill replica and a decode replica on one set of params, each
-    on a loop of its own (the reference's ``CompiledPDApp``); the KV blob goes through ``publish`` and
-    ``resolve`` callbacks that carry it through the port's serializer into a
-    host buffer and back onto the device (rung 1, the path between
-    processes);
+    reference's one-replica deployment; ``llm.serve_patterns.Hosted``,
+    the host the serving apps use), fed by ``run_open_loop``;
+  - P/D: the port's ``CompiledPDApp``, as the reference's row builds its
+    own: a prefill and a decode replica on one set of params, each on a
+    loop of its own; the lane's edge carries the KV blob through the
+    port's serializer into a host buffer and back onto the device (rung 1,
+    the path between processes);
   - the device channel: per step, ``dag_encode_body``/``dag_decode_body``
     carry the payload through a host buffer, as a compiled edge's ring
     does (rung 0 for the device payload, a token);
@@ -50,11 +51,8 @@ numbers); ``_latest_committed_bench``, the host fingerprint and
 
 from __future__ import annotations
 
-import asyncio
-import contextlib
 import functools
 import json
-import threading
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -66,6 +64,7 @@ from .._private import device_plane, serialization
 from ..llm.engine import LLMEngine, SamplingParams
 from ..llm.sequence_parallel import _bench_setup as _setup
 from ..llm.sequence_parallel import _sync
+from ..llm.serve_patterns import CompiledPDApp, Hosted, _host_buffer, _landing
 from ..llm.serving import EngineReplica, run_open_loop
 from ..models import PRESETS
 
@@ -117,26 +116,6 @@ def _cached(name: str):
     return wrap
 
 
-@contextlib.contextmanager
-def _landing(device: torch.device):
-    """Rebuild device leaves on ``device`` in this thread for the block."""
-    old = getattr(device_plane._tls, "landing", None)
-    device_plane.set_landing_device(device)
-    try:
-        yield
-    finally:
-        if old is None:
-            del device_plane._tls.landing
-        else:
-            device_plane._tls.landing = old
-
-
-def _host_buffer(nbytes: int, device: torch.device) -> memoryview:
-    """A host buffer of ``nbytes``, pinned where the device is a card."""
-    return memoryview(torch.empty(nbytes, dtype=torch.uint8,
-                                  pin_memory=device.type == "cuda").numpy())
-
-
 # ---------------------------------------------------------------------------
 # LLM serving open-loop benches: one continuous-batching EngineReplica
 # (the reference's one-replica deployment: max_len 64, 16 tokens, pages
@@ -151,57 +130,6 @@ _WARM_PROMPT = [1, 2, 3]
 
 def _prompt(i: int):
     return [(i % 37) + 1, (i % 11) + 2, 7]
-
-
-class _Hosted:
-    """A replica on an asyncio event loop of a thread of its own, as an
-    actor hosts one (a replica keeps to one loop, and a blocking call of
-    one replica's, a copy in its publish or resolve callback, stalls no
-    other's). The bench and ``run_open_loop``'s request threads call into
-    it."""
-
-    def __init__(self, replica: EngineReplica):
-        self.replica = replica
-        self.loop = asyncio.new_event_loop()
-        self._thread = threading.Thread(target=self.loop.run_forever,
-                                        name="perf-replica",
-                                        daemon=True)
-        self._thread.start()
-
-    def call(self, coro, timeout: float = 600.0):
-        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
-            timeout)
-
-    def stream(self, agen, timeout: float = 600.0):
-        """Iterate an async generator of the loop from this thread; closing
-        early closes it (a replica then cancels the request)."""
-        async def step():
-            return await agen.__anext__()
-        try:
-            while True:
-                try:
-                    yield self.call(step(), timeout)
-                except StopAsyncIteration:
-                    return
-        finally:
-            self.call(agen.aclose(), timeout)
-
-    def close(self) -> None:
-        """Cancel the loop's tasks (the replica's idle decode loop), shut
-        its executor and the replica's gather pool down and stop the
-        thread."""
-        async def shutdown():
-            tasks = [t for t in asyncio.all_tasks()
-                     if t is not asyncio.current_task()]
-            for t in tasks:
-                t.cancel()
-            await asyncio.gather(*tasks, return_exceptions=True)
-            await asyncio.get_running_loop().shutdown_default_executor()
-        self.call(shutdown())
-        self.loop.call_soon_threadsafe(self.loop.stop)
-        self._thread.join(60)
-        self.loop.close()
-        self.replica._fetch_pool.shutdown(wait=True)
 
 
 def _drain(stream, what: str) -> int:
@@ -243,16 +171,16 @@ def _open_loop(submit, min_time_s: float, what: str) -> Dict[str, Any]:
 
 @_cached("serving")
 def _serving_report(min_time_s, cfg, params, device) -> Dict[str, Any]:
-    srv = _Hosted(EngineReplica(cfg, params, max_len=64,
-                                max_tokens=_MAX_TOKENS, page_size=8, seed=0,
-                                device=device))
+    srv = Hosted(EngineReplica(cfg, params, max_len=64,
+                               max_tokens=_MAX_TOKENS, page_size=8, seed=0,
+                               device=device))
     try:
         def submit(p):
             return srv.stream(srv.replica.stream_generate(p, _OPTS))
 
         ol = _open_loop(submit, min_time_s, "serving")
     finally:
-        srv.close()
+        srv.shutdown()
     return {"serving_ttft_p50_ms": ol["ttft_p50_ms"],
             "serving_tokens_per_s_per_replica":
                 ol["tokens_per_s_per_replica"],
@@ -268,50 +196,30 @@ def bench_serving_tokens_per_s(min_time_s: float, **kw) -> float:
         "serving_tokens_per_s_per_replica"]
 
 
-# P/D serving bench: the open-loop harness against a prefill replica and
-# a decode replica (the reference's CompiledPDApp: prefill_handoff, then
-# admit_external and collect_stream), recorded next to the colocated
-# serving_* rows, which is its A/B.
+# P/D serving bench: the open-loop harness against the CompiledPDApp
+# (prefill_handoff_channel, the lane's edge, then admit_external and
+# collect_stream), recorded next to the colocated serving_* rows, which is
+# its A/B.
 
-def _channel_callbacks(device: torch.device):
-    """(publish, resolve): publish serialises a KV blob into a host buffer
-    of its own (one device-to-host copy of each tensor); resolve
-    deserialises it onto ``device`` (one upload each)."""
-    ctx = serialization.get_context()
-
-    def publish(blob):
-        parts = ctx.serialize(blob)
-        buf = _host_buffer(ctx.total_size(parts), device)
-        return buf[:serialization.write_parts_into(parts, buf)]
-
-    def resolve(buf):
-        with _landing(device):
-            return ctx.deserialize(buf)
-    return publish, resolve
+def _pd_app(cfg, params, device) -> CompiledPDApp:
+    """The reference's bench app: one prefill and one decode replica
+    (max_batch 1 and 4, max_len 64, pages of 8, the prefix cache on), each
+    hosted on its own loop, on one set of params."""
+    return CompiledPDApp(cfg, params, prefill_replicas=1, decode_replicas=1,
+                         max_len=64, page_size=8, device=device)
 
 
 def _pd_pair(cfg, params, device):
-    """(prefill replica, decode replica), each hosted on its own loop, on
-    one set of params: the reference's CompiledPDApp with one replica
-    each (max_batch 1 and 4, max_len 64, pages of 8, the prefix cache
-    on), whose replicas are actors of their own."""
-    device = resolve_device(device)
-    publish, resolve = _channel_callbacks(device)
-    common = dict(max_len=64, page_size=8, seed=0, prefix_cache=True,
-                  max_queue=64, device=device)
-    pre = _Hosted(EngineReplica(cfg, params, max_batch=1, publish=publish,
-                                **common))
-    try:
-        return pre, _Hosted(EngineReplica(cfg, params, max_batch=4,
-                                          resolve=resolve, **common))
-    except BaseException:
-        pre.close()
-        raise
+    """(prefill host, decode host) of ``_pd_app``; shutting both down
+    shuts the app down."""
+    app = _pd_app(cfg, params, device)
+    return app.prefills[0], app.decodes[0]
 
 
-def _pd_stream(pre: _Hosted, dec: _Hosted, prompt):
-    """The submit contract over the pair: the prefill replica's handoff,
-    admitted into the decode replica's batch, then its stream."""
+def _pd_stream(pre: Hosted, dec: Hosted, prompt):
+    """The submit contract over the pair: the prefill replica's handoff
+    (a handle to the blob in its host buffers), admitted into the decode
+    replica's batch, then its stream."""
     handoff = pre.call(pre.replica.prefill_handoff({"prompt": list(prompt),
                                                     "opts": _OPTS}))
     rid = dec.call(dec.replica.admit_external(handoff))
@@ -320,13 +228,12 @@ def _pd_stream(pre: _Hosted, dec: _Hosted, prompt):
 
 @_cached("pd_serving")
 def _pd_serving_report(min_time_s, cfg, params, device) -> Dict[str, Any]:
-    pre, dec = _pd_pair(cfg, params, device)
+    app = _pd_app(cfg, params, device)
     try:
-        ol = _open_loop(lambda p: _pd_stream(pre, dec, p), min_time_s,
+        ol = _open_loop(lambda p: app.stream(p, _OPTS), min_time_s,
                         "pd serving")
     finally:
-        pre.close()
-        dec.close()
+        app.shutdown()
     return {"serving_pd_ttft_p50_ms": ol["ttft_p50_ms"],
             "serving_pd_tokens_per_s_per_replica":
                 ol["tokens_per_s_per_replica"],

@@ -199,6 +199,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch._private.serialization\n"
         "import ray_tpu_torch.experimental\n"
         "import ray_tpu_torch.util.perf\n"
+        "import ray_tpu_torch.serve, ray_tpu_torch.llm.serve_patterns\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'optax')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'optax.'))\n"
