@@ -22,8 +22,6 @@ _SETTINGS: Dict[str, Tuple[type, Any]] = {
     # off, and its ring's slots.
     "flight_recorder_enabled": (bool, True),
     "flight_recorder_capacity": (int, 4096),
-    # 1 of every N instant events kept per category.
-    "flight_recorder_sample_n": (int, 1),
 }
 
 

@@ -1,50 +1,75 @@
 """Flight recorder: a low-overhead in-process event ring.
 
-A copy of ray_tpu/_private/flight_recorder.py, for the port's engine and
-serving replica. Each process owns a preallocated ring of (start-ns,
-end-ns, category, name, id, args) records; recording is one slot store and
-an index bump under a lock, from any thread. ``drain()`` turns the records
-into rows with the reference's keys (``task_id``, ``name``,
-``event="SPAN"``, ``cat``, ``ts``, ``start_us``, ``dur_us``, ``worker_id``,
-``node_id``, ``job_id`` and ``args`` when there are any).
+A copy of ray_tpu/_private/flight_recorder.py, for the port's train step,
+engine and serving replica. Each process owns a preallocated ring of
+(start-ns, end-ns, category, name, id, args, device timing) records;
+recording is one slot store and an index bump under a lock, from any
+thread. ``drain()`` turns the records into rows with the reference's keys
+(``task_id``, ``name``, ``event="SPAN"``, ``cat``, ``ts``, ``start_us``,
+``dur_us``, ``worker_id``, ``node_id``, ``job_id`` and ``args`` when there
+are any).
 
-The engine writes spans in the ``request`` category: ``prefill`` (with
-``cached_tokens``, and ``chunked`` or ``external`` where they apply),
-``decode`` (one per batched decode step, with ``batch``), ``sample_sync``
-(one per sampling wave, with ``batch``) and ``sp:gather`` (one per streamed
-decode token or paged prefill chunk, with the gather window's counters).
+The spans the port writes, by category:
+
+- ``train`` (models/train_step.py), each with the state's ``step`` at
+  entry and ``device_us``: ``train:grad``, from the leaves' detach to the
+  end of the backward (under a mesh, every batch group's forward and
+  backward and the replicas' all-reduce), and ``train:optimizer``, the
+  global norm with its host sync, the AdamW update and, under a mesh, the
+  replica copies.
+- ``engine`` (llm/engine.py): ``engine:step``, one per ``LLMEngine.step``.
+- ``request`` (llm/engine.py): ``prefill`` (with ``tokens``,
+  ``cached_tokens``, ``active``, ``device_us``, and ``chunked`` or
+  ``external`` where they apply; it ends when its work is dispatched),
+  ``decode`` (one per batched decode step, up to its host sync, with
+  ``batch``), ``sample_sync`` (one per sampling wave, with ``batch``) and ``sp:gather`` (one per streamed decode token or paged
+  prefill chunk, with the gather window's counters).
+- ``request`` and ``replica`` (llm/serving.py): ``request:admit``, from
+  enqueue to the fan-out of the first token, with ``queued``,
+  ``decoding``, ``lock_wait_us`` (the route's entry to its enqueue: the
+  wait for the replica's lock) and ``hold_us`` (the first token on the host
+  to its fan-out, left out when the engine kept no stamp of it);
+  ``replica:fan_out``, one per tick; and the
+  ``request:cancelled`` and ``request:kv_broken`` instants.
+
 ``flight_recorder_enabled`` turns recording off; ``flight_recorder_capacity``
-sizes the ring.
+sizes the ring. Overflow drops the OLDEST record and counts it in
+``dropped``, so a truncated view is never mistaken for a complete one.
 
-Overflow drops the OLDEST record and counts it in ``dropped``, so a
-truncated view is never mistaken for a complete one.
+Device time: ``begin(device)`` with a CUDA device records a timing event on
+that device's current stream, and ``end()`` a second one after the span's
+work is queued; their elapsed time is the span's ``device_us`` argument:
+the stream's time from the span's first queued work to its last, idle
+stretches inside included. Nothing waits for the device: a pair resolves
+once its end event has completed, found by a non-blocking ``query()`` as
+later device-timed spans end and at ``drain()``. A drain returns every
+record written before it: one whose end event has not completed yet comes
+out without ``device_us``, and its pair goes back to the pool once it has.
+Event pairs are reused. With no device, a CPU device or the recorder
+disabled, ``begin()`` is one clock read and ``device_us`` is absent.
 
 Times: starts and ends are ``time.monotonic_ns()``; ``drain()`` converts
 them to this process's wall clock (``time.time()``) with one anchor per
-drain. The reference's injected clock skew belongs to its runtime and is not
-copied. Spans are host time: around work on a CUDA device they measure the
-dispatch of the work plus whatever synchronisation the wrapped code does
-(the engine's ``sample_sync`` holds its one device-to-host copy, so it
-absorbs the device time queued before it).
-
-The serving replica (llm/serving.py) adds the ``request:admit`` span
-(enqueue to admission, with ``queued`` and ``decoding``) and the
-``request:cancelled`` and ``request:kv_broken`` instants.
-``flight_recorder_sample_n`` keeps 1 of every N ``instant()`` events per
-category and counts the rest in ``sampled_out`` (spans are never sampled
-away: their rate is bounded by the operations they wrap).
+drain. torch.profiler's exported trace is on the same wall clock once its
+``baseTimeNanoseconds`` is added to each event's ``ts``, so a drained row
+and a traced kernel compare directly. The reference's injected clock skew
+belongs to its runtime and is not copied.
+Host durations around work on a CUDA device measure its dispatch plus
+whatever synchronisation the wrapped code does (``sample_sync`` holds its
+one device-to-host copy, so it absorbs the device time queued before it).
 
 Not copied: the reference's category gate (``flight_recorder_categories``
-and ``active()``): every row the port writes is in the ``request``
-category, so the gate would only repeat ``flight_recorder_enabled``;
-``export_rows``, which feeds the reference runtime's metrics
-export (RPC counters and copy audit) and has no counterpart in the port;
-``note_lost`` and the ``span()`` context manager, which only that
-runtime calls.
+and ``active()``), which would only repeat ``flight_recorder_enabled``, and
+its 1-in-N sampling of instants (``flight_recorder_sample_n``): the port's
+instants come at most one per request; ``export_rows``, which feeds the
+reference runtime's metrics export (RPC counters and copy audit) and has
+no counterpart in the port; ``note_lost`` and the ``span()`` context
+manager, which only that runtime calls.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
 from typing import Dict, List, Optional
@@ -52,20 +77,34 @@ from typing import Dict, List, Optional
 from .. import _config
 
 
+class _Timed:
+    """A device-timed span in flight: its host start, its stream and its
+    (start, end) timing events until they resolve into ``args`` (None
+    once a drain has let the record go without its device time)."""
+
+    __slots__ = ("t0", "stream", "pair", "args")
+
+    def __init__(self, t0: int, stream, pair):
+        self.t0 = t0
+        self.stream = stream
+        self.pair = pair
+        self.args: Optional[dict] = None
+
+
 class FlightRecorder:
-    def __init__(self, capacity: int = 4096, sample_n: int = 1,
-                 enabled: bool = True):
+    def __init__(self, capacity: int = 4096, enabled: bool = True):
         self.capacity = max(16, int(capacity))
         self._ring: list = [None] * self.capacity
         self._head = 0          # next write slot
         self._count = 0         # live records (<= capacity)
         self._lock = threading.Lock()
-        self._sample_n = max(1, int(sample_n))
-        self._sample_ctr: Dict[str, int] = {}
         self.enabled = enabled
         self.recorded = 0       # accepted records (monotonic)
         self.dropped = 0        # overwritten-before-drain records
-        self.sampled_out = 0    # instants skipped by sampling
+        # Device-timed spans whose events have not resolved, oldest first,
+        # and the idle event pairs of each device.
+        self._pending: collections.deque = collections.deque()
+        self._free: Dict[int, list] = {}
 
     # ------------------------------------------------------------ record --
     def _push(self, rec: tuple) -> None:
@@ -80,37 +119,71 @@ class FlightRecorder:
 
     def instant(self, cat: str, name: str, id: bytes = b"",
                 **args) -> None:
-        """Point event. Subject to per-category 1-in-N sampling."""
+        """Point event."""
         if not self.enabled:
             return
-        if self._sample_n > 1:
-            with self._lock:        # instants may come from any thread
-                c = self._sample_ctr.get(cat, 0)
-                self._sample_ctr[cat] = c + 1
-                if c % self._sample_n:
-                    self.sampled_out += 1
-                    return
         t = time.monotonic_ns()
-        self._push((t, t, cat, name, id, args or None))
+        self._push((t, t, cat, name, id, args or None, None))
 
-    def begin(self) -> int:
-        """Start stamp for a span; pass it to end()."""
-        return time.monotonic_ns()
+    def begin(self, device=None):
+        """Start stamp for a span; pass it to end(). With a CUDA
+        ``torch.device`` (and the recorder on) the span is timed on that
+        device's current stream as well."""
+        if device is None or not self.enabled \
+                or getattr(device, "type", None) != "cuda":
+            return time.monotonic_ns()
+        import torch
+        stream = torch.cuda.current_stream(device)
+        with self._lock:
+            free = self._free.get(stream.device_index)
+            pair = free.pop() if free else None
+        if pair is None:
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+        pair[0].record(stream)
+        return _Timed(time.monotonic_ns(), stream, pair)
 
-    def end(self, cat: str, name: str, t0_ns: int, id: bytes = b"",
+    def end(self, cat: str, name: str, t0_ns, id: bytes = b"",
             **args) -> None:
-        """Complete a span started at begin(). Spans are never sampled
-        away."""
+        """Complete a span started at begin()."""
         if not self.enabled:
             return
-        self._push((t0_ns, time.monotonic_ns(), cat, name, id, args or None))
+        t1 = time.monotonic_ns()
+        if not isinstance(t0_ns, _Timed):
+            self._push((t0_ns, t1, cat, name, id, args or None, None))
+            return
+        timed = t0_ns
+        timed.pair[1].record(timed.stream)
+        timed.args = args
+        self._push((timed.t0, t1, cat, name, id, args, timed))
+        with self._lock:
+            self._pending.append(timed)
+            while self._pending:
+                head = self._pending[0]
+                if head.pair is not None and not head.pair[1].query():
+                    break
+                self._pending.popleft()
+                if head.pair is not None:
+                    self._resolve(head)
+
+    def _resolve(self, timed: _Timed) -> None:
+        """Write a completed pair's elapsed time into the span's args,
+        unless a drain already let them go, and return the pair to its
+        device's pool (under the lock)."""
+        start, end = timed.pair
+        if timed.args is not None:
+            timed.args["device_us"] = round(start.elapsed_time(end) * 1000.0)
+        self._free.setdefault(timed.stream.device_index, []).append(
+            timed.pair)
+        timed.pair = None
 
     # ------------------------------------------------------------- drain --
     def drain(self, node_id: bytes = b"",
               worker_id: bytes = b"") -> List[dict]:
         """Swap the ring out and return its records as rows, oldest first.
-        Monotonic stamps convert to wall time at drain (one anchor per
-        drain; monotonic spacing is kept exactly)."""
+        A device-timed record whose end event has not completed comes out
+        without ``device_us``. Monotonic stamps convert to wall time at
+        drain (one anchor per drain; monotonic spacing is kept exactly)."""
         with self._lock:
             if not self._count:
                 return []
@@ -127,10 +200,17 @@ class FlightRecorder:
             self._ring = [None] * self.capacity
             self._head = 0
             self._count = 0
+            for rec in recs:
+                timed = rec[6]
+                if timed is not None and timed.pair is not None:
+                    if timed.pair[1].query():
+                        self._resolve(timed)
+                    else:
+                        timed.args = None   # the pair stays in _pending
         anchor_mono = time.monotonic_ns()
         anchor_wall = time.time()
         out: List[dict] = []
-        for t0, t1, cat, name, rid, args in recs:
+        for t0, t1, cat, name, rid, args, _ in recs:
             start_s = anchor_wall - (anchor_mono - t0) / 1e9
             rec = {
                 "task_id": rid or b"",
@@ -153,7 +233,7 @@ class FlightRecorder:
         with self._lock:
             pending = self._count
         return {"recorded": self.recorded, "dropped": self.dropped,
-                "sampled_out": self.sampled_out, "pending": pending}
+                "pending": pending}
 
 
 _recorder: Optional[FlightRecorder] = None
@@ -178,7 +258,6 @@ def _from_config() -> FlightRecorder:
     try:
         return FlightRecorder(
             capacity=_config.setting("flight_recorder_capacity"),
-            sample_n=_config.setting("flight_recorder_sample_n"),
             enabled=_config.setting("flight_recorder_enabled"))
     except ValueError:
         return FlightRecorder()

@@ -27,7 +27,9 @@ the flash kernel.
 
 The engine writes the reference's flight-recorder spans in the
 ``request`` category (``prefill``, ``sample_sync``, ``decode``,
-``sp:gather``; see _private/flight_recorder.py). Not copied:
+``sp:gather``), ``prefill`` with its device time (``device_us``) on a
+CUDA engine, and one ``engine:step`` span of its own per ``step()`` (see
+_private/flight_recorder.py). Not copied:
 ``_report_pool_pressure``, which feeds the reference runtime's memory
 monitor.
 
@@ -1043,6 +1045,9 @@ class LLMEngine:
         # addresses requests through this.
         self._requests: Dict[int, _Request] = {}
         self._tick_events: List[Tuple[int, int, bool]] = []
+        # req_id -> time.monotonic_ns() when its first token reached the
+        # host, for the first tokens of the last step().
+        self._tick_first_ns: Dict[int, int] = {}
         self._next_id = 0
         self._last = np.zeros(max_batch, np.int64)
         self._lengths = np.zeros(max_batch, np.int64)
@@ -1259,6 +1264,12 @@ class LLMEngine:
         ev = self._tick_events
         self._tick_events = []
         return ev
+
+    def first_token_ns(self, req_id: int) -> Optional[int]:
+        """``time.monotonic_ns()`` when the request's first token reached
+        the host (its sampling wave's sync, or the emit of a shipped first
+        token), if the last step() emitted it."""
+        return self._tick_first_ns.get(req_id)
 
     def has_unfinished(self) -> bool:
         return bool(self._waiting or self._slots or self._prefilling)
@@ -1565,7 +1576,7 @@ class LLMEngine:
                 self._prefilling[req.slot] = req
                 continue
             active_before = len(self._slots)
-            t0 = rec.begin()
+            t0 = rec.begin(self.device)
             if req.kv_blob is not None:
                 self._install_external(req)
             elif req.prefix_len:
@@ -1626,7 +1637,7 @@ class LLMEngine:
         nxt = min(req.prefilled + self.prefill_chunk, S)
         row = self._tables[slot]
         rec = flight_recorder.recorder()
-        t0 = rec.begin()
+        t0 = rec.begin(self.device)
         if req.prefilled == 0:
             logits, ks, vs = self._run_prefill(req.prompt[:nxt])
             self._install_pages(row[:math.ceil(nxt / self.page)], ks, vs)
@@ -1680,6 +1691,8 @@ class LLMEngine:
 
     def _emit(self, req: _Request, token: int):
         req.out.append(token)
+        if len(req.out) == 1:
+            self._tick_first_ns[req.req_id] = time.monotonic_ns()
         p = req.params
         if p.eos_id is not None and token == p.eos_id:
             req.finished = True
@@ -1702,8 +1715,17 @@ class LLMEngine:
         """Admit waiting requests, advance chunked prefills by one chunk,
         run ONE decode step for all active slots (paged-context slots
         stream their attention over external parts), retire finished
-        requests. Returns the requests finished in this step."""
+        requests. Returns the requests finished in this step. The whole
+        is one ``engine:step`` span."""
+        rec = flight_recorder.recorder()
+        t0 = rec.begin()
+        done = self._step()
+        rec.end("engine", "engine:step", t0)
+        return done
+
+    def _step(self) -> List[_Request]:
         self._tick_events = []
+        self._tick_first_ns = {}
         self._admit()
         self._advance_prefilling()
         done: List[_Request] = []
@@ -2087,7 +2109,7 @@ class LLMEngine:
             raise ValueError(f"prompt ({S}) >= max_len ({self.max_len})")
         prompt = list(prompt_tokens)
         rec = flight_recorder.recorder()
-        t0 = rec.begin()
+        t0 = rec.begin(self.device)
         c, shared = 0, []
         if self._cache is not None:
             c, shared = self._cache.lookup(prompt)

@@ -27,10 +27,18 @@ default executor threads, so admissions and stream consumers keep being
 served between ticks. Engine work stays on the default CUDA stream, as in
 the closed loop, whichever thread takes a tick.
 
-Flight recorder (category ``request``): the ``request:admit`` span
-(enqueue to admission, with ``queued`` and ``decoding``) and the
-``request:cancelled`` and ``request:kv_broken`` instants, beside the
-engine's own spans.
+Flight recorder (_private/flight_recorder.py), beside the engine's own
+spans: the ``request:admit`` span (category ``request``), from enqueue to
+the fan-out of the request's first token, with ``queued`` and
+``decoding`` and two waits as arguments (not spans, so that they add no
+interval of their own to a trace's timeline): ``lock_wait_us``, from the
+route's call for the replica's lock (``_stream``, ``admit_external``,
+``admit_paged``) to the enqueue, and ``hold_us``, from the first token
+reaching the host (its sampling wave's sync, or the emit of a shipped
+first token) to its hand-off to the stream, left out when the engine kept
+no stamp of it. ``replica:fan_out`` (category ``replica``) covers each
+tick's fan-out, and the ``request:cancelled`` and ``request:kv_broken``
+instants mark the ends that are not finishes.
 
 The runtime boundary: the port imports nothing of ``ray_tpu``, so the
 runtime services the reference calls become callbacks of the constructor.
@@ -320,24 +328,34 @@ class EngineReplica:
             meta["finished"] = True
 
     def _fan_out(self, events, done_reqs) -> None:
+        """Hand a tick's tokens and finishes to their streams, inside one
+        ``replica:fan_out`` span; a request's first token closes its
+        ``request:admit`` span."""
         rec = flight_recorder.recorder()
+        t_fan = rec.begin()
         done_by_id = {r.req_id: r for r in done_reqs}
         for rid, tok, fin in events:
             meta = self._meta.get(rid)
             if meta is None:
                 continue
-            if not meta.get("admitted"):
-                meta["admitted"] = True
-                meta["t_adm"] = time.monotonic()
-                rec.end("request", "request:admit", meta["t0"],
-                        id=rid.to_bytes(8, "little"),
-                        queued=self.engine.queue_depth,
-                        decoding=max(0, self.engine.active_requests - 1
-                                     + len(done_by_id)))
             meta["t_last_tok"] = time.monotonic()
             q = self._waiters.get(rid)
             if q is not None:
                 q.put_nowait(int(tok))
+            if not meta.get("admitted"):
+                meta["admitted"] = True
+                meta["t_adm"] = time.monotonic()
+                put = time.monotonic_ns()
+                on_host = self.engine.first_token_ns(rid)
+                waits = {"lock_wait_us": meta["lock_wait_us"]}
+                if on_host is not None:
+                    waits["hold_us"] = (put - on_host) // 1000
+                rec.end("request", "request:admit", meta["t0"],
+                        id=rid.to_bytes(8, "little"),
+                        queued=self.engine.queue_depth,
+                        decoding=max(0, self.engine.active_requests - 1
+                                     + len(done_by_id)),
+                        **waits)
         for rid, req in done_by_id.items():
             meta = self._meta.get(rid)
             if meta is not None and not meta.get("finished"):
@@ -371,15 +389,19 @@ class EngineReplica:
                 if q is not None:
                     q.put_nowait(_StreamEnd(req.finish_reason,
                                             len(req.out)))
+        rec.end("replica", "replica:fan_out", t_fan)
 
     # ------------------------------------------------------------ streams --
-    def _register(self, rid: int, deadline: Optional[float],
-                  rec) -> asyncio.Queue:
+    def _register(self, rid: int, deadline: Optional[float], rec,
+                  entered_ns: int) -> asyncio.Queue:
         """A queued request's consumer queue and metadata (under the
-        lock)."""
+        lock); ``entered_ns``: ``time.monotonic_ns()`` when its route
+        went for the lock."""
         q: asyncio.Queue = asyncio.Queue()
         self._waiters[rid] = q
-        self._meta[rid] = {"deadline": deadline, "t0": rec.begin(),
+        t0 = rec.begin()
+        self._meta[rid] = {"deadline": deadline, "t0": t0,
+                           "lock_wait_us": (t0 - entered_ns) // 1000,
                            "t_mono": time.monotonic(),
                            "admitted": False, "finished": False}
         return q
@@ -394,6 +416,7 @@ class EngineReplica:
         params = self._params(opts)
         deadline = deadlines.get()
         rec = flight_recorder.recorder()
+        entered = time.monotonic_ns()
         async with self._lock:
             # Shed check INSIDE the lock: concurrent arrivals during a
             # decode tick must each see the true queue depth, not a
@@ -405,7 +428,7 @@ class EngineReplica:
                     blob, first, params, prompt_tokens=cache_prompt)
             else:
                 rid = self.engine.add_request(list(prompt_tokens), params)
-            q = self._register(rid, deadline, rec)
+            q = self._register(rid, deadline, rec, entered)
         self._ensure_loop()
         self._wake.set()
         try:
@@ -542,12 +565,13 @@ class EngineReplica:
         params = self._params(handoff.get("opts"))
         deadline = deadlines.get()
         rec = flight_recorder.recorder()
+        entered = time.monotonic_ns()
         async with self._lock:
             self._maybe_shed(deadline)
             rid = self.engine.add_external_request(
                 blob, handoff["first"], params,
                 prompt_tokens=handoff.get("prompt"))
-            self._register(rid, deadline, rec)
+            self._register(rid, deadline, rec, entered)
         self._ensure_loop()
         self._wake.set()
         return rid
@@ -675,12 +699,13 @@ class EngineReplica:
         params = self._params(handoff.get("opts"))
         deadline = deadlines.get()
         rec = flight_recorder.recorder()
+        entered = time.monotonic_ns()
         async with self._lock:
             self._maybe_shed(deadline)
             rid = self.engine.add_paged_request(
                 handoff["parts"], handoff["len"], handoff["first"],
                 params, prompt_tokens=handoff.get("prompt"))
-            self._register(rid, deadline, rec)
+            self._register(rid, deadline, rec, entered)
         self._ensure_loop()
         self._wake.set()
         return rid

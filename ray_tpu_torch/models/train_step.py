@@ -74,6 +74,13 @@ the loss is summed over the world, each group's term counted on one
 rank, so every rank reports the same loss and grad norm. Each rank
 updates its own shards: replicas on other ranks take identical updates
 from identical gradients.
+
+Each step writes two flight-recorder spans (_private/flight_recorder.py,
+category ``train``), with the state's ``step`` at entry and, on a CUDA
+device, ``device_us``: ``train:grad`` from the leaves' detach to the end
+of the backward (under a mesh, every batch group's forward and backward
+and the replicas' all-reduce), then ``train:optimizer`` over the global
+norm with its host sync, the update and, under a mesh, the replica copies.
 """
 
 from __future__ import annotations
@@ -87,6 +94,7 @@ import torch
 import torch.distributed as dist
 
 from .._device import resolve_device
+from .._private import flight_recorder
 from ..parallel.sharding import (LogicalAxisRules, PartitionSpec,
                                  shard_params, shard_slices, tree_specs)
 from .transformer import (TransformerConfig, from_jax_params, init_params,
@@ -523,10 +531,14 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
         if not donate_state:
             state = _copy_state(state)
         params, opt = state["params"], state["opt_state"]
+        rec, at = flight_recorder.recorder(), state["step"]
+        t_grad = rec.begin(dev)
         if mesh is None:
             loss, leaves = _backward(params, batch, cfg, dev)
             grads = [leaf.grad for leaf in leaves]
             mu, nu = _pieces(opt["mu"], L), _pieces(opt["nu"], L)
+            rec.end("train", "train:grad", t_grad, step=at)
+            t_opt = rec.begin(dev)
             gnorm = None
         else:
             loss, _, made = _mesh_backward(params, batch, cfg, lay, dev,
@@ -538,6 +550,8 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
                 if ranks[0] == mesh.rank:
                     owned += [leaf.grad for leaf in views]
             grads = [leaf.grad for leaf in leaves]
+            rec.end("train", "train:grad", t_grad, step=at)
+            t_opt = rec.begin(dev)
             gnorm = float(global_norm(owned, mesh.world_group(), dev))
             mu, nu = (_canonical(lay, opt[k]) for k in ("mu", "nu"))
             del made, owned
@@ -552,6 +566,7 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
                 for tree in (params, opt["mu"], opt["nu"]):
                     for src, dst in _replicas(lay, tree):
                         dst.copy_(src)
+        rec.end("train", "train:optimizer", t_opt, step=at)
         new_state = {"params": params, "opt_state": new_opt,
                      "step": state["step"] + 1}
         return new_state, {"loss": loss.item(), "grad_norm": gnorm,

@@ -13,8 +13,10 @@ in-process GCS servers of tests/test_gcs_failover.py are never stopped,
 and once that file's event loop has closed they record an
 ``anomaly:loop_wedged`` instant every few seconds. So the JAX capture
 records only the ``request`` category, through the JAX recorder's own
-category gate; the port's recorder has no gate and records every row, so a
-port row of another category still fails the comparison.
+category gate. The port's recorder has no gate and records every row; its
+rows of the categories it adds (``engine:step``, ``replica:fan_out``,
+``train:*``) have no JAX counterpart, so the comparisons take the
+``request`` rows of both sides, less the arguments that read a clock.
 """
 
 import contextlib
@@ -36,6 +38,9 @@ from ray_tpu_torch.models import PRESETS, from_jax_params
 
 CFG, JCFG = PRESETS["tiny"], JAX_PRESETS["tiny"]
 TIME_KEYS = ("ts", "start_us", "dur_us")
+# Arguments that read a clock: the gather window's wait, the device time of
+# a span on a CUDA device, and the serving replica's two waits.
+CLOCK_ARGS = ("gather_wait_us", "device_us", "lock_wait_us", "hold_us")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -82,13 +87,22 @@ def _untimed(rows):
 
 
 def _spans(rows):
-    """(cat, name, id, args) of each row, less the wall-clock arg."""
+    """(cat, name, id, args) of each ``request`` row, less the args that
+    read a clock."""
     out = []
     for r in rows:
+        if r["cat"] != "request":
+            continue
         args = {k: v for k, v in (r.get("args") or {}).items()
-                if k != "gather_wait_us"}
+                if k not in CLOCK_ARGS}
         out.append((r["cat"], r["name"], r["task_id"], args))
     return out
+
+
+def _stats(stats):
+    """stats() less the JAX recorder's count of instants sampled away (the
+    port does not sample)."""
+    return {k: v for k, v in stats.items() if k != "sampled_out"}
 
 
 # --------------------------------------------------------- the recorder ---
@@ -110,15 +124,14 @@ def test_same_calls_give_the_same_rows_and_stats():
     for module in (jax_flight_recorder, flight_recorder):
         rec = module.FlightRecorder(capacity=16)
         _script(rec)
-        stats.append(rec.stats())
+        stats.append(_stats(rec.stats()))
         rows.append(_untimed(rec.drain(node_id=b"n", worker_id=b"w")))
         assert rec.drain() == [] and rec.stats()["pending"] == 0
     assert rows[1] == rows[0]
     assert stats[1] == stats[0]
     # A decode span, 12 gathers and 6 chunks into 16 slots: 3 dropped,
     # oldest first.
-    assert stats[1] == {"recorded": 19, "dropped": 3, "sampled_out": 0,
-                        "pending": 16}
+    assert stats[1] == {"recorded": 19, "dropped": 3, "pending": 16}
     assert [r["name"] for r in rows[1][:4]] \
         == ["chunk", "sp:gather", "sp:gather", "chunk"]
     assert rows[1][1]["args"] == {"parts": 2}
@@ -138,33 +151,29 @@ def _instant_script(rec):
     rec.end("lease", "lease:grant", rec.begin())
 
 
-@pytest.mark.parametrize("sample_n", [1, 2, 3, 4, 9])
-def test_instants_and_sampling_match_jax(sample_n):
-    """instant() and its 1-in-N sampling per category give JAX's rows and
-    stats(); spans are never sampled away."""
+def test_instants_and_sampling_match_jax():
+    """instant() gives JAX's rows and stats() at the JAX recorder's default,
+    which samples nothing away (the port keeps every instant)."""
     rows, stats = [], []
     for module in (jax_flight_recorder, flight_recorder):
-        rec = module.FlightRecorder(capacity=64, sample_n=sample_n)
+        rec = module.FlightRecorder(capacity=64)
         _instant_script(rec)
-        stats.append(rec.stats())
+        stats.append(_stats(rec.stats()))
         rows.append(rec.drain())
     assert _untimed(rows[1]) == _untimed(rows[0]) and stats[1] == stats[0]
     names = [r["name"] for r in rows[1]]
-    # Per category, instants 0, N, 2N, ... are kept: 8 request instants
-    # and 3 anomaly ones.
-    kept = -(-8 // sample_n) + -(-3 // sample_n)
-    assert stats[1]["sampled_out"] == 8 + 3 - kept
-    assert names.count("request:cancelled") == -(-7 // sample_n)
+    assert names.count("request:cancelled") == 7
+    assert names.count("anomaly:loop_wedged") == 3
     assert names.count("decode") == 7 and names.count("lease:grant") == 1
     assert all(r["dur_us"] == 0 for r in rows[1] if r["name"].startswith(
         ("request:", "anomaly:")))
 
 
 def test_instants_obey_the_enabled_switch():
-    rec = flight_recorder.FlightRecorder(enabled=False, sample_n=2)
+    rec = flight_recorder.FlightRecorder(enabled=False)
     rec.instant("request", "request:cancelled")
     assert rec.drain() == [] and rec.stats() == {
-        "recorded": 0, "dropped": 0, "sampled_out": 0, "pending": 0}
+        "recorded": 0, "dropped": 0, "pending": 0}
 
 
 def test_drain_converts_to_wall_time_with_order_kept():
@@ -185,16 +194,158 @@ def test_disabled_recorder_records_nothing():
     assert rec.drain() == [] and rec.stats()["recorded"] == 0
 
 
+# ------------------------------------------------- device-timed spans ---
+
+class _Stream:
+    """A stand-in CUDA stream: work (ms) and events queue on it in order,
+    and run when the test says the device has caught up."""
+
+    device_index = 0
+
+    def __init__(self):
+        self.now_ms = 0.0
+        self.queued = []
+
+    def work(self, ms):
+        self.queued.append(float(ms))
+
+    def catch_up(self):
+        for item in self.queued:
+            if isinstance(item, float):
+                self.now_ms += item
+            else:
+                item.at_ms = self.now_ms
+        self.queued = []
+
+
+class _Event:
+    """A stand-in timing event that counts how many were made and fails
+    the test if anything waits on it."""
+
+    made = 0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        type(self).made += 1
+        self.at_ms = None
+
+    def record(self, stream):
+        self.at_ms = None
+        stream.queued.append(self)
+
+    def query(self):
+        return self.at_ms is not None
+
+    def elapsed_time(self, end):
+        assert self.at_ms is not None and end.at_ms is not None
+        return end.at_ms - self.at_ms
+
+    def synchronize(self):
+        raise AssertionError("the recorder waited for the device")
+
+
+@pytest.fixture
+def stub_cuda(monkeypatch):
+    """torch.cuda's stream and events replaced by the stand-ins above; a
+    device synchronisation fails the test."""
+    stream = _Stream()
+    _Event.made = 0
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: stream)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+
+    def no_sync(*a, **k):
+        raise AssertionError("the recorder synchronised the device")
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    return stream
+
+
+@pytest.mark.parametrize("case", ["no device", "cpu", "disabled"])
+def test_no_device_time_without_a_cuda_device_or_when_disabled(
+        monkeypatch, case):
+    """begin() on no device or a CPU one is a host stamp: the span has no
+    device_us and torch.cuda is never reached; a disabled recorder given a
+    CUDA device records nothing and reaches it neither."""
+    def unreachable(*a, **k):
+        raise AssertionError("torch.cuda reached")
+    monkeypatch.setattr(torch.cuda, "current_stream", unreachable)
+    monkeypatch.setattr(torch.cuda, "Event", unreachable)
+    rec = flight_recorder.FlightRecorder(enabled=case != "disabled")
+    device = {"no device": None, "cpu": torch.device("cpu"),
+              "disabled": torch.device("cuda")}[case]
+    t0 = rec.begin(device)
+    assert isinstance(t0, int)
+    rec.end("request", "prefill", t0, tokens=4)
+    rows = rec.drain()
+    if case == "disabled":
+        assert rows == []
+    else:
+        assert [r["args"] for r in rows] == [{"tokens": 4}]
+
+
+def test_device_time_resolves_as_later_spans_end(stub_cuda):
+    """A span's events resolve, without waiting, once the device has
+    passed them: at a later span's end, or at drain(). A drain returns
+    every record written before it, in order: one whose end event has not
+    completed comes out without device_us, and its pair goes back to the
+    pool once the device has passed it, for the next span to reuse."""
+    rec = flight_recorder.FlightRecorder()
+    cuda = torch.device("cuda")
+    t0 = rec.begin(cuda)
+    stub_cuda.work(3.5)
+    rec.end("request", "prefill", t0, tokens=8)
+    stub_cuda.catch_up()
+    t1 = rec.begin(cuda)
+    stub_cuda.work(1.25)
+    rec.end("request", "decode", t1, batch=2)
+    rows = rec.drain()
+    assert [(r["name"], r["args"]) for r in rows] \
+        == [("prefill", {"tokens": 8, "device_us": 3500}),
+            ("decode", {"batch": 2})]
+    assert rec.stats()["pending"] == 0 and _Event.made == 4
+    stub_cuda.catch_up()
+    t2 = rec.begin(cuda)    # takes the prefill's pair
+    stub_cuda.work(2.0)
+    rec.end("request", "decode", t2, batch=3)   # frees the decode's pair
+    assert rows[1]["args"] == {"batch": 2}      # the drained row stays
+    stub_cuda.catch_up()
+    t3 = rec.begin(cuda)    # takes the decode's pair
+    stub_cuda.work(1.0)
+    rec.end("request", "decode", t3, batch=4)
+    stub_cuda.catch_up()
+    rec.end("request", "sample_sync", rec.begin(), batch=4)
+    assert [(r["name"], r["args"]) for r in rec.drain()] \
+        == [("decode", {"batch": 3, "device_us": 2000}),
+            ("decode", {"batch": 4, "device_us": 1000}),
+            ("sample_sync", {"batch": 4})]
+    assert _Event.made == 4
+    assert rec.drain() == [] and rec.stats()["pending"] == 0
+
+
+def test_device_time_reuses_its_events(stub_cuda):
+    """Back-to-back device-timed spans, each resolved at the next one's
+    end, take two pairs of events in all, however many spans."""
+    rec = flight_recorder.FlightRecorder()
+    for i in range(20):
+        t0 = rec.begin(torch.device("cuda"))
+        stub_cuda.work(1.0)
+        rec.end("request", "decode", t0, batch=i)
+        stub_cuda.catch_up()
+    rows = rec.drain()
+    assert [r["args"] for r in rows] \
+        == [{"batch": i, "device_us": 1000} for i in range(20)]
+    assert _Event.made == 4
+
+
 def test_recorder_reads_the_settings_after_reset(monkeypatch):
     """recorder() builds the singleton from RAY_TPU_flight_recorder_* the
     way the reference does, and reset() makes it read them again."""
-    names = ("enabled", "capacity", "sample_n")
+    names = ("enabled", "capacity")
     old = flight_recorder._recorder
     try:
-        for env in ({}, {"enabled": "0", "capacity": "40",
-                         "sample_n": "3"},
+        for env in ({}, {"enabled": "0", "capacity": "40"},
                     {"capacity": "not a number"},
-                    {"sample_n": "not a number"}):
+                    {"enabled": "0", "capacity": "not a number"}):
             for name in names:
                 monkeypatch.delenv(f"RAY_TPU_flight_recorder_{name}",
                                    raising=False)
@@ -203,11 +354,11 @@ def test_recorder_reads_the_settings_after_reset(monkeypatch):
             flight_recorder.reset()
             rec = flight_recorder.recorder()
             assert flight_recorder.recorder() is rec
-            got = (rec.enabled, rec.capacity, rec._sample_n)
+            got = (rec.enabled, rec.capacity)
             if env == {} or "not a number" in env.values():
-                assert got == (True, 4096, 1)
+                assert got == (True, 4096)
             else:
-                assert got == (False, 40, 3)
+                assert got == (False, 40)
                 ref = Config()        # the reference's reading of the env
                 for name in names:
                     key = f"flight_recorder_{name}"
@@ -294,7 +445,6 @@ def test_engine_spans_match_jax(recorders, params):
     assert runs[1] == runs[0]
     spans = runs[1][1]
     names = [n for _, n, _, _ in spans]
-    assert all(c == "request" for c, _, _, _ in spans)
     prefills = [a for _, n, _, a in spans if n == "prefill"]
     assert [a.get("cached_tokens") for a in prefills] \
         == [0, 24, 24, 0, 0, 16, 32]
