@@ -35,6 +35,17 @@ Phases, each printing one JSON line on stdout:
    (B, S, Hq + 2 Hkv, D) tensor, and two dQ and two dK/dV launches on the
    same inputs, which must agree bit for bit (no atomics; the GQA group is
    summed in a fixed order).
+   Then (paged_decode) the paged-decode kernel against its plain twin at
+   the benchmark's decode shapes (Hq 32 / KV 8, D 128, pages of 64: chat's
+   32 slots of up to 2,048 keys, all live and 4 live; docqa's 16 slots of
+   2,048-3,327 keys, and its tp positions' heads Hq 16 / KV 4 and 8 / 2)
+   and at f32, D=64, G 1 / 12 / 32 and pages of 8, 24 and 128: o within
+   the kernel's rounding of the exact f32 function and no farther from
+   the twin than the twin is from that function plus that rounding,
+   inactive rows zero; kernel and twin ms (CUDA events, and the kernel's
+   device time alone under torch.profiler) beside the bytes bound (each
+   live key and value row, the active slots' q and every o row once, over
+   3.35 TB/s).
 5. serve: Llama-3-8B-GQA at full width and depth with random weights,
    four greedy requests through LLMEngine; checks tokens, the kernel's
    launch count and each prompt's prefill logits against forward() with
@@ -473,6 +484,11 @@ Phases, each printing one JSON line on stdout:
    round trip bit-equal. No kernel of ops/csrc launched; the phase under
    120 s.
 
+Phases 5 to 12 and serve_rules, perf and serve_apps run with the engine's
+decode steps counted (the decode_launches line): on each phase's own path
+the paged-decode kernel launches once per layer a position holds per
+decode step (a replica's step counted apart), and any other count fails.
+
 Then the kernels line, the card line and, last, the ok line. Any failure
 exits non-zero without the ok line, as does a machine without CUDA.
 """
@@ -547,6 +563,9 @@ from ray_tpu_torch.rllib.iql import IQLLearner
 from ray_tpu_torch.rllib.rl_module import RLModule, RLModuleSpec
 from ray_tpu_torch.train.backend import TorchConfig, _TorchBackend
 from ray_tpu_torch.util import perf
+from ray_tpu_torch.ops import paged_attention
+from ray_tpu_torch.ops.paged_attention import (
+    paged_decode_attention, reference_paged_decode_attention)
 from ray_tpu_torch.ops.flash_attention import (
     attention_bwd_delta, flash_attention, flash_attention_bwd,
     flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
@@ -597,6 +616,31 @@ TILING_CASES = ([dict(B=1, S=s, Hq=2 * g, Hkv=2, D=d, causal=c)
                 + [dict(B=1, S=255, Hq=16, Hkv=1, D=d, causal=c)
                    for d in (64, 128) for c in (True, False)])
 FUSED_CASE = dict(B=2, S=300, Hq=8, Hkv=2, D=128, causal=True)
+# paged_decode: the benchmark's decode shapes (portbench/workloads): the
+# models' heads, pages of 64, chat's 32 slots (prompt + output at most
+# 2,047 keys; all live, then 4 live as the cell mostly runs) and docqa's 16
+# of 2,048-3,327 keys with the tp positions' heads; then the kernel's other
+# widths. lo / hi bound the live lengths, `live` the active slots.
+PD_BF16 = dict(KV=8, D=128, page=64, dtype=torch.bfloat16)
+PAGED_DECODE_CASES = (
+    dict(PD_BF16, name="chat", B=32, Hq=32, P=32, lo=32, hi=2047, live=32),
+    dict(PD_BF16, name="chat_4_live", B=32, Hq=32, P=32, lo=128, hi=1024,
+         live=4),
+    dict(PD_BF16, name="docqa", B=16, Hq=32, P=64, lo=2048, hi=3327,
+         live=16),
+    dict(PD_BF16, name="docqa_tp2", B=16, Hq=16, KV=4, P=64, lo=2048,
+         hi=3327, live=16),
+    dict(PD_BF16, name="docqa_tp4", B=16, Hq=8, KV=2, P=64, lo=2048,
+         hi=3327, live=16),
+    dict(PD_BF16, name="G1_D64_page8", B=4, Hq=8, D=64, page=8, P=64,
+         lo=0, hi=511, live=3),
+    dict(PD_BF16, name="G12_page24", B=3, Hq=24, KV=2, page=24, P=22,
+         lo=0, hi=527, live=3),
+    dict(PD_BF16, name="G32_page128", B=2, Hq=32, KV=1, D=64, page=128,
+         P=8, lo=100, hi=1023, live=2),
+    dict(PD_BF16, name="f32", B=4, Hq=32, P=16, lo=0, hi=1023, live=3,
+         dtype=torch.float32),
+)
 PROMPT_LENS = (37, 300, 1000, 1900)
 MAX_TOKENS = 16
 SERVE_ENGINE = dict(max_batch=4, max_len=2048, page_size=64)
@@ -1359,6 +1403,100 @@ def tiling_phase(card: str, failures: list) -> dict:
     return res
 
 
+def paged_decode_inputs(gen, case):
+    """Random q and pools for ``case``; the first ``live`` slots active
+    with lengths in [lo, hi], their live pages distinct and scattered over
+    the pool, every other table entry the scratch page 0."""
+    B, Hq, KV, D, page, P = (case[k] for k in ("B", "Hq", "KV", "D", "page",
+                                               "P"))
+    N = B * P + 1
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda"
+                           ).to(case["dtype"])
+    q, pk, pv = rand(B, Hq, D), rand(N, page, KV, D), rand(N, page, KV, D)
+    lengths = torch.randint(case["lo"], case["hi"] + 1, (B,), generator=gen,
+                            device="cuda")
+    active = torch.arange(B, device="cuda") < case["live"]
+    perm = torch.randperm(N - 1, generator=gen, device="cuda") + 1
+    tables = torch.zeros((B, P), dtype=torch.int64, device="cuda")
+    for b, n in enumerate(lengths.tolist()):
+        tables[b, :n // page + 1] = perm[b * P:b * P + n // page + 1]
+    return q, pk, pv, tables, lengths, active
+
+
+def paged_decode_bound(case, lengths, active):
+    """(bytes, bound_ms): what the kernel must move, once, over the HBM
+    rate: each live key and value row, the active slots' q, their lengths
+    and the table entries their lengths reach, every slot's active flag and
+    o row (an inactive slot's is written zero)."""
+    elt = torch.tensor([], dtype=case["dtype"]).element_size()
+    T = case["P"] * case["page"]
+    keys = torch.clamp(lengths + 1, max=T)[active]
+    live, row = len(keys), case["Hq"] * case["D"] * elt
+    nbytes = (int(keys.sum()) * case["KV"] * case["D"] * 2 * elt
+              + live * row + case["B"] * row
+              + int((-(-keys // case["page"])).sum()) * 8
+              + live * 8 + case["B"])
+    return nbytes, nbytes / PEAK_BYTES_S * 1e3
+
+
+def paged_decode_phase(card: str, failures: list) -> list:
+    """The paged-decode kernel against its twin and the exact function,
+    and its time beside its bytes bound (see the module docstring)."""
+    gen = torch.Generator("cuda").manual_seed(3)
+    rows = []
+    for case in PAGED_DECODE_CASES:
+        args = paged_decode_inputs(gen, case)
+        q, pk, pv, tables, lengths, active = args
+        scale = 1.0 / float(torch.tensor(math.sqrt(case["D"]),
+                                         dtype=case["dtype"]))
+        o = paged_decode_attention(*args, scale)
+        twin = reference_paged_decode_attention(*args, scale)
+        exact = reference_paged_decode_attention(
+            q.float(), pk.float(), pv.float(), tables, lengths, active,
+            scale)
+        a = active
+        err = (o[a].float() - exact[a]).abs().max().item()
+        err_twin = (o[a].float() - twin[a].float()).abs().max().item()
+        twin_err = (twin[a].float() - exact[a]).abs().max().item()
+        tol = paged_attention.kernel_tolerance(case["dtype"], pv, exact[a])
+        zero = not o[~a].any()
+        ok = bool(torch.isfinite(o).all()) and err <= tol \
+            and err_twin <= twin_err + tol and zero
+        nbytes, bound_ms = paged_decode_bound(case, lengths, active)
+        chunk, splits = paged_attention.split_keys(
+            case["B"], case["KV"], case["Hq"] // case["KV"],
+            case["P"] * case["page"],
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        ms = time_ms(lambda: paged_decode_attention(*args, scale), iters=50)
+        dev_ms, _ = device_ms(lambda: paged_decode_attention(*args, scale),
+                              iters=20)
+        row = dict(
+            phase="paged_decode", name="paged_decode_attention",
+            case=case["name"], **{k: case[k] for k in (
+                "B", "Hq", "KV", "D", "page", "P", "live")},
+            dtype=str(case["dtype"]).replace("torch.", ""),
+            lengths=[int(lengths[active].min()), int(lengths[active].max())],
+            chunk=chunk, splits=splits, max_abs_err=err, tol=tol,
+            max_abs_err_twin=err_twin, twin_max_abs_err=twin_err,
+            inactive_zero=zero, ok=ok, ms=ms,
+            plain_ms=time_ms(
+                lambda: reference_paged_decode_attention(*args, scale),
+                iters=5),
+            device_ms=dev_ms, bytes=nbytes, bound_ms=bound_ms,
+            bound_by="bytes", share_of_bound=bound_ms / ms,
+            device_share_of_bound=bound_ms / dev_ms if dev_ms else None,
+            bytes_per_s=nbytes / ms * 1e3, card=card)
+        emit(row)
+        rows.append(row)
+        if not ok:
+            failures.append(f"paged_decode mismatch: {row}")
+        del args, q, pk, pv, o, twin, exact
+    torch.cuda.empty_cache()
+    return rows
+
+
 def serve_params():
     """(the 8B model's random bf16 params on the card, seconds to make
     them), shared by the serve and serve_cache phases."""
@@ -1367,6 +1505,66 @@ def serve_params():
                          torch.Generator("cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
     return params, time.perf_counter() - t0
+
+
+class DecodeLaunches:
+    """Counts, while entered, the engine's decode steps (calls of
+    ``llm.engine._decode_fn``, one per replica a step) and the paged-decode
+    launches they must make, one per layer each position on a card holds;
+    sets ``paged_decode_attention.launches`` to 0 on entry, so that
+    ``got`` is the entered block's own."""
+
+    def __enter__(self):
+        self.steps = self.want = 0
+        self._step = step = llm_engine._decode_fn
+        lock = threading.Lock()         # replicas decode on executor threads
+
+        def counted(params, *args, **kwargs):
+            want = sum(p["layers"]["attn"]["wq"].shape[0] for p in params
+                       if p["layers"]["attn"]["wq"].device.type == "cuda")
+            with lock:
+                self.steps += 1
+                self.want += want
+            return step(params, *args, **kwargs)
+
+        llm_engine._decode_fn = counted
+        paged_decode_attention.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        llm_engine._decode_fn = self._step
+        self.got = paged_decode_attention.launches
+
+
+def serve_phases(card: str, failures: list) -> list:
+    """The serve phases on one copy of the 8B params, in order, each with
+    its decode launches counted (DecodeLaunches); emits those counts as
+    the decode_launches line and returns the phases' results and then the
+    counts, {phase: {steps, got, want}}."""
+    params, init_s = serve_params()
+    phases = (("serve", functools.partial(serve_phase, init_s=init_s)),
+              ("serve_cache", serve_cache_phase),
+              ("serve_paged", serve_paged_phase),
+              ("serve_replica", serve_replica_phase),
+              ("serve_sp", serve_sp_phase), ("serve_tp", serve_tp_phase),
+              ("serve_mesh", serve_mesh_phase),
+              ("device_plane", device_plane_phase),
+              ("serve_rules", serve_rules_phase), ("perf", perf_phase),
+              ("serve_apps", serve_apps_phase))
+    out, counts = [], {}
+    for name, phase in phases:
+        with DecodeLaunches() as n:
+            out.append(phase(card, failures, params))
+        counts[name] = dict(steps=n.steps, got=n.got, want=n.want)
+        if n.got != n.want:
+            failures.append(f"paged-decode kernel launched {n.got} times "
+                            f"in {name}'s {n.steps} decode steps, expected "
+                            f"{n.want}")
+    if not sum(c["got"] for c in counts.values()):
+        failures.append("no serve phase launched the paged-decode kernel")
+    emit(dict(phase="decode_launches", by_phase=counts, card=card))
+    del params
+    return out + [counts]
 
 
 def plain_logits(params, cfg, prompt, bucket: int) -> tuple:
@@ -1962,7 +2160,9 @@ def serve_paged_phase(card: str, failures: list, params) -> dict:
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         out = dec.decode_paged(handoff, sp)
-        rows = rec.drain()
+        # The request rows; the engine's own engine:step rows are not
+        # what this path is checked on.
+        rows = [r for r in rec.drain() if r["cat"] == "request"]
     launches = flash_attention_fwd.launches
     gather = dec.kv_gather_stats()
     spans = span_summary(rows)
@@ -6785,19 +6985,10 @@ def main() -> int:
     rows = kernel_phase(card, failures)
     bwd_rows = kernel_bwd_phase(card, failures)
     tiling_phase(card, failures)
-    params, init_s = serve_params()
-    serve = serve_phase(card, failures, params, init_s)
-    serve_cache = serve_cache_phase(card, failures, params)
-    serve_paged = serve_paged_phase(card, failures, params)
-    serve_replica = serve_replica_phase(card, failures, params)
-    serve_sp = serve_sp_phase(card, failures, params)
-    serve_tp = serve_tp_phase(card, failures, params)
-    serve_mesh = serve_mesh_phase(card, failures, params)
-    dplane = device_plane_phase(card, failures, params)
-    serve_rules = serve_rules_phase(card, failures, params)
-    perf_res = perf_phase(card, failures, params)
-    serve_apps = serve_apps_phase(card, failures, params)
-    del params
+    pd_rows = paged_decode_phase(card, failures)
+    (serve, serve_cache, serve_paged, serve_replica, serve_sp, serve_tp,
+     serve_mesh, dplane, serve_rules, perf_res, serve_apps,
+     decode) = serve_phases(card, failures)
     gc.collect()
     torch.cuda.empty_cache()
     train = train_phase(card, failures)
@@ -6931,7 +7122,16 @@ def main() -> int:
              ms=bat["dkv_ms"], plain_ms=bat["plain_dkv_ms"],
              bound_ms=bat["dkv_bound_ms"], bound_by=bat["dkv_bound_by"],
              library_ms=bat["library_ms"], library_covers="dq, dk, dv",
-             library_backend=bat["library_backend"], shape=shape(bat))]})
+             library_backend=bat["library_backend"], shape=shape(bat)),
+        dict(name="paged_decode_attention", route="cuda",
+             source=src + "paged_decode.cu",
+             replaces="none (ray_tpu/llm/engine.py:220-230 is jnp under jit)",
+             launches=sum(c["got"] for c in decode.values()),
+             launches_by_path={k: c["got"] for k, c in decode.items()},
+             max_abs_err=max(r["max_abs_err"] for r in pd_rows),
+             at={r["case"]: {k: r[k] for k in (
+                 "ms", "device_ms", "plain_ms", "bound_ms", "share_of_bound",
+                 "device_share_of_bound")} for r in pd_rows})]})
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)

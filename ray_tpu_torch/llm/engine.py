@@ -9,9 +9,13 @@ disaggregation (``prefill_only`` / ``decode_from``).
 
 Full prefills and the first chunk of a chunked prefill run attention
 through ``ops.flash_attention`` and so, on a GPU, through the hand-written
-flash-attention kernel. The suffix prefill of a prefix-cache hit, every
-later chunk of a chunked prefill and decode attend from a few queries to
-many more keys; that attention is plain PyTorch, as in the JAX package.
+flash-attention kernel. Decode attends through
+``ops.paged_decode_attention``: on a GPU a hand-written kernel that reads
+each slot's live pages in place through its page table, on the CPU its
+plain twin, the JAX package's gather written in PyTorch. The suffix
+prefill of a prefix-cache hit and every later chunk of a chunked prefill
+attend from a few queries to many more keys; that attention is plain
+PyTorch, as in the JAX package.
 
 JAX donates the pool to its jitted steps; here the pool is updated in
 place. Temperature sampling draws from the engine's ``torch.Generator``
@@ -152,6 +156,7 @@ from ..models.transformer import (TransformerConfig, _flat,
                                   position_views,
                                   rope_angles, tp_layer, tp_shards)
 from ..ops.flash_attention import flash_attention
+from ..ops.paged_attention import paged_decode_attention
 from ..parallel.mesh import Mesh, MeshSpec, build_mesh
 from ..parallel.pipeline import stage_send
 from ..parallel.sharding import LogicalAxisRules, _dim_axes, tree_specs
@@ -431,11 +436,7 @@ def _decode_fn(params, pool_k, pool_v, tables, last_tokens, lengths, active,
     sampling temperatures, or None when every slot decodes greedily.
     Returns next tokens (B,)."""
     devices = _devices(params)
-    B = last_tokens.shape[0]
-    P = tables.shape[1]
-    T = P * page
     D = cfg.head_dim_
-    groups = cfg.num_heads // cfg.num_kv_heads
     dev = last_tokens.device
     xs = _embed(params, last_tokens[:, None], cfg)
     # Per-slot RoPE at each slot's own position.
@@ -448,11 +449,10 @@ def _decode_fn(params, pool_k, pool_v, tables, last_tokens, lengths, active,
     write_page = tables.gather(1, (lengths // page)[:, None])[:, 0]
     write_page = torch.where(active, write_page, 0)              # scratch
     write_off = lengths % page
-    valid = torch.arange(T, device=dev)[None] <= lengths[:, None]  # (B, T)
     on = {d: [t.to(d) for t in (cos, sin, write_page, write_off, tables,
-                                ~valid[:, None])]
+                                lengths, active)]
           for d in dict.fromkeys(devices)}
-    sqrt_d = _sqrt_head_dim(cfg)
+    scale = 1.0 / _sqrt_head_dim(cfg)
 
     def rope1(t, cos, sin):             # t: (B, 1, H, D)
         t1, t2 = t.float().chunk(2, dim=-1)
@@ -468,19 +468,14 @@ def _decode_fn(params, pool_k, pool_v, tables, last_tokens, lengths, active,
         def attend(h):
             out = []
             for i, lp, d in zip(idx, lps, devs):
-                cos, sin, wpage, woff, tb, masked = on[d]
+                cos, sin, wpage, woff, tb, lens, act = on[d]
                 q, k, v = _layer_qkv(lp, h[d], cfg)
                 q, k = rope1(q, cos, sin), rope1(k, cos, sin)
                 pk, pv = pool_k[i][lj], pool_v[i][lj]
                 pk[wpage, woff] = k[:, 0]
                 pv[wpage, woff] = v[:, 0]
-                # Gather each slot's pages: (B, P, page, KV, D) -> (B, T, ...)
-                kr = pk[tb].reshape(B, T, -1, D).repeat_interleave(groups, 2)
-                vr = pv[tb].reshape(B, T, -1, D).repeat_interleave(groups, 2)
-                scores = torch.einsum("bhd,bthd->bht", q[:, 0], kr) / sqrt_d
-                scores = scores.masked_fill(masked, -1e30)
-                p = torch.softmax(scores.float(), -1).to(q.dtype)
-                out.append(torch.einsum("bht,bthd->bhd", p, vr)[:, None])
+                out.append(paged_decode_attention(
+                    q[:, 0], pk, pv, tb, lens, act, scale)[:, None])
             return out
         xs = tp_layer(cfg, xs, lps, devs, attend)
     logits = _logits(params, xs, idx, (slice(None), 0), dev, cfg)

@@ -96,6 +96,11 @@ def pytest_configure(config):
         "paged KV; the multi-actor pool-exceeding serve test and the "
         "KV-host-loss chaos test are additionally marked slow so "
         "tier-1 keeps completing inside its budget")
+    config.addinivalue_line(
+        "markers",
+        "card: needs an NVIDIA card; skips inside the test without one "
+        "(python -m pytest tests/test_torch_paged_decode.py -m card, on "
+        "the card)")
     # Build the native RPC framer ONCE at session start so worker/agent
     # processes spawned by cluster fixtures just dlopen the committed or
     # freshly-built .so instead of racing g++ builds.  Failure is fine:

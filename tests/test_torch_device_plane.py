@@ -33,10 +33,15 @@ DTYPES = ("float32", "int32", "bfloat16")
 
 @pytest.fixture(autouse=True)
 def _cpu_landing_and_fresh_audit():
-    """Rebuild onto the CPU on this thread and zero both audits."""
+    """Rebuild onto the CPU on this thread and zero both audits, the
+    thread's rebuilt and staged notices included: a test file that ran
+    earlier in the same worker may have left some."""
     tdp.set_landing_device("cpu")
     jdp._reset_copy_stats()
     tdp._reset_copy_stats()
+    for side in (jdp, tdp):
+        side.take_rebuilt_notice()
+        side.take_staged_notice()
     yield
     tdp._tls.__dict__.pop("landing", None)
 
